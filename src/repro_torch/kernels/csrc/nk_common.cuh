@@ -1,0 +1,97 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel source exports a plain C interface (loaded with ctypes by
+// repro_torch/kernels/build.py). An entry point returns 0 on success, a
+// cudaError_t code after a refused launch, or one of the NK_ERR_* codes
+// below when its arguments are outside what the kernel supports.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define NK_ERR_ARGS -1    // shape, head grouping or head dim not supported
+#define NK_ERR_DTYPE -2   // dtype (combination) not supported
+
+namespace nk {
+
+// Finite "minus infinity", the value the reference masks with
+// (repro/models/attention.py NEG_INF): a row masked in full never makes
+// exp(-inf - -inf) = NaN.
+constexpr float NEG_INF = -2.0e30f;
+
+// dtype codes shared with the Python wrappers
+constexpr int DT_F32 = 0;
+constexpr int DT_BF16 = 1;
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even
+}
+
+// x rounded to T and widened back (a no-op for float)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// N consecutive elements of T starting at p, widened to float. p must be
+// aligned to N * sizeof(T) bytes where a vector load is used.
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, float* out) {
+  if constexpr (sizeof(T) == 2 && N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(p + i);
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      out[i] = a.x;
+      out[i + 1] = a.y;
+      out[i + 2] = b.x;
+      out[i + 3] = b.y;
+    }
+  } else if constexpr (sizeof(T) == 4 && N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      out[i] = a.x;
+      out[i + 1] = a.y;
+      out[i + 2] = a.z;
+      out[i + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f<T>(p[i]);
+  }
+}
+
+}  // namespace nk

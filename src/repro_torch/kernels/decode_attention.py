@@ -1,0 +1,167 @@
+"""Decode attention: the CUDA kernel and its plain version.
+
+The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
+``repro/kernels/decode_attention.py::decode_attention``; its header says
+what bounds it on the H100 and how the design answers that. It reads the
+grouped cache directly: q ``(B, HQ, D)``, caches ``(B, T, KV, D)`` with
+``HQ % KV == 0``, ``pos (B,)`` the position of each sequence's new token
+(already written into the cache). Position ``t`` of sequence ``b`` takes
+part iff ``t <= pos[b]``, ``t < kv_len`` and, with a window,
+``pos[b] - t < window``. Returns ``(o, m, l)``: o in q's dtype, and the f32
+running max and exp-sum per (sequence, head) that let shards of a cache be
+combined by log-sum-exp (the context-parallel decode contract).
+
+``decode_attention`` takes the plain version only for tensors on the CPU;
+on CUDA tensors it launches the kernel or raises. Where (kv head, sequence)
+blocks alone would leave SMs idle, the kernel also splits each sequence
+into chunks (``split_plan``) and a second launch combines their partials.
+``decode_attention.launches`` counts the calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -2.0e30
+HEAD_DIMS = (16, 32, 64, 128)
+GROUPS = (1, 2, 3, 4, 6, 8)
+# (q dtype, cache dtype) pairs the kernel is built for
+DTYPE_PAIRS = {
+    (torch.bfloat16, torch.bfloat16): (build.DT_BF16, build.DT_BF16),
+    (torch.float32, torch.bfloat16): (build.DT_F32, build.DT_BF16),
+    (torch.float32, torch.float32): (build.DT_F32, build.DT_F32),
+}
+# positions per sequence chunk are a multiple of one pass of the kernel's
+# 16 warps x 4 positions
+SPLIT_ALIGN = 64
+
+
+def split_plan(b: int, kv: int, kv_len: int, sms: int):
+    """(nsplit, chunk): how many chunks of ``chunk`` positions the kernel
+    splits each sequence into. Enough (kv head, sequence, chunk) blocks to
+    give every SM two, but no chunk shorter than ``SPLIT_ALIGN``."""
+    want = -(-2 * sms // (b * kv))
+    nsplit = max(1, min(want, -(-kv_len // SPLIT_ALIGN)))
+    chunk = -(-kv_len // nsplit)
+    chunk = -(-chunk // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-kv_len // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def live_mask(pos, t: int, *, window: int = 0, kv_len=None) -> torch.Tensor:
+    """(B, T) bool: the cache positions each sequence attends to."""
+    kv_len = t if kv_len is None else kv_len
+    t_pos = torch.arange(t, device=pos.device)[None, :]
+    p = pos.long()[:, None]
+    mask = (t_pos <= p) & (t_pos < kv_len)
+    if window:
+        mask &= (p - t_pos) < window
+    return mask
+
+
+def decode_attention_plain(q, k_cache, v_cache, pos, *, window=0,
+                           kv_len=None, scale=None):
+    """The kernel's function in plain PyTorch (f32 math). A sequence with
+    no live position gets m = NEG_INF, l = 0, o = 0, as the kernel does."""
+    b, hq, d = q.shape
+    t, kv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // kv
+    scale = scale or 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, kv, g, d)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
+    mask = live_mask(pos, t, window=window, kv_len=kv_len)[:, None, None, :]
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    o = o / l.clamp_min(1e-30)[..., None]
+    return (o.reshape(b, hq, d).to(q.dtype), m.reshape(b, hq),
+            l.reshape(b, hq))
+
+
+def _check(q, k, v, pos, kv_len: int, window: int) -> None:
+    if not (q.device == k.device == v.device == pos.device):
+        raise ValueError("q, caches and pos must be on one device")
+    if (q.dtype, k.dtype) not in DTYPE_PAIRS or v.dtype != k.dtype:
+        raise TypeError(f"(q, cache) dtypes {q.dtype}, {k.dtype}/{v.dtype} "
+                        f"not supported; kernel takes "
+                        f"{[(str(a), str(c)) for a, c in DTYPE_PAIRS]}")
+    if pos.dtype != torch.int32:
+        raise TypeError(f"pos must be int32, got {pos.dtype}")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B,HQ,D), caches (B,T,KV,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2] \
+            or tuple(pos.shape) != (b,):
+        raise ValueError(f"q {tuple(q.shape)}, caches {tuple(k.shape)} and "
+                         f"pos {tuple(pos.shape)} do not match")
+    if d not in HEAD_DIMS or hq // k.shape[2] not in GROUPS:
+        raise ValueError(f"head dim {d} / group {hq // k.shape[2]} not "
+                         f"supported; kernel takes D in {HEAD_DIMS}, "
+                         f"HQ/KV in {GROUPS}")
+    for x in (q, k, v, pos):
+        if not x.is_contiguous():
+            raise ValueError("q, caches and pos must be contiguous")
+    for x in (k, v):
+        if x.data_ptr() % 16:
+            raise ValueError("caches must be 16-byte aligned")
+    if not 0 < kv_len <= k.shape[1] or window < 0:
+        raise ValueError(f"kv_len {kv_len} outside (0, {k.shape[1]}] or "
+                         f"negative window")
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=0, kv_len=None,
+                     scale=None):
+    """q (B,HQ,D), caches (B,T,KV,D), pos (B,) int32 -> (o, m, l).
+
+    On CPU tensors this is ``decode_attention_plain``; on CUDA tensors it
+    launches the kernel on the current stream."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, pos,
+                                      window=window, kv_len=kv_len,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    t = k_cache.shape[1]
+    kv_len = t if kv_len is None else int(kv_len)
+    _check(q, k_cache, v_cache, pos, kv_len, window)
+    b, hq, d = q.shape
+    kv = k_cache.shape[2]
+    index = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    nsplit, chunk = split_plan(b, kv, kv_len, _sm_count(index))
+    o = torch.empty_like(q)
+    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    # per-chunk partials (acc, m, l) that a second kernel combines
+    rows = b * hq * nsplit if nsplit > 1 else 0
+    part_acc = torch.empty((rows, d), dtype=torch.float32, device=q.device)
+    part_m, part_l = (torch.empty((rows,), dtype=torch.float32,
+                                  device=q.device) for _ in range(2))
+    qdt, kdt = DTYPE_PAIRS[(q.dtype, k_cache.dtype)]
+    lib = build.library()
+    rc = lib.nk_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), part_acc.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), b, t, hq, kv, d, qdt, kdt,
+        int(window), kv_len, nsplit, chunk,
+        float(scale or 1.0 / math.sqrt(d)), index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "decode_attention")
+    decode_attention.launches += 1
+    return o, m, l
+
+
+decode_attention.launches = 0

@@ -1,0 +1,42 @@
+"""Public wrappers for the ported kernels, in the reference's layouts.
+
+The counterpart of ``repro/kernels/ops.py``: the same signatures and
+``(B, H, S, d)`` / ``(B, H, d)`` layouts, with ``impl="ref"`` running the
+oracle and ``impl="kernel"`` the hand-written kernel (on CPU tensors, its
+plain version). Model code calls the kernels directly in its own layouts;
+these wrappers are the kernel-level test surface.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+
+IMPLS = ("ref", "kernel")
+
+
+def _impl(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl
+
+
+def mha_forward(q, k, v, *, causal=True, window=0, impl="kernel"):
+    """q,k,v: (B, H, S, d) -> (B, H, S, d)."""
+    if _impl(impl) == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    o = flash_attention(q.transpose(1, 2).contiguous(),
+                        k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous(),
+                        causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def decode_step_attention(q, k, v, pos, *, impl="kernel"):
+    """q: (B,H,d); k,v: (B,T,H,d); pos: (B,). Returns (o, m, l)."""
+    if _impl(impl) == "ref":
+        return ref.decode_attention_ref(q, k, v, pos)
+    return decode_attention(q, k.contiguous(), v.contiguous(),
+                            pos.to(dtype=torch.int32))

@@ -1,0 +1,286 @@
+"""GQA attention: projections, rope, the prefill and decode cores, the cache.
+
+The counterpart of the GQA half of ``repro/models/attention.py``. On the
+serving path the two cores are the hand-written CUDA kernels:
+
+* prefill runs ``kernels.flash_attention`` where the reference runs
+  ``blockwise_attention``;
+* decode runs ``kernels.decode_attention`` where the reference runs
+  ``decode_attention`` through the ``tp == 1`` branch of
+  ``decode_attention_cp``.
+
+Both kernels take the grouped k/v layout directly, so the path never
+expands k/v over query heads. ``RunConfig.attention_impl == "naive"``
+runs the kernels' plain PyTorch versions instead, on any device — that is
+how a run holds the kernel path against the plain one at full width.
+``blockwise_attention``, ``naive_attention`` and ``decode_attention`` are
+the plain ports of the reference's cores, held against it by the parity
+tests.
+
+On one device the query heads are never padded (the reference's
+``padded_heads`` returns ``h``), so the head mask is all ones and is not
+applied on the path; ``head_mask``/``q_to_kv_map`` keep the reference's
+general definitions.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import (
+    decode_attention as decode_kernel, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain)
+from repro_torch.models.layers import (apply_norm, apply_rope, norm_schema,
+                                       rope_tables)
+from repro_torch.models.schema import ParamDesc
+
+NEG_INF = -2.0e30
+
+
+def attn_schema(cfg: ModelConfig) -> Dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = {
+        "wq": ParamDesc((d, h, hd), cfg.param_dtype),
+        "wk": ParamDesc((d, kv, hd), cfg.param_dtype),
+        "wv": ParamDesc((d, kv, hd), cfg.param_dtype),
+        "wo": ParamDesc((h, hd, d), cfg.param_dtype, fan_in=h * hd),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = norm_schema(hd, "rmsnorm", cfg.param_dtype)
+        s["k_norm"] = norm_schema(hd, "rmsnorm", cfg.param_dtype)
+    return s
+
+
+def head_mask(num_real: int, num_padded: int, dtype, device=None):
+    return (torch.arange(num_padded, device=device) < num_real).to(dtype)
+
+
+def q_to_kv_map(num_q_real: int, num_q_padded: int, num_kv: int,
+                device=None) -> torch.Tensor:
+    """Which kv head each (possibly padded) q head reads."""
+    grp = max(num_q_real // max(num_kv, 1), 1)
+    m = torch.clamp(torch.arange(num_q_padded, device=device) // grp,
+                    max=num_kv - 1)
+    return m.long()
+
+
+# ---------------------------------------------------------------------------
+# Plain prefill cores (the reference's blockwise and naive attention)
+# ---------------------------------------------------------------------------
+
+
+def _block_ranges(n_q_blocks: int, n_kv_blocks: int, q_block: int,
+                  kv_block: int, causal: bool, window: int):
+    """(lo, hi) kv-block range per q block."""
+    out = []
+    for iq in range(n_q_blocks):
+        q_lo, q_hi = iq * q_block, (iq + 1) * q_block - 1
+        hi = min((q_hi // kv_block), n_kv_blocks - 1) if causal \
+            else n_kv_blocks - 1
+        lo = 0
+        if window:
+            lo = max(0, (q_lo - window + 1) // kv_block)
+        out.append((lo, hi))
+    return out
+
+
+def blockwise_attention(q, k, v, *, kv_map, causal=True, window=0,
+                        q_block=512, kv_block=512, q_offset=0,
+                        softmax_scale=None):
+    """q: (B,S,HP,hd); k,v: (B,T,KV,hd). Returns (B,S,HP,hd).
+
+    Online softmax over kv blocks with f32 (m, l, acc), skipping the blocks
+    ``_block_ranges`` rules out; p is rounded to q's dtype before the PV
+    product, as in the reference."""
+    b, s_real, hq, hd = q.shape
+    t_real = k.shape[1]
+    scale = softmax_scale or 1.0 / math.sqrt(hd)
+    q_block = min(q_block, s_real)
+    kv_block = min(kv_block, t_real)
+    s = -(-s_real // q_block) * q_block
+    t = -(-t_real // kv_block) * kv_block
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, s - s_real))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, t - t_real))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, t - t_real))
+    ranges = _block_ranges(s // q_block, t // kv_block, q_block, kv_block,
+                           causal, window)
+    outs = []
+    for iq, (lo, hi) in enumerate(ranges):
+        qi = q[:, iq * q_block:(iq + 1) * q_block]
+        q_pos = q_offset + iq * q_block + torch.arange(q_block,
+                                                       device=q.device)
+        m = torch.full((b, hq, q_block), NEG_INF, device=q.device)
+        l = torch.zeros((b, hq, q_block), device=q.device)
+        acc = torch.zeros((b, hq, q_block, v.shape[-1]), device=q.device)
+        for jblk in range(lo, hi + 1):
+            kj = k[:, jblk * kv_block:(jblk + 1) * kv_block][:, :, kv_map]
+            vj = v[:, jblk * kv_block:(jblk + 1) * kv_block][:, :, kv_map]
+            kv_pos = jblk * kv_block + torch.arange(kv_block,
+                                                    device=q.device)
+            sres = torch.einsum("bqhd,bthd->bhqt", qi.float(),
+                                kj.float()) * scale
+            mask = (kv_pos[None, :] < t_real).expand(q_block, kv_block)
+            if causal:
+                mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+            if window:
+                mask = mask & ((q_pos[:, None] - kv_pos[None, :]) < window)
+            sres = torch.where(mask[None, None], sres, NEG_INF)
+            m_new = torch.maximum(m, sres.amax(dim=-1))
+            p = torch.exp(sres - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqt,bthd->bhqd", p.to(q.dtype).float(), vj.float())
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :s_real]
+
+
+def naive_attention(q, k, v, *, kv_map, causal=True, window=0, q_offset=0,
+                    softmax_scale=None):
+    """Reference O(S^2)-memory attention (the 'naive' impl)."""
+    b, s, hq, hd = q.shape
+    t = k.shape[1]
+    scale = softmax_scale or 1.0 / math.sqrt(hd)
+    k = k[:, :, kv_map]
+    v = v[:, :, kv_map]
+    sres = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float()) * scale
+    q_pos = q_offset + torch.arange(s, device=q.device)
+    kv_pos = torch.arange(t, device=q.device)
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= kv_pos[None, :]
+    if window:
+        mask &= (q_pos[:, None] - kv_pos[None, :]) < window
+    sres = torch.where(mask[None, None], sres, NEG_INF)
+    p = torch.softmax(sres, dim=-1)
+    o = torch.einsum("bhqt,bthd->bqhd", p.to(q.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain decode core (the reference's decode_attention)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, kv_map, window=0,
+                     softmax_scale=None, kv_pos=None, n_real_heads=None):
+    """One-token attention against a cache.
+
+    q: (B,1,HP,hd); caches: (B,S,KV,hd); pos: (B,) index of the new token
+    (the cache already holds it at ``pos``). ``kv_pos`` (B,S) gives the
+    absolute position held in each cache slot (ring-buffer windows);
+    default is the linear layout arange(S). Negative kv_pos marks empty
+    slots. Grouped GQA uses the grouped product; padded head counts select
+    each head's kv head through ``kv_map``."""
+    b, _, hq, hd = q.shape
+    s = k_cache.shape[1]
+    kv = k_cache.shape[2]
+    scale = softmax_scale or 1.0 / math.sqrt(hd)
+    if kv_pos is None:
+        kv_pos = torch.arange(s, device=q.device)[None, :].expand(b, s)
+    p_col = pos.long()[:, None]
+    mask = (kv_pos <= p_col) & (kv_pos >= 0)
+    if window:
+        mask &= (p_col - kv_pos) < window
+    grouped = (hq % kv == 0) and (n_real_heads is None or n_real_heads == hq)
+    if grouped:
+        g = hq // kv
+        qg = q.reshape(b, 1, kv, g, hd)
+        sres = torch.einsum("bqkgd,btkd->bkgqt", qg.float(),
+                            k_cache.float()) * scale
+        sres = torch.where(mask[:, None, None, None, :], sres, NEG_INF)
+        p = torch.softmax(sres, dim=-1)
+        o = torch.einsum("bkgqt,btkd->bqkgd", p.to(q.dtype).float(),
+                         v_cache.float())
+        return o.reshape(b, 1, hq, hd).to(q.dtype)
+    kc = k_cache[:, :, kv_map]
+    vc = v_cache[:, :, kv_map]
+    sres = torch.einsum("bqhd,bthd->bhqt", q.float(), kc.float()) * scale
+    sres = torch.where(mask[:, None, None, :], sres, NEG_INF)
+    p = torch.softmax(sres, dim=-1)
+    o = torch.einsum("bhqt,bthd->bqhd", p.to(q.dtype).float(), vc.float())
+    return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full GQA attention block (projections + core + out-proj)
+# ---------------------------------------------------------------------------
+
+
+def _heads(x, w):
+    """x (B,S,d) @ w (d,H,hd) -> (B,S,H,hd)."""
+    d, h, hd = w.shape
+    return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
+
+
+def _out(o, w):
+    """o (B,S,H,hd) @ w (H,hd,d) -> (B,S,d)."""
+    h, hd, d = w.shape
+    return o.reshape(*o.shape[:-2], h * hd) @ w.reshape(h * hd, d)
+
+
+def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
+                  window=0, cache: Optional[Dict] = None, decode_pos=None,
+                  return_cache=False):
+    """Unified GQA attention.
+
+    Prefill: ``positions`` (S,); returns out (B,S,d) [and {"k", "v"} in
+    x's dtype when ``return_cache``]. Decode: pass ``cache`` ({"k", "v"},
+    each (B, max_seq, KV, hd)) and ``decode_pos`` (B,) int32; x is
+    (B,1,d). Returns (out, cache) with the new token's k/v written into
+    the cache rows in place."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    naive = rcfg.attention_impl == "naive"
+    q = _heads(x, p["wq"])
+    knew = _heads(x, p["wk"])
+    vnew = _heads(x, p["wv"])
+    if cfg.qk_norm:
+        q = apply_norm(p["q_norm"], q, "rmsnorm")
+        knew = apply_norm(p["k_norm"], knew, "rmsnorm")
+    use_rope = cfg.rope_theta > 0
+
+    if cache is None or decode_pos is None:
+        # ---- prefill ----
+        if use_rope:
+            cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            knew = apply_rope(knew, cos, sin)
+        flash = flash_attention_plain if naive else flash_attention
+        o = flash(q, knew, vnew, causal=causal, window=window)
+        out = _out(o, p["wo"])
+        if return_cache:
+            return out, {"k": knew, "v": vnew}
+        return out
+
+    # ---- decode ----
+    b = x.shape[0]
+    if use_rope:
+        cos, sin = rope_tables(decode_pos[:, None], hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        knew = apply_rope(knew, cos, sin)
+    k_c, v_c = cache["k"], cache["v"]
+    if window and k_c.shape[1] <= window:
+        raise NotImplementedError(
+            "ring-buffer window caches are not ported yet; they come with "
+            "the hybrid family (ROADMAP: ring kv_pos decode)")
+    # In-place row write. The reference rebuilds the whole cache with a
+    # one-hot where (a scatter would make its partitioner all-gather a
+    # sequence-sharded cache); on one device the row write saves a full
+    # cache copy per layer per step.
+    rows = torch.arange(b, device=x.device)
+    slot = decode_pos.long()
+    k_c[rows, slot] = knew[:, 0].to(k_c.dtype)
+    v_c[rows, slot] = vnew[:, 0].to(v_c.dtype)
+    # the kernel reads the (bf16) cache and upcasts it inside, as the
+    # reference decodes against the cache cast to x's dtype
+    decode = decode_attention_plain if naive else decode_kernel
+    o, _, _ = decode(q[:, 0].contiguous(), k_c, v_c,
+                     decode_pos.to(torch.int32), window=window)
+    o = o[:, None]
+    return _out(o, p["wo"]), {"k": k_c, "v": v_c}

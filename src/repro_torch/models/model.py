@@ -1,0 +1,180 @@
+"""The model: layer schedule, parameter/cache schemas, prefill and decode.
+
+The counterpart of ``repro/models/model.py``. A model is a list of
+segments, each ``count`` layers of one block kind; where the reference
+stacks a segment's parameters over its layers and scans them, the port
+keeps one ``nn.Module`` per layer and loops. Caches keep the reference's
+layout: a tuple with one dict per segment, each leaf ``(L, B, max_seq, KV,
+hd)``. This slice ports the ``dense`` family; asking for any other raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.device import dtype_of, resolve_device
+from repro_torch.models.blocks import apply_block, block_cache_schema, \
+    block_schema
+from repro_torch.models.layers import apply_norm, embed_schema, \
+    embed_tokens, lm_logits, norm_schema
+from repro_torch.models.schema import ParamTree
+
+FAMILIES = ("dense",)
+
+
+@dataclass(frozen=True)
+class Segment:
+    kind: str
+    count: int
+    window: int = 0       # 0 = full attention
+
+
+def check_family(cfg: ModelConfig) -> ModelConfig:
+    if cfg.family not in FAMILIES or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; only "
+            f"{FAMILIES} serves on the port so far (ROADMAP: other model "
+            f"families)")
+    return cfg
+
+
+def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    check_family(cfg)
+    return (Segment("dense", cfg.num_layers),)
+
+
+def model_schema(cfg: ModelConfig) -> Dict:
+    """Per-layer (unstacked) parameter schema: ``layers`` holds one block
+    schema per layer, in schedule order."""
+    return {
+        "embed": embed_schema(cfg.vocab_size, cfg.d_model, cfg.param_dtype,
+                              cfg.tie_embeddings),
+        "final_norm": norm_schema(cfg.d_model, cfg.norm, cfg.param_dtype),
+        "layers": [block_schema(cfg, seg.kind)
+                   for seg in build_schedule(cfg)
+                   for _ in range(seg.count)],
+    }
+
+
+class Model(nn.Module):
+    """A model's parameters: ``embed``, ``final_norm`` and one ``ParamTree``
+    per layer in ``blocks``. Created uninitialized on ``device`` (``cuda``
+    unless ``"cpu"`` is passed); ``models.params`` fills it."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = check_family(cfg)
+        schema = model_schema(cfg)
+        self.embed = ParamTree(schema["embed"], dev)
+        self.final_norm = ParamTree(schema["final_norm"], dev)
+        self.blocks = nn.ModuleList(
+            [ParamTree(s, dev) for s in schema["layers"]])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tokens"].device
+
+
+def cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
+                 dtype: str = "bfloat16") -> Tuple:
+    """One dict per segment; each leaf stacked over the segment's layers."""
+    out = []
+    for seg in build_schedule(cfg):
+        sch = block_cache_schema(cfg, seg.kind, batch, max_seq, seg.window,
+                                 dtype)
+        out.append({k: (seg.count,) + d.shape for k, d in sch.items()})
+    return tuple(out)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               dtype: str = "bfloat16", device=None) -> Tuple:
+    """A zeroed decode cache for ``batch`` slots of ``max_seq`` tokens."""
+    dev = resolve_device(device)
+    return tuple(
+        {k: torch.zeros(shape, dtype=dtype_of(dtype), device=dev)
+         for k, shape in seg.items()}
+        for seg in cache_schema(cfg, batch, max_seq, dtype))
+
+
+def cache_nbytes(caches: Tuple) -> int:
+    return sum(t.numel() * t.element_size()
+               for seg in caches for t in seg.values())
+
+
+# ---------------------------------------------------------------------------
+# Forwards
+# ---------------------------------------------------------------------------
+
+
+def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
+                            max_seq: int) -> Dict:
+    """Stack one segment's per-layer prefill k/v to (L, B, max_seq, KV, hd),
+    zero-padded past the prompt's ``s`` positions (the decode layout)."""
+    if seg.window and seg.window < max_seq:
+        raise NotImplementedError(
+            "ring-buffer window caches are not ported yet (ROADMAP: ring "
+            "kv_pos decode)")
+    out = {}
+    for key in layer_caches[0]:
+        first = layer_caches[0][key]
+        full = first.new_zeros((len(layer_caches), first.shape[0], max_seq)
+                               + tuple(first.shape[2:]))
+        for i, c in enumerate(layer_caches):
+            full[i, :, :s] = c[key]
+        out[key] = full
+    return out
+
+
+@torch.no_grad()
+def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
+                    max_seq: int):
+    """Full-sequence prefill. tokens: (B, S) int. Returns (last_logits
+    (B, V), caches) with the caches in the model's dtype, zero-padded to
+    ``max_seq`` positions."""
+    cfg = model.cfg
+    b, s = tokens.shape
+    if s > max_seq:
+        raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
+    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
+    positions = torch.arange(s, device=tokens.device)
+    caches_out = []
+    layer = 0
+    for seg in build_schedule(cfg):
+        per_layer = []
+        for _ in range(seg.count):
+            x, c = apply_block(model.blocks[layer], x, cfg, rcfg, seg.kind,
+                               positions=positions, window=seg.window,
+                               mode="prefill")
+            per_layer.append(c)
+            layer += 1
+        caches_out.append(_finalize_prefill_cache(per_layer, seg, s,
+                                                  max_seq))
+    x = apply_norm(model.final_norm, x, cfg.norm)
+    logits = lm_logits(model.embed, x[:, -1:], cfg.logit_softcap)
+    return logits[:, 0], tuple(caches_out)
+
+
+@torch.no_grad()
+def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
+                   pos: torch.Tensor, rcfg: RunConfig):
+    """One decode step. tokens: (B, 1); pos: (B,) int32 positions of the
+    new tokens. Writes the new k/v into ``caches`` in place; returns
+    (logits (B, V), caches)."""
+    cfg = model.cfg
+    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
+    layer = 0
+    for seg, c_seg in zip(build_schedule(cfg), caches):
+        for i in range(seg.count):
+            c_l = {k: v[i] for k, v in c_seg.items()}
+            x, _ = apply_block(model.blocks[layer], x, cfg, rcfg, seg.kind,
+                               positions=pos, window=seg.window, cache=c_l,
+                               decode_pos=pos, mode="decode")
+            layer += 1
+    x = apply_norm(model.final_norm, x, cfg.norm)
+    logits = lm_logits(model.embed, x, cfg.logit_softcap)
+    return logits[:, 0], caches

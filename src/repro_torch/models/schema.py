@@ -1,0 +1,84 @@
+"""Parameter schemas and the module that holds them.
+
+Models declare each parameter as a ``ParamDesc`` (the counterpart of the
+reference's ``distribution/sharding.py::ParamDesc``, without the logical
+sharding dims: the port runs on one device). ``ParamTree`` turns a nested
+schema dict into an ``nn.Module`` that reads like the reference's pytree:
+``block["attn"]["wq"]``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import dtype_of
+
+
+@dataclass(frozen=True)
+class ParamDesc:
+    shape: Tuple[int, ...]
+    dtype: str = "bfloat16"
+    init: str = "normal"       # normal | zeros | ones
+    init_scale: float = 1.0
+    # fan-in of the product this weight enters; 0 = shape[0], right for
+    # every weight that contracts its leading dim (wo (HQ, hd, d) names
+    # HQ * hd, an untied head (V, d) names d)
+    fan_in: int = 0
+
+    @property
+    def init_fan_in(self) -> int:
+        return self.fan_in or (self.shape[0] if self.shape else 1)
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dict as an ``nn.Module``. Parameters are created
+    uninitialized (``torch.empty``) and frozen; ``models.params`` fills
+    them from a generator or from the reference's weights."""
+
+    def __init__(self, schema: Dict, device: torch.device):
+        super().__init__()
+        self._keys: List[str] = []
+        for key, desc in schema.items():
+            if isinstance(desc, ParamDesc):
+                self.register_parameter(key, nn.Parameter(
+                    torch.empty(desc.shape, dtype=dtype_of(desc.dtype),
+                                device=device), requires_grad=False))
+            else:
+                self.add_module(key, ParamTree(desc, device))
+            self._keys.append(key)
+
+    def __getitem__(self, key: str):
+        if key not in self._keys:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._keys
+
+    def keys(self) -> List[str]:
+        return list(self._keys)
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self._keys else default
+
+
+def walk(schema: Dict, prefix: Tuple[str, ...] = ()
+         ) -> Iterator[Tuple[Tuple[str, ...], ParamDesc]]:
+    """(path, desc) for every leaf, in sorted-key order (the order the
+    reference flattens its parameter pytrees in)."""
+    for key in sorted(schema):
+        desc = schema[key]
+        if isinstance(desc, ParamDesc):
+            yield prefix + (key,), desc
+        else:
+            yield from walk(desc, prefix + (key,))
+
+
+def leaf(tree: ParamTree, path: Tuple[str, ...]) -> torch.Tensor:
+    node = tree
+    for key in path:
+        node = node[key]
+    return node

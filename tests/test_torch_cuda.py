@@ -1,0 +1,139 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA device and is marked ``cuda``; without one it
+skips, and the check happens inside the ``cuda`` fixture, never while the
+module is collected. On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports nothing of JAX: the card's machine needs only torch.
+Tolerances: bf16 2e-2 and f32 2e-4 on outputs (the kernel sums in another
+order than the plain version, and rounds p to bf16 per tile rather than
+per row), m 1e-4 and l 1e-4 relative (f32 throughout).
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import RunConfig, get_smoke_config
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain)
+from repro_torch.models.params import init_params
+from repro_torch.serve import Request, ServeEngine, TenantScheduler
+
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided per test, never at collection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `pytest -m cuda "
+                    "tests/test_torch_cuda.py` on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full
+    torch.backends.cudnn.allow_tf32 = False         # precision, explicitly
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,hq,kv,d,causal,window,q_offset,dtype", [
+    (1, 509, 509, 24, 8, 128, True, 0, 0, "bfloat16"),    # the path
+    (2, 100, 100, 4, 2, 64, True, 32, 0, "bfloat16"),
+    (1, 64, 192, 8, 2, 128, True, 0, 128, "bfloat16"),    # a later chunk
+    (1, 50, 50, 4, 2, 32, True, 0, 0, "bfloat16"),        # CUDA-core kernel
+    (2, 64, 192, 6, 3, 32, False, 0, 0, "float32"),
+    (1, 77, 77, 4, 4, 16, True, 0, 0, "float32"),
+    (1, 509, 509, 24, 8, 128, True, 0, 0, "float32"),
+])
+def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
+                                            window, q_offset, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda)
+               .to(getattr(torch, dtype))
+               for shape in ((b, s, hq, d), (b, t, kv, d), (b, t, kv, d)))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+SERVE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,hq,kv,d,window,t,pos,kv_len", [
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 1024, SERVE_POS, None),  # path
+    ("float32", "bfloat16", 24, 8, 128, 0, 1024, SERVE_POS, None),
+    ("float32", "float32", 8, 8, 64, 0, 1024, SERVE_POS, None),
+    ("bfloat16", "bfloat16", 16, 2, 128, 100, 1024, SERVE_POS, None),
+    ("bfloat16", "bfloat16", 4, 2, 16, 0, 1024, SERVE_POS, None),   # smoke
+    ("float32", "bfloat16", 8, 4, 32, 0, 1024, SERVE_POS, 600),
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 4096, (3001,), None),  # 32 chunks
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 40, (0, 39, 5), None),  # 1 chunk
+])
+def test_decode_kernel_matches_plain_on_card(cuda, q_dtype, kv_dtype, hq, kv,
+                                             d, window, t, pos, kv_len):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b = len(pos)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(
+        getattr(torch, q_dtype))
+    k, v = (torch.randn((b, t, kv, d), generator=g, device=cuda).to(
+        getattr(torch, kv_dtype)) for _ in range(2))
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    o, m, l = decode_attention(q, k, v, pos, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ro, rm, rl = decode_attention_plain(q, k, v, pos, window=window,
+                                        kv_len=kv_len)
+    tol = TOL[q_dtype]
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_serve_engine_on_card_matches_cpu(cuda):
+    """The f32 smoke llama served on the card through both kernels gives
+    the tokens and ledger that the plain path gives on the CPU, from the
+    same weights, and every attention call went through a kernel."""
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"),
+                              dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 9, 16, 7, 30, 12)]
+
+    def serve(device):
+        model = init_params(cfg, device="cpu", seed=0).to(device)
+        sched = TenantScheduler(policy="wfq", charge_prompt=True)
+        eng = ServeEngine(cfg, RunConfig(), model, batch_slots=4, max_seq=64,
+                          scheduler=sched, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(tenant_id=i % 3, prompt=p, max_new_tokens=10,
+                               req_id=i, arrival=0.0))
+        k = 0
+        while sched.pending() or any(s.active for s in eng.slots):
+            k += 1
+            eng.step(now=0.1 * k)
+            assert k < 200
+        return eng, ([(r.req_id, r.generated) for r in eng.completed],
+                     dict(sched.served_tokens), sched.ledger())
+
+    flash0, decode0 = flash_attention.launches, decode_attention.launches
+    eng, on_card = serve(cuda)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - flash0 == \
+        cfg.num_layers * eng.admissions
+    assert decode_attention.launches - decode0 == \
+        cfg.num_layers * eng.decode_steps
+    _, on_cpu = serve(torch.device("cpu"))
+    assert on_card == on_cpu

@@ -1,0 +1,94 @@
+"""The port stands alone: no JAX, nothing of the reference package.
+
+* Every module of ``repro_torch`` and ``chip_smoke.py`` imports in a
+  process where importing ``jax`` fails, and leaves no ``repro`` module
+  behind.
+* The port's copy of the configs equals the reference's.
+* Entry points asked for no device on a machine without a card raise
+  instead of falling back to the CPU.
+"""
+import dataclasses
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import repro.configs as jconf
+import repro_torch.configs as tconf
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_without_jax_or_the_reference():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        sys.modules["ml_dtypes"] = None
+        sys.path[:0] = [{str(ROOT / "src")!r}, {str(ROOT)!r}]
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(k for k in sys.modules
+                     if k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+        print(len(names))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 30     # every module was walked
+
+
+def test_port_configs_equal_the_reference():
+    assert sorted(tconf.ARCHS) == sorted(jconf.ARCHS)
+    for name in jconf.ARCHS:
+        assert dataclasses.asdict(tconf.get_config(name)) == \
+            dataclasses.asdict(jconf.get_config(name)), name
+        assert dataclasses.asdict(tconf.get_smoke_config(name)) == \
+            dataclasses.asdict(jconf.get_smoke_config(name)), name
+        assert tconf.get_config(name).num_params() == \
+            jconf.get_config(name).num_params()
+    assert dataclasses.asdict(tconf.RunConfig()) == \
+        dataclasses.asdict(jconf.RunConfig())
+    assert {k: dataclasses.asdict(v) for k, v in tconf.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jconf.SHAPES.items()}
+
+
+def test_entry_points_without_a_device_raise_when_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.device import resolve_device
+    from repro_torch.models import Model, init_cache, init_params
+    from repro_torch.serve import ServeEngine
+    cfg = tconf.get_smoke_config("llama3.2-3b")
+    for call in (lambda: resolve_device(),
+                 lambda: resolve_device("cuda"),
+                 lambda: Model(cfg),
+                 lambda: init_params(cfg),
+                 lambda: init_cache(cfg, 2, 16),
+                 lambda: ServeEngine(cfg, tconf.RunConfig())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert resolve_device("cpu").type == "cpu"   # the explicit ask works
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Alone in a directory, or with no card, the script exits non-zero
+    and prints no result line."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    runs = [subprocess.run([sys.executable, str(lone)], capture_output=True,
+                           text=True, timeout=120, cwd=tmp_path)]
+    if not torch.cuda.is_available():
+        runs.append(subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py")],
+            capture_output=True, text=True, timeout=120, cwd=ROOT))
+    for proc in runs:
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

@@ -1,0 +1,229 @@
+"""The port's attention kernels against the reference's Pallas kernels.
+
+On the CPU every kernel wrapper runs its plain PyTorch version (a CUDA
+kernel has no interpret mode); the reference's Pallas kernels run in
+interpret mode, as ``tests/test_kernels.py`` runs them. Inputs are made
+once with numpy from a seed and handed to both packages. The CUDA kernels
+themselves are held against these plain versions on the card by
+``tests/test_torch_cuda.py``.
+
+Tolerances: f32 2e-4 (summation order only), bf16 2e-2 (the two packages
+round bf16 at different points: the reference's Pallas kernel rounds p per
+kv block, the plain version once over the full row).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.decode_attention import (
+    SPLIT_ALIGN, decode_attention, decode_attention_plain, split_plan)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain)
+from repro_torch.models import attention as tattn
+
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def _rand(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _both(x, dtype):
+    """The same array in both frameworks (bf16 rounds identically)."""
+    return jnp.asarray(x, getattr(jnp, dtype)), \
+        torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,causal,window,dtype", [
+    ((2, 4, 256, 64), True, 0, "float32"),
+    ((1, 2, 200, 128), True, 64, "float32"),
+    ((2, 2, 128, 64), False, 0, "float32"),
+    ((1, 3, 160, 64), True, 32, "bfloat16"),
+])
+def test_flash_plain_matches_pallas_and_ref(shape, causal, window, dtype):
+    q, k, v = (_rand(i, *shape) for i in range(3))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    pallas = _np(jops.mha_forward(jq, jk, jv, causal=causal, window=window,
+                                  impl="pallas", q_block=64, kv_block=64))
+    j_ref = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                         window=window))
+    t_kernel = tops.mha_forward(tq, tk, tv, causal=causal, window=window,
+                                impl="kernel")
+    t_ref = tops.mha_forward(tq, tk, tv, causal=causal, window=window,
+                             impl="ref")
+    assert t_kernel.dtype == tq.dtype and t_kernel.shape == tq.shape
+    tol = TOL[dtype]
+    for got in (t_kernel, t_ref):
+        np.testing.assert_allclose(_np(got), pallas, rtol=tol, atol=tol)
+        np.testing.assert_allclose(_np(got), j_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s,causal,window,dtype", [
+    (100, True, 0, "float32"),
+    (128, True, 48, "float32"),
+    (96, False, 0, "float32"),
+    (80, True, 0, "bfloat16"),
+])
+def test_flash_gqa_matches_reference_attention(s, causal, window, dtype):
+    """Grouped (HQ=4, KV=2) layouts straight from the model, against the
+    reference's blockwise and naive attention with their kv_map."""
+    b, hq, kv, d = 2, 4, 2, 16
+    q, k, v = _rand(10, b, s, hq, d), _rand(11, b, s, kv, d), \
+        _rand(12, b, s, kv, d)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    jmap = jattn.q_to_kv_map(hq, hq, kv)
+    want = _np(jattn.naive_attention(jq, jk, jv, kv_map=jmap, causal=causal,
+                                     window=window))
+    want_bw = _np(jattn.blockwise_attention(
+        jq, jk, jv, kv_map=jmap, causal=causal, window=window, q_block=32,
+        kv_block=32))
+    tmap = tattn.q_to_kv_map(hq, hq, kv)
+    got = {
+        "flash": flash_attention(tq, tk, tv, causal=causal, window=window),
+        "blockwise": tattn.blockwise_attention(
+            tq, tk, tv, kv_map=tmap, causal=causal, window=window,
+            q_block=32, kv_block=32),
+        "naive": tattn.naive_attention(tq, tk, tv, kv_map=tmap,
+                                       causal=causal, window=window),
+    }
+    tol = TOL[dtype]
+    for name, o in got.items():
+        assert o.shape == (b, s, hq, d), name
+        np.testing.assert_allclose(_np(o), want, rtol=tol, atol=tol,
+                                   err_msg=name)
+        np.testing.assert_allclose(_np(o), want_bw, rtol=tol, atol=tol,
+                                   err_msg=name)
+
+
+def test_flash_q_offset_continues_a_prefill():
+    """A second chunk of queries at q_offset attends to the whole prefix:
+    its rows equal the matching rows of the one-shot prefill."""
+    b, s, hq, kv, d = 1, 48, 4, 2, 16
+    q, k, v = (torch.from_numpy(_rand(20 + i, b, s, h, d))
+               for i, h in enumerate((hq, kv, kv)))
+    full = flash_attention(q, k, v)
+    tail = flash_attention(q[:, 32:].contiguous(), k, v, q_offset=32)
+    torch.testing.assert_close(tail, full[:, 32:], rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t,kv_block", [(300, 128), (512, 512), (64, 32)])
+def test_decode_plain_matches_pallas_and_ref(t, kv_block):
+    b, h, d = 3, 8, 64
+    q, k, v = _rand(30, b, h, d), _rand(31, b, t, h, d), _rand(32, b, t, h, d)
+    pos = np.array([0, t // 2, t - 1], np.int32)
+    jo, jm, jl = jops.decode_step_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        impl="pallas", kv_block=kv_block)
+    ro, rm, rl = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), jnp.asarray(pos))
+    tq, tk, tv, tpos = (torch.from_numpy(x) for x in (q, k, v, pos))
+    for impl in ("kernel", "ref"):
+        o, m, l = tops.decode_step_attention(tq, tk, tv, tpos, impl=impl)
+        for want_o, want_m, want_l in ((jo, jm, jl), (ro, rm, rl)):
+            np.testing.assert_allclose(_np(o), _np(want_o), rtol=2e-4,
+                                       atol=2e-4)
+            np.testing.assert_allclose(_np(m), _np(want_m), rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_allclose(_np(l), _np(want_l), rtol=1e-4,
+                                       atol=1e-4)
+
+
+def test_decode_lse_combine_across_shards():
+    """Partials over two halves of a cache combine to the unsharded result
+    (the context-parallel decode contract), and match the reference."""
+    b, h, t, d = 2, 4, 256, 32
+    q, k, v = _rand(40, b, h, d), _rand(41, b, t, h, d), _rand(42, b, t, h, d)
+    pos = np.array([200, 255], np.int32)
+    tq, tk, tv, tpos = (torch.from_numpy(x) for x in (q, k, v, pos))
+    o_full, _, _ = decode_attention(tq, tk, tv, tpos)
+    half = t // 2
+    o0, m0, l0 = decode_attention(tq, tk[:, :half].contiguous(),
+                                  tv[:, :half].contiguous(), tpos)
+    o1, m1, l1 = decode_attention(tq, tk[:, half:].contiguous(),
+                                  tv[:, half:].contiguous(), tpos - half)
+    m = torch.maximum(m0, m1)
+    w0 = torch.exp(m0 - m) * l0
+    w1 = torch.exp(m1 - m) * l1
+    o = (o0 * w0[..., None] + o1 * w1[..., None]) / (w0 + w1)[..., None]
+    torch.testing.assert_close(o, o_full, rtol=1e-5, atol=1e-5)
+    want, _, _ = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), jnp.asarray(pos))
+    np.testing.assert_allclose(_np(o), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window,dtype", [(0, "float32"), (24, "float32"),
+                                          (0, "bfloat16")])
+def test_grouped_decode_matches_reference_decode_attention(window, dtype):
+    """The kernel's grouped (B, T, KV, d) cache read, against the model
+    decode of the reference (``models/attention.py::decode_attention``)."""
+    b, hq, kv, t, d = 3, 6, 2, 40, 16
+    q, k, v = _rand(50, b, 1, hq, d), _rand(51, b, t, kv, d), \
+        _rand(52, b, t, kv, d)
+    pos = np.array([0, 17, 39], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    want = _np(jattn.decode_attention(
+        jq, jk, jv, jnp.asarray(pos), kv_map=jattn.q_to_kv_map(hq, hq, kv),
+        window=window, n_real_heads=hq))
+    tpos = torch.from_numpy(pos)
+    o, _, _ = decode_attention(tq[:, 0].contiguous(), tk, tv, tpos,
+                               window=window)
+    port_model = tattn.decode_attention(
+        tq, tk, tv, tpos, kv_map=tattn.q_to_kv_map(hq, hq, kv),
+        window=window, n_real_heads=hq)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(o)[:, None], want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(port_model), want, rtol=tol, atol=tol)
+
+
+def test_decode_live_prefix_and_empty_rows():
+    """kv_len cuts the live prefix; a sequence with nothing live gets
+    m = NEG_INF, l = 0, o = 0 (no NaN from the finite mask)."""
+    b, hq, kv, t, d = 2, 4, 2, 32, 64
+    q = torch.from_numpy(_rand(60, b, hq, d))
+    k = torch.from_numpy(_rand(61, b, t, kv, d))
+    v = torch.from_numpy(_rand(62, b, t, kv, d))
+    pos = torch.tensor([31, 5], dtype=torch.int32)
+    o, m, l = decode_attention(q, k, v, pos, kv_len=10)
+    o2, m2, l2 = decode_attention(q, k[:, :10].contiguous(),
+                                  v[:, :10].contiguous(), pos)
+    torch.testing.assert_close((o, m, l), (o2, m2, l2))
+    o, m, l = decode_attention_plain(q, k, v, pos, window=3, kv_len=2)
+    assert torch.isfinite(o).all()
+    assert (l[0] == 0).all() and (o[0] == 0).all() and (m[0] == -2.0e30).all()
+
+
+@pytest.mark.parametrize("b,kv,kv_len,sms", [
+    (8, 8, 1024, 132), (1, 8, 1024, 132), (64, 8, 4096, 132),
+    (2, 2, 17, 132), (8, 8, 64, 132), (1, 1, 100000, 132)])
+def test_decode_split_plan_covers_the_cache(b, kv, kv_len, sms):
+    """The kernel's sequence chunks tile [0, kv_len) with no empty chunk,
+    each a whole number of the kernel's passes, and split only as far as
+    two blocks per SM need."""
+    nsplit, chunk = split_plan(b, kv, kv_len, sms)
+    assert nsplit >= 1 and chunk % SPLIT_ALIGN == 0
+    assert (nsplit - 1) * chunk < kv_len <= nsplit * chunk
+    assert nsplit == 1 or b * kv * (nsplit - 1) < 2 * sms
