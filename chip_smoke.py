@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU (H100).
+"""Drive the PyTorch/CUDA port's serving and control paths on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py
 
@@ -10,7 +11,9 @@ JSON object per line:
 1. device   — card name and count, ``nvidia-smi`` name and power limit;
 2. build    — compiles the hand-written CUDA kernels (``build/kernels``);
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving path's shapes, with the tolerance stated;
+              the paths' shapes, with the tolerance stated; the water-fill
+              also against the exact sort-based fill, and twice on the same
+              input (bit-identical);
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -19,9 +22,20 @@ JSON object per line:
               over one 512-token prefill: device time by kernel, busy share;
 6. parity   — one prompt's prefill + 4 decode steps through the kernels and
               through the plain attention, same weights, logits compared;
-7. timings  — each kernel, its plain version and one PyTorch library call,
-              timed with CUDA events beside the least time the card could
-              take (bytes or operations at the H100 SXM datasheet rates).
+7. control  — the vectorized control plane's fused tick on the card at
+              1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
+              counter trace): µs per tick, tenants/s, state bytes; its
+              allocations against the object ``RateController`` at 1k and
+              10k, and against the same tick on the CPU at 100k; one
+              1M-tenant tick taken apart (upload, operations, read-back);
+8. replay   — ``replay_scenario`` driving full-width llama3.2-3b: steady
+              on the object and the vectorized control plane (fairness, and
+              each tenant's rate within 2% across the two), adversarial
+              against its hog-free baseline (the isolation bounds);
+9. timings  — each kernel, its plain version and one PyTorch library call
+              where one computes the same function, timed with CUDA events
+              beside the least time the card could take (bytes or
+              operations at the H100 SXM datasheet rates).
 
 Then one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -42,9 +56,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 
-# H100 SXM datasheet peaks (dense): HBM bytes/s and bf16 tensor flop/s
+# H100 SXM datasheet peaks (dense): HBM bytes/s, bf16 tensor flop/s, and
+# f32 and f64 flop/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
 
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 DECODE_TOL = {"bfloat16": {"o": 2e-2, "m": 1e-4, "l": 1e-4},
@@ -56,6 +71,25 @@ TENANTS = 3
 NEW_TOKENS = 32
 PROMPT_RANGE = (64, 512)
 DECODE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
+
+# water-fill: |kernel - plain| and |kernel - exact fill| per unit capacity
+WATER_TOL_PLAIN = 1e-9
+WATER_TOL_EXACT = 1e-6
+WATER_N = (1, 3, 1000, 10_000, 100_000, 1_048_576)
+# the control-plane scale bench's counter trace
+CONTROL_CAPACITY = 1e6
+CONTROL_BACKLOG_FRAC = 0.1
+CONTROL_N = (1_000, 10_000, 100_000, 1_000_000)
+CONTROL_TICKS = 24            # timed ticks per population, after warm-up
+CONTROL_WARMUP = 3
+# replay phase: tenants and intervals of each scenario
+REPLAY_TENANTS = 4
+REPLAY_INTERVALS = 16
+REPLAY_MAX_SEQ = 16           # a request is 2 prompt + 6 new tokens
+# make_replay_engine's default: the isolation bounds were set at 4 slots.
+# At 8 the virtual step doubles and the victims' p99 admit wait lands on
+# the 1 s histogram edge (same on any device: the clock is virtual)
+REPLAY_SLOTS = 4
 
 
 def emit(obj) -> None:
@@ -197,6 +231,72 @@ def phase_kernels(torch, device):
                                  f"l {e_l} against {tol}")
         errs["decode_attention"] = max(errs["decode_attention"], e_o)
     return errs
+
+
+def water_case(np, n, seed, kind="mixed", cap=CONTROL_CAPACITY):
+    """Seeded demands and weights (numpy f64) and a capacity: satisfiable,
+    large and inf demands, zero demands, zero and negative weights; or an
+    edge case (all parked, capacity 0, every demand inf)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.1, 2.0, n) * cap / n
+    d[rng.random(n) < 0.2] *= 50.0
+    d[rng.random(n) < 0.1] = np.inf
+    d[rng.random(n) < 0.05] = 0.0
+    w = rng.choice([0.5, 1.0, 2.0, 4.0], n)
+    w[rng.random(n) < 0.05] = 0.0
+    w[rng.random(n) < 0.03] = -1.0
+    if kind == "parked":
+        w[:] = 0.0
+    elif kind == "zero_cap":
+        cap = 0.0
+    elif kind == "all_inf":
+        d[:] = np.inf
+        w = np.abs(w) + 0.5
+    return d, w, cap
+
+
+def phase_water_fill(torch, device):
+    """The water-fill kernel against its plain version (1e-9 x capacity)
+    and the exact sort-based fill (1e-6 x capacity), twice on the same
+    input (bit-identical). Returns the worst |kernel - plain|."""
+    import numpy as np
+    from repro_torch.kernels.ref import water_fill_ref
+    from repro_torch.kernels.waterfill import water_fill, water_fill_plain
+    cases = [(n, "mixed") for n in WATER_N]
+    cases += [(1000, "parked"), (100_000, "parked"), (1000, "zero_cap"),
+              (100_000, "all_inf"), (1_048_576, "all_inf")]
+    worst = 0.0
+    for n, kind in cases:
+        d, w, cap = water_case(np, n, seed=n, kind=kind)
+        dd, ww = (torch.tensor(x, dtype=torch.float64, device=device)
+                  for x in (d, w))
+        alloc, level = water_fill(dd, ww, cap)
+        again, level2 = water_fill(dd, ww, cap)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(alloc, again) and torch.equal(level,
+                                                              level2))
+        plain, _ = water_fill_plain(dd, ww, cap)
+        exact = water_fill_ref(dd, ww, cap)
+        e_plain = (alloc - plain).abs().max().item()
+        e_exact = (alloc - exact).abs().max().item()
+        scale = max(cap, 1.0)
+        ok = (same and e_plain <= WATER_TOL_PLAIN * scale
+              and e_exact <= WATER_TOL_EXACT * scale
+              and bool(torch.isfinite(alloc).all())
+              and (kind not in ("parked", "zero_cap")
+                   or not bool(alloc.any())))
+        emit({"phase": "kernels", "kernel": "water_fill", "n": n,
+              "case": kind, "dtype": "float64", "capacity": cap,
+              "max_abs_err_plain": e_plain, "max_abs_err_exact": e_exact,
+              "tol_plain": WATER_TOL_PLAIN * scale,
+              "tol_exact": WATER_TOL_EXACT * scale,
+              "bit_identical_repeat": same, "level": float(level),
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"water_fill n={n} {kind}: plain {e_plain}"
+                                 f", exact {e_exact}, repeat {same}")
+        worst = max(worst, e_plain)
+    return worst
 
 
 def make_requests(cfg, request_cls):
@@ -414,6 +514,308 @@ def phase_parity(torch, device, eng):
         raise AssertionError(f"kernel path vs plain: {worst} > {PARITY_TOL}")
 
 
+def control_trace(np, n: int, seed: int = 0):
+    """The control-plane scale bench's counter trace: weights from
+    {1, 2, 4}, integer per-tick counter steps summing to ~1.1 x capacity,
+    10% of tenants backlogged."""
+    rng = np.random.default_rng(seed)
+    weights = rng.choice([1.0, 2.0, 4.0], size=n).astype(np.float64)
+    rates = rng.uniform(0.2, 2.0, size=n) * (CONTROL_CAPACITY / n)
+    steps = np.maximum(np.round(rates), 1.0)
+    backlogged = rng.random(n) < CONTROL_BACKLOG_FRAC
+    return weights, steps, backlogged
+
+
+def control_plane(n: int, weights, device):
+    from repro_torch.control.vectorized import VectorizedControlPlane
+    plane = VectorizedControlPlane(CONTROL_CAPACITY, alpha=0.5,
+                                   headroom=1.25, scheduler_buckets=True,
+                                   device=device)
+    for t in range(n):
+        plane.add_tenant(t, weight=float(weights[t]))
+    return plane
+
+
+def control_parity(np, n: int, device, ticks: int = 5) -> float:
+    """One counter trace through the port's object TenantScheduler +
+    RateController and through the plane on the card: the worst
+    |allocation difference| per unit capacity."""
+    from repro_torch.control import RateController
+    from repro_torch.serve import TenantScheduler
+    weights, steps, backlogged = control_trace(np, n)
+    sched = TenantScheduler(policy="wfq", charge_prompt=True)
+    ctrl = RateController(CONTROL_CAPACITY,
+                          weights={t: float(weights[t]) for t in range(n)},
+                          alpha=0.5)
+    ctrl.attach_scheduler(sched)
+    for t in range(n):
+        sched.add_tenant(t, weight=float(weights[t]))
+        if backlogged[t]:
+            sched.queues[t].append(None)     # pending() counts length only
+    plane = control_plane(n, weights, device)
+    queue = np.where(backlogged, 1.0, 0.0)
+    served = np.zeros(n)
+    for k in range(ticks):
+        served += steps
+        for t in range(n):
+            sched.served_tokens[t] = int(served[t])
+        ctrl.tick(float(k))
+        plane.tick(served, queue=queue, now=float(k))
+    vec = plane.allocations()
+    if set(vec) != set(ctrl.allocations):
+        return math.inf
+    return max(abs(ctrl.allocations[t] - vec[t])
+               for t in vec) / CONTROL_CAPACITY
+
+
+def tick_parts(torch, np, plane, served, queue, now: float,
+               reps: int = 10):
+    """Where one fused tick's time goes: the tick's three steps run apart,
+    each timed on the host clock around a synchronised call (median of
+    ``reps``): the (3, n) sample stack built and copied to the card, the
+    ``fused_tick`` operations, and the allocations read back; plus the
+    operations' device time alone (CUDA events, host enqueue hidden)."""
+    from repro_torch.control.vectorized import fused_tick
+    dev = plane._device_state()
+    names = ("level", "brate", "bcap", "updated", "ewma_off", "ewma_def",
+             "prev_off", "prev_def", "weight", "active")
+    zeros = np.zeros_like(served)
+
+    def clock(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3, out
+
+    upload_ms, samples = clock(lambda: torch.tensor(
+        np.stack([served, zeros, queue]), device=plane.device))
+    params = torch.tensor([now, plane.prev_t, plane.alpha, plane.capacity,
+                           plane.headroom, plane.min_rate, plane.burst_s],
+                          dtype=torch.float64, device=plane.device)
+
+    def compute():
+        return fused_tick(*(dev[k] for k in names), samples, params,
+                          iters=plane.iters,
+                          scheduler_buckets=plane.scheduler_buckets)
+
+    compute_ms, out = clock(compute)
+    alloc, lvl = out[8], out[9]
+    readback_ms, _ = clock(
+        lambda: torch.cat([alloc, lvl.reshape(1)]).cpu().numpy())
+    return {"upload_ms": upload_ms, "compute_host_ms": compute_ms,
+            "compute_device_ms": Timer(torch, plane.device).ms(compute,
+                                                               reps=reps),
+            "readback_ms": readback_ms, "reps": reps}
+
+
+def phase_control(torch, device, smi: str):
+    """The fused tick at fleet scale on the card. Returns the water-fill
+    launches of the timed runs."""
+    import numpy as np
+    from repro_torch.kernels.waterfill import water_fill
+    launches = 0
+    rows = {}
+    for n in CONTROL_N:
+        weights, steps, backlogged = control_trace(np, n)
+        t0 = time.perf_counter()
+        plane = control_plane(n, weights, device)
+        setup_s = time.perf_counter() - t0
+        queue = np.where(backlogged, 1.0, 0.0)
+        served = np.zeros(n)
+        for k in range(CONTROL_WARMUP):
+            served = served + steps
+            plane.tick(served, queue=queue, now=float(k))
+        water_fill.launches = 0
+        times = []
+        for k in range(CONTROL_WARMUP, CONTROL_WARMUP + CONTROL_TICKS):
+            served = served + steps
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            alloc = plane.tick(served, queue=queue, now=float(k))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - ts)
+        n_launch = water_fill.launches
+        launches += n_launch
+        if n_launch != CONTROL_TICKS:
+            raise AssertionError(f"{n} tenants: {n_launch} water-fill "
+                                 f"launches in {CONTROL_TICKS} ticks")
+        # the final level lies at most one bisection step, (cap / min_w)
+        # * 2^-48, above the exact one, and each unsatisfied tenant takes
+        # w * level: the sum may exceed the capacity by sum(w) times that
+        over = weights.sum() * CONTROL_CAPACITY / weights.min() * 2.0 ** -48
+        if not (np.isfinite(alloc).all() and alloc.shape == (n,)
+                and alloc.sum() <= CONTROL_CAPACITY * (1 + 1e-12) + over):
+            raise AssertionError(f"{n} tenants: bad allocations, sum "
+                                 f"{alloc.sum()} over {CONTROL_CAPACITY} "
+                                 f"+ {over}")
+        tick_s = statistics.median(times)
+        row = {"phase": "control", "tenants": n,
+               "us_per_tick_median": tick_s * 1e6,
+               "us_per_tick_min": min(times) * 1e6,
+               "us_per_tick_max": max(times) * 1e6,
+               "ticks": CONTROL_TICKS, "tenants_per_s": n / tick_s,
+               "state_bytes_per_tenant": plane.state_bytes() / n,
+               "water_fill_launches": n_launch,
+               "allocated_share": float(alloc.sum()) / CONTROL_CAPACITY,
+               "water_level": plane.last_level, "setup_s": setup_s,
+               "gpu": smi}
+        if n in (1_000, 10_000):
+            err = control_parity(np, n, device)
+            row["object_parity_err_per_capacity"] = err
+            row["object_parity_tol"] = 1e-6
+            if not err <= 1e-6:
+                raise AssertionError(f"{n} tenants: vectorized vs object "
+                                     f"{err} x capacity > 1e-6")
+        if n == 100_000:
+            cpu = control_plane(n, weights, "cpu")
+            card = control_plane(n, weights, device)
+            srv = np.zeros(n)
+            for k in range(4):
+                srv = srv + steps
+                a_card = card.tick(srv, queue=queue, now=float(k))
+                a_cpu = cpu.tick(srv, queue=queue, now=float(k))
+            card._sync_host()
+            cpu._sync_host()
+            rel = float(np.max(np.abs(a_card - a_cpu)
+                               / np.maximum(np.abs(a_cpu), 1e-300)))
+            nan_eq = all(np.array_equal(np.isnan(getattr(card, nm)),
+                                        np.isnan(getattr(cpu, nm)))
+                         for nm in card.STATE_ARRAYS)
+            state_rel = max(float(np.nanmax(
+                np.abs(getattr(card, nm) - getattr(cpu, nm))
+                / np.maximum(np.abs(getattr(cpu, nm)), 1e-300)))
+                for nm in card.STATE_ARRAYS)
+            row.update(cpu_parity_rel=rel, cpu_state_rel=state_rel,
+                       cpu_nan_positions_equal=nan_eq, cpu_parity_tol=1e-9)
+            if not (rel <= 1e-9 and state_rel <= 1e-9 and nan_eq):
+                raise AssertionError(f"100k tick card vs cpu: alloc {rel}, "
+                                     f"state {state_rel}, NaN {nan_eq}")
+        if n == CONTROL_N[-1]:
+            row["tick_parts"] = tick_parts(torch, np, plane, served + steps,
+                                           queue, now=float(10_000))
+            row["tick_parts"]["device_busy_share"] = \
+                row["tick_parts"]["compute_device_ms"] / (tick_s * 1e3)
+        emit(row)
+        rows[n] = row
+        del plane
+    return launches, rows
+
+
+def phase_replay(torch, device, cfg):
+    """``replay_scenario`` over full-width llama3.2-3b: steady on both
+    control planes, adversarial against its hog-free baseline. The
+    replayer's clock is virtual, so these are the whole path's fairness
+    numbers, not timings. Returns the water-fill launches."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.waterfill import water_fill
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.replay import (
+        ADVERSARIAL_HOG, TraceReplayer, adversarial_baseline,
+        make_replay_engine, replay_scenario, scenario_spec)
+    params = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED + 4))
+    n, intervals = REPLAY_TENANTS, REPLAY_INTERVALS
+    water = 0
+    reports = {}
+
+    def run(label, name, backend, trace=None):
+        nonlocal water
+        _tr, cap = scenario_spec(name, n_tenants=n, intervals=intervals)
+        eng = make_replay_engine(capacity=cap, batch_slots=REPLAY_SLOTS,
+                                 max_seq=REPLAY_MAX_SEQ, backend=backend,
+                                 params=params)
+        flash_attention.launches = 0
+        decode_attention.launches = 0
+        water_fill.launches = 0
+        t0 = time.perf_counter()
+        if trace is None:
+            rep = replay_scenario(name, n_tenants=n, intervals=intervals,
+                                  engine=eng)
+        else:
+            rep = TraceReplayer(eng, capacity=cap).run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"flash_attention": flash_attention.launches,
+               "decode_attention": decode_attention.launches,
+               "water_fill": water_fill.launches}
+        layers = cfg.num_layers
+        if got["flash_attention"] != layers * eng.admissions or \
+                got["decode_attention"] != layers * eng.decode_steps:
+            raise AssertionError(f"{label}: launches {got} for "
+                                 f"{eng.admissions} admissions, "
+                                 f"{eng.decode_steps} steps")
+        ticks = eng.steps // eng.control_every
+        if backend == "vectorized" and not 0 < got["water_fill"] <= ticks:
+            raise AssertionError(f"{label}: {got['water_fill']} water-fill "
+                                 f"launches in {ticks} controller ticks")
+        if backend == "object" and got["water_fill"]:
+            raise AssertionError(f"{label}: the object plane launched the "
+                                 f"water-fill kernel")
+        water += got["water_fill"]
+        reports[label] = rep
+        emit({"phase": "replay", "run": label, "scenario": name,
+              "backend": backend, "model": cfg.name,
+              "layers": cfg.num_layers, "tenants": len(rep.per_tenant),
+              "intervals": intervals, "capacity_tok_s": cap,
+              "decode_steps": rep.decode_steps,
+              "admissions": eng.admissions, "controller_ticks": ticks,
+              "launches": got, "wall_s": wall,
+              "jain": rep.jain(), "max_min_deviation":
+                  rep.max_min_deviation(),
+              "rates": {t: r.achieved_rate
+                        for t, r in rep.per_tenant.items()},
+              "served_tokens": {t: r.served_tokens
+                                for t, r in rep.per_tenant.items()}})
+        del eng
+        return rep
+
+    obj = run("steady_object", "steady", "object")
+    vec = run("steady_vectorized", "steady", "vectorized")
+    for label, rep in (("object", obj), ("vectorized", vec)):
+        if not (rep.jain() >= 0.95 and rep.max_min_deviation() < 0.10):
+            raise AssertionError(f"steady {label}: Jain {rep.jain()}, "
+                                 f"deviation {rep.max_min_deviation()}")
+    gap = max(abs(vec.per_tenant[t].achieved_rate
+                  / obj.per_tenant[t].achieved_rate - 1.0) for t in range(n))
+    if gap >= 0.02:
+        raise AssertionError(f"steady: vectorized vs object rates {gap}")
+    hog_trace, cap = scenario_spec("adversarial", n_tenants=n,
+                                   intervals=intervals)
+    shared = run("adversarial_vectorized", "adversarial", "vectorized")
+    base = run("adversarial_baseline_vectorized", "adversarial",
+               "vectorized", trace=adversarial_baseline(hog_trace))
+    hog = shared.per_tenant[n + ADVERSARIAL_HOG]
+    victims = range(n - 1)
+    degr = {t: 1.0 - shared.per_tenant[t].achieved_rate
+            / base.per_tenant[t].achieved_rate for t in victims}
+    victim_p99 = max(shared.per_tenant[t].p99_admit_wait_s for t in victims)
+    victim_p50 = max(shared.per_tenant[t].p50_admit_wait_s for t in victims)
+    victim_wait = max(shared.per_tenant[t].mean_admit_wait_s
+                      for t in victims)
+    checks = {
+        "victims_degraded_under_5pct": all(v < 0.05 for v in degr.values()),
+        "hog_between_quarter_and_three_quarters": 0.25 * cap
+        < hog.achieved_rate < 0.75 * cap,
+        "hog_waits_4x_victims": hog.mean_admit_wait_s
+        > 4 * max(victim_wait, 1e-3),
+        "victim_p99_under_1s": 0.0 < victim_p99 < 1.0,
+        "victim_p50_at_floor": victim_p50 <= 0.01,
+        "hog_p99_10x_victims": hog.p99_admit_wait_s > 10 * victim_p99}
+    emit({"phase": "replay", "run": "isolation", "steady_rate_gap": gap,
+          "victim_degradation": degr, "hog_rate": hog.achieved_rate,
+          "capacity_tok_s": cap, "victim_p99_admit_wait_s": victim_p99,
+          "hog_p99_admit_wait_s": hog.p99_admit_wait_s, "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"adversarial isolation: {checks}")
+    return water
+
+
 def phase_timings(torch, device, smi: str):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
@@ -463,6 +865,25 @@ def phase_timings(torch, device, smi: str):
                "flops": flops, "gpu": smi}
         emit(row)
         rows[("decode_attention", name)] = row
+    import numpy as np
+    from repro_torch.kernels.waterfill import water_fill, water_fill_plain
+    for n in CONTROL_N:
+        d, w, cap = water_case(np, n, seed=n)
+        dd, ww = (torch.tensor(x, dtype=torch.float64, device=device)
+                  for x in (d, w))
+        active = int(((dd > 0) & (ww > 0)).sum())
+        # d and w read once, the allocations written once; each of the 48
+        # bisection steps does a min, a multiply and an add per active slot
+        nbytes, flops = 3 * 8 * n, 48 * 3 * active
+        b_ms, b_by = bound(nbytes, flops, "float64")
+        row = {"phase": "timings", "kernel": "water_fill", "n": n,
+               "dtype": "float64", "active": active,
+               "ms": timer.ms(lambda: water_fill(dd, ww, cap)),
+               "plain_ms": timer.ms(lambda: water_fill_plain(dd, ww, cap)),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("water_fill", n)] = row
     return rows
 
 
@@ -506,6 +927,7 @@ def main() -> int:
                           "0 bytes spill loads" not in ln]})
 
     errs = phase_kernels(torch, device)
+    errs["water_fill"] = phase_water_fill(torch, device)
 
     from repro_torch.configs import get_config
     cfg = get_config("llama3.2-3b")
@@ -515,9 +937,17 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
+    # the control path's two entry points: the fused tick at fleet scale
+    # and the replay harness; their water-fill launches add up
+    control_launches, _rows = phase_control(torch, device, smi)
+    replay_launches = phase_replay(torch, device, cfg)
+    launches["water_fill"] = control_launches + replay_launches
+    torch.cuda.empty_cache()
+
     rows = phase_timings(torch, device, smi)
     flash = rows[("flash_attention", 509)]
     dec = rows[("decode_attention", "mixed")]
+    water = rows[("water_fill", CONTROL_N[-1])]
     summary = []
     for name, row, src, replaces in (
             ("flash_attention", flash,
@@ -525,7 +955,10 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:87"),
             ("decode_attention", dec,
              "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:64")):
+             "src/repro/kernels/decode_attention.py:64"),
+            ("water_fill", water,
+             "src/repro_torch/kernels/csrc/waterfill.cu",
+             "src/repro/kernels/waterfill.py:55")):
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

@@ -2,8 +2,9 @@
 
 Observe per-tenant rates, run a congestion-control policy over a shared
 bottleneck, and push allocations back into the schedulers' token buckets
-(the paper's use case 2). Placement, the fluid simulator and the
-vectorized control plane come with later slices of the port.
+(the paper's use case 2), on per-tenant objects or, with
+``backend="vectorized"``, on the flat arrays of ``control/vectorized.py``.
+Placement and the fluid simulator come with later slices of the port.
 """
 from repro_torch.control.congestion import (
     Aimd, CongestionControl, Dctcp, WaterFill, max_min_fair,

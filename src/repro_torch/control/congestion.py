@@ -20,7 +20,9 @@ from __future__ import annotations
 import math
 from typing import Dict, Mapping, Optional
 
-from repro_torch.control.telemetry import TenantObs, check_backend
+from repro_torch.control.telemetry import TenantObs
+from repro_torch.control.vectorized import check_backend, waterfill_allocate
+from repro_torch.device import resolve_device
 
 INF = math.inf
 
@@ -82,17 +84,21 @@ class WaterFill(CongestionControl):
     tenant bids its observed offered rate times ``headroom`` so its
     allocation can track demand growth between intervals.
 
-    ``backend`` must be ``"object"``: the array water-fill arrives with
-    the vectorized control plane (``check_backend``).
+    ``backend="vectorized"`` runs the fill as one launch of the water-fill
+    kernel (``waterfill_allocate``) on ``device`` (``cuda`` unless
+    ``"cpu"`` is passed) instead of the scalar loop — same allocations
+    within 1e-6 x capacity, flat cost per tenant.
     """
 
     def __init__(self, weights: Optional[Mapping[int, float]] = None,
                  headroom: float = 1.25, min_rate: float = 0.0,
-                 backend: str = "object"):
+                 backend: str = "object", device=None):
         self.weights = dict(weights or {})
         self.headroom = headroom
         self.min_rate = min_rate
         self.backend = check_backend(backend)
+        self.device = resolve_device(device) if backend == "vectorized" \
+            else None
 
     def allocate(self, obs, capacity):
         # deferral is EWMA-smoothed, so it decays toward zero but never
@@ -103,7 +109,11 @@ class WaterFill(CongestionControl):
         demands = {t: (INF if (o.deferred > eps or o.queue > 0)
                        else o.offered * self.headroom)
                    for t, o in obs.items()}
-        alloc = max_min_fair(capacity, demands, self.weights)
+        if self.backend == "vectorized":
+            alloc = waterfill_allocate(demands, capacity, self.weights,
+                                       device=self.device)
+        else:
+            alloc = max_min_fair(capacity, demands, self.weights)
         if self.min_rate > 0:
             alloc = {t: max(r, self.min_rate) for t, r in alloc.items()}
         return alloc

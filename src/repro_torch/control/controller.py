@@ -28,9 +28,9 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.control.congestion import CongestionControl, WaterFill
 from repro_torch.control.telemetry import (
-    SchedulerTelemetry, TenantObs, check_backend, format_prometheus,
-    merge_obs,
+    SchedulerTelemetry, TenantObs, format_prometheus, merge_obs,
 )
+from repro_torch.control.vectorized import check_backend
 from repro_torch.obs import tracing
 
 _PROBE_FRAC = 0.02     # idle-enforcement-point floor, fraction of allocation
@@ -44,7 +44,8 @@ class RateController:
                  weights: Optional[Dict[int, float]] = None,
                  alpha: float = 0.5, burst_s: float = 0.25,
                  push_mode: str = "full", delta_tol: float = 0.05,
-                 refresh_every: int = 32, backend: str = "object"):
+                 refresh_every: int = 32, backend: str = "object",
+                 device=None):
         """``capacity``: the ONE shared bottleneck in tokens/s.
         ``weights``: per-tenant fair-share weights for the default
         WaterFill ``algo``. ``alpha``: telemetry EWMA gain in (0, 1].
@@ -52,15 +53,18 @@ class RateController:
         seconds' worth of the allocated rate (schedulers keep their own
         bucket capacity). ``delta_tol``: relative move that makes a target
         worth pushing in delta mode; ``refresh_every``: ticks between
-        delta-mode full re-pushes (soft-state bound). ``backend``: must be
-        "object" (see ``check_backend``)."""
+        delta-mode full re-pushes (soft-state bound). ``backend``:
+        "object" keeps per-tenant control state in Python objects,
+        "vectorized" in flat arrays (telemetry EWMA banks + the water-fill
+        kernel) — same allocations, flat cost per tenant. ``device``: where
+        the vectorized water-fill runs (``cuda`` unless ``"cpu"``)."""
         if push_mode not in ("full", "delta"):
             raise ValueError(f"push_mode must be 'full' or 'delta', "
                              f"got {push_mode!r}")
         self.capacity = float(capacity)
         self.backend = check_backend(backend)
         self.algo = algo if algo is not None \
-            else WaterFill(weights, backend=backend)
+            else WaterFill(weights, backend=backend, device=device)
         self.alpha = alpha
         self.burst_s = burst_s
         # delta mode: only tenants whose per-point allocation moved beyond

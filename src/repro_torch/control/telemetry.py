@@ -3,9 +3,10 @@
 The management plane's eyes. Successive snapshots of a scheduler's
 cumulative served-token counters become EWMA-smoothed per-tenant rates,
 with the queue depth beside them — the observation a congestion-control
-algorithm needs. The bytes-plane ``EngineTelemetry`` (CoreEngine ledgers)
-and the array-backed ``backend="vectorized"`` come with later slices of
-the port.
+algorithm needs. ``backend="vectorized"`` keeps the EWMA state in the flat
+arrays of ``control/vectorized.py::TelemetryBank``. The bytes-plane
+``EngineTelemetry`` (CoreEngine ledgers) comes with a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -13,25 +14,9 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from repro_torch.control.vectorized import TelemetryBank, check_backend
 from repro_torch.obs import tracing
 from repro_torch.obs.metrics import render_prometheus
-
-
-BACKENDS = ("object", "vectorized")
-
-
-def check_backend(backend: str) -> str:
-    """Validate a control-plane ``backend`` knob. Only ``"object"`` is
-    ported; ``"vectorized"`` arrives with the vectorized control plane
-    (ROADMAP, "Modules to port": ``control/vectorized.py``)."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, "
-                         f"got {backend!r}")
-    if backend != "object":
-        raise NotImplementedError(
-            "backend='vectorized' is not ported yet; it comes with the "
-            "vectorized control plane (ROADMAP: control/vectorized.py)")
-    return backend
 
 
 def format_prometheus(counters: Dict[str, float]) -> str:
@@ -89,7 +74,9 @@ class SchedulerTelemetry:
     reset and the new counter value becomes the baseline instead of being
     read as a hugely negative rate.
 
-    ``backend`` must be ``"object"`` (see ``check_backend``).
+    ``backend="vectorized"`` keeps the EWMA state in flat arrays
+    (:class:`repro_torch.control.vectorized.TelemetryBank`) instead of
+    per-tenant ``_Ewma`` objects — same observations, flat cost.
     """
 
     def __init__(self, scheduler, alpha: float = 0.5,
@@ -102,6 +89,8 @@ class SchedulerTelemetry:
         self._prev_served: Dict[int, int] = {}
         self._prev_t: Optional[float] = None
         self._ewma: Dict[int, _Ewma] = {}
+        self._bank = TelemetryBank(alpha) if backend == "vectorized" \
+            else None
         self.obs: Dict[int, TenantObs] = {}
         self.updates = 0
 
@@ -112,9 +101,13 @@ class SchedulerTelemetry:
         self._prev_served.pop(tenant, None)
         self._ewma.pop(tenant, None)
         self.obs.pop(tenant, None)
+        if self._bank is not None:
+            self._bank.evict(tenant)
 
     def tracked_tenants(self) -> set:
         """Tenants with live EWMA/baseline state (leak regression hook)."""
+        if self._bank is not None:
+            return set(self._bank.tenants())
         return set(self._prev_served) | set(self._ewma)
 
     def update(self, now: Optional[float] = None) -> Dict[int, TenantObs]:
@@ -127,23 +120,40 @@ class SchedulerTelemetry:
                   for t in self.scheduler.queues}
         if self._prev_t is None or now <= self._prev_t:
             self._prev_served, self._prev_t = served, now
+            if self._bank is not None:
+                self._bank.baseline(served)
             self.obs = {t: TenantObs(queue=queues.get(t, 0.0))
                         for t in set(served) | set(queues)}
             return self.obs
         dt = now - self._prev_t
         self.obs = {}
-        for t in set(served) | set(self._prev_served) | set(queues):
-            raw = served.get(t, 0) - self._prev_served.get(t, 0)
-            if raw < 0 or (t not in served and t in self._prev_served):
-                # counter reset: tenant migrated/dropped; rebaseline
-                self._ewma.pop(t, None)
-                if t in served or t in queues:
-                    self.obs[t] = TenantObs(queue=queues.get(t, 0.0))
-                continue
-            r = self._ewma.setdefault(t, _Ewma(self.alpha)) \
-                .update(raw / dt)
-            q = queues.get(t, 0.0)
-            self.obs[t] = TenantObs(rate=r, offered=r, queue=q)
+        if self._bank is not None:
+            union = set(served) | set(self._prev_served) | set(queues)
+            tenants, offs, _dfrs, reset = self._bank.update(
+                served, dt, extra=queues)
+            for i, t in enumerate(tenants):
+                if t not in union:
+                    continue
+                if reset[i]:
+                    if t in served or t in queues:
+                        self.obs[t] = TenantObs(queue=queues.get(t, 0.0))
+                    continue
+                r = float(offs[i])
+                self.obs[t] = TenantObs(rate=r, offered=r,
+                                        queue=queues.get(t, 0.0))
+        else:
+            for t in set(served) | set(self._prev_served) | set(queues):
+                raw = served.get(t, 0) - self._prev_served.get(t, 0)
+                if raw < 0 or (t not in served and t in self._prev_served):
+                    # counter reset: tenant migrated/dropped; rebaseline
+                    self._ewma.pop(t, None)
+                    if t in served or t in queues:
+                        self.obs[t] = TenantObs(queue=queues.get(t, 0.0))
+                    continue
+                r = self._ewma.setdefault(t, _Ewma(self.alpha)) \
+                    .update(raw / dt)
+                q = queues.get(t, 0.0)
+                self.obs[t] = TenantObs(rate=r, offered=r, queue=q)
         self._prev_served, self._prev_t = served, now
         self.updates += 1
         if tracing.TRACER.enabled:

@@ -31,15 +31,18 @@ NVCC_TIMEOUT_S = 600
 # dtype codes of the C interface (csrc/nk_common.cuh)
 DT_F32 = 0
 DT_BF16 = 1
+DT_F64 = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 # argtypes of every exported entry point: c_void_p for each pointer and the
 # stream, or ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
     "nk_flash_attention": [_P, _P, _P, _P] + [_I] * 10 + [_F, _I, _P],
     "nk_decode_attention": [_P] * 10 + [_I] * 11 + [_F, _I, _P],
+    "nk_water_fill": [_P] * 6 + [_L, _I, _L, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -23,6 +23,7 @@ constexpr float NEG_INF = -2.0e30f;
 // dtype codes shared with the Python wrappers
 constexpr int DT_F32 = 0;
 constexpr int DT_BF16 = 1;
+constexpr int DT_F64 = 2;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);

@@ -1,10 +1,10 @@
 """Public wrappers for the ported kernels, in the reference's layouts.
 
 The counterpart of ``repro/kernels/ops.py``: the same signatures and
-``(B, H, S, d)`` / ``(B, H, d)`` layouts, with ``impl="ref"`` running the
-oracle and ``impl="kernel"`` the hand-written kernel (on CPU tensors, its
-plain version). Model code calls the kernels directly in its own layouts;
-these wrappers are the kernel-level test surface.
+``(B, H, S, d)`` / ``(B, H, d)`` / ``(n,)`` layouts, with ``impl="ref"``
+running the oracle and ``impl="kernel"`` the hand-written kernel (on CPU
+tensors, its plain version). Model and control code call the kernels
+directly; these wrappers are the kernel-level test surface.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.waterfill import water_fill as _water_fill
 
 IMPLS = ("ref", "kernel")
 
@@ -40,3 +41,14 @@ def decode_step_attention(q, k, v, pos, *, impl="kernel"):
         return ref.decode_attention_ref(q, k, v, pos)
     return decode_attention(q, k.contiguous(), v.contiguous(),
                             pos.to(dtype=torch.int32))
+
+
+def water_fill(demands, weights, capacity, *, impl="kernel", iters=48):
+    """demands, weights: (n,); capacity scalar -> alloc (n,).
+
+    Weighted max-min water-fill over the whole tenant population.
+    ``impl="ref"`` is the exact sort-based progressive fill;
+    ``impl="kernel"`` the fixed-iteration bisection kernel."""
+    if _impl(impl) == "ref":
+        return ref.water_fill_ref(demands, weights, capacity)
+    return _water_fill(demands, weights, capacity, iters=iters)[0]

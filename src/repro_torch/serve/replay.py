@@ -1,0 +1,594 @@
+"""End-to-end fairness replay: Trace -> real Requests -> live ServeEngine.
+
+The counterpart of ``repro/serve/replay.py``, its single-engine half.
+``fair_replay`` (``serve/multiplex.py``) validates the paper's Fig. 21/22
+claims as a fluid-flow model; this module closes the gap to the actual
+datapath. A ``TraceReplayer`` takes the same ``Trace`` vocabulary (bursty,
+adversarial 10x-misbehaver, correlated-burst, ramp, steady), converts each
+interval's per-tenant load into real ``Request`` objects, and feeds them to
+a live ``ServeEngine`` — prefill and decode through the attention kernels,
+slot-based continuous batching, WFQ admission — with a ``RateController``
+attached to the scheduler's token buckets (the tokens/s bottleneck).
+Everything runs on a virtual clock: one engine step advances time by a
+fixed ``step_dt`` chosen so the engine's raw throughput is ``headroom`` x
+the enforced capacity, so the *management plane*, not the slots, is the
+binding constraint. The virtual clock does not depend on the device's
+speed: the same scenario gives the same ledgers on the CPU and on a card.
+
+All metrics are read from real ledgers, never from the model:
+
+  * achieved tokens/s   TenantScheduler.served_tokens (prompt + decode)
+  * admission latency   arrival -> admission wait, scheduler ledger
+  * defer pressure      bucket-blocked poll counts
+  * Jain index          over achieved per-weight rates of contending tenants
+  * control chatter     RateController push_calls / push_skipped
+
+The scheduler runs with ``charge_prompt=True`` so bucket pricing, telemetry
+observation and the served-token ledger share one unit and the controller's
+``capacity`` is directly comparable to measured rates.
+
+Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
+item: the multi-engine cluster (``make_replay_cluster``, ``engines > 1``,
+the scenarios of ``CLUSTER_SCENARIOS``, ``autopilot``, ``core_plane``) and
+the watchdog (``make_watchdog``, ``watch=``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.control.congestion import max_min_fair
+from repro_torch.serve import multiplex as mx
+from repro_torch.serve.multiplex import Trace, jain_index
+from repro_torch.serve.scheduler import Request, TenantScheduler
+
+_CLUSTER_ITEM = ("serve/cluster.py, control/placement.py and "
+                 "fabric/checkpoint.py")
+_WATCH_ITEM = "obs/timeseries.py and obs/slo.py, with serve/replay.py"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it comes with "
+                               f"{item} (ROADMAP: Modules to port)")
+
+
+@dataclass
+class TenantReport:
+    """One tenant's end-to-end outcome, straight from the ledgers.
+
+    The percentile columns are histogram estimates (upper edge of the
+    bucket the quantile falls in — within one log-bucket width of the
+    true sample quantile, see ``repro_torch.obs.hist``), windowed to this run
+    like every other counter. NaN when the window observed no samples
+    (a zero-request tenant in a short scenario): "no data" must not
+    read as "p99 = 0". Renderers show it as ``-``."""
+
+    demand_rate: float            # offered load, tokens/s
+    achieved_rate: float          # served tokens/s over the replay window
+    served_tokens: float
+    admitted_requests: int
+    completed_requests: int
+    deferred_polls: int
+    mean_admit_wait_s: float
+    weight: float = 1.0
+    p50_admit_wait_s: float = 0.0
+    p99_admit_wait_s: float = 0.0
+    p99_ttft_s: float = 0.0
+    p99_e2e_s: float = 0.0
+
+
+@dataclass
+class ReplayReport:
+    """Everything a fairness claim needs, measured on the real datapath.
+
+    ``engines``/``migrations``/``placement`` surface the cluster view when
+    the replay drove an ``EngineCluster``: how many engines shared the
+    bottleneck, how many live migrations finalized inside this window, and
+    where each tenant ended up (tenant -> engine index).
+
+    ``cores_saved``/``max_parked``/``autopilot_moves`` surface the
+    placement loop when an autopilot drove the cluster: average engines
+    parked per step inside this window (the closed-loop core savings),
+    the peak engines asleep at once, and how many moves the autopilot
+    applied.
+
+    ``mem_saved_bytes``/``max_parked_bytes``/``peak_resident_cache_bytes``
+    surface the park suspend/resume lifecycle, all windowed to this run:
+    average bytes freed per cluster step (the memory analog of
+    ``cores_saved``), the peak bytes simultaneously freed by suspended
+    engines, and the peak resident droppable-buffer footprint
+    (KV-caches + slot state across awake engines) observed inside the
+    window."""
+
+    duration_s: float
+    capacity: float               # enforced bottleneck, tokens/s
+    per_tenant: Dict[int, TenantReport]
+    decode_steps: int
+    set_rate_calls: int = 0
+    push_skipped: int = 0
+    engines: int = 1
+    migrations: int = 0
+    swaps: int = 0                # live stack hot-swaps inside this window
+    placement: Optional[Dict[int, int]] = None
+    cores_saved: float = 0.0      # avg engines parked per cluster step
+    max_parked: int = 0           # peak engines asleep at once
+    autopilot_moves: int = 0      # placement-loop migrations this window
+    mem_saved_bytes: float = 0.0  # avg bytes freed per cluster step
+    max_parked_bytes: int = 0     # peak bytes freed by suspended engines
+    peak_resident_cache_bytes: int = 0   # lifetime peak resident buffers
+    checkpoints: int = 0          # fabric checkpoints inside this window
+    recoveries: int = 0           # kill-and-restore recoveries this window
+    # the watchdog view when the replay ran with one attached: alert
+    # instances that fired inside this window (``obs/slo.py``'s ``Alert``,
+    # in fire order), how many of those resolved before the window
+    # closed, how many were still firing at the end — and the watchdog
+    # itself, so callers can dump its recorded scrape sequence
+    alerts: Optional[Sequence] = None
+    alerts_fired: int = 0
+    alerts_resolved: int = 0
+    alerts_active: int = 0
+    watchdog: Optional[object] = None
+
+    def alerts_by_rule(self) -> Dict[str, int]:
+        """Fired-alert counts per rule name inside this window."""
+        out: Dict[str, int] = {}
+        for a in self.alerts or ():
+            out[a.rule] = out.get(a.rule, 0) + 1
+        return out
+
+    def rates(self) -> Dict[int, float]:
+        return {t: r.achieved_rate for t, r in self.per_tenant.items()}
+
+    def total_rate(self) -> float:
+        return sum(r.achieved_rate for r in self.per_tenant.values())
+
+    def contending(self) -> Sequence[int]:
+        """Tenants whose demand exceeded their fair share — the ones a
+        fairness index is actually about."""
+        ref = self.fair_reference()
+        return [t for t, r in self.per_tenant.items()
+                if r.demand_rate > ref[t] * 1.01]
+
+    def jain(self, tenants: Optional[Sequence[int]] = None) -> float:
+        ts = list(tenants) if tenants is not None else list(self.contending())
+        if not ts:
+            ts = list(self.per_tenant)
+        return jain_index([self.per_tenant[t].achieved_rate
+                           / self.per_tenant[t].weight for t in ts])
+
+    def fair_reference(self) -> Dict[int, float]:
+        """Weighted max-min fair allocation of the tenants' offered loads
+        over the enforced capacity — the paper's Fig. 21 target."""
+        demands = {t: r.demand_rate for t, r in self.per_tenant.items()}
+        weights = {t: r.weight for t, r in self.per_tenant.items()}
+        return max_min_fair(self.capacity, demands, weights)
+
+    def max_min_deviation(self) -> float:
+        """Worst relative gap between achieved rate and the max-min fair
+        reference, over tenants with non-trivial fair share."""
+        ref = self.fair_reference()
+        worst = 0.0
+        for t, want in ref.items():
+            if want <= 1e-9:
+                continue
+            worst = max(worst,
+                        abs(self.per_tenant[t].achieved_rate - want) / want)
+        return worst
+
+
+# canonical request shape for the e2e scenarios — the one place the
+# request's token price (prompt + decode) is defined; bench_fairness --e2e
+# and tests derive from these instead of re-hardcoding them
+PROMPT_LEN = 2
+MAX_NEW_TOKENS = 6
+TOKENS_PER_REQUEST = PROMPT_LEN + MAX_NEW_TOKENS
+
+
+class TraceReplayer:
+    """Drives a ServeEngine — or a whole EngineCluster — through a Trace
+    on a virtual clock.
+
+    Args:
+        engine: a live ``ServeEngine`` or ``EngineCluster`` (anything with
+            the engine driving surface: ``B``, ``submit``, ``step``,
+            ``completed``, ``decode_steps``, ``scheduler``,
+            ``controller``). A cluster's ledger facade makes per-tenant
+            counters continuous across live migrations.
+        capacity: the enforced bottleneck in tokens/s (the controller's
+            capacity — cluster-wide when driving a cluster).
+        interval_s: seconds of virtual time per trace interval.
+        prompt_len / max_new_tokens: request shape in tokens.
+        headroom: raw engine throughput as a multiple of ``capacity``; > 1
+            keeps the management plane, not the slots, the binding
+            constraint.
+        weights: per-tenant WFQ weights (dimensionless), default 1.0.
+        watchdog: a fabric watchdog (``repro/obs/slo.py``, not ported
+            yet) to tick on the
+            virtual clock — once before the first interval (the rate
+            baseline) and once at each interval boundary — so every
+            replay doubles as an alert-precision fixture. Its alert
+            activity lands in the report's ``alerts*`` fields.
+    """
+
+    def __init__(self, engine, *, capacity: float,
+                 interval_s: float = 1.0, prompt_len: int = PROMPT_LEN,
+                 max_new_tokens: int = MAX_NEW_TOKENS, headroom: float = 1.5,
+                 weights: Optional[Dict[int, float]] = None,
+                 watchdog=None):
+        self.engine = engine
+        self.watchdog = watchdog
+        self.capacity = float(capacity)
+        self.interval_s = float(interval_s)
+        self.prompt_len = int(prompt_len)
+        self.max_new_tokens = int(max_new_tokens)
+        self.weights = dict(weights or {})
+        self.tokens_per_request = self.prompt_len + self.max_new_tokens
+        # raw engine throughput at full slots is B*(p+n)/n tokens per step;
+        # pick step_dt so that equals headroom * capacity: enforcement binds
+        raw_per_step = engine.B * self.tokens_per_request / self.max_new_tokens
+        self.step_dt = raw_per_step / (headroom * self.capacity)
+        self._req_id = 0
+        self._vt = 0.0
+
+    # ------------------------------------------------------------------
+    def _submit(self, tenant: int, now: float):
+        self._req_id += 1
+        self.engine.submit(Request(
+            tenant_id=tenant, prompt=list(range(1, self.prompt_len + 1)),
+            max_new_tokens=self.max_new_tokens, req_id=self._req_id,
+            arrival=now))
+
+    def run(self, trace: Trace, *, unit: str = "requests",
+            events: Optional[Sequence] = None) -> ReplayReport:
+        """Replay ``trace`` (per-tenant loads per interval). ``unit`` is
+        what a load value means: "requests" (requests/s, the multiplexing
+        vocabulary) or "tokens" (tokens/s, divided by request cost).
+
+        ``events``: optional sequence of ``(interval_index, fn)`` operator
+        actions; ``fn(engine, now)`` runs at the start of that (0-based)
+        interval — how a live migration lands mid-replay."""
+        loads = np.asarray(trace.loads, float)
+        if unit == "tokens":
+            loads = loads / self.tokens_per_request
+        elif unit != "requests":
+            raise ValueError(f"unknown unit {unit!r}")
+        n, T = loads.shape
+        sched: TenantScheduler = self.engine.scheduler
+        for i in range(n):
+            if i not in sched.queues:
+                sched.add_tenant(i, weight=self.weights.get(i, 1.0))
+            else:
+                sched.set_weight(i, self.weights.get(i, 1.0))
+        start_vt = self._vt
+        served0 = {i: sched.served_tokens.get(i, 0) for i in range(n)}
+        admitted0 = {i: sched.admitted_requests.get(i, 0) for i in range(n)}
+        deferred0 = {i: sched.deferred_polls.get(i, 0) for i in range(n)}
+        wait0 = {i: sched.admit_wait_sum.get(i, 0.0) for i in range(n)}
+        completed0 = len(self.engine.completed)
+        ctrl = self.engine.controller
+        calls0 = getattr(ctrl, "push_calls", 0)
+        skip0 = getattr(ctrl, "push_skipped", 0)
+        steps0 = self.engine.decode_steps
+        migrations0 = getattr(self.engine, "migrations_completed", 0)
+        swaps0 = len(getattr(self.engine, "swap_log", ()))
+        ckpt0 = getattr(self.engine, "checkpoints_total", 0)
+        recov0 = getattr(self.engine, "recoveries_total", 0)
+        cl_steps0 = getattr(self.engine, "steps", 0)
+        parked0 = getattr(self.engine, "parked_engine_steps", 0)
+        mem0 = getattr(self.engine, "mem_saved_byte_steps", 0)
+        pilot = getattr(self.engine, "autopilot", None)
+        pilot_moves0 = getattr(pilot, "moves_applied", 0)
+        # window the latency histograms like every other counter: snapshot
+        # per-tenant counts now, diff at the end (engine and cluster both
+        # expose latency() -> {metric: TenantHistograms})
+        lat_fn = getattr(self.engine, "latency", None)
+        lat0: Dict[str, Dict[int, object]] = {}
+        if lat_fn is not None:
+            for mname, th in lat_fn().items():
+                lat0[mname] = {t: h.copy()
+                               for t, h in th.per_tenant.items()}
+
+        ev: Dict[int, list] = {}
+        for idx, fn in (events or ()):
+            if not 0 <= int(idx) < T:
+                # a silently dropped event breaks the scenario's contract
+                # (e.g. "includes a live migration") in confusing ways
+                raise ValueError(f"event interval {idx} out of range for a "
+                                 f"{T}-interval trace")
+            ev.setdefault(int(idx), []).append(fn)
+        wd = self.watchdog
+        alerts0 = len(wd.alerts.history) if wd is not None else 0
+        if wd is not None and (not wd.store.times()
+                               or start_vt > wd.store.times()[-1]):
+            # the pre-traffic baseline scrape: window rates at interval 0
+            # diff against quiet counters instead of an empty store
+            wd.tick(start_vt)
+        frac = np.zeros(n)
+        # per-window peaks of engines asleep / bytes freed (the cluster's
+        # own high-water marks are lifetime; this report is windowed)
+        max_parked = 0
+        max_parked_bytes = 0
+        peak_resident = 0
+        parked_bytes = getattr(self.engine, "parked_bytes", None)
+        resident_bytes = getattr(self.engine, "resident_bytes", None)
+        for t in range(T):
+            for fn in ev.get(t, ()):
+                fn(self.engine, self._vt)
+            interval_end = self._vt + self.interval_s
+            for i in range(n):
+                want = loads[i, t] * self.interval_s + frac[i]
+                k = int(want)
+                frac[i] = want - k
+                for _ in range(k):
+                    self._submit(i, self._vt)
+            while self._vt < interval_end - 1e-9:
+                self.engine.step(now=self._vt)
+                self._vt += self.step_dt
+                max_parked = max(max_parked,
+                                 len(getattr(self.engine, "parked", ())))
+                if parked_bytes is not None:
+                    max_parked_bytes = max(max_parked_bytes,
+                                           parked_bytes())
+                if resident_bytes is not None:
+                    peak_resident = max(peak_resident, resident_bytes())
+            if wd is not None:
+                wd.tick(self._vt)
+
+        duration = self._vt - start_vt
+        completed: Dict[int, int] = {}
+        for req in self.engine.completed[completed0:]:
+            completed[req.tenant_id] = completed.get(req.tenant_id, 0) + 1
+        lat_now = lat_fn() if lat_fn is not None else {}
+
+        def _q(mname: str, tenant: int, q: float) -> float:
+            # NaN, not 0.0, when the window has no samples: a tenant that
+            # never admitted a request has UNKNOWN latency, not a perfect
+            # p99 (renderers show it as '-')
+            th = lat_now.get(mname)
+            h = th.per_tenant.get(tenant) if th is not None else None
+            if h is None:
+                return float("nan")
+            snap = lat0.get(mname, {}).get(tenant)
+            win = h.since(snap) if snap is not None else h
+            return win.quantile(q) if win.total else float("nan")
+
+        per_tenant: Dict[int, TenantReport] = {}
+        for i in range(n):
+            # every counter is windowed to THIS run: repeated run() calls on
+            # one replayer (phased scenarios) must not leak prior pressure
+            served = sched.served_tokens.get(i, 0) - served0[i]
+            adm = sched.admitted_requests.get(i, 0) - admitted0[i]
+            wait = sched.admit_wait_sum.get(i, 0.0) - wait0[i]
+            per_tenant[i] = TenantReport(
+                demand_rate=float(loads[i].mean()) * self.tokens_per_request,
+                achieved_rate=served / duration,
+                served_tokens=float(served),
+                admitted_requests=adm,
+                completed_requests=completed.get(i, 0),
+                deferred_polls=sched.deferred_polls.get(i, 0) - deferred0[i],
+                mean_admit_wait_s=wait / adm if adm else 0.0,
+                weight=self.weights.get(i, 1.0),
+                p50_admit_wait_s=_q("nk_admit_wait_seconds", i, 0.50),
+                p99_admit_wait_s=_q("nk_admit_wait_seconds", i, 0.99),
+                p99_ttft_s=_q("nk_ttft_seconds", i, 0.99),
+                p99_e2e_s=_q("nk_e2e_seconds", i, 0.99),
+            )
+        placement = getattr(self.engine, "placement", None)
+        cl_steps = getattr(self.engine, "steps", 0) - cl_steps0
+        parked_steps = getattr(self.engine, "parked_engine_steps", 0) \
+            - parked0
+        mem_steps = getattr(self.engine, "mem_saved_byte_steps", 0) - mem0
+        return ReplayReport(
+            duration_s=duration, capacity=self.capacity,
+            per_tenant=per_tenant,
+            decode_steps=self.engine.decode_steps - steps0,
+            set_rate_calls=getattr(ctrl, "push_calls", 0) - calls0,
+            push_skipped=getattr(ctrl, "push_skipped", 0) - skip0,
+            engines=len(getattr(self.engine, "engines", ())) or 1,
+            migrations=getattr(self.engine, "migrations_completed", 0)
+            - migrations0,
+            swaps=len(getattr(self.engine, "swap_log", ())) - swaps0,
+            placement=dict(placement) if placement is not None else None,
+            cores_saved=parked_steps / cl_steps if cl_steps else 0.0,
+            max_parked=max_parked,
+            autopilot_moves=getattr(pilot, "moves_applied", 0)
+            - pilot_moves0,
+            mem_saved_bytes=mem_steps / cl_steps if cl_steps else 0.0,
+            max_parked_bytes=max_parked_bytes,
+            peak_resident_cache_bytes=peak_resident,
+            checkpoints=getattr(self.engine, "checkpoints_total", 0) - ckpt0,
+            recoveries=getattr(self.engine, "recoveries_total", 0) - recov0,
+            alerts=(list(wd.alerts.history[alerts0:])
+                    if wd is not None else None),
+            alerts_fired=(len(wd.alerts.history) - alerts0
+                          if wd is not None else 0),
+            alerts_resolved=(sum(1 for a in wd.alerts.history[alerts0:]
+                                 if a.resolved_at is not None)
+                             if wd is not None else 0),
+            alerts_active=len(wd.alerts.active) if wd is not None else 0,
+            watchdog=wd,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Canonical scenarios (the shared vocabulary with bench_fairness/multiplex)
+# ---------------------------------------------------------------------------
+
+
+def make_replay_engine(*, capacity: float, batch_slots: int = 4,
+                       max_seq: int = 32, control_every: int = 4,
+                       push_mode: str = "full", delta_tol: float = 0.05,
+                       model: str = "llama3.2-3b", weights=None,
+                       backend: str = "object", device=None, params=None):
+    """A ServeEngine + WFQ scheduler + attached RateController, wired the
+    way the e2e scenarios expect (charge_prompt pricing, tokens/s
+    bottleneck = ``capacity``). The model is ``model``'s smoke config with
+    fresh seeded weights, or the model ``params`` (a ``Model`` of any
+    width, whose config then wins). ``backend="vectorized"`` selects the
+    array-backed control plane end to end (scheduler buckets, telemetry
+    EWMA banks, the water-fill kernel) — same behavior, flat per-tenant
+    cost. ``device``: ``cuda`` unless ``"cpu"`` is passed."""
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.control.controller import RateController
+    from repro_torch.serve.engine import ServeEngine
+
+    if params is not None and device is None:
+        device = params.device
+    sched = TenantScheduler(policy="wfq", charge_prompt=True,
+                            bucket_backend=backend)
+    ctrl = RateController(capacity, weights=weights, alpha=0.6,
+                          push_mode=push_mode, delta_tol=delta_tol,
+                          backend=backend, device=device)
+    ctrl.attach_scheduler(sched)
+    cfg = params.cfg if params is not None else get_smoke_config(model)
+    return ServeEngine(cfg, RunConfig(attn_q_block=16, attn_kv_block=16),
+                       params, batch_slots=batch_slots, max_seq=max_seq,
+                       scheduler=sched, controller=ctrl,
+                       control_every=control_every, device=device)
+
+
+def make_replay_cluster(**_kw):
+    """N ServeEngines behind one shared RateController: not ported yet."""
+    raise _not_ported("make_replay_cluster", _CLUSTER_ITEM)
+
+
+def make_watchdog(engine, **_kw):
+    """A fabric watchdog over ``engine``'s live metrics: not ported yet."""
+    raise _not_ported("make_watchdog", _WATCH_ITEM)
+
+
+# every name scenario_spec accepts (trace vocabulary + the cluster-only
+# scenarios layered on top of it)
+SCENARIOS = ("steady", "adversarial", "migration", "correlated", "ramp",
+             "bursty", "consolidation", "hotspot", "stack_swap", "failover")
+
+# scenarios that need an EngineCluster (engines >= 2) to mean anything,
+# with the autopilot policy each one runs by default (None = operator-
+# driven: the migration scenario fires a one-shot operator_rebalance
+# event — plan_once(force=True) —, the stack_swap scenario fires two
+# live swap_module events, one per plane, and the failover scenario runs
+# a checkpoint/kill/recover drill — instead)
+CLUSTER_SCENARIOS = {"migration": None, "consolidation": "consolidate",
+                     "hotspot": "spread_hot", "stack_swap": None,
+                     "failover": None}
+
+
+def scenario_spec(name: str, *, n_tenants: int = 4, intervals: int = 20,
+                  capacity: Optional[float] = None, seed: int = 0):
+    """(trace, enforced capacity) for one named scenario — the single
+    source of truth shared by ``replay_scenario``, ``bench_fairness --e2e``
+    and the scenario tests.
+
+    Loads are generated in requests/s by the shared trace vocabulary
+    (``repro_torch.serve.multiplex.TRACES``) and capacities chosen so aggregate
+    demand oversubscribes the bottleneck where the scenario calls for it.
+    """
+    per_req = TOKENS_PER_REQUEST
+    if name == "steady":
+        trace = mx.steady_trace(n_tenants, intervals, rps=3.0)
+        demand = 3.0 * per_req * n_tenants
+        cap = capacity or demand * 0.7            # mild, stable contention
+    elif name in ("adversarial", "migration", "stack_swap", "failover"):
+        # one spec, four drivers: "migration" is the same adversarial
+        # fleet but on a multi-engine cluster, with a mid-window rebalance
+        # (a live migration the Jain/isolation bounds must survive),
+        # "stack_swap" hot-swaps a serve and a bytes stack module
+        # mid-burst, and "failover" kills and restores an engine mid-burst
+        # on a checkpoint cadence — sharing the branch keeps the hog-free
+        # baseline comparable by design
+        trace = mx.adversarial_trace(n_tenants, intervals, base=1.0,
+                                     hog_factor=10.0)
+        cap = capacity or 1.0 * per_req * (n_tenants + 3)
+    elif name == "correlated":
+        trace = mx.correlated_burst_trace(n_tenants, intervals, seed=seed,
+                                          base=1.0, burst=6.0, period=8,
+                                          width=2)
+        cap = capacity or float(trace.loads.sum(axis=0).mean()) * per_req * 0.8
+    elif name == "ramp":
+        trace = mx.ramp_trace(n_tenants, intervals, base=2.0, peak=8.0)
+        cap = capacity or float(trace.loads.sum(axis=0).mean()) * per_req * 0.7
+    elif name == "bursty":
+        trace = mx.bursty_trace(n_tenants, intervals, seed=seed, base=2.0,
+                                burst=8.0)
+        cap = capacity or float(trace.loads.sum(axis=0).mean()) * per_req * 0.7
+    elif name == "consolidation":
+        # busy -> shared idle window -> busy: the closed placement loop
+        # should pack the idle fleet onto one engine and park the rest
+        trace = mx.idle_window_trace(n_tenants, intervals, base=3.0,
+                                     idle_level=0.2)
+        demand = 3.0 * per_req * n_tenants
+        cap = capacity or demand * 0.7            # mild, stable contention
+    elif name == "hotspot":
+        # everyone equal, then one tenant turns 10x mid-run: the autopilot
+        # must detect the heating engine and migrate the hog on its own
+        trace = mx.hotspot_trace(n_tenants, intervals, base=1.0,
+                                 hog_factor=10.0)
+        cap = capacity or 1.0 * per_req * (n_tenants + 3)
+    else:
+        raise KeyError(f"unknown scenario {name!r}; have {SCENARIOS}")
+    return trace, cap
+
+
+# row index of the misbehaver in the adversarial trace (multiplex's default)
+ADVERSARIAL_HOG = -1
+
+
+def adversarial_baseline(trace: Trace) -> Trace:
+    """The adversarial fleet with the misbehaver removed — the hog-free
+    baseline isolation claims compare against. One definition, so the hog
+    row index can never silently diverge between bench and tests."""
+    return Trace(loads=np.delete(trace.loads, ADVERSARIAL_HOG, axis=0))
+
+
+def replay_scenario(name: str, *, n_tenants: int = 4, intervals: int = 20,
+                    capacity: Optional[float] = None, engine=None,
+                    push_mode: str = "full", weights=None,
+                    seed: int = 0, engines: Optional[int] = None,
+                    autopilot=None, core_plane: bool = False,
+                    trace_path=None, watch=None,
+                    backend: str = "object", device=None) -> ReplayReport:
+    """Run one named scenario end-to-end and return the measured report.
+
+    ``engine``: a ready engine to drive (``make_replay_engine`` builds one
+    when None, on ``device``: ``cuda`` unless ``"cpu"`` is passed).
+    ``backend="vectorized"`` runs the whole control plane on the array
+    backend (scheduler bucket store, telemetry EWMA banks, the water-fill
+    kernel); every scenario claim must hold unchanged.
+
+    ``trace_path``: write the run's flight-recorder timeline (Chrome
+    trace-event JSON, loadable in Perfetto) to this path. A recording
+    tracer is installed for the duration of the run and restored after.
+
+    Not ported yet (``NotImplementedError``): the scenarios of
+    ``CLUSTER_SCENARIOS``, ``engines > 1``, ``autopilot``, ``core_plane``
+    and ``watch``.
+    """
+    from repro_torch.obs.tracing import trace_to
+
+    # fail fast, before any engine construction
+    if name in CLUSTER_SCENARIOS:
+        raise _not_ported(f"the {name} scenario (an engine cluster)",
+                          _CLUSTER_ITEM)
+    if (engines is not None and engines > 1) or autopilot is not None \
+            or core_plane:
+        raise _not_ported("engines > 1, autopilot and core_plane",
+                          _CLUSTER_ITEM)
+    if watch:
+        raise _not_ported("watch=", _WATCH_ITEM)
+    trace, cap = scenario_spec(name, n_tenants=n_tenants,
+                               intervals=intervals, capacity=capacity,
+                               seed=seed)
+    eng = engine
+    if eng is None:
+        eng = make_replay_engine(capacity=cap, push_mode=push_mode,
+                                 weights=weights, backend=backend,
+                                 device=device)
+    rep = TraceReplayer(eng, capacity=cap, weights=weights)
+    if trace_path is None:
+        return rep.run(trace)
+    with trace_to() as tr:
+        report = rep.run(trace)
+    tr.write(trace_path)
+    return report

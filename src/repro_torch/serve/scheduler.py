@@ -16,7 +16,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional
 
-from repro_torch.control.telemetry import check_backend
+from repro_torch.control.vectorized import BucketStore, check_backend
 from repro_torch.core.engine import TokenBucket
 from repro_torch.fabric import TenantState
 from repro_torch.obs import tracing
@@ -44,8 +44,12 @@ class TenantScheduler:
         if policy not in ("wfq", "rr"):
             raise ValueError(f"policy must be 'wfq' or 'rr', got {policy!r}")
         self.policy = policy
-        # only the object bucket backend is ported (see check_backend)
+        # bucket_backend="vectorized" keeps every tenant's bucket state in
+        # one BucketStore (flat float64 arrays); self.buckets then holds
+        # StoreBucket views with the identical TokenBucket interface
         self.bucket_backend = check_backend(bucket_backend)
+        self._bucket_store = BucketStore() \
+            if bucket_backend == "vectorized" else None
         # charge_prompt: buckets price a request at prompt + decode tokens
         # instead of decode only, so admission rates, telemetry (which sees
         # served prompt+decode tokens) and controller capacity share one
@@ -79,13 +83,19 @@ class TenantScheduler:
 
     # -- bucket backend ------------------------------------------------------
     def _new_bucket(self, tenant_id: int, rate: float, burst: float):
+        if self._bucket_store is not None:
+            return self._bucket_store.add(tenant_id, rate, burst)
         return TokenBucket(rate, burst)
 
     def _restore_bucket(self, tenant_id: int, snap, now):
+        if self._bucket_store is not None:
+            return self._bucket_store.restore(tenant_id, snap, now)
         return TokenBucket.restore(snap, now)
 
     def _drop_bucket(self, tenant_id: int) -> None:
         self.buckets.pop(tenant_id, None)
+        if self._bucket_store is not None:
+            self._bucket_store.drop(tenant_id)
 
     # -- tenant management -------------------------------------------------
     def add_tenant(self, tenant_id: int, weight: float = 1.0,
@@ -357,6 +367,8 @@ class TenantScheduler:
         self.queues.clear()
         self.weights.clear()
         self.buckets.clear()
+        if self._bucket_store is not None:
+            self._bucket_store = BucketStore()
         self.vtime.clear()
         self.served_tokens.clear()
         self.admitted_requests.clear()

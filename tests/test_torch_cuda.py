@@ -9,18 +9,25 @@ module is collected. On the card:
 This file imports nothing of JAX: the card's machine needs only torch.
 Tolerances: bf16 2e-2 and f32 2e-4 on outputs (the kernel sums in another
 order than the plain version, and rounds p to bf16 per tile rather than
-per row), m 1e-4 and l 1e-4 relative (f32 throughout).
+per row), m 1e-4 and l 1e-4 relative (f32 throughout). The water-fill
+kernel sums its bisection in another order than the plain version: in f64
+the allocations agree within 1e-9 x capacity, in f32 within 1e-3 x
+capacity (a 20k-term f32 sum carries ~1e-4 relative rounding, and the
+level moves with it); two calls on the same input are bit-identical.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import RunConfig, get_smoke_config
+from repro_torch.control.vectorized import VectorizedControlPlane
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.waterfill import water_fill, water_fill_plain
 from repro_torch.models.params import init_params
 from repro_torch.serve import Request, ServeEngine, TenantScheduler
 
@@ -137,3 +144,88 @@ def test_serve_engine_on_card_matches_cpu(cuda):
         cfg.num_layers * eng.decode_steps
     _, on_cpu = serve(torch.device("cpu"))
     assert on_card == on_cpu
+
+
+def _water_case(n, seed, kind="mixed"):
+    """Seeded demands and weights (numpy f64) and a capacity: a mix of
+    satisfiable, large and inf demands, zero demands, and zero or
+    negative weights; or one of the edge cases."""
+    rng = np.random.default_rng(seed)
+    cap = 1000.0
+    d = rng.uniform(0.1, 2.0, n) * cap / n
+    d[rng.random(n) < 0.2] *= 50.0
+    d[rng.random(n) < 0.1] = np.inf
+    d[rng.random(n) < 0.05] = 0.0
+    w = rng.choice([0.5, 1.0, 2.0, 4.0], n)
+    w[rng.random(n) < 0.05] = 0.0
+    w[rng.random(n) < 0.03] = -1.0
+    if kind == "parked":
+        w[:] = 0.0
+    elif kind == "zero_cap":
+        cap = 0.0
+    elif kind == "all_inf":
+        d[:] = np.inf
+        w = np.abs(w) + 0.5
+    return d, w, cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kind,dtype", [
+    (1, "mixed", "float64"), (3, "mixed", "float64"),
+    (257, "mixed", "float64"),                 # not a multiple of 256
+    (1000, "mixed", "float64"), (8192, "mixed", "float64"),   # one block
+    (8193, "mixed", "float64"),                # the first grid launch
+    (100_000, "mixed", "float64"), (1_048_576, "mixed", "float64"),
+    (1_500_000, "mixed", "float64"),           # past the register fit
+    (1000, "parked", "float64"), (100_000, "parked", "float64"),
+    (1000, "zero_cap", "float64"), (100_000, "all_inf", "float64"),
+    (1000, "mixed", "float32"), (20_000, "mixed", "float32"),
+])
+def test_water_fill_kernel_matches_plain_on_card(cuda, n, kind, dtype):
+    d, w, cap = _water_case(n, seed=n, kind=kind)
+    dt = getattr(torch, dtype)
+    dd, ww = (torch.tensor(x, dtype=dt, device=cuda) for x in (d, w))
+    before = water_fill.launches
+    alloc, level = water_fill(dd, ww, cap)
+    again, level2 = water_fill(dd, ww, cap)
+    torch.cuda.synchronize()
+    assert water_fill.launches == before + 2
+    assert torch.equal(alloc, again) and torch.equal(level, level2)
+    want, want_level = water_fill_plain(dd.cpu(), ww.cpu(), cap)
+    tol = (1e-9 if dtype == "float64" else 1e-3) * max(cap, 1.0)
+    assert torch.isfinite(alloc).all()
+    assert (alloc.cpu() - want).abs().max().item() <= tol
+    assert float(alloc.double().sum()) <= cap + tol * n
+    if kind in ("parked", "zero_cap"):
+        assert not alloc.any()
+
+
+@pytest.mark.cuda
+def test_fused_tick_on_card_matches_cpu(cuda):
+    """The same counter trace through a plane on the card and one on the
+    CPU: allocations within 1e-9 relative, NaN positions equal."""
+    n = 5000
+    rng = np.random.default_rng(7)
+    weights = rng.choice([1.0, 2.0, 4.0], n)
+    steps = np.maximum(np.round(rng.uniform(0.2, 2.0, n) * 1e6 / n), 1.0)
+    queue = np.where(rng.random(n) < 0.1, 1.0, 0.0)
+    planes = {dev: VectorizedControlPlane(1e6, min_rate=2.0, device=dev)
+              for dev in (cuda, "cpu")}
+    for plane in planes.values():
+        for t in range(n):
+            plane.add_tenant(t, weight=float(weights[t]))
+    served = np.zeros(n)
+    before = water_fill.launches
+    for k in range(5):
+        served = served + steps
+        out = {dev: plane.tick(served, queue=queue, now=float(k))
+               for dev, plane in planes.items()}
+    assert water_fill.launches == before + 4      # first tick baselines
+    card, cpu = out[cuda], out["cpu"]
+    np.testing.assert_allclose(card, cpu, rtol=1e-9, atol=0.0)
+    for plane in planes.values():
+        plane._sync_host()
+    np.testing.assert_array_equal(np.isnan(planes[cuda].ewma_off),
+                                  np.isnan(planes["cpu"].ewma_off))
+    np.testing.assert_allclose(planes[cuda].level, planes["cpu"].level,
+                               rtol=1e-9, atol=0.0)

@@ -37,12 +37,16 @@ def test_port_imports_without_jax_or_the_reference():
         bad = sorted(k for k in sys.modules
                      if k == "repro" or k.startswith("repro."))
         assert not bad, bad
-        print(len(names))
+        print(" ".join(names))
     """)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 30     # every module was walked
+    names = set(proc.stdout.split())
+    assert len(names) >= 45                  # every module was walked
+    assert {"repro_torch.control.vectorized", "repro_torch.serve.multiplex",
+            "repro_torch.serve.replay",
+            "repro_torch.kernels.waterfill"} <= names
 
 
 def test_port_configs_equal_the_reference():

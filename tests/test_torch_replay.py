@@ -1,0 +1,116 @@
+"""The port's replay harness against the reference's, on the CPU.
+
+The replayer runs on a virtual clock and reads only ledgers, so on the
+object backend the same scenario must give the same counters on both
+packages: per-tenant served tokens, admitted and completed requests,
+deferred polls and decode steps equal, rates within 1e-12 relative (the
+same sums over the same virtual durations). The port's vectorized backend
+runs the water-fill as a bisection and must land within the reference's
+2% of the object backend's per-tenant rates
+(``tests/test_replay.py::test_replay_vectorized_backend_matches_object_end_to_end``).
+"""
+import numpy as np
+import pytest
+
+from repro.serve import multiplex as j_mx
+from repro.serve.replay import adversarial_baseline as j_baseline
+from repro.serve.replay import replay_scenario as j_replay
+from repro.serve.replay import scenario_spec as j_spec
+from repro_torch.serve import multiplex as t_mx
+from repro_torch.serve.replay import (
+    CLUSTER_SCENARIOS, SCENARIOS, adversarial_baseline, make_replay_cluster,
+    make_replay_engine, make_watchdog, replay_scenario, scenario_spec,
+)
+
+LEDGER = ("served_tokens", "admitted_requests", "completed_requests",
+          "deferred_polls")
+
+
+def test_replay_steady_ledgers_equal_the_reference():
+    ref = j_replay("steady", n_tenants=2, intervals=6, backend="object")
+    port = replay_scenario("steady", n_tenants=2, intervals=6,
+                           backend="object", device="cpu")
+    assert port.decode_steps == ref.decode_steps > 0
+    assert port.duration_s == ref.duration_s
+    assert port.set_rate_calls == ref.set_rate_calls
+    assert set(port.per_tenant) == set(ref.per_tenant) == {0, 1}
+    for t, want in ref.per_tenant.items():
+        got = port.per_tenant[t]
+        for field in LEDGER:
+            assert getattr(got, field) == getattr(want, field), (t, field)
+        assert got.achieved_rate == pytest.approx(want.achieved_rate,
+                                                  rel=1e-12)
+        assert got.mean_admit_wait_s == pytest.approx(
+            want.mean_admit_wait_s, rel=1e-12)
+    assert port.jain() == pytest.approx(ref.jain(), rel=1e-12)
+    assert port.max_min_deviation() == pytest.approx(
+        ref.max_min_deviation(), rel=1e-12, abs=1e-15)
+
+
+def test_replay_vectorized_backend_matches_object():
+    obj = replay_scenario("steady", n_tenants=4, intervals=10,
+                          backend="object", device="cpu")
+    vec = replay_scenario("steady", n_tenants=4, intervals=10,
+                          backend="vectorized", device="cpu")
+    assert vec.jain() >= 0.95
+    assert vec.max_min_deviation() < 0.10
+    for t in range(4):
+        a = obj.per_tenant[t].achieved_rate
+        b = vec.per_tenant[t].achieved_rate
+        assert b == pytest.approx(a, rel=0.02), f"tenant {t}: {a} vs {b}"
+
+
+@pytest.mark.parametrize("name", ["steady", "adversarial", "correlated",
+                                  "ramp", "bursty", "migration",
+                                  "consolidation", "hotspot"])
+def test_scenario_specs_and_traces_equal_the_reference(name):
+    t_trace, t_cap = scenario_spec(name, n_tenants=4, intervals=12, seed=1)
+    j_trace, j_cap = j_spec(name, n_tenants=4, intervals=12, seed=1)
+    assert t_cap == j_cap
+    np.testing.assert_array_equal(t_trace.loads, j_trace.loads)
+    if name == "adversarial":
+        np.testing.assert_array_equal(adversarial_baseline(t_trace).loads,
+                                      j_baseline(j_trace).loads)
+
+
+def test_multiplex_accounting_and_fair_replay_equal_the_reference():
+    assert t_mx.paper_table2_analog() == j_mx.paper_table2_analog()
+    trace = t_mx.bursty_trace(6, intervals=30, seed=2)
+    np.testing.assert_array_equal(
+        trace.loads, j_mx.bursty_trace(6, intervals=30, seed=2).loads)
+    weights = {0: 2.0, 3: 0.5}
+    port = t_mx.fair_replay(trace, 60.0, weights, rate_caps={1: 5.0})
+    ref = j_mx.fair_replay(j_mx.Trace(loads=trace.loads.copy()), 60.0,
+                           weights, rate_caps={1: 5.0})
+    assert port.keys() == ref.keys()
+    for k in port:
+        np.testing.assert_array_equal(port[k], ref[k])
+    for xs in ([2.0, 2.0, 2.0], [], [0.0, 0.0], [float("nan"), 3.0],
+               [1.0, 4.0, 9.0]):
+        assert t_mx.jain_index(xs) == j_mx.jain_index(xs)
+
+
+def test_unported_scenarios_and_options_raise():
+    assert set(SCENARIOS) - set(CLUSTER_SCENARIOS) == {
+        "steady", "adversarial", "correlated", "ramp", "bursty"}
+    for name in CLUSTER_SCENARIOS:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            replay_scenario(name, device="cpu")
+    for kw in ({"engines": 3}, {"core_plane": True},
+               {"autopilot": "consolidate"}, {"watch": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            replay_scenario("steady", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_replay_cluster(capacity=10.0)
+    eng = make_replay_engine(capacity=10.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_watchdog(eng)
+
+
+def test_replay_writes_a_trace(tmp_path):
+    path = tmp_path / "steady.json"
+    rep = replay_scenario("steady", n_tenants=2, intervals=2,
+                          device="cpu", trace_path=path)
+    assert rep.decode_steps > 0
+    text = path.read_text()
+    assert '"traceEvents"' in text and "request.admit" in text
