@@ -13,7 +13,8 @@ JSON object per line:
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the paths' shapes, with the tolerance stated; the water-fill
               also against the exact sort-based fill, and twice on the same
-              input (bit-identical);
+              input (bit-identical); the SSD scan at mamba2-370m's width
+              (1, 2 and 16 chunks, a padded last chunk, cumsums to -180);
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -21,7 +22,10 @@ JSON object per line:
 5. profile  — torch.profiler over 4 decode steps with all 8 slots busy and
               over one 512-token prefill: device time by kernel, busy share;
 6. parity   — one prompt's prefill + 4 decode steps through the kernels and
-              through the plain attention, same weights, logits compared;
+              through the plain path, same weights, logits compared;
+   serve, profile and parity then run again on full-width mamba2-370m (the
+   ssm family: every prefill layer through the SSD scan kernel; prefill
+   also timed at 4,096 tokens);
 7. control  — the vectorized control plane's fused tick on the card at
               1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
               counter trace): µs per tick, tenants/s, state bytes; its
@@ -35,7 +39,8 @@ JSON object per line:
 9. timings  — each kernel, its plain version and one PyTorch library call
               where one computes the same function, timed with CUDA events
               beside the least time the card could take (bytes or
-              operations at the H100 SXM datasheet rates).
+              operations at the H100 SXM datasheet rates); the SSD scan at
+              a 512- and a 4,096-token prompt.
 
 Then one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -65,6 +70,13 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 DECODE_TOL = {"bfloat16": {"o": 2e-2, "m": 1e-4, "l": 1e-4},
               "float32": {"o": 2e-4, "m": 1e-4, "l": 1e-4}}
 PARITY_TOL = 2e-2      # max |dlogit| / max |logit| at bf16, full width
+# SSD scan at mamba2-370m's width; f32 within the reference's own bounds
+# (tests/test_kernels.py:82-84), bf16 within 2e-2 of the largest value
+SSD_Q, SSD_H, SSD_P, SSD_N = 256, 32, 64, 128
+SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SSD_TOL_DECAY = 1e-5
+SSM_PREFILL_LENS = (512, 4096)
+SSD_TIMED_CHUNKS = (2, 16)   # a 512- and a 4,096-token prompt
 
 REQUESTS_PER_TENANT = 4
 TENANTS = 3
@@ -161,6 +173,19 @@ def flash_work(b, s, t, hq, kv, d, elem, causal, window):
         pairs += max(hi - lo + 1, 0)
     nbytes = elem * (2 * b * s * hq * d + 2 * b * t * kv * d)
     return nbytes, 4.0 * d * pairs * hq * b
+
+
+def ssd_work(nc, elem):
+    """Bytes (x*dt, B, C in ``elem`` bytes and dA in f32 read once; y in
+    f32, the states and decays written once) and flops (per chunk: C.B^T
+    over the Q(Q+1)/2 causal pairs once, M.x over them per head, the state
+    x^T B per head) of the SSD scan over ``nc`` full-width chunks."""
+    q, h, p, n = SSD_Q, SSD_H, SSD_P, SSD_N
+    pairs = q * (q + 1) // 2
+    nbytes = nc * (q * h * p * elem + q * h * 4 + 2 * q * n * elem
+                   + q * h * p * 4 + h * p * n * 4 + h * 4)
+    flops = nc * (2.0 * pairs * n + h * 2.0 * pairs * p + h * 2.0 * q * p * n)
+    return nbytes, flops
 
 
 def decode_work(pos, t, hq, kv, d, q_elem, kv_elem):
@@ -299,6 +324,83 @@ def phase_water_fill(torch, device):
     return worst
 
 
+def ssd_inputs(torch, gen, device, nc, dtype, *, dt_scale=1.0,
+               pad_rows=0):
+    """Model-like SSD inputs for one sequence of ``nc`` chunks: dt =
+    softplus(N(0,1)) (about 0.7) times ``dt_scale``, dA = -dt (A = -1, the
+    reference's init), x*dt with x ~ N(0, 0.25), B and C ~ N(0, 0.25). At
+    ``dt_scale`` 1 the cumsum reaches about -180 in a 256-token chunk. The
+    last ``pad_rows`` rows of the last chunk are zero x*dt and dA, as
+    ``ssd_chunked`` pads a prompt."""
+    Q, H, P, N = SSD_Q, SSD_H, SSD_P, SSD_N
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    dt = torch.nn.functional.softplus(randn(1, nc, Q, H)) * dt_scale
+    xdt = randn(1, nc, Q, H, P) * 0.5 * dt[..., None]
+    dA = -dt
+    if pad_rows:
+        xdt[:, -1, Q - pad_rows:] = 0.0
+        dA[:, -1, Q - pad_rows:] = 0.0
+    B, C = (randn(1, nc, Q, N) * 0.5 for _ in range(2))
+    dt_ = getattr(torch, dtype)
+    return xdt.to(dt_), dA, B.to(dt_), C.to(dt_)
+
+
+def phase_ssd(torch, device):
+    """The SSD scan kernel against its plain version at full width (Q 256,
+    H 32, P 64, N 128): bf16 at 1, 2 and 16 chunks (the second with a
+    padded last chunk, one with dt scaled down so the decay reaches across
+    the chunk), f32 at 2 chunks. Returns the worst |kernel - plain| of y."""
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunk_scan, ssd_chunk_scan_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    cases = [(1, "bfloat16", 1.0, 0), (2, "bfloat16", 1.0, 56),
+             (16, "bfloat16", 1.0, 0), (2, "bfloat16", 0.01, 0),
+             (2, "float32", 1.0, 56)]
+    worst = 0.0
+    for nc, dt, dt_scale, pad in cases:
+        xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, dt,
+                                   dt_scale=dt_scale, pad_rows=pad)
+        y, st, dec = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        ry, rst, rdec = ssd_chunk_scan_plain(xdt, dA, B, C,
+                                             out_dtype=torch.float32)
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, st, dec))
+        e_y = (y - ry).abs().max().item()
+        e_st = (st - rst).abs().max().item()
+        e_dec = (dec - rdec).abs().max().item()
+        cs_min = torch.cumsum(dA[0].float(), dim=1).min().item()
+        if dt == "float32":    # the reference's own bounds, abs + rel
+            tol = SSD_TOL["float32"]
+            ok = all(bool(((a - b).abs() <= tol * (1 + b.abs())).all())
+                     for a, b in ((y, ry), (st, rst)))
+            ok = ok and bool(((dec - rdec).abs()
+                              <= SSD_TOL_DECAY * (1 + rdec.abs())).all())
+            bound = {"y": tol, "states": tol, "decay": SSD_TOL_DECAY}
+        else:                  # relative to the largest value
+            tol = SSD_TOL["bfloat16"]
+            bound = {"y": tol * ry.abs().max().item(),
+                     "states": tol * rst.abs().max().item(),
+                     "decay": SSD_TOL_DECAY}
+            ok = e_y <= bound["y"] and e_st <= bound["states"] and \
+                e_dec <= bound["decay"]
+        ok = ok and finite
+        emit({"phase": "kernels", "kernel": "ssd_chunk_scan", "nc": nc,
+              "Q": SSD_Q, "H": SSD_H, "P": SSD_P, "N": SSD_N, "dtype": dt,
+              "dt_scale": dt_scale, "padded_rows": pad, "min_cumsum": cs_min,
+              "max_abs_err_y": e_y, "max_abs_err_states": e_st,
+              "max_abs_err_decay": e_dec, "tol": bound,
+              "tol_rule": "f32: |d| <= tol * (1 + |plain|); bf16: |d| <= "
+                          "tol * max |plain|", "finite": finite, "ok": ok})
+        if not ok:
+            raise AssertionError(f"ssd_chunk_scan nc={nc} {dt}: y {e_y}, "
+                                 f"states {e_st}, decay {e_dec} against "
+                                 f"{bound}, finite {finite}")
+        worst = max(worst, e_y)
+    return worst
+
+
 def make_requests(cfg, request_cls):
     import random
     rng = random.Random(SEED)
@@ -313,13 +415,17 @@ def make_requests(cfg, request_cls):
     return reqs
 
 
-def phase_serve(torch, device, cfg, layers: int):
+def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
+                decode_kernels, prefill_lens=(PROMPT_RANGE[1],)):
+    """Serve 3 tenants x 4 requests until drained. ``prefill_kernels`` and
+    ``decode_kernels`` map a kernel's name to its wrapper: each must have
+    launched once per layer per admission (prefill) or per decode step.
+    Returns the engine and the launch counts of this run."""
     from repro_torch.configs import RunConfig
     from repro_torch.control import RateController
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import forward_prefill
     from repro_torch.serve import Request, ServeEngine, TenantScheduler
+    kernels = {**prefill_kernels, **decode_kernels}
 
     t0 = time.perf_counter()
     sched = TenantScheduler(policy="wfq", charge_prompt=True)
@@ -334,8 +440,8 @@ def phase_serve(torch, device, cfg, layers: int):
     reqs = make_requests(cfg, Request)
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     t_run = time.perf_counter()
     for r in reqs:
         r.arrival = time.monotonic()
@@ -353,8 +459,7 @@ def phase_serve(torch, device, cfg, layers: int):
         if steps > 10000:
             raise AssertionError("engine did not drain")
     run_s = time.perf_counter() - t_run
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
 
     done = eng.completed
     assert len(done) == len(reqs), f"{len(done)} of {len(reqs)} completed"
@@ -369,22 +474,29 @@ def phase_serve(torch, device, cfg, layers: int):
         ledger[tenant] = {"served_tokens": served, "ground_truth": billed,
                           "requests_truth": truth}
         assert served == billed == truth, ledger
-    assert launches["flash_attention"] == layers * eng.admissions, \
-        (launches, eng.admissions)
-    assert launches["decode_attention"] == layers * eng.decode_steps, \
-        (launches, eng.decode_steps)
+    for name in prefill_kernels:
+        assert launches[name] == layers * eng.admissions, \
+            (name, launches, eng.admissions)
+    for name in decode_kernels:
+        assert launches[name] == layers * eng.decode_steps, \
+            (name, launches, eng.decode_steps)
     peak = torch.cuda.max_memory_allocated()
 
-    # prefill time per request at the longest prompt length drawn
-    prompt = torch.tensor([reqs[0].prompt[:1] * PROMPT_RANGE[1]],
-                          dtype=torch.int32, device=device)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        ts = time.perf_counter()
-        forward_prefill(eng.params, prompt, eng.rcfg, max_seq=eng.max_seq)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - ts)
+    # prefill time per request: the longest prompt length drawn, and any
+    # longer lengths asked for (a cache of max(n, max_seq) positions)
+    prefill_ms = {}
+    for n in prefill_lens:
+        prompt = torch.tensor([reqs[0].prompt[:1] * n], dtype=torch.int32,
+                              device=device)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            forward_prefill(eng.params, prompt, eng.rcfg,
+                            max_seq=max(n, eng.max_seq))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - ts)
+        prefill_ms[f"prefill_ms_{n}"] = statistics.median(times) * 1e3
     dec_tokens = sum(n for _, n in decode_only)
     dec_s = sum(t for t, _ in decode_only)
     out = {"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
@@ -397,7 +509,7 @@ def phase_serve(torch, device, cfg, layers: int):
            "decode_tok_s": dec_tokens / dec_s if dec_s else None,
            "step_ms_median": (statistics.median(t for t, _ in decode_only)
                               * 1e3 if decode_only else None),
-           "prefill_ms_512": statistics.median(times) * 1e3,
+           **prefill_ms,
            "slot_utilization": eng.slot_utilization(),
            "max_memory_allocated": peak, "ok": True}
     emit(out)
@@ -466,52 +578,165 @@ def phase_profile(torch, device, eng):
     prefill = _profile(torch, lambda: forward_prefill(
         eng.params, prompt, eng.rcfg, max_seq=eng.max_seq))
     eng.run_until_drained()
-    emit({"phase": "profile", "decode_4_steps_B8": decode,
+    emit({"phase": "profile", "model": eng.cfg.name,
+          "decode_4_steps_B8": decode,
           f"prefill_S{PROMPT_RANGE[1]}": prefill})
 
 
-def phase_parity(torch, device, eng):
-    from repro_torch.configs import RunConfig
+def parity_logits(torch, device, params, max_seq: int, paths, tokens=None):
+    """One 300-token prompt's prefill + 4 decode steps of ``params`` on each
+    of ``paths`` (name -> RunConfig), each into a cache made by
+    ``init_cache`` (per-leaf dtypes: an SSM state is f32). Teacher-forced:
+    every path decodes ``tokens``, by default the first path's greedy
+    tokens. Returns (name -> the 5 logit rows in f32, the 4 tokens)."""
     from repro_torch.models import forward_decode, forward_prefill, \
         init_cache
-    cfg = eng.cfg
-    kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
+    cfg = params.cfg
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size, (1, 300), generator=gen,
                            device=device, dtype=torch.int64).int()
     runs = {}
-    for name, rc in (("kernel", kernel), ("plain", plain)):
-        logits, c1 = forward_prefill(eng.params, prompt, rc,
-                                     max_seq=eng.max_seq)
+    for name, rc in paths.items():
+        logits, c1 = forward_prefill(params, prompt, rc, max_seq=max_seq)
         runs[name] = {"logits": [logits.float()],
-                      "cache": init_cache(cfg, 1, eng.max_seq,
-                                          device=device)}
+                      "cache": init_cache(cfg, 1, max_seq, device=device)}
         for big, one in zip(runs[name]["cache"], c1):
             for k in big:
                 big[k].copy_(one[k])
-    # teacher-forced: both paths decode the kernel path's greedy tokens
-    tok = int(runs["kernel"]["logits"][0].argmax())
+    first = next(iter(paths))
+    forced = list(tokens) if tokens is not None else []
+    tok = forced[0] if forced else int(runs[first]["logits"][0].argmax())
+    used = []
     for step in range(4):
+        used.append(tok)
         pos = torch.tensor([prompt.shape[1] + step], dtype=torch.int32,
                            device=device)
         tokens = torch.tensor([[tok]], dtype=torch.int32, device=device)
-        for name, rc in (("kernel", kernel), ("plain", plain)):
-            lg, _ = forward_decode(eng.params, runs[name]["cache"], tokens,
-                                   pos, rc)
+        for name, rc in paths.items():
+            lg, _ = forward_decode(params, runs[name]["cache"], tokens, pos,
+                                   rc)
             runs[name]["logits"].append(lg.float())
-        tok = int(runs["kernel"]["logits"][-1].argmax())
-    rel, agree = [], 0
-    for a, b in zip(runs["kernel"]["logits"], runs["plain"]["logits"]):
-        rel.append(((a - b).abs().max() / b.abs().max()).item())
-        agree += int(a.argmax() == b.argmax())
+        tok = forced[step + 1] if step + 1 < len(forced) else \
+            int(runs[first]["logits"][-1].argmax())
+    return {name: run["logits"] for name, run in runs.items()}, used
+
+
+def logit_gap(a, b):
+    """Per step max |a - b| / max |b|, and the share of steps whose argmax
+    agrees."""
+    rel = [((x - y).abs().max() / y.abs().max()).item()
+           for x, y in zip(a, b)]
+    agree = sum(int(x.argmax() == y.argmax()) for x, y in zip(a, b))
+    return rel, agree / len(rel)
+
+
+def phase_parity(torch, device, eng):
+    """The kernel path against the plain path (``attention_impl="naive"``),
+    same weights, logits compared within ``PARITY_TOL``."""
+    from repro_torch.configs import RunConfig
+    runs, _ = parity_logits(torch, device, eng.params, eng.max_seq,
+                            {"kernel": RunConfig(),
+                             "plain": RunConfig(attention_impl="naive")})
+    rel, agree = logit_gap(runs["kernel"], runs["plain"])
     worst = max(rel)
-    out = {"phase": "parity", "prompt": int(prompt.shape[1]),
+    out = {"phase": "parity", "model": eng.cfg.name, "prompt": 300,
            "decode_steps": 4, "max_rel_logit_err": worst,
            "per_step_rel_err": rel, "tol": PARITY_TOL,
-           "argmax_agree_share": agree / len(rel), "ok": worst <= PARITY_TOL}
+           "argmax_agree_share": agree, "ok": worst <= PARITY_TOL}
     emit(out)
     if worst > PARITY_TOL:
         raise AssertionError(f"kernel path vs plain: {worst} > {PARITY_TOL}")
+
+
+def phase_parity_ssm(torch, device, eng):
+    """The SSM model's kernel path against its plain path, three ways:
+
+    * bf16, per layer: every SSD scan launch of the prefill is held against
+      the plain scan on the same inputs (y and states within
+      ``SSD_TOL["bfloat16"]`` of their largest value, decay within
+      ``SSD_TOL_DECAY``), all 48 layers;
+    * f32, end to end: the same weights widened to f32, logits within
+      ``PARITY_TOL``;
+    * bf16, end to end: reported with the model's own bf16 noise floor
+      (the plain path against itself with every scan's y nudged by 1e-6
+      relative, and against the f32 plain path, all decoding the same
+      tokens); not asserted, since a random-weight 48-layer bf16 model
+      turns any perturbation into logit gaps of that floor's size."""
+    import dataclasses
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_plain
+    from repro_torch.models import Model
+    from repro_torch.models import ssm as ssm_mod
+    cfg = eng.cfg
+    kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
+    scan = ssm_mod.ssd_chunk_scan
+    scan_plain = ssm_mod.ssd_chunk_scan_plain
+    layer_err = {"y": 0.0, "states": 0.0, "decay": 0.0}
+    checked = 0
+
+    def scan_checked(xdt, dA, B, C, *, out_dtype=None):
+        nonlocal checked
+        out = scan(xdt, dA, B, C, out_dtype=out_dtype)
+        want = ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=out_dtype)
+        for key, a, b in zip(("y", "states"), out, want):
+            layer_err[key] = max(layer_err[key], (
+                (a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item())
+        layer_err["decay"] = max(layer_err["decay"],
+                                 (out[2] - want[2]).abs().max().item())
+        checked += 1
+        return out
+
+    def scan_nudged(*args, **kw):
+        y, st, dec = scan_plain(*args, **kw)
+        return y * (1 + 1e-6), st, dec
+
+    ssm_mod.ssd_chunk_scan = scan_checked
+    try:
+        bf16, tokens = parity_logits(torch, device, eng.params, eng.max_seq,
+                                     {"kernel": kernel, "plain": plain})
+    finally:
+        ssm_mod.ssd_chunk_scan = scan
+    ssm_mod.ssd_chunk_scan_plain = scan_nudged
+    try:
+        nudged = parity_logits(torch, device, eng.params, eng.max_seq,
+                               {"plain": plain}, tokens)[0]["plain"]
+    finally:
+        ssm_mod.ssd_chunk_scan_plain = scan_plain
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    m32 = Model(cfg32, device=device)
+    m32.load_state_dict(eng.params.state_dict())     # widened, exactly
+    f32, _ = parity_logits(torch, device, m32, eng.max_seq,
+                           {"kernel": kernel, "plain": plain}, tokens)
+    del m32
+    rel32, agree32 = logit_gap(f32["kernel"], f32["plain"])
+    rel16, agree16 = logit_gap(bf16["kernel"], bf16["plain"])
+    floor_nudge, _ = logit_gap(nudged, bf16["plain"])
+    floor_f32, _ = logit_gap(bf16["plain"], f32["plain"])
+    checks = {
+        "bf16_scan_per_layer": checked >= cfg.num_layers
+        and layer_err["y"] <= SSD_TOL["bfloat16"]
+        and layer_err["states"] <= SSD_TOL["bfloat16"]
+        and layer_err["decay"] <= SSD_TOL_DECAY,
+        "f32_end_to_end": max(rel32) <= PARITY_TOL}
+    emit({"phase": "parity", "model": cfg.name, "prompt": 300,
+          "decode_steps": 4,
+          "bf16_scan_per_layer": {"launches_checked": checked,
+                                  "max_rel_err": layer_err,
+                                  "tol": {"y": SSD_TOL["bfloat16"],
+                                          "states": SSD_TOL["bfloat16"],
+                                          "decay": SSD_TOL_DECAY}},
+          "f32_max_rel_logit_err": max(rel32),
+          "f32_per_step_rel_err": rel32, "f32_argmax_agree_share": agree32,
+          "tol": PARITY_TOL,
+          "bf16_max_rel_logit_err_not_asserted": max(rel16),
+          "bf16_per_step_rel_err": rel16, "bf16_argmax_agree_share": agree16,
+          "bf16_floor_plain_vs_plain_y_nudged_1e-6": max(floor_nudge),
+          "bf16_floor_plain_vs_f32_plain": max(floor_f32),
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} parity: {checks}, per-layer "
+                             f"{layer_err}, f32 {max(rel32)}")
 
 
 def control_trace(np, n: int, seed: int = 0):
@@ -884,6 +1109,25 @@ def phase_timings(torch, device, smi: str):
                "bytes": nbytes, "flops": flops, "gpu": smi}
         emit(row)
         rows[("water_fill", n)] = row
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunk_scan, ssd_chunk_scan_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    for nc in SSD_TIMED_CHUNKS:
+        xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, "bfloat16")
+        nbytes, flops = ssd_work(nc, 2)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "ssd_chunk_scan", "nb": 1,
+               "nc": nc, "tokens": nc * SSD_Q, "Q": SSD_Q, "H": SSD_H,
+               "P": SSD_P, "N": SSD_N, "dtype": "bfloat16",
+               "out_dtype": "float32",
+               "ms": timer.ms(lambda: ssd_chunk_scan(
+                   xdt, dA, B, C, out_dtype=torch.float32)),
+               "plain_ms": timer.ms(lambda: ssd_chunk_scan_plain(
+                   xdt, dA, B, C, out_dtype=torch.float32)),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("ssd_chunk_scan", nc)] = row
     return rows
 
 
@@ -928,12 +1172,32 @@ def main() -> int:
 
     errs = phase_kernels(torch, device)
     errs["water_fill"] = phase_water_fill(torch, device)
+    errs["ssd_chunk_scan"] = phase_ssd(torch, device)
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
     cfg = get_config("llama3.2-3b")
-    eng, launches = phase_serve(torch, device, cfg, cfg.num_layers)
+    eng, launches = phase_serve(
+        torch, device, cfg, cfg.num_layers,
+        {"flash_attention": flash_attention},
+        {"decode_attention": decode_attention})
     phase_profile(torch, device, eng)
     phase_parity(torch, device, eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the ssm family: full-width mamba2-370m, its prefill through the SSD
+    # scan kernel, its decode an O(1) state update in plain torch
+    ssm_cfg = get_config("mamba2-370m")
+    eng, ssm_launches = phase_serve(
+        torch, device, ssm_cfg, ssm_cfg.num_layers,
+        {"ssd_chunk_scan": ssd_chunk_scan}, {},
+        prefill_lens=SSM_PREFILL_LENS)
+    launches.update(ssm_launches)
+    phase_profile(torch, device, eng)
+    phase_parity_ssm(torch, device, eng)
     del eng
     torch.cuda.empty_cache()
 
@@ -948,6 +1212,7 @@ def main() -> int:
     flash = rows[("flash_attention", 509)]
     dec = rows[("decode_attention", "mixed")]
     water = rows[("water_fill", CONTROL_N[-1])]
+    ssd = rows[("ssd_chunk_scan", SSD_TIMED_CHUNKS[0])]
     summary = []
     for name, row, src, replaces in (
             ("flash_attention", flash,
@@ -958,7 +1223,10 @@ def main() -> int:
              "src/repro/kernels/decode_attention.py:64"),
             ("water_fill", water,
              "src/repro_torch/kernels/csrc/waterfill.cu",
-             "src/repro/kernels/waterfill.py:55")):
+             "src/repro/kernels/waterfill.py:55"),
+            ("ssd_chunk_scan", ssd,
+             "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:47")):
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

@@ -43,6 +43,7 @@ SIGNATURES = {
     "nk_flash_attention": [_P, _P, _P, _P] + [_I] * 10 + [_F, _I, _P],
     "nk_decode_attention": [_P] * 10 + [_I] * 11 + [_F, _I, _P],
     "nk_water_fill": [_P] * 6 + [_L, _I, _L, _I, _I, _P],
+    "nk_ssd_chunk_scan": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

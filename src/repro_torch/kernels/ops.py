@@ -1,10 +1,11 @@
 """Public wrappers for the ported kernels, in the reference's layouts.
 
 The counterpart of ``repro/kernels/ops.py``: the same signatures and
-``(B, H, S, d)`` / ``(B, H, d)`` / ``(n,)`` layouts, with ``impl="ref"``
-running the oracle and ``impl="kernel"`` the hand-written kernel (on CPU
-tensors, its plain version). Model and control code call the kernels
-directly; these wrappers are the kernel-level test surface.
+``(B, H, S, d)`` / ``(B, H, d)`` / ``(nb, nc, Q, H, P)`` / ``(n,)`` layouts,
+with ``impl="ref"`` running the oracle and ``impl="kernel"`` the
+hand-written kernel (on CPU tensors, its plain version). Model and control
+code call the kernels directly; these wrappers are the kernel-level test
+surface.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 from repro_torch.kernels.waterfill import water_fill as _water_fill
 
 IMPLS = ("ref", "kernel")
@@ -41,6 +43,17 @@ def decode_step_attention(q, k, v, pos, *, impl="kernel"):
         return ref.decode_attention_ref(q, k, v, pos)
     return decode_attention(q, k.contiguous(), v.contiguous(),
                             pos.to(dtype=torch.int32))
+
+
+def ssd_intra_chunk(xdt, dA, B, C, *, impl="kernel"):
+    """(nb, nc, Q, H, P) SSD intra-chunk. Returns (y, states, decay)."""
+    if _impl(impl) == "ref":
+        outs = [[ref.ssd_chunk_ref(xdt[i, j], dA[i, j], B[i, j], C[i, j])
+                 for j in range(xdt.shape[1])] for i in range(xdt.shape[0])]
+        return tuple(torch.stack([torch.stack([o[k] for o in row])
+                                  for row in outs]) for k in range(3))
+    return ssd_chunk_scan(xdt.contiguous(), dA, B.contiguous(),
+                          C.contiguous())
 
 
 def water_fill(demands, weights, capacity, *, impl="kernel", iters=48):

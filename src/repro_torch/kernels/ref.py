@@ -3,7 +3,7 @@
 Each ``*_ref`` mirrors its counterpart in ``repro/kernels/ref.py`` with the
 same signature and layouts, so a test can hold the port's kernels and the
 reference's against one oracle. The oracles of the kernels still to be
-ported (SSD scan, int8 codec) come with those kernels.
+ported (the int8 codec) come with those kernels.
 
 ``water_fill_plain``, the water-fill kernel's own function in plain
 PyTorch (the fixed-iteration bisection), lives beside the kernel in
@@ -50,6 +50,27 @@ def decode_attention_ref(q, k, v, pos, *, scale=None):
     l = p.sum(dim=-1)
     o = torch.einsum("bht,bthd->bhd", p, v.float())
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype), m, l
+
+
+def ssd_chunk_ref(xdt, dA, B, C):
+    """One SSD chunk (intra-chunk quadratic part + chunk state).
+
+    xdt: (Q,H,P) = x*dt; dA: (Q,H); B, C: (Q,N).
+    Returns (y_diag (Q,H,P), state (H,P,N), chunk_decay (H,)).
+    """
+    q = xdt.shape[0]
+    cs = torch.cumsum(dA.float(), dim=0)                      # (Q,H)
+    diff = cs[:, None, :] - cs[None, :, :]                    # (Q,Q,H)
+    ii = torch.arange(q, device=xdt.device)
+    L = torch.where((ii[:, None] >= ii[None, :])[..., None],
+                    torch.exp(diff), 0.0)                     # (Q,Q,H)
+    G = torch.einsum("ln,sn->ls", C.float(), B.float())       # (Q,Q)
+    M = G[..., None] * L
+    y = torch.einsum("lsh,shp->lhp", M, xdt.float())
+    decay_state = torch.exp(cs[-1][None, :] - cs)             # (Q,H)
+    state = torch.einsum("sn,sh,shp->hpn", B.float(), decay_state,
+                         xdt.float())
+    return y.to(xdt.dtype), state, torch.exp(cs[-1])
 
 
 def water_fill_ref(demands, weights, capacity):

@@ -1,9 +1,10 @@
-"""Block composition; this slice ports the ``dense`` kind.
+"""Block composition; the port has the ``dense`` and ``ssm`` kinds.
 
 The counterpart of ``repro/models/blocks.py``: ``dense`` is a pre-norm
 attention half plus a pre-norm MLP half (llama, internlm2, granite,
-nemotron, chameleon). The other kinds (moe, dense_prefix, ssm, hybrid,
-enc, dec) come with their families.
+nemotron, chameleon); ``ssm`` is a pre-norm Mamba-2 block and no FFN half
+(mamba2). The other kinds (moe, dense_prefix, hybrid, enc, dec) come with
+their families.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from repro_torch.models.attention import attn_schema, gqa_attention
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_schema, \
     norm_schema
 from repro_torch.models.schema import ParamDesc
+from repro_torch.models.ssm import ssm_block, ssm_cache_schema, ssm_schema
 
-KINDS = ("dense",)
+KINDS = ("dense", "ssm")
 
 
 def check_kind(kind: str) -> str:
@@ -31,6 +33,8 @@ def check_kind(kind: str) -> str:
 def block_schema(cfg: ModelConfig, kind: str) -> Dict:
     check_kind(kind)
     d, nk, pd = cfg.d_model, cfg.norm, cfg.param_dtype
+    if kind == "ssm":
+        return {"ln1": norm_schema(d, nk, pd), "ssm": ssm_schema(cfg)}
     if cfg.mla is not None:
         raise NotImplementedError(
             "MLA attention is not ported yet (ROADMAP: other model "
@@ -45,6 +49,8 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
     """Cache descriptors for one layer of this kind. ``seq`` = max
     positions; window layers keep a ring buffer of ``window`` slots."""
     check_kind(kind)
+    if kind == "ssm":
+        return ssm_cache_schema(cfg, batch, dtype)
     n = min(seq, window) if window else seq
     shape = (batch, n, cfg.num_kv_heads, cfg.head_dim)
     return {"k": ParamDesc(shape, dtype, "zeros"),
@@ -55,21 +61,26 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                 positions=None, window: int = 0,
                 cache: Optional[Dict] = None, decode_pos=None,
                 mode: str = "prefill") -> Tuple[torch.Tensor, Dict]:
-    """One layer. ``mode`` is "prefill" (returns the layer's new k/v) or
-    "decode" (writes the new token into ``cache`` in place and returns
-    it). Returns (x', cache)."""
+    """One layer. ``mode`` is "prefill" (returns the layer's new cache: k/v,
+    or the SSM state and conv tails) or "decode" (writes the new token's
+    k/v, or the new SSM state and conv tails, into ``cache`` in place and
+    returns it). Returns (x', cache)."""
     check_kind(kind)
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     h = apply_norm(p["ln1"], x, cfg.norm)
+    if kind == "ssm":
+        y, new_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
+                                 decode=mode == "decode")
+        return x + y, new_cache
     if mode == "decode":
         a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
                                      positions=positions, window=window,
                                      cache=cache, decode_pos=decode_pos)
-    elif mode == "prefill":
+    else:
         a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
                                      positions=positions, window=window,
                                      return_cache=True)
-    else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm)
     return x + apply_mlp(p["mlp"], h, cfg.activation), new_cache

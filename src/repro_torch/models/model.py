@@ -4,11 +4,15 @@ The counterpart of ``repro/models/model.py``. A model is a list of
 segments, each ``count`` layers of one block kind; where the reference
 stacks a segment's parameters over its layers and scans them, the port
 keeps one ``nn.Module`` per layer and loops. Caches keep the reference's
-layout: a tuple with one dict per segment, each leaf ``(L, B, max_seq, KV,
-hd)``. This slice ports the ``dense`` family; asking for any other raises.
+layout: a tuple with one dict per segment, each leaf stacked over the
+segment's layers in its own dtype: attention k/v ``(L, B, max_seq, KV, hd)``
+in the cache dtype, an SSM layer's ``state`` ``(L, B, H, P, N)`` in f32 and
+its ``conv_*`` tails ``(L, B, W-1, C)`` in the cache dtype. The port has the
+``dense`` and ``ssm`` families; asking for any other raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -23,7 +27,10 @@ from repro_torch.models.layers import apply_norm, embed_schema, \
     embed_tokens, lm_logits, norm_schema
 from repro_torch.models.schema import ParamTree
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "ssm")
+# cache leaves laid out along the sequence (padded to max_seq at prefill);
+# the others (SSM state, conv tails) are per-sequence and pass through
+SEQ_LEAVES = ("k", "v")
 
 
 @dataclass(frozen=True)
@@ -44,6 +51,8 @@ def check_family(cfg: ModelConfig) -> ModelConfig:
 
 def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
     check_family(cfg)
+    if cfg.family == "ssm":
+        return (Segment("ssm", cfg.num_layers),)
     return (Segment("dense", cfg.num_layers),)
 
 
@@ -82,13 +91,14 @@ class Model(nn.Module):
 
 def cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
                  dtype: str = "bfloat16") -> Tuple:
-    """One dict per segment; each leaf stacked over the segment's layers."""
-    out = []
-    for seg in build_schedule(cfg):
-        sch = block_cache_schema(cfg, seg.kind, batch, max_seq, seg.window,
-                                 dtype)
-        out.append({k: (seg.count,) + d.shape for k, d in sch.items()})
-    return tuple(out)
+    """One dict of ``ParamDesc`` per segment; each leaf stacked over the
+    segment's layers and in its own dtype (``dtype`` for k/v and conv
+    tails, f32 for an SSM state)."""
+    return tuple(
+        {k: dataclasses.replace(d, shape=(seg.count,) + d.shape)
+         for k, d in block_cache_schema(cfg, seg.kind, batch, max_seq,
+                                        seg.window, dtype).items()}
+        for seg in build_schedule(cfg))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -96,8 +106,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     """A zeroed decode cache for ``batch`` slots of ``max_seq`` tokens."""
     dev = resolve_device(device)
     return tuple(
-        {k: torch.zeros(shape, dtype=dtype_of(dtype), device=dev)
-         for k, shape in seg.items()}
+        {k: torch.zeros(d.shape, dtype=dtype_of(d.dtype), device=dev)
+         for k, d in seg.items()}
         for seg in cache_schema(cfg, batch, max_seq, dtype))
 
 
@@ -111,16 +121,35 @@ def cache_nbytes(caches: Tuple) -> int:
 # ---------------------------------------------------------------------------
 
 
+def check_prompt(cfg: ModelConfig, s: int, max_seq: int) -> None:
+    """Raise ValueError for a prompt of ``s`` tokens that a prefill cannot
+    serve: longer than the cache, or, with SSM layers, shorter than
+    ``conv_width - 1``, the conv tails decode streams from (the reference
+    fails on such a prompt at its slot install: ROADMAP R5)."""
+    if s > max_seq:
+        raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
+    if cfg.ssm is not None and s < cfg.ssm.conv_width - 1:
+        raise ValueError(
+            f"{cfg.name}: prompt of {s} tokens is shorter than conv_width - "
+            f"1 = {cfg.ssm.conv_width - 1}, the conv tails an SSM layer "
+            f"decodes from")
+
+
 def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
                             max_seq: int) -> Dict:
-    """Stack one segment's per-layer prefill k/v to (L, B, max_seq, KV, hd),
-    zero-padded past the prompt's ``s`` positions (the decode layout)."""
+    """Stack one segment's per-layer prefill caches over its layers: k/v to
+    (L, B, max_seq, KV, hd), zero-padded past the prompt's ``s`` positions
+    (the decode layout); per-sequence leaves (SSM state, conv tails) as
+    they are."""
     if seg.window and seg.window < max_seq:
         raise NotImplementedError(
             "ring-buffer window caches are not ported yet (ROADMAP: ring "
             "kv_pos decode)")
     out = {}
     for key in layer_caches[0]:
+        if key not in SEQ_LEAVES:
+            out[key] = torch.stack([c[key] for c in layer_caches])
+            continue
         first = layer_caches[0][key]
         full = first.new_zeros((len(layer_caches), first.shape[0], max_seq)
                                + tuple(first.shape[2:]))
@@ -134,12 +163,11 @@ def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
 def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
                     max_seq: int):
     """Full-sequence prefill. tokens: (B, S) int. Returns (last_logits
-    (B, V), caches) with the caches in the model's dtype, zero-padded to
-    ``max_seq`` positions."""
+    (B, V), caches): k/v and conv tails in the model's dtype, k/v
+    zero-padded to ``max_seq`` positions, SSM states in f32."""
     cfg = model.cfg
     b, s = tokens.shape
-    if s > max_seq:
-        raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
+    check_prompt(cfg, s, max_seq)
     x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
     positions = torch.arange(s, device=tokens.device)
     caches_out = []
@@ -163,8 +191,8 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
 def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
                    pos: torch.Tensor, rcfg: RunConfig):
     """One decode step. tokens: (B, 1); pos: (B,) int32 positions of the
-    new tokens. Writes the new k/v into ``caches`` in place; returns
-    (logits (B, V), caches)."""
+    new tokens. Writes the new k/v, SSM states and conv tails into
+    ``caches`` in place; returns (logits (B, V), caches)."""
     cfg = model.cfg
     x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
     layer = 0

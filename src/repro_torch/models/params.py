@@ -2,7 +2,8 @@
 
 ``init_params`` fills a ``Model`` from a seeded ``torch.Generator`` with the
 reference's per-leaf rule (``distribution/sharding.py::init_params``):
-``normal * init_scale / sqrt(fan_in)``, zeros, or ones. One difference: the
+``normal * init_scale / sqrt(fan_in)`` (kinds "normal" and "small_normal",
+the SSM conv taps at init_scale 0.5), zeros, or ones. One difference: the
 reference reads fan-in as a leaf's first dim, which on its layer-stacked
 block weights is the layer count (std 1/sqrt(L) at any width); the port
 uses each weight's true fan-in (``ParamDesc.init_fan_in``), so full-width
@@ -13,8 +14,11 @@ in any case, so parity tests always carry the reference's weights across.
 pytree with every leaf already a numpy array (``jax.tree.map(np.asarray,
 params)``, done by the caller), splits the per-segment layer stacking into
 the port's per-layer modules, and carries bf16 bit for bit without
-importing ``ml_dtypes``. ``cache_from_jax`` does the same for a cache
-tuple.
+importing ``ml_dtypes``; the SSM leaves cross like any other (``A_log``,
+``D`` and ``dt_bias`` f32 ``(H,)``, conv taps ``(W, C)``).
+``cache_from_jax`` does the same for a cache tuple, each leaf in its own
+dtype (an SSM ``state`` ``(L, B, H, P, N)`` is f32, its ``conv_*`` tails
+``(L, B, W-1, C)`` in the cache dtype).
 """
 from __future__ import annotations
 
@@ -125,7 +129,8 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device=None) -> Model:
 
 def cache_from_jax(caches: Sequence[Dict], device=None) -> Tuple:
     """The reference's cache tuple (numpy leaves) in the port's layout,
-    which is the same: one dict per segment, leaves (L, B, S, KV, hd)."""
+    which is the same: one dict per segment, each leaf stacked over the
+    segment's layers and kept in its dtype."""
     dev = resolve_device(device)
     return tuple({k: to_torch(v, dev) for k, v in seg.items()}
                  for seg in caches)

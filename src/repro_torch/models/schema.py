@@ -17,16 +17,25 @@ from torch import nn
 from repro_torch.device import dtype_of
 
 
+# "small_normal" is the reference's kind for the SSM conv taps: drawn like
+# "normal" (normal * init_scale / sqrt(fan_in)), with its own init_scale
+INITS = ("normal", "small_normal", "zeros", "ones")
+
+
 @dataclass(frozen=True)
 class ParamDesc:
     shape: Tuple[int, ...]
     dtype: str = "bfloat16"
-    init: str = "normal"       # normal | zeros | ones
+    init: str = "normal"       # one of INITS
     init_scale: float = 1.0
     # fan-in of the product this weight enters; 0 = shape[0], right for
     # every weight that contracts its leading dim (wo (HQ, hd, d) names
     # HQ * hd, an untied head (V, d) names d)
     fan_in: int = 0
+
+    def __post_init__(self):
+        if self.init not in INITS:
+            raise ValueError(f"init {self.init!r} is not one of {INITS}")
 
     @property
     def init_fan_in(self) -> int:

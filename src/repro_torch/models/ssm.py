@@ -1,0 +1,220 @@
+"""Mamba-2 SSD (state-space duality) block: chunked prefill + O(1) decode.
+
+The counterpart of ``repro/models/ssm.py``, with the same names and
+layouts: x ``(B, L, H, P)`` heads; B/C ``(B, L, N)`` single group; dt
+``(B, L, H)``; state ``(B, H, P, N)`` f32. The chunked scan's intra-chunk
+part (the masked decay matrix, ``y_diag``, the chunk states and decays) is
+the hand-written kernel ``kernels/ssd_scan.py::ssd_chunk_scan`` (its plain
+version under ``RunConfig.attention_impl == "naive"``); the inter-chunk
+recurrence and ``y_off`` stay plain torch, as they stay ``jnp`` in the
+reference. ``_segsum`` lives beside the scan's plain version, which uses
+it (``kernels/ssd_scan.py::segsum``). Decode writes the new state and
+conv tails into the cache in place (the reference returns new arrays).
+
+Rounding points follow the reference: conv, gate and D-skip products round
+to the activation dtype where it rounds; ``y_diag`` is f32. One exception
+at bf16: the scan keeps the masked decay matrix and the decayed inputs in
+f32, as the Pallas kernel does, where the reference's ``ssd_chunked``
+rounds them to bf16 before its products (ROADMAP §3, P5).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssd_scan import segsum as _segsum  # noqa: F401
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
+    ssd_chunk_scan_plain
+from repro_torch.models.layers import apply_norm, f32, norm_schema
+from repro_torch.models.schema import ParamDesc
+
+def ssm_schema(cfg: ModelConfig) -> Dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.num_heads(d)
+    n = s.state_dim
+    w = s.conv_width
+    pd = cfg.param_dtype
+    return {
+        "w_x": ParamDesc((d, di), pd),
+        "w_z": ParamDesc((d, di), pd),
+        "w_B": ParamDesc((d, n), pd),
+        "w_C": ParamDesc((d, n), pd),
+        "w_dt": ParamDesc((d, nh), pd),
+        "w_out": ParamDesc((di, d), pd),
+        # depthwise: each output channel sums W taps
+        "conv_x": ParamDesc((w, di), pd, "small_normal", 0.5, fan_in=w),
+        "conv_B": ParamDesc((w, n), pd, "small_normal", 0.5, fan_in=w),
+        "conv_C": ParamDesc((w, n), pd, "small_normal", 0.5, fan_in=w),
+        "A_log": ParamDesc((nh,), "float32", "zeros"),
+        "D": ParamDesc((nh,), "float32", "ones"),
+        "dt_bias": ParamDesc((nh,), "float32", "zeros"),
+        "norm": norm_schema(di, "rmsnorm", pd),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (width W), prefill + streaming forms
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """u: (B, L, C); w: (W, C) depthwise. Causal: y[t] = sum_j w[j]*u[t-W+1+j].
+    Summed in f32 and rounded once to u's dtype (XLA fuses the reference's
+    chain the same way)."""
+    W = w.shape[0]
+    uf, wf = f32(u), f32(w)
+    y = uf * wf[-1]
+    for j in range(W - 1):
+        shift = W - 1 - j
+        y = y + F.pad(uf, (0, 0, shift, 0))[:, :-shift] * wf[j]
+    return y.to(u.dtype)
+
+
+def conv_step(u_t: torch.Tensor, state: torch.Tensor, w: torch.Tensor):
+    """u_t: (B, C); state: (B, W-1, C) past inputs. Returns (y_t, state')."""
+    full = torch.cat([state, u_t[:, None]], dim=1)            # (B, W, C)
+    y = torch.einsum("bwc,wc->bc", f32(full), f32(w)).to(u_t.dtype)
+    return y, full[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# SSD core (chunked)
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(xdt, dA, B, C, chunk: int,
+                initial_state: Optional[torch.Tensor] = None, *,
+                naive: bool = False):
+    """SSD scan. xdt: (b,l,h,p) = x*dt; dA: (b,l,h) = dt*A (negative);
+    B, C: (b,l,n). Returns (y (b,l,h,p) f32, final_state (b,h,p,n) f32).
+    ``naive`` runs the intra-chunk part's plain version instead of the
+    kernel."""
+    b, l_real, h, p = xdt.shape
+    n = B.shape[-1]
+    # pad to a chunk multiple: trailing zeros in xdt and dA=0 (decay exp(0)=1)
+    # leave the recurrence and final state untouched; outputs are sliced.
+    l = -(-l_real // chunk) * chunk
+    if l != l_real:
+        pad = l - l_real
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        dA = F.pad(dA, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = l // chunk
+    xc = xdt.reshape(b, nc, chunk, h, p)
+    dAc = dA.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, n)
+    Cc = C.reshape(b, nc, chunk, n)
+
+    # --- intra-chunk (quadratic, attention-like) + chunk states: kernel ---
+    scan = ssd_chunk_scan_plain if naive else ssd_chunk_scan
+    y_diag, states, chunk_decay = scan(xc, dAc, Bc, Cc,
+                                       out_dtype=torch.float32)
+
+    # --- inter-chunk recurrence (linear scan over chunks) ---
+    s = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device) \
+        if initial_state is None else f32(initial_state)
+    entering = []
+    for c in range(nc):
+        entering.append(s)                                    # entering state
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    entering = torch.stack(entering, dim=1)                   # (b,c,h,p,n)
+
+    # --- inter-chunk output ---
+    state_decay = torch.exp(torch.cumsum(f32(dAc), dim=2))   # (b,c,Q,h)
+    y_off = torch.einsum("bcln,bchpn->bclhp", f32(Cc),
+                         f32(entering.to(xdt.dtype)))
+    y_off = y_off * state_decay[..., None]
+    y = (y_diag + y_off).reshape(b, l, h, p)[:, :l_real]
+    return y, s
+
+
+def ssd_decode_step(x_t, dt_t, A, B_t, C_t, state):
+    """One-token SSD update. x_t: (b,h,p); dt_t: (b,h); A: (h,) negative;
+    B_t, C_t: (b,n); state: (b,h,p,n). Returns (y (b,h,p), state')."""
+    dA = torch.exp(f32(dt_t) * A)                             # (b,h)
+    xdt = f32(x_t) * f32(dt_t)[..., None]
+    upd = torch.einsum("bhp,bn->bhpn", xdt, f32(B_t))
+    state = f32(state) * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, f32(C_t))
+    return y.to(x_t.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# Full block (projections + conv + SSD + gate + out)
+# ---------------------------------------------------------------------------
+
+
+def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
+              cache: Optional[Dict] = None, decode: bool = False):
+    """x: (B,L,D) (prefill) or (B,1,D) (decode). Prefill returns (y, the
+    layer's cache {"state" f32, "conv_x", "conv_B", "conv_C"} in x's
+    dtype); decode reads ``cache`` and writes the new state and conv tails
+    into it in place, returning (y, cache)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.num_heads(d)
+    hp = s.head_dim
+    A = -torch.exp(f32(p["A_log"]))
+
+    z = x @ p["w_z"]
+    streams = {"x": x @ p["w_x"], "B": x @ p["w_B"], "C": x @ p["w_C"]}
+    dt = F.softplus(f32(x @ p["w_dt"]) + f32(p["dt_bias"]))
+
+    def silu(t):
+        return F.silu(f32(t)).to(x.dtype)
+
+    if not decode:
+        b, l = x.shape[:2]
+        conv = {k: silu(causal_conv(u, p["conv_" + k]))
+                for k, u in streams.items()}
+        xh = conv["x"].reshape(b, l, nh, hp)
+        xdt = (f32(xh) * dt[..., None]).to(x.dtype)
+        y, state = ssd_chunked(xdt, dt * A, conv["B"], conv["C"], s.chunk,
+                               naive=rcfg.attention_impl == "naive")
+        yD = y + f32(xh) * f32(p["D"])[None, None, :, None]
+        yflat = yD.reshape(b, l, di).to(x.dtype)
+        gated = yflat * silu(z)
+        out = apply_norm(p["norm"], gated, "rmsnorm") @ p["w_out"]
+        # the pre-conv streams' last W-1 inputs, for streaming decode
+        w = s.conv_width
+        new_cache = {"state": state}
+        new_cache.update({"conv_" + k: u[:, -(w - 1):]
+                          for k, u in streams.items()})
+        return out, new_cache
+
+    # ---- decode ----
+    conv = {}
+    for k, u in streams.items():
+        c = cache["conv_" + k]
+        y_t, tail = conv_step(u[:, 0], c.to(x.dtype), p["conv_" + k])
+        c.copy_(tail)
+        conv[k] = silu(y_t)
+    xh = conv["x"].reshape(-1, nh, hp)
+    y, state = ssd_decode_step(xh, dt[:, 0], A, conv["B"], conv["C"],
+                               cache["state"])
+    cache["state"].copy_(state)
+    y = y + xh * f32(p["D"])[None, :, None].to(x.dtype)
+    gated = y.reshape(-1, 1, di) * silu(z)
+    out = apply_norm(p["norm"], gated, "rmsnorm") @ p["w_out"]
+    return out, cache
+
+
+def ssm_cache_schema(cfg: ModelConfig, batch: int, dtype: str) -> Dict:
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    nh = s.num_heads(cfg.d_model)
+    w = s.conv_width
+    return {
+        "state": ParamDesc((batch, nh, s.head_dim, s.state_dim), "float32",
+                           "zeros"),
+        "conv_x": ParamDesc((batch, w - 1, di), dtype, "zeros"),
+        "conv_B": ParamDesc((batch, w - 1, s.state_dim), dtype, "zeros"),
+        "conv_C": ParamDesc((batch, w - 1, s.state_dim), dtype, "zeros"),
+    }

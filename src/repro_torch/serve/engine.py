@@ -4,8 +4,9 @@ The counterpart of ``repro/serve/engine.py``. One engine ("NSM") serves
 requests from many tenants ("VMs"): decode slots are the shared resource,
 the ``TenantScheduler`` decides admission with fairness/rate policies, and
 all tenants share one copy of the weights. Each admission runs one prefill
-(flash-attention kernel) and installs the request's KV cache into a free
-slot; each step runs one batched decode (decode-attention kernel) over all
+(the flash-attention kernel, or the SSD-scan kernel on an SSM model) and
+installs the request's cache into a free slot; each step runs one batched
+decode (the decode-attention kernel, or the SSM state update) over all
 slots plus a greedy argmax.
 """
 from __future__ import annotations
@@ -21,8 +22,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.fabric import SchedulerServeModule
 from repro_torch.models.model import (
-    Model, cache_nbytes, check_family, forward_decode, forward_prefill,
-    init_cache,
+    Model, cache_nbytes, check_family, check_prompt, forward_decode,
+    forward_prefill, init_cache,
 )
 from repro_torch.models.params import init_params
 from repro_torch.serve.scheduler import Request, TenantScheduler
@@ -110,7 +111,10 @@ class ServeEngine(SchedulerServeModule):
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
-        """Queue one request for admission (delegates to the scheduler)."""
+        """Queue one request for admission (delegates to the scheduler).
+        Raises ValueError, before queueing, for a prompt no prefill can
+        serve (``models.model.check_prompt``)."""
+        check_prompt(self.cfg, len(req.prompt), self.max_seq)
         self.scheduler.submit(req)
 
     def _free_slot(self) -> Optional[int]:

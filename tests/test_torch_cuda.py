@@ -14,6 +14,11 @@ kernel sums its bisection in another order than the plain version: in f64
 the allocations agree within 1e-9 x capacity, in f32 within 1e-3 x
 capacity (a 20k-term f32 sum carries ~1e-4 relative rounding, and the
 level moves with it); two calls on the same input are bit-identical.
+The SSD scan kernel: f32 within 2e-4 abs + rel on y and states and 1e-5 on
+the decay (the reference's own bounds, ``tests/test_kernels.py:82-84``);
+bf16 within 2e-2 of the largest |y| and |state| (both compute in f32, the
+kernel's tensor-core products on hi + lo bf16 pairs; y may be asked in
+bf16); a zero-padded chunk gives exactly the prefix's y, state and decay.
 """
 import dataclasses
 
@@ -27,6 +32,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
+    ssd_chunk_scan_plain
 from repro_torch.kernels.waterfill import water_fill, water_fill_plain
 from repro_torch.models.params import init_params
 from repro_torch.serve import Request, ServeEngine, TenantScheduler
@@ -229,3 +236,111 @@ def test_fused_tick_on_card_matches_cpu(cuda):
                                   np.isnan(planes["cpu"].ewma_off))
     np.testing.assert_allclose(planes[cuda].level, planes["cpu"].level,
                                rtol=1e-9, atol=0.0)
+
+
+def _ssd_case(device, nb, nc, q, h, p, n, dtype, *, dt_scale=1.0, seed=0):
+    """Model-like inputs: dt = softplus(N(0,1)) (about 0.7, so the cumsum
+    reaches about -180 over 256 rows), dA = -dt, x*dt with x ~ N(0, 0.25),
+    B and C ~ N(0, 0.25)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    dt = torch.nn.functional.softplus(randn(nb, nc, q, h)) * dt_scale
+    xdt = (randn(nb, nc, q, h, p) * 0.5 * dt[..., None]).to(
+        getattr(torch, dtype))
+    B, C = (randn(nb, nc, q, n).mul(0.5).to(getattr(torch, dtype))
+            for _ in range(2))
+    return xdt, -dt, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,nc,q,h,p,n,dtype,out,dt_scale", [
+    (1, 1, 256, 32, 64, 128, "bfloat16", "float32", 1.0),   # mamba2: path
+    (1, 2, 256, 32, 64, 128, "bfloat16", "float32", 1.0),
+    (1, 16, 256, 32, 64, 128, "bfloat16", "float32", 1.0),
+    (1, 2, 256, 32, 64, 128, "bfloat16", "bfloat16", 0.01),  # long decay
+    (1, 2, 256, 32, 64, 128, "float32", "float32", 1.0),     # CUDA cores
+    (2, 3, 128, 50, 64, 16, "bfloat16", "float32", 1.0),     # hymba, H 50
+    (2, 3, 128, 50, 64, 16, "float32", "float32", 0.1),
+    (1, 2, 32, 8, 16, 16, "bfloat16", "float32", 1.0),       # smoke
+    (2, 3, 64, 16, 32, 64, "bfloat16", "bfloat16", 0.1),     # ref test
+    (1, 2, 200, 4, 64, 128, "bfloat16", "float32", 1.0),     # ragged Q
+    (1, 2, 40, 6, 32, 32, "bfloat16", "float32", 0.1),       # CUDA cores
+])
+def test_ssd_kernel_matches_plain_on_card(cuda, nb, nc, q, h, p, n, dtype,
+                                          out, dt_scale):
+    xdt, dA, B, C = _ssd_case(cuda, nb, nc, q, h, p, n, dtype,
+                              dt_scale=dt_scale)
+    out_dtype = getattr(torch, out)
+    before = ssd_chunk_scan.launches
+    y, st, dec = ssd_chunk_scan(xdt, dA, B, C, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches == before + 1
+    assert y.dtype == out_dtype and tuple(y.shape) == tuple(xdt.shape)
+    ry, rst, rdec = ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=out_dtype)
+    for t in (y, st, dec):
+        assert torch.isfinite(t).all()
+    if dtype == "float32":
+        torch.testing.assert_close(y, ry, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(st, rst, rtol=2e-4, atol=2e-4)
+    else:
+        assert (y.float() - ry.float()).abs().max() <= \
+            2e-2 * ry.float().abs().max()
+        assert (st - rst).abs().max() <= 2e-2 * rst.abs().max()
+    torch.testing.assert_close(dec, rdec, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_kernel_padded_chunk_equals_the_prefix(cuda, dtype):
+    """A 256-row chunk whose last 56 rows are zero x*dt and dA = 0 (how
+    ``ssd_chunked`` pads a prompt) gives the 200-row prefix's y rows,
+    state and decay exactly."""
+    xdt, dA, B, C = _ssd_case(cuda, 1, 2, 256, 32, 64, 128, dtype, seed=3)
+    xdt[:, :, 200:] = 0
+    dA[:, :, 200:] = 0
+    full = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32)
+    prefix = ssd_chunk_scan(*(t[:, :, :200].contiguous()
+                              for t in (xdt, dA, B, C)),
+                            out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(full[0][:, :, :200], prefix[0])
+    assert torch.equal(full[1], prefix[1])
+    assert torch.equal(full[2], prefix[2])
+
+
+@pytest.mark.cuda
+def test_ssm_serve_engine_on_card_matches_cpu(cuda):
+    """The f32 smoke mamba2 served on the card (prefill through the SSD
+    kernel) gives the tokens and ledger of the plain path on the CPU, and
+    every prefill layer went through the kernel."""
+    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"),
+                              dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 33, 16, 7, 60, 12)]
+
+    def serve(device):
+        model = init_params(cfg, device="cpu", seed=0).to(device)
+        sched = TenantScheduler(policy="wfq", charge_prompt=True)
+        eng = ServeEngine(cfg, RunConfig(), model, batch_slots=4, max_seq=96,
+                          scheduler=sched, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(tenant_id=i % 3, prompt=p, max_new_tokens=10,
+                               req_id=i, arrival=0.0))
+        k = 0
+        while sched.pending() or any(s.active for s in eng.slots):
+            k += 1
+            eng.step(now=0.1 * k)
+            assert k < 200
+        return eng, ([(r.req_id, r.generated) for r in eng.completed],
+                     dict(sched.served_tokens), sched.ledger())
+
+    before = ssd_chunk_scan.launches
+    eng, on_card = serve(cuda)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches - before == \
+        cfg.num_layers * eng.admissions
+    _, on_cpu = serve(torch.device("cpu"))
+    assert on_card == on_cpu

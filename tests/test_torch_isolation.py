@@ -45,8 +45,9 @@ def test_port_imports_without_jax_or_the_reference():
     names = set(proc.stdout.split())
     assert len(names) >= 45                  # every module was walked
     assert {"repro_torch.control.vectorized", "repro_torch.serve.multiplex",
-            "repro_torch.serve.replay",
-            "repro_torch.kernels.waterfill"} <= names
+            "repro_torch.serve.replay", "repro_torch.kernels.waterfill",
+            "repro_torch.kernels.ssd_scan",
+            "repro_torch.models.ssm"} <= names
 
 
 def test_port_configs_equal_the_reference():

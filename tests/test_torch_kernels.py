@@ -1,4 +1,5 @@
-"""The port's attention kernels against the reference's Pallas kernels.
+"""The port's attention and SSD-scan kernels against the reference's Pallas
+kernels.
 
 On the CPU every kernel wrapper runs its plain PyTorch version (a CUDA
 kernel has no interpret mode); the reference's Pallas kernels run in
@@ -9,7 +10,8 @@ themselves are held against these plain versions on the card by
 
 Tolerances: f32 2e-4 (summation order only), bf16 2e-2 (the two packages
 round bf16 at different points: the reference's Pallas kernel rounds p per
-kv block, the plain version once over the full row).
+kv block, the plain version once over the full row; the SSD scan's y
+comes out in bf16 at bf16).
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,8 @@ from repro_torch.kernels.decode_attention import (
     SPLIT_ALIGN, decode_attention, decode_attention_plain, split_plan)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import (
+    segsum, ssd_chunk_scan, ssd_chunk_scan_plain)
 from repro_torch.models import attention as tattn
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -227,3 +231,128 @@ def test_decode_split_plan_covers_the_cache(b, kv, kv_len, sms):
     assert nsplit >= 1 and chunk % SPLIT_ALIGN == 0
     assert (nsplit - 1) * chunk < kv_len <= nsplit * chunk
     assert nsplit == 1 or b * kv * (nsplit - 1) < 2 * sms
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk scan
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(seed, nb, nc, q, h, p, n, *, da_scale=0.1):
+    """The reference kernel test's inputs (tests/test_kernels.py:70), made
+    with numpy: x*dt, dA <= 0, B and C."""
+    return (_rand(seed, nb, nc, q, h, p) * 0.1,
+            -np.abs(_rand(seed + 1, nb, nc, q, h)) * da_scale,
+            _rand(seed + 2, nb, nc, q, n) * 0.3,
+            _rand(seed + 3, nb, nc, q, n) * 0.3)
+
+
+def _assert_ssd(got, want, tol, what=""):
+    for name, a, b, t in zip(("y", "states", "decay"), got, want,
+                             (tol, tol, min(tol, 1e-5))):
+        assert np.isfinite(_np(a)).all(), (what, name)
+        np.testing.assert_allclose(_np(a), _np(b), rtol=t, atol=t,
+                                   err_msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("h,dtype", [(16, "float32"), (8, "float32"),
+                                     (32, "float32"), (16, "bfloat16")])
+def test_ssd_plain_matches_pallas_and_ref(h, dtype):
+    """At the reference kernel test's shapes (nb 2, nc 3, Q 64, P 32,
+    N 64): the plain version and ``ops.ssd_intra_chunk`` (both impls)
+    against the Pallas kernel in interpret mode and the reference's
+    oracle; 2e-4 at f32 (1e-5 on decay, the reference's own bounds),
+    2e-2 at bf16."""
+    arrays = _ssd_inputs(70, 2, 3, 64, h, 32, 64)
+    xdt, da, b, c = arrays
+    jx, tx = _both(xdt, dtype)
+    (jd, td), (jb, tb), (jc, tc) = (_both(a, "float32") if i == 0
+                                    else _both(a, dtype)
+                                    for i, a in enumerate((da, b, c)))
+    pallas = jops.ssd_intra_chunk(jx, jd, jb, jc, impl="pallas",
+                                  head_block=8)
+    j_ref = jops.ssd_intra_chunk(jx, jd, jb, jc, impl="ref")
+    got = {"plain": ssd_chunk_scan_plain(tx, td, tb, tc),
+           "kernel": tops.ssd_intra_chunk(tx, td, tb, tc, impl="kernel"),
+           "ref": tops.ssd_intra_chunk(tx, td, tb, tc, impl="ref")}
+    for name, out in got.items():
+        assert out[0].dtype == tx.dtype and out[1].dtype == torch.float32
+        assert tuple(out[1].shape) == (2, 3, h, 32, 64)
+        assert tuple(out[2].shape) == (2, 3, h)
+        for want in (pallas, j_ref):
+            _assert_ssd(out, want, TOL[dtype], name)
+
+
+@pytest.mark.parametrize("h,q,p,n", [(50, 64, 16, 16), (50, 128, 64, 16),
+                                     (3, 40, 8, 24)])
+def test_ssd_plain_any_head_count_matches_ref(h, q, p, n):
+    """Any H, including hymba's 50 (not a multiple of the Pallas default
+    head block of 8, which the Pallas kernel cannot take), and a ragged
+    chunk: against the reference's oracle at f32 within 2e-4."""
+    xdt, da, b, c = _ssd_inputs(80 + h, 1, 2, q, h, p, n)
+    want = jops.ssd_intra_chunk(*(jnp.asarray(a) for a in (xdt, da, b, c)),
+                                impl="ref")
+    got = ssd_chunk_scan(*(torch.from_numpy(a) for a in (xdt, da, b, c)))
+    _assert_ssd(got, want, 2e-4, f"H={h}")
+    t_ref = tref.ssd_chunk_ref(*(torch.from_numpy(a[0, 1])
+                                 for a in (xdt, da, b, c)))
+    _assert_ssd(t_ref, [w[0, 1] for w in want], 2e-4, "ssd_chunk_ref")
+
+
+def test_ssd_decay_difference_survives_full_width_cumsums():
+    """dt ~ 0.7 over a 256-token chunk drives cs to about -180: the decay
+    exp(cs[l] - cs[s]) taken from the difference and masked before the
+    exponential stays finite (exp(cs) underflows to 0, exp(-cs) would
+    overflow to inf); the chunk decay underflows to exactly 0."""
+    q = 256
+    xdt, _, b, c = _ssd_inputs(90, 1, 1, q, 4, 16, 16)
+    da = np.full((1, 1, q, 4), -0.7, np.float32)
+    tx, td, tb, tc = (torch.from_numpy(a) for a in (xdt, da, b, c))
+    y, st, dec = ssd_chunk_scan_plain(tx, td, tb, tc)
+    cs = np.cumsum(da[0, 0, :, 0].astype(np.float64))
+    assert cs[-1] < -170
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    assert (dec == 0).all()
+    want = jops.ssd_intra_chunk(*(jnp.asarray(a) for a in (xdt, da, b, c)),
+                                impl="ref")
+    _assert_ssd((y, st, dec), want, 2e-4)
+    L = torch.exp(segsum(td[0, 0].T))          # (H, Q, Q)
+    assert torch.isfinite(L).all() and (L.triu(1) == 0).all()
+
+
+def test_ssd_padded_chunk_leaves_state_and_decay_as_the_prefix():
+    """Zero x*dt and zero dA past a chunk's real rows (how ``ssd_chunked``
+    pads the last chunk) leave y on the real rows, the state and the decay
+    as the unpadded prefix gives them (1e-6: only the sums' blocking
+    differs)."""
+    q_real, q = 44, 64
+    xdt, da, b, c = _ssd_inputs(95, 1, 1, q, 6, 16, 32)
+    xdt[:, :, q_real:] = 0.0
+    da[:, :, q_real:] = 0.0
+    full = ssd_chunk_scan_plain(*(torch.from_numpy(a)
+                                  for a in (xdt, da, b, c)))
+    prefix = ssd_chunk_scan_plain(*(torch.from_numpy(
+        np.ascontiguousarray(a[:, :, :q_real])) for a in (xdt, da, b, c)))
+    torch.testing.assert_close(full[0][:, :, :q_real], prefix[0],
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(full[1], prefix[1], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(full[2], prefix[2], rtol=0, atol=0)
+
+
+def test_ssd_plain_computes_in_f32_from_bf16_operands():
+    """bf16 operands are widened and everything runs in f32, as in the
+    Pallas kernel: bf16 inputs give exactly what their f32 widening gives.
+    ``out_dtype`` sets y's dtype alone."""
+    xdt, da, b, c = _ssd_inputs(97, 1, 2, 32, 4, 16, 16)
+    tx, td, tb, tc = (torch.from_numpy(a) for a in (xdt, da, b, c))
+    bx, bb, bc = (t.to(torch.bfloat16) for t in (tx, tb, tc))
+    y16, st16, dec16 = ssd_chunk_scan_plain(bx, td, bb, bc,
+                                            out_dtype=torch.float32)
+    y32, st32, dec32 = ssd_chunk_scan_plain(bx.float(), td, bb.float(),
+                                            bc.float())
+    assert y16.dtype == st16.dtype == torch.float32
+    torch.testing.assert_close((y16, st16, dec16), (y32, st32, dec32),
+                               rtol=0, atol=0)
+    y_bf16 = ssd_chunk_scan_plain(bx, td, bb, bc)[0]
+    assert y_bf16.dtype == torch.bfloat16
+    assert torch.equal(y_bf16, y32.to(torch.bfloat16))

@@ -125,7 +125,7 @@ def _pair(arch, dtype, mesh):
                         build_params(jcfg, mesh, jax.random.PRNGKey(0)))
     stacked = tree["segments"][0]
     for path, desc in walk(model_schema(tcfg)["layers"][0]):
-        if desc.init != "normal":
+        if desc.init not in ("normal", "small_normal"):
             continue
         node = stacked
         for key in path[:-1]:
@@ -250,9 +250,8 @@ def test_bridge_refuses_mismatched_trees(mesh1):
                         device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "deepseek-v2-236b",
-                                  "hymba-1.5b", "whisper-small",
-                                  "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "hymba-1.5b",
+                                  "whisper-small", "chameleon-34b"])
 def test_other_families_raise_not_implemented(arch):
     from repro_torch.models import Model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
