@@ -36,11 +36,32 @@ JSON object per line:
               on the object and the vectorized control plane (fairness, and
               each tenant's rate within 2% across the two), adversarial
               against its hog-free baseline (the isolation bounds);
-9. timings  — each kernel, its plain version and one PyTorch library call
+9. codec    — the int8 codec kernels against their plain version, bit
+              for bit (R 1/255/257/4,096 x C 256/3,072/8,192, blocks 128
+              and 256, f32 and bf16 in and out, a zero block and exact
+              ties), then every leaf of full-width llama3.2-3b at bf16
+              (3.2e9 elements) through ``ops.quantize``/``ops.dequantize``
+              within the codec's stated bound, with its GB/s;
+10. bytes   — the bytes plane at world size 1 on the card (an NCCL group
+              of one): ``nk_grad_sync`` of that pytree under each stock
+              policy's CoreEngine, plus ``nk_psum``/``nk_all_gather``/
+              ``nk_reduce_scatter`` on one leaf; each stack's output
+              against its plain result (compressed: the plain int8 round
+              trip, bit for bit), ledger bytes against payload bytes,
+              billed bytes conserved across an export/import; ms per
+              ``nk_grad_sync`` (the engine's host cost: no bytes cross a
+              wire at world 1);
+11. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
+              scenarios on the port's ``SharedBottleneckSim`` with the
+              object controller and the vectorized one on the card (its
+              water-fill kernel), claims (a)-(c) and the two backends'
+              agreement;
+12. timings — each kernel, its plain version and one PyTorch library call
               where one computes the same function, timed with CUDA events
               beside the least time the card could take (bytes or
               operations at the H100 SXM datasheet rates); the SSD scan at
-              a 512- and a 4,096-token prompt.
+              a 512- and a 4,096-token prompt; the codec on the embedding
+              leaf.
 
 Then one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -77,6 +98,7 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL_DECAY = 1e-5
 SSM_PREFILL_LENS = (512, 4096)
 SSD_TIMED_CHUNKS = (2, 16)   # a 512- and a 4,096-token prompt
+CODEC_TIMED = (128256, 3072)  # llama3.2-3b's embedding, the largest leaf
 
 REQUESTS_PER_TENANT = 4
 TENANTS = 3
@@ -102,6 +124,22 @@ REPLAY_MAX_SEQ = 16           # a request is 2 prompt + 6 new tokens
 # At 8 the virtual step doubles and the victims' p99 admit wait lands on
 # the 1 s histogram edge (same on any device: the clock is virtual)
 REPLAY_SLOTS = 4
+# int8 codec: the kernel against its plain version on these shapes (every
+# R x C, both blocks, f32 and bf16 in and out), bit for bit; then the
+# full-width llama3.2-3b gradient pytree at bf16 through ops.quantize and
+# ops.dequantize, within codec_error_bound
+CODEC_ROWS = (1, 255, 257, 4096)
+CODEC_COLS = (256, 3072, 8192)
+CODEC_BLOCKS = (128, 256)
+# bytes plane at world size 1: every stock policy, nk_grad_sync repeats
+BYTES_POLICIES = ("xla", "ring", "hierarchical", "compressed", "shm-first")
+BYTES_AXES = ("pod", "data", "model")
+BYTES_REPS = 3
+# fairness: benchmarks/bench_fairness.py's parameters (bytes/s, seconds)
+FAIR_CAPACITY = 1_000_000.0
+FAIR_DT = 0.05
+FAIR_T_RUN = 12.0
+FAIR_BACKEND_TOL = 1e-6        # |vectorized - object| / capacity, per tick
 
 
 def emit(obj) -> None:
@@ -1041,6 +1079,383 @@ def phase_replay(torch, device, cfg):
     return water
 
 
+def codec_input(torch, gen, device, r, c, dtype):
+    """Rows scaled from 1e-2 to 1e2, a block of zeros (scale
+    1e-30 * float32(1/127)) and, where there are two rows, a block of
+    exact ties: absmax 127 * 2^-3 makes the scale 2^-3, so (k + 0.5) *
+    2^-3 lands half way between two codes."""
+    x = torch.randn((r, c), generator=gen, device=device)
+    x *= torch.exp(torch.empty((r, 1), device=device).uniform_(
+        math.log(0.01), math.log(100.0), generator=gen))
+    x[0, :256] = 0.0
+    if r > 1:
+        x[1, :256] = 0.0
+        x[1, :128] = (torch.arange(-64, 64, device=device) + 0.5) * 0.125
+        x[1, 0] = 127 * 0.125
+    return x.to(getattr(torch, dtype))
+
+
+def params_tree(model):
+    """A model's parameters as a flat pytree {name: tensor}."""
+    return {name: p.detach() for name, p in model.named_parameters()}
+
+
+def codec_payload(tree):
+    """Every leaf as (first dim, the rest): a weight's rows are its input
+    features, so a (3072, 24, 128) projection is (3072, 3072) and a norm
+    (1, 3072). The row must take the 256-block codec; a leaf whose row
+    does not is named. (Its last dim alone may not: the attention
+    projections end in head_dim 128.)"""
+    out = {}
+    for name, leaf in tree.items():
+        rows = leaf.reshape(leaf.shape[0], -1) if leaf.dim() > 1 \
+            else leaf.reshape(1, -1)
+        if rows.shape[1] % 256:
+            raise AssertionError(f"leaf {name} {tuple(leaf.shape)}: a row "
+                                 f"of {rows.shape[1]} is not a multiple "
+                                 f"of 256")
+        out[name] = rows
+    return out
+
+
+def codec_bytes(r, c, block, in_elem, out_elem):
+    """Bytes one quantize (x read, codes and scales written) and one
+    dequantize (codes and scales read, output written) must move."""
+    scales = 4 * r * c // block
+    return r * c * (in_elem + 1) + scales, r * c * (1 + out_elem) + scales
+
+
+def phase_codec(torch, device, tree):
+    """The codec kernels against their plain version on the card, then
+    the full-width gradient pytree through ``ops.quantize`` and
+    ``ops.dequantize``, every leaf held against the plain version too.
+    Returns (launches, {kernel: max |kernel - plain|})."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_comm import (
+        absmax_scale, codec_error_bound, dequantize_int8,
+        dequantize_int8_plain, quantize_int8, quantize_int8_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    zero_scale = absmax_scale(torch.zeros((), device=device)).item()
+    worst = {"quantize_int8": 0.0, "dequantize_int8": 0.0}
+
+    def against_plain(x, q, s, x_hats, block):
+        """Is the kernels' (q, s) and each dequantized x_hat (by dtype)
+        equal to the plain version's on the same inputs? Folds the worst
+        difference into ``worst``."""
+        pq, ps = quantize_int8_plain(x, block=block)
+        same = bool(torch.equal(q, pq) and torch.equal(s, ps))
+        worst["quantize_int8"] = max(
+            worst["quantize_int8"],
+            (q.int() - pq.int()).abs().max().item(),
+            (s - ps).abs().max().item())
+        for odt, d in x_hats.items():
+            pd = dequantize_int8_plain(q, s, block=block, dtype=odt)
+            same = same and bool(torch.equal(d, pd))
+            worst["dequantize_int8"] = max(
+                worst["dequantize_int8"],
+                (d.float() - pd.float()).abs().max().item())
+        return same
+
+    cases = 0
+    for r in CODEC_ROWS:
+        for c in CODEC_COLS:
+            for block in CODEC_BLOCKS:
+                for dt in ("float32", "bfloat16"):
+                    x = codec_input(torch, gen, device, r, c, dt)
+                    q, s = quantize_int8(x, block=block)
+                    x_hats = {odt: dequantize_int8(q, s, block=block,
+                                                   dtype=odt)
+                              for odt in (torch.float32, torch.bfloat16)}
+                    torch.cuda.synchronize()
+                    same = against_plain(x, q, s, x_hats, block)
+                    # (k + 0.5) for k in -63..63 rounds half to even
+                    ties = r == 1 or (s[1, 0].item() == 0.125 and q[
+                        1, 1:128].tolist() == [2 * ((k + 1) // 2) for k in
+                                               range(-63, 64)])
+                    zero = s[0, 0].item() == zero_scale and not bool(
+                        q[0, :256].any())
+                    cases += 1
+                    if not (same and ties and zero):
+                        raise AssertionError(
+                            f"codec R={r} C={c} block={block} {dt}: kernel "
+                            f"== plain {same}, ties {ties}, zero block "
+                            f"{zero}")
+    emit({"phase": "codec", "run": "kernel_vs_plain", "cases": cases,
+          "rows": list(CODEC_ROWS), "cols": list(CODEC_COLS),
+          "blocks": list(CODEC_BLOCKS), "bit_identical": True,
+          "max_abs_err": dict(worst), "ok": True})
+
+    payload = codec_payload(tree)
+
+    def codec_pass():
+        for x in payload.values():
+            q, s = ops.quantize(x)
+            ops.dequantize(q, s, dtype=x.dtype)
+
+    codec_pass()              # warm-up: the allocator's first cudaMallocs
+    quantize_int8.launches = 0
+    dequantize_int8.launches = 0
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    codec_pass()
+    e1.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    e1.synchronize()
+    pass_ms = e0.elapsed_time(e1)
+    launches = {"quantize_int8": quantize_int8.launches,
+                "dequantize_int8": dequantize_int8.launches}
+    if launches != {"quantize_int8": len(payload),
+                    "dequantize_int8": len(payload)}:
+        raise AssertionError(f"codec pass: launches {launches} for "
+                             f"{len(payload)} leaves")
+    # each leaf at its own shape: the kernels against the plain version
+    # bit for bit, and the round trip within the codec's stated bound
+    moved = 0
+    worst_err, worst_ratio, elems = 0.0, 0.0, 0
+    for name, x in payload.items():
+        with torch.no_grad():
+            q, s = ops.quantize(x)
+            x_hat = ops.dequantize(q, s, dtype=x.dtype)
+            torch.cuda.synchronize()
+            same = against_plain(x, q, s, {x.dtype: x_hat}, 256)
+            err = (x_hat.float() - x.float()).abs()
+            bound = codec_error_bound(x, s, x_hat)
+            ratio = (err / bound).max().item()
+            finite = bool(torch.isfinite(x_hat).all())
+        worst_err = max(worst_err, err.max().item())
+        worst_ratio = max(worst_ratio, ratio)
+        r, c = x.shape
+        qb, db = codec_bytes(r, c, 256, x.element_size(), x.element_size())
+        moved += qb + db
+        elems += x.numel()
+        if ratio > 1.0 or not finite or not same:
+            raise AssertionError(f"codec {name} {tuple(x.shape)}: kernel "
+                                 f"== plain {same}, error "
+                                 f"{err.max().item()} is {ratio} of its "
+                                 f"bound, finite {finite}")
+        del q, s, x_hat, err, bound
+    emit({"phase": "codec", "run": "llama3.2-3b_gradients", "leaves":
+          len(payload), "elements": elems, "dtype": "bfloat16",
+          "block": 256, "launches": launches, "pass_ms": pass_ms,
+          "host_enqueue_ms": host_ms,
+          "bytes_moved": moved, "gb_per_s": moved / pass_ms / 1e6,
+          "max_abs_err": worst_err, "max_err_over_bound": worst_ratio,
+          "bit_identical_to_plain": True,
+          "kernel_vs_plain_max_abs_err": dict(worst), "ok": True})
+    return launches, worst
+
+
+def world1(device, backend: str):
+    """A world of one rank: ``backend`` (NCCL on the card, gloo for a CPU
+    rehearsal) over an in-memory HashStore (no address, no network), then
+    the (pod, data, model) mesh of size 1 x 1 x 1 and its groups."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import MeshAxes
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = init_device_mesh(device.type, (1, 1, 1),
+                            mesh_dim_names=BYTES_AXES)
+    return MeshAxes(mesh)
+
+
+def phase_bytes(torch, device, tree, backend="nccl"):
+    """The bytes plane at world size 1: ``nk_grad_sync`` of ``tree`` and
+    one leaf's ``nk_psum``/``nk_all_gather``/``nk_reduce_scatter`` under
+    each stock policy. Returns the rows it emitted."""
+    import torch.distributed as dist
+
+    from repro_torch.core import (
+        compression, make_engine, nk_all_gather, nk_grad_sync, nk_psum,
+        nk_reduce_scatter, use_engine)
+    from repro_torch.core.nqe import payload_bytes
+    axes = world1(device, backend)
+    rows = []
+    try:
+        leaf_name = max(tree, key=lambda k: (tree[k].dim(), tree[k].numel()))
+        leaf = tree[leaf_name]
+        grad_bytes = sum(payload_bytes(g) for g in tree.values())
+        for tenant, policy in enumerate(BYTES_POLICIES):
+            eng = make_engine(axes, policy)
+            times = []
+            out = None
+            with use_engine(eng):
+                # one untimed call first: the groups' communicators and
+                # the allocator's blocks are made there
+                for _ in range(1 + BYTES_REPS):
+                    out = None
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = nk_grad_sync(tree, ("pod", "data"),
+                                       tenant_id=tenant)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                psum = nk_psum(leaf, "model", tenant_id=tenant)
+                gathered = nk_all_gather(leaf, "data", tenant_id=tenant)
+                scattered = nk_reduce_scatter(leaf, "data",
+                                              tenant_id=tenant)
+            torch.cuda.synchronize()
+            equal = True
+            for name, g in tree.items():
+                if policy == "compressed":
+                    scale = compression.absmax_scale(g.float().abs().amax())
+                    want = compression.dequantize_int8(
+                        compression.quantize_int8(g.float(), scale).to(
+                            torch.int32), scale, g.dtype)
+                else:
+                    want = g
+                equal = equal and bool(torch.equal(out[name], want))
+            equal = equal and all(bool(torch.equal(t, leaf)) for t in
+                                  (psum, gathered, scattered))
+            del out, psum, gathered, scattered
+            verbs = eng.ledger_table()
+            billed = eng.billed_ground_truth(tenant)
+            want_bytes = (1 + BYTES_REPS) * grad_bytes \
+                + 3 * payload_bytes(leaf)
+            ledger_ok = eng.total_bytes(tenant) == want_bytes == billed > 0
+            # a move to a second engine: carried + both engines' live
+            # bytes equal the bytes billed before the move
+            dst = make_engine(axes, policy)
+            state = eng.export_tenant(tenant)
+            dst.import_tenant(tenant, state)
+            conserved = (state.carried["bytes"]
+                         + eng.live_counter(tenant, "bytes")
+                         + dst.live_counter(tenant, "bytes")) == billed \
+                and eng.billed_ground_truth(tenant) == billed
+            row = {"phase": "bytes", "policy": policy, "world": 1,
+                   "backend": backend, "leaves": len(tree),
+                   "grad_bytes": grad_bytes, "ledger_rows": len(verbs),
+                   "routed_to": sorted({nsm for _, nsm in eng.route_log}),
+                   "ms_per_grad_sync": statistics.median(times[1:]),
+                   "ms_first": times[0], "ms_runs": times[1:],
+                   "ms_per_leaf": statistics.median(times[1:]) / len(tree),
+                   "equal_to_plain": equal, "ledger_bytes_ok": ledger_ok,
+                   "billed_conserved": conserved,
+                   "ok": equal and ledger_ok and conserved}
+            emit(row)
+            rows.append(row)
+            if not row["ok"]:
+                raise AssertionError(f"bytes {policy}: {row}")
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def fairness_convergence(ctl, **kw):
+    """3 unequal tenants, 2 engines: (served/fair per tenant, claim (a)
+    metric: the worst relative deviation from weighted max-min)."""
+    cap = FAIR_CAPACITY
+    tenants = [ctl.SimTenant(1, demand=0.15 * cap),
+               ctl.SimTenant(2, demand=0.90 * cap),
+               ctl.SimTenant(3, demand=2.00 * cap)]
+    sim = ctl.SharedBottleneckSim(tenants, cap, n_engines=2, dt=FAIR_DT,
+                                  **kw)
+    res = sim.run(FAIR_T_RUN)
+    ref = sim.fair_reference()
+    return [res], max(abs(res.served_rate(t) - ref[t]) / ref[t]
+                      for t in ref)
+
+
+def fairness_isolation(ctl, **kw):
+    """A tenant offering 10x the bottleneck beside three in budget: claim
+    (b) metric, the worst degradation against each one's run alone."""
+    cap = FAIR_CAPACITY
+    normal = {1: 0.20 * cap, 2: 0.25 * cap, 3: 0.15 * cap}
+    runs, base = [], {}
+    for t, d in normal.items():
+        res = ctl.SharedBottleneckSim([ctl.SimTenant(t, d)], cap,
+                                      dt=FAIR_DT, **kw).run(FAIR_T_RUN)
+        base[t] = res.served_rate(t)
+        runs.append(res)
+    tenants = [ctl.SimTenant(t, d) for t, d in normal.items()]
+    tenants.append(ctl.SimTenant(9, demand=10.0 * cap))
+    res = ctl.SharedBottleneckSim(tenants, cap, dt=FAIR_DT, **kw).run(
+        FAIR_T_RUN)
+    runs.append(res)
+    return runs, max(max(1.0 - res.served_rate(t) / base[t], 0.0)
+                     for t in normal)
+
+
+def fairness_backfill(ctl, **kw):
+    """A tenant idle from 4 s to 8 s: claim (c) metrics, the survivor's
+    share of capacity while it is idle and the returning tenant's share of
+    its fair half."""
+    cap = FAIR_CAPACITY
+
+    def on_off(t):
+        return 0.8 * cap if t < 4.0 or t >= 8.0 else 0.0
+
+    tenants = [ctl.SimTenant(1, on_off), ctl.SimTenant(2, 2.0 * cap)]
+    sim = ctl.SharedBottleneckSim(tenants, cap, dt=FAIR_DT, **kw)
+    runs = [sim.run(4.0), sim.run(4.0), sim.run(4.0)]
+    return runs, (runs[1].served_rate(2, 0.4, 1.0) / cap,
+                  runs[2].served_rate(1, 0.5, 1.0) / (0.5 * cap))
+
+
+FAIRNESS = {"convergence": fairness_convergence,
+            "isolation": fairness_isolation, "backfill": fairness_backfill}
+
+
+def fairness_claim(name, metric) -> bool:
+    """Claims (a)-(c) of benchmarks/bench_fairness.py."""
+    if name == "convergence":
+        return metric < 0.10
+    if name == "isolation":
+        return metric < 0.05
+    absorbed, returned = metric
+    return absorbed > 0.90 and abs(returned - 1.0) < 0.15
+
+
+def allocation_gap(a_runs, b_runs) -> float:
+    """Largest |a - b| over every tick's allocations, per unit capacity."""
+    gap = 0.0
+    for a, b in zip(a_runs, b_runs):
+        if len(a.allocations) != len(b.allocations):
+            raise AssertionError("the two controllers ticked differently")
+        for x, y in zip(a.allocations, b.allocations):
+            if x.keys() != y.keys():
+                raise AssertionError(f"tenants {sorted(x)} != {sorted(y)}")
+            gap = max([gap] + [abs(x[t] - y[t]) for t in x])
+    return gap / FAIR_CAPACITY
+
+
+def phase_fairness(torch, device):
+    """The three scenarios on the object controller and on the vectorized
+    one on ``device``. Returns the water-fill launches."""
+    import repro_torch.control as ctl
+    from repro_torch.kernels.waterfill import water_fill
+    launches = 0
+    for name, run in FAIRNESS.items():
+        obj_runs, obj_metric = run(ctl)
+        water_fill.launches = 0
+        vec_runs, vec_metric = run(ctl, backend="vectorized", device=device)
+        n_launch = water_fill.launches
+        # one history per simulator (a run's ``allocations`` is its
+        # controller's history so far); each entry is one allocation, one
+        # water-fill launch
+        ticks = sum(len(h) for h in {id(r.allocations): r.allocations
+                                     for r in vec_runs}.values())
+        gap = allocation_gap(obj_runs, vec_runs)
+        checks = {"claim_object": fairness_claim(name, obj_metric),
+                  "claim_vectorized": fairness_claim(name, vec_metric),
+                  "backends_agree": gap <= FAIR_BACKEND_TOL,
+                  "one_launch_per_tick": n_launch == ticks > 0}
+        emit({"phase": "fairness", "scenario": name,
+              "metric_object": obj_metric, "metric_vectorized": vec_metric,
+              "allocation_gap_over_capacity": gap,
+              "tol": FAIR_BACKEND_TOL, "controller_ticks": ticks,
+              "water_fill_launches": n_launch, "checks": checks,
+              "ok": all(checks.values())})
+        if not all(checks.values()):
+            raise AssertionError(f"fairness {name}: {checks}")
+        launches += n_launch
+    return launches
+
+
 def phase_timings(torch, device, smi: str):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
@@ -1128,6 +1543,33 @@ def phase_timings(torch, device, smi: str):
                "bytes": nbytes, "flops": flops, "gpu": smi}
         emit(row)
         rows[("ssd_chunk_scan", nc)] = row
+    from repro_torch.kernels.quant_comm import (
+        dequantize_int8, dequantize_int8_plain, quantize_int8,
+        quantize_int8_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    # the largest leaf of the codec pass: llama3.2-3b's embedding, bf16
+    r, c = CODEC_TIMED
+    x = torch.randn((r, c), generator=gen, device=device).to(torch.bfloat16)
+    q, sc = quantize_int8(x)
+    q_bytes, d_bytes = codec_bytes(r, c, 256, 2, 2)
+    # f32 operations per element: |x| and the max, the division, the
+    # rounding and the clamp to quantize; one multiply to dequantize
+    for name, fn, plain, nbytes, ops_per in (
+            ("quantize_int8", lambda: quantize_int8(x),
+             lambda: quantize_int8_plain(x), q_bytes, 5),
+            ("dequantize_int8",
+             lambda: dequantize_int8(q, sc, dtype=torch.bfloat16),
+             lambda: dequantize_int8_plain(q, sc, dtype=torch.bfloat16),
+             d_bytes, 1)):
+        b_ms, b_by = bound(nbytes, float(ops_per) * r * c, "float32")
+        row = {"phase": "timings", "kernel": name, "R": r, "C": c,
+               "block": 256, "dtype": "bfloat16",
+               "ms": timer.ms(fn), "plain_ms": timer.ms(plain),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "flops": float(ops_per) * r * c,
+               "gpu": smi}
+        emit(row)
+        rows[(name, r)] = row
     return rows
 
 
@@ -1208,11 +1650,29 @@ def main() -> int:
     launches["water_fill"] = control_launches + replay_launches
     torch.cuda.empty_cache()
 
+    # the bytes plane over a real payload: the full-width llama3.2-3b
+    # parameters as a gradient pytree, through the int8 codec and through
+    # every stock policy's NSMs; then the fairness harness, whose
+    # vectorized controller adds water-fill launches
+    from repro_torch.models.params import init_params
+    model = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED + 8))
+    tree = params_tree(model)
+    codec_launches, codec_errs = phase_codec(torch, device, tree)
+    launches.update(codec_launches)
+    errs.update(codec_errs)
+    phase_bytes(torch, device, tree)
+    del model, tree
+    torch.cuda.empty_cache()
+    launches["water_fill"] += phase_fairness(torch, device)
+
     rows = phase_timings(torch, device, smi)
     flash = rows[("flash_attention", 509)]
     dec = rows[("decode_attention", "mixed")]
     water = rows[("water_fill", CONTROL_N[-1])]
     ssd = rows[("ssd_chunk_scan", SSD_TIMED_CHUNKS[0])]
+    quant = rows[("quantize_int8", CODEC_TIMED[0])]
+    dequant = rows[("dequantize_int8", CODEC_TIMED[0])]
     summary = []
     for name, row, src, replaces in (
             ("flash_attention", flash,
@@ -1226,7 +1686,13 @@ def main() -> int:
              "src/repro/kernels/waterfill.py:55"),
             ("ssd_chunk_scan", ssd,
              "src/repro_torch/kernels/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:47")):
+             "src/repro/kernels/ssd_scan.py:47"),
+            ("quantize_int8", quant,
+             "src/repro_torch/kernels/csrc/quant_comm.cu",
+             "src/repro/kernels/quant_comm.py:37"),
+            ("dequantize_int8", dequant,
+             "src/repro_torch/kernels/csrc/quant_comm.cu",
+             "src/repro/kernels/quant_comm.py:59")):
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

@@ -1,21 +1,28 @@
 """repro_torch.control — the NetKernel management plane.
 
-Observe per-tenant rates, run a congestion-control policy over a shared
-bottleneck, and push allocations back into the schedulers' token buckets
-(the paper's use case 2), on per-tenant objects or, with
+Once the network stack is part of the infrastructure (CoreEngine meters
+every CommOp, token buckets shape every tenant), the operator can close the
+loop: observe per-tenant rates, run a congestion-control policy over a
+shared bottleneck, and push allocations back into the dataplane — the
+paper's use case 2 (distributed congestion control / fair bandwidth
+sharing, Figs. 21-22) as a subsystem — on per-tenant objects or, with
 ``backend="vectorized"``, on the flat arrays of ``control/vectorized.py``.
-Placement and the fluid simulator come with later slices of the port.
+Placement comes with a later slice of the port.
 """
 from repro_torch.control.congestion import (
     Aimd, CongestionControl, Dctcp, WaterFill, max_min_fair,
 )
 from repro_torch.control.controller import RateController
+from repro_torch.control.sim import SharedBottleneckSim, SimResult, SimTenant
 from repro_torch.control.telemetry import (
-    SchedulerTelemetry, TenantObs, format_prometheus, merge_obs,
+    EngineTelemetry, SchedulerTelemetry, TenantObs, format_prometheus,
+    merge_obs,
 )
 
 __all__ = [
     "Aimd", "CongestionControl", "Dctcp", "WaterFill", "max_min_fair",
-    "RateController", "SchedulerTelemetry", "TenantObs",
+    "RateController",
+    "SharedBottleneckSim", "SimResult", "SimTenant",
+    "EngineTelemetry", "SchedulerTelemetry", "TenantObs",
     "format_prometheus", "merge_obs",
 ]

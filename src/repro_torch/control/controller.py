@@ -1,17 +1,20 @@
 """RateController: the closed loop from observed traffic to enforced rates.
 
 One controller owns one shared bottleneck (capacity in units/s) and any
-number of TenantSchedulers that draw from it (serving bottleneck in
-tokens/s). Per tick the controller merges per-scheduler telemetry, runs
-the congestion-control algorithm on the merged view, then splits each
-tenant's global allocation across schedulers in proportion to where that
-tenant's traffic actually showed up (with a small probe floor so an idle
-scheduler can discover demand), and pushes it into the schedulers'
-admission buckets mid-run, preserving each bucket's capacity (requests
-admit whole). CoreEngine enforcement points (the bytes plane) come with
-a later slice of the port.
+number of enforcement points that draw from it:
 
-Rates are pushed with ``set_rate`` so live token
+  * CoreEngines (possibly several — the distributed case: engines on
+    different hosts whose tenants share one cross-pod fabric). Per tick the
+    controller merges per-engine telemetry, runs the congestion-control
+    algorithm on the merged view, then splits each tenant's global
+    allocation across engines in proportion to where that tenant's traffic
+    actually showed up (with a small probe floor so an idle engine can
+    discover demand).
+  * TenantSchedulers (serving bottleneck in tokens/s): allocations are
+    split the same way and pushed into the schedulers' admission buckets
+    mid-run, preserving each bucket's capacity (requests admit whole).
+
+Rates are pushed with ``update_tenant_rate``/``set_rate`` so live token
 balances survive the update — a controller tick must not reopen a fresh
 burst for a tenant it is trying to throttle.
 
@@ -28,7 +31,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.control.congestion import CongestionControl, WaterFill
 from repro_torch.control.telemetry import (
-    SchedulerTelemetry, TenantObs, format_prometheus, merge_obs,
+    EngineTelemetry, SchedulerTelemetry, TenantObs, format_prometheus,
+    merge_obs,
 )
 from repro_torch.control.vectorized import check_backend
 from repro_torch.obs import tracing
@@ -46,7 +50,9 @@ class RateController:
                  push_mode: str = "full", delta_tol: float = 0.05,
                  refresh_every: int = 32, backend: str = "object",
                  device=None):
-        """``capacity``: the ONE shared bottleneck in tokens/s.
+        """``capacity``: the ONE shared bottleneck in units/s — bytes/s
+        when the enforcement points are CoreEngines, tokens/s when they
+        are TenantSchedulers (don't mix units under one controller).
         ``weights``: per-tenant fair-share weights for the default
         WaterFill ``algo``. ``alpha``: telemetry EWMA gain in (0, 1].
         ``burst_s``: pushed bucket burst for CoreEngine points, in
@@ -80,6 +86,7 @@ class RateController:
         self._last_push: Dict[Tuple[str, int, int], float] = {}
         self.push_calls = 0
         self.push_skipped = 0
+        self._engines: List[Tuple[object, EngineTelemetry]] = []
         self._schedulers: List[Tuple[object, SchedulerTelemetry]] = []
         self.allocations: Dict[int, float] = {}
         self.history: List[Dict[int, float]] = []
@@ -90,12 +97,13 @@ class RateController:
 
     # -- wiring -------------------------------------------------------------
     def attach_engine(self, engine, axes: Optional[Iterable[str]] = None):
-        """CoreEngine enforcement points (bytes/s bottleneck) are not
-        ported yet: they come with the bytes plane (ROADMAP, "Modules to
-        port": bytes plane)."""
-        raise NotImplementedError(
-            "CoreEngine is not ported yet; attach_engine comes with the "
-            "bytes plane (ROADMAP: core/engine.py CoreEngine)")
+        """Add a CoreEngine enforcement point (bytes/s bottleneck).
+        ``axes``: restrict telemetry to CommOps intersecting these mesh
+        axes (None = meter everything). Returns self for chaining."""
+        self._engines.append(
+            (engine, EngineTelemetry(engine, self.alpha, axes,
+                                     backend=self.backend)))
+        return self
 
     def attach_scheduler(self, scheduler):
         """Add a TenantScheduler enforcement point (tokens/s bottleneck).
@@ -139,9 +147,16 @@ class RateController:
         point that no longer holds it (telemetry EWMA + counter baseline
         + push history + allocation) — without it, telemetry EWMA maps
         grew one entry per tenant that ever existed. Points that still
-        hold the tenant keep their live telemetry untouched."""
+        hold the tenant (migration source that only moved one of two
+        planes, say) keep their live telemetry untouched."""
         self.invalidate_tenant(tenant)
         anywhere = False
+        for engine, tel in self._engines:
+            holds = getattr(engine, "has_tenant", None)
+            if holds is not None and holds(tenant):
+                anywhere = True
+            else:
+                tel.evict_tenant(tenant)
         for scheduler, tel in self._schedulers:
             if tenant in getattr(scheduler, "queues", {}):
                 anywhere = True
@@ -155,7 +170,9 @@ class RateController:
         """Sample every attached enforcement point at time ``now`` (seconds)
         and return the merged per-tenant view (units/s summed across
         points — one tenant's traffic through several engines)."""
-        return merge_obs([tel.update(now) for _, tel in self._schedulers])
+        per_source = [tel.update(now) for _, tel in self._engines]
+        per_source += [tel.update(now) for _, tel in self._schedulers]
+        return merge_obs(per_source)
 
     # -- the loop body ------------------------------------------------------
     def tick(self, now: Optional[float] = None) -> Dict[int, float]:
@@ -203,6 +220,16 @@ class RateController:
                 self.ticks % self.refresh_every == self.refresh_every - 1:
             self._last_push.clear()        # periodic full refresh
         for tenant, rate in self.allocations.items():
+            burst = max(rate * self.burst_s, 1.0)
+            for i, ((engine, _tel), share) in enumerate(zip(
+                    self._engines, self._shares(tenant, self._engines))):
+                if self._changed("engine", i, tenant, rate * share):
+                    engine.update_tenant_rate(tenant, rate * share,
+                                              burst * share, now)
+                    self._last_push[("engine", i, tenant)] = rate * share
+                    self.push_calls += 1
+                else:
+                    self.push_skipped += 1
             # schedulers keep their bucket capacity: requests are admitted
             # whole, so shrinking burst below one request's token cost would
             # head-of-line-block the queue forever
@@ -250,7 +277,7 @@ class RateController:
                                      float(self.last_tenants)}
         for t, r in sorted(self.allocations.items()):
             out[f'nk_allocated_rate{{tenant="{t}"}}'] = r
-        for _, tel in self._schedulers:
+        for _, tel in self._engines + self._schedulers:
             for k, v in tel.counters().items():
                 # labeled totals end in '}', so match on the metric name
                 out[k] = out.get(k, 0) + v if "_total" in k else v

@@ -44,6 +44,8 @@ SIGNATURES = {
     "nk_decode_attention": [_P] * 10 + [_I] * 11 + [_F, _I, _P],
     "nk_water_fill": [_P] * 6 + [_L, _I, _L, _I, _I, _P],
     "nk_ssd_chunk_scan": [_P] * 7 + [_I] * 8 + [_P],
+    "nk_quantize_int8": [_P] * 3 + [_L] + [_I] * 4 + [_P],
+    "nk_dequantize_int8": [_P] * 3 + [_L] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,12 @@
 """Public wrappers for the ported kernels, in the reference's layouts.
 
 The counterpart of ``repro/kernels/ops.py``: the same signatures and
-``(B, H, S, d)`` / ``(B, H, d)`` / ``(nb, nc, Q, H, P)`` / ``(n,)`` layouts,
-with ``impl="ref"`` running the oracle and ``impl="kernel"`` the
-hand-written kernel (on CPU tensors, its plain version). Model and control
-code call the kernels directly; these wrappers are the kernel-level test
-surface.
+``(B, H, S, d)`` / ``(B, H, d)`` / ``(nb, nc, Q, H, P)`` / ``(n,)`` /
+``(R, C)`` layouts, with ``impl="ref"`` running the oracle and
+``impl="kernel"`` the hand-written kernel (on CPU tensors, its plain
+version). Model and control code call the kernels directly; these wrappers
+are the kernel-level test surface, and ``quantize``/``dequantize`` the
+codec's entry points, as in the reference.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.quant_comm import (
+    dequantize_int8, dequantize_int8_plain, quantize_int8, quantize_int8_plain)
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 from repro_torch.kernels.waterfill import water_fill as _water_fill
 
@@ -54,6 +57,19 @@ def ssd_intra_chunk(xdt, dA, B, C, *, impl="kernel"):
                                   for row in outs]) for k in range(3))
     return ssd_chunk_scan(xdt.contiguous(), dA, B.contiguous(),
                           C.contiguous())
+
+
+def quantize(x, *, block=256, impl="kernel"):
+    """x (R, C), C % block == 0 -> (q int8 (R, C), scales f32 (R, C/block))."""
+    if _impl(impl) == "ref":
+        return quantize_int8_plain(x, block=block)
+    return quantize_int8(x, block=block)
+
+
+def dequantize(q, scales, *, block=256, impl="kernel", dtype=torch.float32):
+    if _impl(impl) == "ref":
+        return dequantize_int8_plain(q, scales, block=block, dtype=dtype)
+    return dequantize_int8(q, scales, block=block, dtype=dtype)
 
 
 def water_fill(demands, weights, capacity, *, impl="kernel", iters=48):

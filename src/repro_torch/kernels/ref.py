@@ -2,8 +2,10 @@
 
 Each ``*_ref`` mirrors its counterpart in ``repro/kernels/ref.py`` with the
 same signature and layouts, so a test can hold the port's kernels and the
-reference's against one oracle. The oracles of the kernels still to be
-ported (the int8 codec) come with those kernels.
+reference's against one oracle. The int8 codec has no separate oracle: its
+plain versions (``kernels/quant_comm.py``) compute, to the bit, what the
+reference's oracle and Pallas kernel compute, and ``ops`` takes them for
+``impl="ref"``.
 
 ``water_fill_plain``, the water-fill kernel's own function in plain
 PyTorch (the fixed-iteration bisection), lives beside the kernel in

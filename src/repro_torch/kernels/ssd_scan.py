@@ -17,12 +17,15 @@ xdt's. The decay exponent is always a difference ``cs[l] - cs[s]``, masked
 before the exponential: a factored ``exp(cs[l]) * exp(-cs[s])`` underflows
 and overflows at full width, where ``cs`` reaches about -180 in a chunk.
 
-Both versions compute in f32 from f32 or bf16 inputs, as the Pallas
+Both versions take f32 or bf16 inputs and give f32 results, as the Pallas
 kernel does: the kernel feeds the f32 masked decay matrix
 ``M = (C B^T) o L`` and the decayed inputs ``exp(cs[Q-1] - cs) xdt`` to
-bf16 tensor-core products as hi + lo bf16 pairs (~1e-5 relative). The
-reference model's ``ssd_chunked`` rounds both to bf16 before its products
-at bf16 (ROADMAP §3, P5).
+bf16 tensor-core products as hi + lo bf16 pairs (~1e-5 relative); the
+plain version accumulates in f64 and rounds once to f32, so that its
+result depends on the inputs alone and not on how a BLAS blocks f32
+products under a given thread count and load. The reference model's
+``ssd_chunked`` rounds both to bf16 before its products at bf16
+(ROADMAP §3, P5).
 
 ``ssd_chunk_scan`` takes the plain PyTorch version only for tensors on the
 CPU. On CUDA tensors it launches the kernel or raises; it never falls
@@ -50,17 +53,20 @@ def segsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_chunk_scan_plain(xdt, dA, B, C, *, out_dtype=None):
-    """The kernel's function in plain PyTorch, in f32."""
-    x = xdt.float()
-    a = dA.float().transpose(-1, -2)                     # (nb,nc,H,Q)
+    """The kernel's function in plain PyTorch: the inputs widened (exactly)
+    to f64, every product and sum in f64, each output rounded once to
+    f32 (``y`` then to ``out_dtype``)."""
+    x = xdt.double()
+    a = dA.double().transpose(-1, -2)                    # (nb,nc,H,Q)
     cs = torch.cumsum(a, dim=-1)
     L = torch.exp(segsum(a))                             # (nb,nc,H,Q,Q)
-    G = torch.einsum("bcln,bcsn->bcls", C.float(), B.float())
+    G = torch.einsum("bcln,bcsn->bcls", C.double(), B.double())
     y = torch.einsum("bchls,bcshp->bclhp", G[:, :, None] * L, x)
     w = torch.exp(cs[..., -1:] - cs)                     # (nb,nc,H,Q)
-    st = torch.einsum("bcsn,bcshp->bchpn", B.float(),
+    st = torch.einsum("bcsn,bcshp->bchpn", B.double(),
                       x * w.transpose(-1, -2)[..., None])
-    return y.to(out_dtype or xdt.dtype), st, torch.exp(cs[..., -1])
+    return (y.float().to(out_dtype or xdt.dtype), st.float(),
+            torch.exp(cs[..., -1]).float())
 
 
 def _check(xdt, dA, B, C, out_dtype) -> None:

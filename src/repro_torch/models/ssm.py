@@ -127,8 +127,12 @@ def ssd_chunked(xdt, dA, B, C, chunk: int,
 
     # --- inter-chunk output ---
     state_decay = torch.exp(torch.cumsum(f32(dAc), dim=2))   # (b,c,Q,h)
-    y_off = torch.einsum("bcln,bchpn->bclhp", f32(Cc),
-                         f32(entering.to(xdt.dtype)))
+    # on the CPU the product goes through the host's BLAS, whose f32
+    # blocking varies with its thread count and load: summed in f64 there
+    # and rounded once, it depends on the inputs alone (as the plain scan)
+    acc = torch.float64 if xdt.device.type == "cpu" else torch.float32
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cc.to(acc),
+                         entering.to(xdt.dtype).to(acc)).float()
     y_off = y_off * state_decay[..., None]
     y = (y_diag + y_off).reshape(b, l, h, p)[:, :l_real]
     return y, s

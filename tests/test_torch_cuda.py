@@ -19,6 +19,10 @@ the decay (the reference's own bounds, ``tests/test_kernels.py:82-84``);
 bf16 within 2e-2 of the largest |y| and |state| (both compute in f32, the
 kernel's tensor-core products on hi + lo bf16 pairs; y may be asked in
 bf16); a zero-padded chunk gives exactly the prefix's y, state and decay.
+The int8 codec kernels equal their plain version bit for bit (codes,
+scales, and the dequantized values in f32 and bf16). The bytes plane runs
+on an NCCL world of one rank: every stock policy's ``nk_grad_sync`` equals
+its plain result bit for bit.
 """
 import dataclasses
 
@@ -32,6 +36,9 @@ from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.quant_comm import (
+    codec_error_bound, dequantize_int8, dequantize_int8_plain, quantize_int8,
+    quantize_int8_plain)
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
     ssd_chunk_scan_plain
 from repro_torch.kernels.waterfill import water_fill, water_fill_plain
@@ -344,3 +351,101 @@ def test_ssm_serve_engine_on_card_matches_cpu(cuda):
         cfg.num_layers * eng.admissions
     _, on_cpu = serve(torch.device("cpu"))
     assert on_card == on_cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 255, 257, 4096])
+@pytest.mark.parametrize("c", [256, 3072, 8192])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_codec_kernel_matches_plain_on_card(cuda, r, c, block, dtype):
+    """``chip_smoke.py``'s codec shapes: rows scaled 1e-2..1e2, a zero
+    block and exact ties; codes, scales and both dequantized dtypes equal
+    the plain version's to the bit, within the stated bound, one launch
+    each."""
+    g = torch.Generator(device=cuda).manual_seed(r * 31 + c)
+    x = torch.randn((r, c), generator=g, device=cuda)
+    x *= torch.exp(torch.empty((r, 1), device=cuda).uniform_(
+        np.log(0.01), np.log(100.0), generator=g))
+    x[0, :256] = 0.0
+    if r > 1:
+        x[1, :256] = 0.0
+        x[1, :128] = (torch.arange(-64, 64, device=cuda) + 0.5) * 0.125
+        x[1, 0] = 127 * 0.125
+    x = x.to(getattr(torch, dtype))
+    before = (quantize_int8.launches, dequantize_int8.launches)
+    q, s = quantize_int8(x, block=block)
+    outs = {o: dequantize_int8(q, s, block=block, dtype=getattr(torch, o))
+            for o in ("float32", "bfloat16")}
+    torch.cuda.synchronize()
+    assert (quantize_int8.launches, dequantize_int8.launches) == \
+        (before[0] + 1, before[1] + 2)
+    pq, ps = quantize_int8_plain(x, block=block)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    for o, d in outs.items():
+        assert torch.equal(d, dequantize_int8_plain(
+            q, s, block=block, dtype=getattr(torch, o)))
+        assert bool(((d.float() - x.float()).abs()
+                     <= codec_error_bound(x, s, d, block=block)).all())
+    if r > 1:
+        assert s[1, 0].item() == 0.125
+        assert q[1, 1:128].tolist() == [2 * ((k + 1) // 2)
+                                        for k in range(-63, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,c", [(128256, 3072), (3072, 8192), (8192, 3072),
+                                 (3072, 3072), (3072, 1024), (1, 3072)])
+def test_codec_kernel_matches_plain_at_llama_leaf_shapes(cuda, r, c):
+    """The shapes the codec takes on its path in ``chip_smoke.py``:
+    llama3.2-3b's leaves as (first dim, rest) at bf16, block 256, round
+    trip into bf16. Codes, scales and values equal the plain version's to
+    the bit."""
+    g = torch.Generator(device=cuda).manual_seed(r + c)
+    x = (torch.randn((r, c), generator=g, device=cuda) * 0.02).to(
+        torch.bfloat16)
+    q, s = quantize_int8(x)
+    d = dequantize_int8(q, s, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    pq, ps = quantize_int8_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert torch.equal(d, dequantize_int8_plain(q, s, dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_codec_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 512), device=cuda)
+    unaligned = torch.zeros(4 * 256 + 1, device=cuda)[1:].view(4, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        quantize_int8(unaligned)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_int8(x[:, :256])
+    with pytest.raises(TypeError):
+        quantize_int8(x.double())
+    with pytest.raises(ValueError, match="block"):
+        quantize_int8(x, block=512)
+
+
+@pytest.mark.cuda
+def test_nk_grad_sync_on_an_nccl_world_of_one(cuda):
+    """The bytes plane on the card: ``chip_smoke.py``'s bytes phase on a
+    small pytree (NCCL, world size 1): each policy's output equals its
+    plain result, ledgers equal payload bytes, billed bytes survive a
+    move."""
+    import importlib.util
+    import pathlib
+
+    import torch.distributed as dist
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"embed": torch.randn((512, 256), generator=g, device=cuda)
+            .to(torch.bfloat16),
+            "w": torch.randn((3, 256, 512), generator=g, device=cuda),
+            "norm": torch.randn(256, generator=g, device=cuda)}
+    rows = cs.phase_bytes(torch, torch.device("cuda", 0), tree)
+    assert not dist.is_initialized()
+    assert [r["policy"] for r in rows] == list(cs.BYTES_POLICIES)
+    assert all(r["ok"] for r in rows)

@@ -47,7 +47,12 @@ def test_port_imports_without_jax_or_the_reference():
     assert {"repro_torch.control.vectorized", "repro_torch.serve.multiplex",
             "repro_torch.serve.replay", "repro_torch.kernels.waterfill",
             "repro_torch.kernels.ssd_scan",
-            "repro_torch.models.ssm"} <= names
+            "repro_torch.models.ssm", "repro_torch.core.nqe",
+            "repro_torch.core.engine", "repro_torch.core.nsm",
+            "repro_torch.core.compression", "repro_torch.core.collectives",
+            "repro_torch.core.overlap", "repro_torch.kernels.quant_comm",
+            "repro_torch.control.sim",
+            "repro_torch.control.telemetry"} <= names
 
 
 def test_port_configs_equal_the_reference():

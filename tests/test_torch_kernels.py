@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hyp import given, settings, st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -28,6 +29,9 @@ from repro_torch.kernels.decode_attention import (
     SPLIT_ALIGN, decode_attention, decode_attention_plain, split_plan)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.quant_comm import (
+    codec_error_bound, dequantize_int8, dequantize_int8_plain, quantize_int8,
+    quantize_int8_plain)
 from repro_torch.kernels.ssd_scan import (
     segsum, ssd_chunk_scan, ssd_chunk_scan_plain)
 from repro_torch.models import attention as tattn
@@ -356,3 +360,109 @@ def test_ssd_plain_computes_in_f32_from_bf16_operands():
     y_bf16 = ssd_chunk_scan_plain(bx, td, bb, bc)[0]
     assert y_bf16.dtype == torch.bfloat16
     assert torch.equal(y_bf16, y32.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# int8 codec (blockwise quantize / dequantize)
+# ---------------------------------------------------------------------------
+
+
+def _codec_input(seed, r, c):
+    """Rows scaled from 1e-2 to 1e2 (the regime where a scale off by one
+    bit moves codes), plus a block of zeros and one of exact ties."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((r, c))
+         * np.exp(rng.uniform(np.log(0.01), np.log(100.0), (r, 1))))
+    x = x.astype(np.float32)
+    x[0, :256] = 0.0
+    if r > 1:
+        # absmax 127 * 2^-3 makes the scale 2^-3 exactly: (k + 0.5) * scale
+        # is then a tie that only round-half-to-even resolves as XLA does
+        x[1, :256] = 0.0
+        x[1, :128] = (np.arange(-64, 64) + 0.5) * 0.125
+        x[1, 0] = 127 * 0.125
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("r,c", [(1, 256), (3, 512), (257, 1024),
+                                 (300, 768)])
+def test_codec_plain_equals_reference_bit_for_bit(dtype, block, r, c):
+    """The plain codec against the reference's oracle and its Pallas
+    kernel in interpret mode (both jitted, as ``ops.quantize`` runs them):
+    codes and scales equal to the bit (rtol 0), and dequantize into f32
+    and bf16 equal to the bit; ``ops.quantize(impl="kernel")`` on CPU
+    tensors is the plain version."""
+    x = _codec_input(r * 7 + c, r, c)
+    jx, tx = _both(x, dtype)
+    q_t, s_t = tops.quantize(tx, block=block)
+    q_p, s_p = quantize_int8_plain(tx, block=block)
+    assert torch.equal(q_t, q_p) and torch.equal(s_t, s_p)
+    assert q_t.dtype == torch.int8 and s_t.dtype == torch.float32
+    assert tuple(s_t.shape) == (r, c // block)
+    q_r, s_r = tops.quantize(tx, block=block, impl="ref")
+    assert torch.equal(q_r, q_t) and torch.equal(s_r, s_t)
+    for impl in ("ref", "pallas"):
+        jq, js = jops.quantize(jx, block=block, impl=impl)
+        np.testing.assert_array_equal(q_t.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(s_t.numpy(), np.asarray(js))
+        for out in ("float32", "bfloat16"):
+            jd = jops.dequantize(jq, js, block=block, impl=impl,
+                                 dtype=getattr(jnp, out))
+            td = tops.dequantize(q_t, s_t, block=block,
+                                 dtype=getattr(torch, out))
+            assert td.dtype == getattr(torch, out)
+            np.testing.assert_array_equal(_np(td), _np(jd))
+    # a zero block: scale float32(1e-30) * float32(1/127), codes 0
+    assert s_t[0, 0].item() == np.float32(1e-30) * np.float32(1 / 127)
+    assert not q_t[0, :256].any()
+    if r > 1:                       # the ties rounded half to even
+        assert s_t[1, 0].item() == 0.125
+        assert q_t[1, 1:128].tolist() == [
+            int(v) for v in np.round(np.arange(-63, 64) + 0.5)]
+
+
+def test_codec_scale_is_a_reciprocal_multiply():
+    """Pins the scale's bits: ``absmax * float32(1/127)``, which the
+    reference computes under jit; a true division by 127 differs in the
+    last bit for some absmax, and then codes move too."""
+    absmax = np.abs(_rand(3, 4096)) * 10.0
+    mul = absmax * np.float32(1.0 / 127.0)
+    div = absmax / np.float32(127.0)
+    assert (mul != div).any()
+    x = np.zeros((4096, 128), np.float32)
+    x[:, 0] = absmax
+    _, s = quantize_int8_plain(torch.from_numpy(x), block=128)
+    np.testing.assert_array_equal(s[:, 0].numpy(), mul)
+    _, js = jops.quantize(jnp.asarray(x), block=128, impl="ref")
+    np.testing.assert_array_equal(np.asarray(js)[:, 0], mul)
+
+
+@given(r=st.integers(1, 64), cb=st.integers(1, 8),
+       scale=st.floats(0.01, 100.0), block=st.sampled_from([128, 256]),
+       out=st.sampled_from(["float32", "bfloat16"]))
+@settings(max_examples=40, deadline=None)
+def test_codec_round_trip_within_its_stated_bound(r, cb, scale, block, out):
+    """The port's own bound (``codec_error_bound``), over the reference's
+    property ranges (rows 1-64, 1-8 blocks, scales 0.01-100): the error
+    of one round trip is at most half a scale step, plus the f32 roundings
+    of ``x / scale`` and ``q * scale`` (2^-24 of the block's absmax and
+    2^-22 of |x_hat|), plus half a bf16 ulp (2^-8 |x_hat|) into bf16."""
+    x = torch.from_numpy(_rand(r * 1000 + cb, r, cb * block) * scale)
+    q, s = quantize_int8(x, block=block)
+    x_hat = dequantize_int8(q, s, block=block, dtype=getattr(torch, out))
+    err = (x_hat.float() - x).abs()
+    assert (err <= codec_error_bound(x, s, x_hat, block=block)).all()
+
+
+def test_codec_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((4, 384))
+    for bad in (dict(block=256), dict(block=64)):
+        with pytest.raises(ValueError, match="block"):
+            quantize_int8(x, **bad)
+    with pytest.raises(ValueError, match="block"):
+        quantize_int8(torch.zeros(256))
+    with pytest.raises(ValueError, match="block"):
+        dequantize_int8_plain(torch.zeros((2, 100), dtype=torch.int8),
+                              torch.zeros((2, 1)), block=128)

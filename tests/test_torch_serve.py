@@ -15,6 +15,7 @@ import math
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import RunConfig as JRunConfig
 from repro.configs import get_smoke_config as j_smoke
@@ -28,6 +29,7 @@ from repro.serve.scheduler import TenantScheduler as JScheduler
 from repro_torch.configs import RunConfig, get_smoke_config
 from repro_torch.control import congestion as t_cong
 from repro_torch.control.controller import RateController as TController
+from repro_torch.core.engine import CoreEngine
 from repro_torch.core.engine import TokenBucket as TBucket
 from repro_torch.models.params import params_from_jax
 from repro_torch.serve import Request as TRequest
@@ -225,15 +227,24 @@ def test_rate_controller_matches_reference(push_mode):
 
 def test_unported_backends_and_points_raise():
     # the vectorized backend is ported: it builds (its water-fill on the
-    # device asked for); CoreEngine points still raise
+    # device asked for); CoreEngine points are ported too: a controller
+    # tick pushes a rate into an attached engine's bucket. An unknown
+    # bucket backend still raises.
     assert TScheduler(bucket_backend="vectorized").bucket_backend == \
         "vectorized"
     assert TController(10.0, backend="vectorized",
                        device="cpu").backend == "vectorized"
     assert t_cong.WaterFill(backend="vectorized",
                             device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TController(10.0).attach_engine(object())
+    eng = CoreEngine(enforcement="account")
+    ctrl = TController(10.0).attach_engine(eng, ("pod",))
+    for k, now in enumerate((0.1, 0.2)):
+        eng.dispatch("shm_move", torch.zeros(16 * (k + 1), dtype=torch.uint8),
+                     ("pod",), tenant_id=3, now=now)
+        ctrl.tick(now)
+    assert ctrl.allocations and eng.buckets[3].rate == \
+        pytest.approx(ctrl.allocations[3])
+    assert eng.total_bytes(3) == 48
     with pytest.raises(ValueError):
         TScheduler(bucket_backend="arrays")
 

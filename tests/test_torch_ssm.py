@@ -105,9 +105,15 @@ def test_ssd_chunked_matches_reference_and_recurrence(l, chunk):
     y, st = tssm.ssd_chunked(*map(_t, arrays), chunk)
     jy, jst = jssm.ssd_chunked(*map(jnp.asarray, arrays), chunk)
     assert y.dtype == st.dtype == torch.float32
-    np.testing.assert_allclose(_np(y), _np(jy), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(_np(st), _np(jst), rtol=1e-5, atol=1e-5)
     ny, nst = _naive_ssd(*arrays)
+    # which side moved, should the two ever disagree: each against the f64
+    # recurrence (both sit ~3e-7 from it on this input)
+    side = (f"max |y - f64|: port {np.abs(_np(y) - ny).max()}, reference "
+            f"{np.abs(_np(jy) - ny).max()}")
+    np.testing.assert_allclose(_np(y), _np(jy), rtol=1e-5, atol=1e-5,
+                               err_msg=side)
+    np.testing.assert_allclose(_np(st), _np(jst), rtol=1e-5, atol=1e-5,
+                               err_msg=side)
     np.testing.assert_allclose(_np(y), ny, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(_np(st), nst, rtol=2e-3, atol=2e-3)
     s0 = _rand(l + 7, 2, 4, 8, 16)
@@ -117,6 +123,23 @@ def test_ssd_chunked_matches_reference_and_recurrence(l, chunk):
                                  initial_state=jnp.asarray(s0))
     np.testing.assert_allclose(_np(y0), _np(jy0), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(_np(st0), _np(jst0), rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_chunked_is_fixed_by_its_inputs():
+    """On the CPU the scan's products are summed in f64 and rounded once:
+    the same inputs give the same bits whatever thread count the host's
+    BLAS runs with."""
+    arrays = [_t(a) for a in _scan_inputs(64, 2, 64, 4, 8, 16)]
+    threads = torch.get_num_threads()
+    try:
+        outs = []
+        for n in (1, 2, 3, 8):
+            torch.set_num_threads(n)
+            outs.append(tssm.ssd_chunked(*arrays, 16))
+    finally:
+        torch.set_num_threads(threads)
+    for y, st in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
 
 
 def test_ssd_chunked_naive_and_kernel_paths_agree():
