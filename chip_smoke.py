@@ -11,10 +11,13 @@ JSON object per line:
 1. device   — card name and count, ``nvidia-smi`` name and power limit;
 2. build    — compiles the hand-written CUDA kernels (``build/kernels``);
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the paths' shapes, with the tolerance stated; the water-fill
-              also against the exact sort-based fill, and twice on the same
-              input (bit-identical); the SSD scan at mamba2-370m's width
-              (1, 2 and 16 chunks, a padded last chunk, cumsums to -180);
+              the paths' shapes, with the tolerance stated (flash: S 1, 2,
+              64, 65, 509, 1024, two sequences with T > S, a window, f32;
+              decode: mixed and serve positions, twice, bit-identical);
+              the water-fill also against the exact sort-based fill, and
+              twice on the same input (bit-identical); the SSD scan at
+              mamba2-370m's width (1, 2 and 16 chunks, a padded last chunk,
+              cumsums to -180);
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -59,8 +62,12 @@ JSON object per line:
 12. timings — each kernel, its plain version and one PyTorch library call
               where one computes the same function, timed with CUDA events
               beside the least time the card could take (bytes or
-              operations at the H100 SXM datasheet rates); the SSD scan at
-              a 512- and a 4,096-token prompt; the codec on the embedding
+              operations at the H100 SXM datasheet rates); for the
+              attention kernels the backend that
+              ``scaled_dot_product_attention`` dispatches to (timed pinned
+              to it) and the wrapper's host enqueue µs per call; decode at
+              mixed, full and serve-range positions; the SSD scan at a
+              512- and a 4,096-token prompt; the codec on the embedding
               leaf.
 
 Then one ``{"kernels": [...]}`` summary line, and as the last line
@@ -105,6 +112,9 @@ TENANTS = 3
 NEW_TOKENS = 32
 PROMPT_RANGE = (64, 512)
 DECODE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
+# the serve phase's live range: prompts of 64-512 tokens plus 32 new ones
+SERVE_DECODE_POS = (64, 132, 201, 269, 338, 406, 475, 544)
+HOST_CALLS = 200              # enqueue timing: calls back to back
 
 # water-fill: |kernel - plain| and |kernel - exact fill| per unit capacity
 WATER_TOL_PLAIN = 1e-9
@@ -166,12 +176,15 @@ class Timer:
     launch (the serving path reads each layer's cache cold). A device-side
     sleep queued ahead of the first event keeps the card busy while the
     host enqueues the call, so the events bracket device time only, not
-    the wrapper's Python overhead."""
+    the wrapper's Python overhead. ``flush="write"`` writes 64 MB, which
+    leaves the L2 full of dirty lines that the timed kernel's reads write
+    back first; ``flush="read"`` reads them and leaves the L2 clean."""
 
     SLEEP_CYCLES = 2_000_000      # ~1 ms at H100 clocks
 
-    def __init__(self, torch, device):
+    def __init__(self, torch, device, flush: str = "write"):
         self.torch = torch
+        self.flush = flush
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
                                      device=device)
 
@@ -182,7 +195,10 @@ class Timer:
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            self.flush_buf.zero_()
+            if self.flush == "write":
+                self.flush_buf.zero_()
+            else:
+                self.flush_buf.sum(dtype=torch.int64)
             torch.cuda._sleep(self.SLEEP_CYCLES)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -192,6 +208,39 @@ class Timer:
             e1.synchronize()
             times.append(e0.elapsed_time(e1))
         return statistics.median(times)
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """The host's enqueue time per call of ``fn``: ``calls`` calls back to
+    back with no synchronize between them, on the host clock."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def sdpa_backend(torch, q, k, v, **kw):
+    """The backend ``scaled_dot_product_attention`` dispatches these inputs
+    to, by its own choice function, as an ``SDPBackend``."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw))
+
+
+def library_row(torch, timer, q, k, v, **kw):
+    """``scaled_dot_product_attention`` on these inputs, timed with its
+    backend pinned to the one it dispatches to."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+    backend = sdpa_backend(torch, q, k, v, **kw)
+    with sdpa_kernel([backend]):
+        ms = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw))
+    return {"library_ms": ms, "library": "scaled_dot_product_attention",
+            "library_backend": backend.name}
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -247,28 +296,40 @@ def phase_kernels(torch, device):
     gen = torch.Generator(device=device).manual_seed(SEED)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     hq, kv, d = 24, 8, 128
-    cases = [(s, "bfloat16", 0) for s in (64, 509, 1024)]
-    cases += [(509, "bfloat16", 128), (509, "float32", 0)]
-    for s, dt, window in cases:
+    # (B, S, T, dtype, window, q_offset): the path's prefills, the replay
+    # phase's 2-token prompts, a ragged second q tile, a later chunk of two
+    # sequences (T > S), a window, the f32 kernel
+    cases = [(1, s, s, "bfloat16", 0, 0) for s in (64, 509, 1024)]
+    cases += [(1, 1, 1, "bfloat16", 0, 0), (1, 2, 2, "bfloat16", 0, 0),
+              (1, 65, 65, "bfloat16", 0, 0), (2, 100, 300, "bfloat16", 0, 200),
+              (1, 509, 509, "bfloat16", 128, 0),
+              (1, 509, 509, "float32", 0, 0)]
+    for b, s, t, dt, window, q_offset in cases:
         dtype = getattr(torch, dt)
-        q = torch.randn((1, s, hq, d), generator=gen, device=device).to(dtype)
-        k = torch.randn((1, s, kv, d), generator=gen, device=device).to(dtype)
-        v = torch.randn((1, s, kv, d), generator=gen, device=device).to(dtype)
-        o = flash_attention(q, k, v, causal=True, window=window)
+        q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
+        k = torch.randn((b, t, kv, d), generator=gen, device=device).to(dtype)
+        v = torch.randn((b, t, kv, d), generator=gen, device=device).to(dtype)
+        o = flash_attention(q, k, v, causal=True, window=window,
+                            q_offset=q_offset)
         torch.cuda.synchronize()
-        ref = flash_attention_plain(q, k, v, causal=True, window=window)
+        ref = flash_attention_plain(q, k, v, causal=True, window=window,
+                                    q_offset=q_offset)
         err = (o.float() - ref.float()).abs().max().item()
         ok = err <= FLASH_TOL[dt] and bool(torch.isfinite(o).all())
-        emit({"phase": "kernels", "kernel": "flash_attention", "S": s,
-              "dtype": dt, "window": window, "max_abs_err": err,
+        emit({"phase": "kernels", "kernel": "flash_attention", "B": b,
+              "S": s, "T": t, "dtype": dt, "window": window,
+              "q_offset": q_offset, "max_abs_err": err,
               "tol": FLASH_TOL[dt], "ok": ok})
         if not ok:
-            raise AssertionError(f"flash_attention S={s} {dt} window="
-                                 f"{window}: err {err} > {FLASH_TOL[dt]}")
+            raise AssertionError(f"flash_attention B={b} S={s} T={t} {dt} "
+                                 f"window={window} q_offset={q_offset}: "
+                                 f"err {err} > {FLASH_TOL[dt]}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
     b, t = 8, 1024
-    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=device)
-    for dt in ("bfloat16", "float32"):
+    for dt, pos_list in (("bfloat16", DECODE_POS),
+                         ("bfloat16", SERVE_DECODE_POS),
+                         ("float32", DECODE_POS)):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
         q = torch.randn((b, hq, d), generator=gen,
                         device=device).to(getattr(torch, dt))
         kc = torch.randn((b, t, kv, d), generator=gen,
@@ -276,22 +337,28 @@ def phase_kernels(torch, device):
         vc = torch.randn((b, t, kv, d), generator=gen,
                          device=device).to(torch.bfloat16)
         o, m, l = decode_attention(q, kc, vc, pos)
+        # a second call on the same inputs: the in-launch combine sums in
+        # a fixed order, so it is bit-identical
+        o2, m2, l2 = decode_attention(q, kc, vc, pos)
         torch.cuda.synchronize()
+        same = torch.equal(o, o2) and torch.equal(m, m2) \
+            and torch.equal(l, l2)
         ro, rm, rl = decode_attention_plain(q, kc, vc, pos)
         e_o = (o.float() - ro.float()).abs().max().item()
         e_m = (m - rm).abs().max().item()
         e_l = ((l - rl).abs() / rl.abs()).max().item()
         tol = DECODE_TOL[dt]
         ok = e_o <= tol["o"] and e_m <= tol["m"] and e_l <= tol["l"] \
-            and bool(torch.isfinite(o).all())
+            and bool(torch.isfinite(o).all()) and same
         emit({"phase": "kernels", "kernel": "decode_attention", "B": b,
               "T": t, "q_dtype": dt, "cache_dtype": "bfloat16",
-              "pos": list(DECODE_POS), "max_abs_err_o": e_o,
+              "pos": list(pos_list), "max_abs_err_o": e_o,
               "max_abs_err_m": e_m, "max_rel_err_l": e_l, "tol": tol,
-              "ok": ok})
+              "repeat_bit_identical": same, "ok": ok})
         if not ok:
-            raise AssertionError(f"decode_attention {dt}: o {e_o}, m {e_m}, "
-                                 f"l {e_l} against {tol}")
+            raise AssertionError(f"decode_attention {dt} pos {pos_list}: o "
+                                 f"{e_o}, m {e_m}, l {e_l} against {tol}, "
+                                 f"repeat identical {same}")
         errs["decode_attention"] = max(errs["decode_attention"], e_o)
     return errs
 
@@ -672,18 +739,30 @@ def phase_parity(torch, device, eng):
     """The kernel path against the plain path (``attention_impl="naive"``),
     same weights, logits compared within ``PARITY_TOL``."""
     from repro_torch.configs import RunConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    flash_attention.launches = 0
+    decode_attention.launches = 0
     runs, _ = parity_logits(torch, device, eng.params, eng.max_seq,
                             {"kernel": RunConfig(),
                              "plain": RunConfig(attention_impl="naive")})
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    # the kernel path: one prefill and 4 decode steps through every layer
+    layers = eng.cfg.num_layers
+    launched = launches == {"flash_attention": layers,
+                            "decode_attention": 4 * layers}
     rel, agree = logit_gap(runs["kernel"], runs["plain"])
     worst = max(rel)
     out = {"phase": "parity", "model": eng.cfg.name, "prompt": 300,
            "decode_steps": 4, "max_rel_logit_err": worst,
            "per_step_rel_err": rel, "tol": PARITY_TOL,
-           "argmax_agree_share": agree, "ok": worst <= PARITY_TOL}
+           "argmax_agree_share": agree, "launches": launches,
+           "ok": worst <= PARITY_TOL and launched}
     emit(out)
-    if worst > PARITY_TOL:
-        raise AssertionError(f"kernel path vs plain: {worst} > {PARITY_TOL}")
+    if worst > PARITY_TOL or not launched:
+        raise AssertionError(f"kernel path vs plain: {worst} > {PARITY_TOL}"
+                             f" or launches {launches} off the path")
 
 
 def phase_parity_ssm(torch, device, eng):
@@ -1457,7 +1536,6 @@ def phase_fairness(torch, device):
 
 
 def phase_timings(torch, device, smi: str):
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain, live_mask)
     from repro_torch.kernels.flash_attention import (
@@ -1465,6 +1543,10 @@ def phase_timings(torch, device, smi: str):
     timer = Timer(torch, device)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     hq, kv, d = 24, 8, 128
+    one = torch.zeros(1, device=device)
+    # the timer's own floor: one launch that does next to nothing
+    emit({"phase": "timings", "timer_floor_ms": timer.ms(
+        lambda: one.add_(1.0)), "gpu": smi})
     rows = {}
     for s in (64, 509, 1024):
         q, k, v = (torch.randn((1, s, h, d), generator=gen, device=device)
@@ -1476,14 +1558,16 @@ def phase_timings(torch, device, smi: str):
                "dtype": "bfloat16",
                "ms": timer.ms(lambda: flash_attention(q, k, v)),
                "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v)),
-               "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True)),
+               **library_row(torch, timer, qt, kt, vt, is_causal=True,
+                             enable_gqa=True),
+               "host_us": host_us(torch, lambda: flash_attention(q, k, v)),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "flops": flops, "gpu": smi}
         emit(row)
         rows[("flash_attention", s)] = row
     b, t = 8, 1024
-    for name, pos_list in (("mixed", DECODE_POS), ("full", (t - 1,) * b)):
+    for name, pos_list in (("mixed", DECODE_POS), ("full", (t - 1,) * b),
+                           ("serve", SERVE_DECODE_POS)):
         pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
         q = torch.randn((b, hq, d), generator=gen,
                         device=device).to(torch.bfloat16)
@@ -1495,12 +1579,15 @@ def phase_timings(torch, device, smi: str):
         nbytes, flops = decode_work(pos_list, t, hq, kv, d, 2, 2)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         row = {"phase": "timings", "kernel": "decode_attention", "B": b,
-               "T": t, "pos": name, "dtype": "bfloat16",
+               "T": t, "pos": name, "positions": list(pos_list),
+               "dtype": "bfloat16",
                "ms": timer.ms(lambda: decode_attention(q, kc, vc, pos)),
                "plain_ms": timer.ms(
                    lambda: decode_attention_plain(q, kc, vc, pos)),
-               "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-                   q4, kt, vt, attn_mask=mask, enable_gqa=True)),
+               **library_row(torch, timer, q4, kt, vt, attn_mask=mask,
+                             enable_gqa=True),
+               "host_us": host_us(
+                   torch, lambda: decode_attention(q, kc, vc, pos)),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "flops": flops, "gpu": smi}
         emit(row)

@@ -41,7 +41,7 @@ _L = ctypes.c_long
 # stream, or ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
     "nk_flash_attention": [_P, _P, _P, _P] + [_I] * 10 + [_F, _I, _P],
-    "nk_decode_attention": [_P] * 10 + [_I] * 11 + [_F, _I, _P],
+    "nk_decode_attention": [_P] * 9 + [_I] * 11 + [_F, _I, _P],
     "nk_water_fill": [_P] * 6 + [_L, _I, _L, _I, _I, _P],
     "nk_ssd_chunk_scan": [_P] * 7 + [_I] * 8 + [_P],
     "nk_quantize_int8": [_P] * 3 + [_L] + [_I] * 4 + [_P],

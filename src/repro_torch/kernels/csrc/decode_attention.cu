@@ -9,219 +9,649 @@
 // t <= pos[b] && t < kv_len (and pos[b] - t < window when a window is
 // given), returning o in q's dtype plus the f32 partial stats m (running
 // max) and l (sum of exp(s - m)), so that shards of a cache can be combined
-// by log-sum-exp. Unlike the TPU kernel it reads the grouped cache
-// (B, T, KV, D) directly: one block serves kv head kvh of sequence b and
-// all g = HQ / KV query heads that share it, so each cache row is read once
-// for the whole group instead of once per query head.
+// by log-sum-exp; a sequence with no live position gets o = 0,
+// m = NEG_INF, l = 0. Unlike the TPU kernel it reads the grouped cache
+// (B, T, KV, D) directly: a block serves kv head kvh of sequence b and all
+// G = HQ / KV query heads that share it, so each cache row is read once
+// for the whole group.
 //
-// What bounds it on this card: bytes. Per step it must read the live
-// prefix t <= pos[b] of the cache (2 * (pos + 1) * KV * D * 2 bytes per
-// sequence in bf16) and does ~4 * g flops per cache element, far below the
-// ~295 flops per byte where the tensor cores would take over. The design
-// streams only the live prefix (the bytes needed, not the padded cache),
-// with 16 warps per block each walking every 16th position, four positions
-// per iteration so eight row loads are in flight per warp; a lane holds
-// D / 32 contiguous elements (one 8-byte load per row in bf16; at D = 16
-// half the lanes hold one element and the rest idle). Each warp keeps its
-// own online-softmax state in registers; the warps are combined through
-// shared memory at the end. KV x B blocks alone would leave most of the
-// 132 SMs idle at serving batch sizes (64 blocks at B = 8, KV = 8), so the
-// wrapper also splits the sequence into `nsplit` chunks (grid KV x B x
-// nsplit): each block writes its chunk's unnormalised partial (acc, m, l)
-// and a second, small kernel combines the chunks by log-sum-exp, exactly
-// as shards of a cache are combined. A chunk that lies past pos[b] reads
-// no cache row.
+// What bounds it on this card: bytes. A step must read the live prefix
+// t <= pos[b] of the cache (2 * (pos + 1) * KV * D * 2 bytes per sequence
+// in bf16) and does ~4 * G flops per cache element, far below the ~295
+// flops per byte where the tensor cores would set the pace. The bound is
+// met only with megabytes in flight and little work per byte on the SM.
+// One launch per call, grid (split, kv head, sequence):
+//
+// * Work sized by the live prefix, decided on the card. The host splits
+//   [0, kv_len) into `nsplit` runs of 64-position chunks (enough blocks for
+//   two per SM); pos stays on the card, and a block whose run holds no
+//   position of [pos - window + 1, min(pos, kv_len - 1)] exits at once,
+//   before any load.
+// * Many bytes in flight, little work per byte. decode_mma (bf16 q and
+//   cache, D 64 and 128: the serving path) walks its run's live chunks
+//   through a 3-stage cp.async ring of (k, v) chunks in shared memory (32
+//   KB a chunk at D 128), two blocks an SM. Each warp owns 16 positions of
+//   a chunk and computes their scores for all G heads at once on the
+//   tensor cores, mma.sync m16n8k16 with the G query rows padded to 16 (q
+//   in registers, k by ldmatrix from a swizzled tile): no shuffle chain per
+//   position, one max and one sum over 4 lanes per chunk. p goes back in as
+//   the A operand of the PV product as a bf16 pair, hi = bf16(p) and
+//   lo = bf16(p - hi), so p keeps ~16 bits, as the plain version's f32 p.
+//   The warps keep their own online softmax and are merged once, at the end
+//   of the run.
+// * decode_simt (f32 queries, and bf16 at D 16 and 32) does the same per
+//   chunk on the CUDA cores: a thread owns one position and half of D for
+//   its dot products, then one warp max and one warp sum per head.
+// * The combine in the same launch. A run's unnormalised partial
+//   (acc, m, l) goes to scratch; __threadfence, then an atomic ticket per
+//   (sequence, kv head). The block that draws the last ticket combines the
+//   partials by log-sum-exp (fixed order: repeats are bit-identical),
+//   writes (o, m, l) and sets the counter back to 0 for the next launch. A
+//   sequence whose live positions fit one run skips the scratch.
 #include "nk_common.cuh"
 
 namespace {
 
-constexpr int NW = 16;      // warps per block
-constexpr int UNROLL = 4;   // positions per warp iteration
+using nk::cp_async16;
+using nk::smem_u32;
 
-// nsplit == gridDim.z. With one split the block writes o, m and l; with
-// more it writes its chunk's partial acc (unnormalised), m and l at row
-// (b * HQ + h) * nsplit + split of part_acc / part_m / part_l.
-template <typename QT, typename KT, int D, int G>
-__global__ void __launch_bounds__(NW * 32)
-decode_fwd(const QT* __restrict__ q, const KT* __restrict__ k,
-           const KT* __restrict__ v, const int* __restrict__ pos,
-           QT* __restrict__ o, float* __restrict__ m_out,
-           float* __restrict__ l_out, float* __restrict__ part_acc,
-           float* __restrict__ part_m, float* __restrict__ part_l, int T_len,
-           int HQ, int KV, int window, int kv_len, int chunk, float scale) {
-  constexpr int EPL = D >= 32 ? D / 32 : 1;   // elements per lane
-  extern __shared__ float smem[];
-  float* sm_m = smem;                   // NW x G
-  float* sm_l = sm_m + NW * G;          // NW x G
-  float* sm_acc = sm_l + NW * G;        // NW x G x D
+constexpr int CHUNK = 64;   // cache positions per chunk
+constexpr int NT = 128;     // threads per block
+constexpr int MMA_ST = 3;   // stages of decode_mma's (k, v) ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool live = lane * EPL < D;   // false only for lanes 16.. at D = 16
-  const int split = blockIdx.z, nsplit = gridDim.z;
-  const int p = pos[b];
-  int last = min(p, kv_len - 1);
-  int first = window ? max(0, p - window + 1) : 0;
-  if (nsplit > 1) {
-    first = max(first, split * chunk);
-    last = min(last, split * chunk + chunk - 1);
-  }
+// the live chunks [cf, cl] of a sequence, and this block's share of them
+struct Live {
+  int first, last;     // live positions
+  int c_begin, c_end;  // this block's live chunks
+  int sf, sl;          // the splits that hold live chunks
+};
 
-  float qr[G][EPL], acc[G][EPL], m[G], l[G];
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-    const QT* qrow = q + ((size_t)b * HQ + kvh * G + j) * D + lane * EPL;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      qr[j][e] = live ? nk::to_f<QT>(qrow[e]) : 0.f;
-      acc[j][e] = 0.f;
+__device__ __forceinline__ Live live_range(int p, int kv_len, int window,
+                                           int split, int cps) {
+  Live r;
+  r.last = min(p, kv_len - 1);
+  r.first = window ? max(0, p - window + 1) : 0;
+  const int cf = r.first / CHUNK, cl = r.last / CHUNK;
+  r.c_begin = max(cf, split * cps);
+  r.c_end = min(cl, split * cps + cps - 1);
+  r.sf = cf / cps;
+  r.sl = cl / cps;
+  return r;
+}
+
+// a sequence with no live position: the first split writes the empty row
+template <typename QT, int G, int D>
+__device__ void write_empty(QT* o, float* m_out, float* l_out, size_t hrow0) {
+  for (int i = threadIdx.x; i < G * D; i += NT) {
+    o[hrow0 * D + i] = nk::from_f<QT>(0.f);
+    if (i % D == 0) {
+      m_out[hrow0 + i / D] = nk::NEG_INF;
+      l_out[hrow0 + i / D] = 0.f;
     }
-    m[j] = nk::NEG_INF;
-    l[j] = 0.f;
   }
+}
 
+// This block's result for its run: res_o (G x D, unnormalised), res_m and
+// res_l (G each, natural-log domain), all in shared memory. With one live
+// split it is the answer; otherwise it becomes a partial, and the last
+// block of the (sequence, kv head) to finish combines them all.
+template <typename QT, int G, int D>
+__device__ void finish(const float* res_o, const float* res_m,
+                       const float* res_l, QT* o,
+                       float* m_out, float* l_out, float* part, int* counter,
+                       size_t hrow0, int bk, int split, int sf, int sl) {
+  constexpr int PSTRIDE = G * D + 2 * G;   // floats per partial
+  const int tid = threadIdx.x;
+  const int nsplit = gridDim.x;
+  __shared__ int is_last;
+  if (sf == sl) {
+    for (int i = tid; i < G * D; i += NT)
+      o[hrow0 * D + i] =
+          nk::from_f<QT>(res_o[i] / fmaxf(res_l[i / D], 1e-30f));
+    if (tid < G) {
+      m_out[hrow0 + tid] = res_m[tid];
+      l_out[hrow0 + tid] = res_l[tid];
+    }
+    return;
+  }
+  float* my_part = part + ((size_t)bk * nsplit + split) * PSTRIDE;
+  for (int i = tid; i < G * D; i += NT) my_part[i] = res_o[i];
+  if (tid < G) {
+    my_part[G * D + tid] = res_m[tid];
+    my_part[G * D + G + tid] = res_l[tid];
+  }
+  // partials visible before the ticket; the last ticket combines
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(counter + bk, 1);
+    is_last = ticket == sl - sf;
+    if (is_last) counter[bk] = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* parts = part + (size_t)bk * nsplit * PSTRIDE;
+  // one pass over the splits in their fixed order, an online softmax per
+  // output: every load is independent of the running sums, so eight
+  // splits' loads are in flight at a time
+  constexpr int OPT = (G * D + NT - 1) / NT;   // outputs per thread
+  float mx[OPT], osum[OPT], lsum[OPT];
+#pragma unroll
+  for (int r = 0; r < OPT; ++r) {
+    mx[r] = nk::NEG_INF;
+    osum[r] = lsum[r] = 0.f;
+  }
+#pragma unroll 8
+  for (int s = sf; s <= sl; ++s) {
+    const float* ps = parts + (size_t)s * PSTRIDE;
+#pragma unroll
+    for (int r = 0; r < OPT; ++r) {
+      const int i = min(tid + r * NT, G * D - 1), g = i / D;
+      const float ms = __ldcg(ps + G * D + g);
+      const float m_new = fmaxf(mx[r], ms);
+      const float w_old = expf(mx[r] - m_new), w_s = expf(ms - m_new);
+      osum[r] = osum[r] * w_old + __ldcg(ps + i) * w_s;
+      lsum[r] = lsum[r] * w_old + __ldcg(ps + G * D + G + g) * w_s;
+      mx[r] = m_new;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < OPT; ++r) {
+    const int i = tid + r * NT;
+    if (i >= G * D) continue;
+    const int g = i / D;
+    o[hrow0 * D + i] = nk::from_f<QT>(osum[r] / fmaxf(lsum[r], 1e-30f));
+    if (i % D == 0) {
+      m_out[hrow0 + g] = mx[r];
+      l_out[hrow0 + g] = lsum[r];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16 q and cache, D 64 and 128)
+// ---------------------------------------------------------------------------
+
+// element offset of 16-byte chunk `chunk` of row `row` in a swizzled
+// (rows x D) bf16 tile: chunk index XOR (row % 8)
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
+template <int D, int G>
+struct MmaShape {
+  static constexpr int STAGE = CHUNK * D;   // bf16 elements of k (or v)
+  static constexpr int SMEM = MMA_ST * 2 * STAGE * 2;   // the ring
+  // after the ring drains it holds the warps' (o, m, l) and the block's
+  static constexpr int TAIL_FLOATS = 5 * (G * D + 2 * G);
+  static_assert(TAIL_FLOATS * 4 <= SMEM, "the tail must fit the ring");
+};
+
+template <int D, int G>
+__global__ void __launch_bounds__(NT, 2)
+decode_mma(const __nv_bfloat16* __restrict__ q,
+           const __nv_bfloat16* __restrict__ k,
+           const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
+           __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+           float* __restrict__ l_out, float* __restrict__ part,
+           int* __restrict__ counter, int T_len, int HQ, int KV, int window,
+           int kv_len, int cps, float scale_log2) {
+  using Sh = MmaShape<D, G>;
+  constexpr int NCH = D / 8;        // 16-byte pieces per row
+  constexpr int KSTEPS = D / 16;
+  constexpr int NT_O = D / 8;       // 8-wide output column groups
+  static_assert(G <= 8, "the G query rows are padded to mma's 16");
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t hrow0 = (size_t)b * HQ + (size_t)kvh * G;  // first q head
+  const Live lv = live_range(pos[b], kv_len, window, split, cps);
+  if (lv.first > lv.last) {
+    if (split == 0) write_empty<__nv_bfloat16, G, D>(o, m_out, l_out, hrow0);
+    return;
+  }
+  if (lv.c_begin > lv.c_end) return;   // no live chunk here: no load
+  const int nc = lv.c_end - lv.c_begin + 1;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const size_t row = (size_t)KV * D;   // between consecutive positions
-  const KT* kb = k + (size_t)b * T_len * row + (size_t)kvh * D + lane * EPL;
-  const KT* vb = v + (size_t)b * T_len * row + (size_t)kvh * D + lane * EPL;
-
-  for (int t0 = first + warp * UNROLL; t0 <= last; t0 += NW * UNROLL) {
-    float kf[UNROLL][EPL], vf[UNROLL][EPL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int t = min(t0 + u, last);   // clamped rows are skipped below
-      if (live) {
-        nk::load_row<KT, EPL>(kb + (size_t)t * row, kf[u]);
-        nk::load_row<KT, EPL>(vb + (size_t)t * row, vf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.f;
-      }
+  const __nv_bfloat16* kb = k + (size_t)b * T_len * row + (size_t)kvh * D;
+  const __nv_bfloat16* vb = v + (size_t)b * T_len * row + (size_t)kvh * D;
+  // chunk c into stage s; rows outside the live range read as zeros
+  auto load = [&](int c, int s) {
+    __nv_bfloat16* kd = ring + 2 * s * Sh::STAGE;
+    __nv_bfloat16* vd = kd + Sh::STAGE;
+    for (int i = tid; i < CHUNK * NCH; i += NT) {
+      const int r = i / NCH, pc = i % NCH;
+      const int t = c * CHUNK + r;
+      const bool ok = t >= lv.first && t <= lv.last;
+      const size_t off = (size_t)(ok ? t : 0) * row + pc * 8;
+      cp_async16(smem_u32(kd + swz<D>(r, pc)), kb + off, ok);
+      cp_async16(smem_u32(vd + swz<D>(r, pc)), vb + off, ok);
     }
+  };
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (t0 + u > last) break;
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) d = fmaf(qr[j][e], kf[u][e], d);
-        const float s = nk::warp_sum(d) * scale;
-        const float m_new = fmaxf(m[j], s);
-        const float corr = expf(m[j] - m_new);
-        const float pj = expf(s - m_new);
-        l[j] = l[j] * corr + pj;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          acc[j][e] = fmaf(pj, vf[u][e], acc[j][e] * corr);
-        m[j] = m_new;
-      }
-    }
+  for (int i = 0; i < MMA_ST - 1; ++i) {
+    if (i < nc) load(lv.c_begin + i, i);
+    nk::cp_async_commit();
   }
 
+  // q as the A operand: rows g < G of 16 (this thread's rows lane/4 and
+  // lane/4 + 8; the second is always padding)
+  const int g = lane / 4, t4 = lane % 4;
+  uint32_t qf[KSTEPS][4];
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
-    if (lane == 0) {
-      sm_m[warp * G + j] = m[j];
-      sm_l[warp * G + j] = l[j];
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const __nv_bfloat16* qr = q + (hrow0 + g) * D + ks * 16 + 2 * t4;
+    qf[ks][0] = g < G ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
+    qf[ks][2] = g < G ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
+    qf[ks][1] = qf[ks][3] = 0u;
+  }
+  float oacc[NT_O][4];
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+  float m2 = nk::NEG_INF, l_r = 0.f;   // row g, log2 domain
+  const int wrow = warp * 16;          // this warp's positions in a chunk
+
+  for (int i = 0; i < nc; ++i) {
+    nk::cp_async_wait<MMA_ST - 2>();
+    __syncthreads();   // chunk i landed; the stage of chunk i - 1 is free
+    if (i + MMA_ST - 1 < nc)
+      load(lv.c_begin + i + MMA_ST - 1, (i + MMA_ST - 1) % MMA_ST);
+    nk::cp_async_commit();
+    const __nv_bfloat16* kt = ring + 2 * (i % MMA_ST) * Sh::STAGE;
+    const __nv_bfloat16* vt = kt + Sh::STAGE;
+    const int c0 = (lv.c_begin + i) * CHUNK;
+
+    // scores (16 padded rows) x (the warp's 16 positions)
+    float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t b0, b1, b2, b3;
+      nk::ldsm_x4(smem_u32(kt + swz<D>(wrow + (lane % 8) + (lane / 16) * 8,
+                                       ks * 2 + (lane / 8) % 2)),
+                  b0, b1, b2, b3);
+      nk::mma_bf16(sacc[0], qf[ks], b0, b1);
+      nk::mma_bf16(sacc[1], qf[ks], b2, b3);
     }
-    if (live) {
+    // row g's online softmax over its 4 positions here, 4 lanes a row
+    float s[4], mx = m2;
+    bool live[4];
 #pragma unroll
-      for (int e = 0; e < EPL; ++e)
-        sm_acc[(warp * G + j) * D + lane * EPL + e] = acc[j][e];
+    for (int u = 0; u < 4; ++u) {
+      const int t = c0 + wrow + (u / 2) * 8 + 2 * t4 + (u & 1);
+      live[u] = t >= lv.first && t <= lv.last;
+      s[u] = live[u] ? sacc[u / 2][u & 1] * scale_log2 : nk::NEG_INF;
+      mx = fmaxf(mx, s[u]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = exp2f(m2 - mx);
+    m2 = mx;
+    float p[4], psum = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      p[u] = live[u] ? exp2f(s[u] - mx) : 0.f;
+      psum += p[u];
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l_r = l_r * corr + psum;
+#pragma unroll
+    for (int j = 0; j < NT_O; ++j) {
+      oacc[j][0] *= corr;
+      oacc[j][1] *= corr;
+    }
+    // acc += p v with p as a bf16 pair (hi + lo): the score fragments are
+    // the A operand as they stand (rows g + 8 are padding, zero)
+    uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2 * j], p[2 * j + 1]);
+      const float2 hf = __bfloat1622float2(hi);
+      a_hi[2 * j] = *reinterpret_cast<const uint32_t*>(&hi);
+      a_lo[2 * j] = nk::pack_bf16(p[2 * j] - hf.x, p[2 * j + 1] - hf.y);
+      a_hi[2 * j + 1] = a_lo[2 * j + 1] = 0u;
+    }
+#pragma unroll
+    for (int dp = 0; dp < NT_O / 2; ++dp) {
+      uint32_t b0, b1, b2, b3;
+      nk::ldsm_x4_t(smem_u32(vt + swz<D>(wrow + (lane % 8) +
+                                             ((lane / 8) % 2) * 8,
+                                         dp * 2 + lane / 16)),
+                    b0, b1, b2, b3);
+      nk::mma_bf16(oacc[2 * dp], a_hi, b0, b1);
+      nk::mma_bf16(oacc[2 * dp + 1], a_hi, b2, b3);
+      nk::mma_bf16(oacc[2 * dp], a_lo, b0, b1);
+      nk::mma_bf16(oacc[2 * dp + 1], a_lo, b2, b3);
+    }
+  }
+  nk::cp_async_wait<0>();
+  __syncthreads();   // the ring is free: it holds the tail from here on
+
+  // merge the 4 warps' softmax states: (o, m, l) per warp, in the ring
+  float* tail = reinterpret_cast<float*>(smem_raw);
+  constexpr int WSTRIDE = G * D + 2 * G;
+  float* mine = tail + warp * WSTRIDE;
+  if (g < G) {
+#pragma unroll
+    for (int j = 0; j < NT_O; ++j) {
+      mine[g * D + 8 * j + 2 * t4] = oacc[j][0];
+      mine[g * D + 8 * j + 2 * t4 + 1] = oacc[j][1];
+    }
+    if (t4 == 0) {
+      mine[G * D + g] = m2;
+      mine[G * D + G + g] = l_r;
     }
   }
   __syncthreads();
-
-  // log-sum-exp combine of the NW warps' partial stats
-  for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
-    const int j = idx / D, c = idx % D;
+  float* res_o = tail + 4 * WSTRIDE;
+  float* res_m = res_o + G * D;
+  float* res_l = res_m + G;
+  for (int i = tid; i < G * D; i += NT) {
+    const int gg = i / D;
     float mx = nk::NEG_INF;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w * G + j]);
-    float lsum = 0.f, osum = 0.f;
+    for (int w = 0; w < 4; ++w)
+      mx = fmaxf(mx, tail[w * WSTRIDE + G * D + gg]);
+    float acc = 0.f, lsum = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float wt = expf(sm_m[w * G + j] - mx);
-      lsum += sm_l[w * G + j] * wt;
-      osum += sm_acc[(w * G + j) * D + c] * wt;
+    for (int w = 0; w < 4; ++w) {
+      const float wt = exp2f(tail[w * WSTRIDE + G * D + gg] - mx);
+      acc += tail[w * WSTRIDE + i] * wt;
+      lsum += tail[w * WSTRIDE + G * D + G + gg] * wt;
     }
-    const size_t hrow = (size_t)b * HQ + kvh * G + j;
-    if (nsplit == 1) {
-      o[hrow * D + c] = nk::from_f<QT>(osum / fmaxf(lsum, 1e-30f));
-      if (c == 0) {
-        m_out[hrow] = mx;
-        l_out[hrow] = lsum;
-      }
-    } else {
-      const size_t prow = hrow * nsplit + split;
-      part_acc[prow * D + c] = osum;
-      if (c == 0) {
-        part_m[prow] = mx;
-        part_l[prow] = lsum;
-      }
+    res_o[i] = acc;
+    if (i % D == 0) {
+      res_m[gg] = mx * LN2;   // back to the natural-log domain
+      res_l[gg] = lsum;
     }
   }
+  __syncthreads();
+  finish<__nv_bfloat16, G, D>(res_o, res_m, res_l, o, m_out, l_out, part,
+                              counter, hrow0, b * KV + kvh, split, lv.sf,
+                              lv.sl);
 }
 
-// log-sum-exp combine of the nsplit chunk partials: one block per
-// (sequence, head) row
-template <typename QT>
-__global__ void __launch_bounds__(128)
-decode_combine(const float* __restrict__ part_acc,
-               const float* __restrict__ part_m,
-               const float* __restrict__ part_l, QT* __restrict__ o,
-               float* __restrict__ m_out, float* __restrict__ l_out, int D,
-               int nsplit) {
-  const size_t hrow = blockIdx.x;
-  const float* pm = part_m + hrow * nsplit;
-  const float* pl = part_l + hrow * nsplit;
-  float mx = nk::NEG_INF;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pm[s]);
-  float lsum = 0.f;
-  for (int s = 0; s < nsplit; ++s) lsum += pl[s] * expf(pm[s] - mx);
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float osum = 0.f;
-    for (int s = 0; s < nsplit; ++s)
-      osum += part_acc[(hrow * nsplit + s) * D + c] * expf(pm[s] - mx);
-    o[hrow * D + c] = nk::from_f<QT>(osum / fmaxf(lsum, 1e-30f));
-  }
-  if (threadIdx.x == 0) {
-    m_out[hrow] = mx;
-    l_out[hrow] = lsum;
+// ---------------------------------------------------------------------------
+// CUDA-core kernel (f32 queries; bf16 at D 16 and 32)
+// ---------------------------------------------------------------------------
+
+template <typename KT, int D, int G>
+struct SimtShape {
+  static constexpr int ROW_BYTES = D * (int)sizeof(KT);
+  static constexpr int EP = 16 / (int)sizeof(KT);   // elements per 16 bytes
+  static constexpr int NPH = D / 2 / EP;            // 16-byte pieces per half
+  static constexpr int PAIRS = D / 2;               // PV column pairs
+  static constexpr int PGROUPS = NT / PAIRS;        // position groups in PV
+  // shared memory: k and v chunks, then f32 q, half scores, p, PV sums,
+  // the chunk's (m, l), the run's (o, m, l), rescale weights
+  static constexpr int KV_BYTES = 2 * CHUNK * ROW_BYTES;
+  static constexpr int FLOATS = G * D + 2 * G * CHUNK + G * CHUNK +
+                                PGROUPS * G * D + 2 * G + G * D + 2 * G +
+                                2 * G;
+  static constexpr int SMEM = KV_BYTES + FLOATS * 4;
+};
+
+__device__ __forceinline__ void load_piece(const __nv_bfloat16* p,
+                                           float (&out)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load_piece(const float* p, float (&out)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  out[0] = f.x;
+  out[1] = f.y;
+  out[2] = f.z;
+  out[3] = f.w;
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+template <typename QT, typename KT, int D, int G>
+__global__ void __launch_bounds__(NT)
+decode_simt(const QT* __restrict__ q, const KT* __restrict__ k,
+            const KT* __restrict__ v, const int* __restrict__ pos,
+            QT* __restrict__ o, float* __restrict__ m_out,
+            float* __restrict__ l_out, float* __restrict__ part,
+            int* __restrict__ counter, int T_len, int HQ, int KV, int window,
+            int kv_len, int cps, float scale) {
+  using Sh = SimtShape<KT, D, G>;
+  constexpr int EP = Sh::EP, NPH = Sh::NPH, PAIRS = Sh::PAIRS;
+  constexpr int PGROUPS = Sh::PGROUPS;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const size_t hrow0 = (size_t)b * HQ + (size_t)kvh * G;  // first q head
+  const Live lv = live_range(pos[b], kv_len, window, split, cps);
+  if (lv.first > lv.last) {
+    if (split == 0) write_empty<QT, G, D>(o, m_out, l_out, hrow0);
+    return;
+  }
+  if (lv.c_begin > lv.c_end) return;   // no live chunk here: no load
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  KT* ks = reinterpret_cast<KT*>(smem_raw);
+  KT* vs = ks + CHUNK * D;
+  float* q_s = reinterpret_cast<float*>(smem_raw + Sh::KV_BYTES);  // G x D
+  float* sc_s = q_s + G * D;            // 2 halves x G x CHUNK
+  float* p_s = sc_s + 2 * G * CHUNK;    // G x CHUNK
+  float* red_s = p_s + G * CHUNK;       // PGROUPS x G x D
+  float* chunk_s = red_s + PGROUPS * G * D;   // the chunk's m[G], l[G]
+  float* res_o = chunk_s + 2 * G;       // the run's o, m, l
+  float* res_m = res_o + G * D;
+  float* res_l = res_m + G;
+  float* wt_s = res_l + G;              // rescale weights: run, chunk
+
+  for (int i = tid; i < G * D; i += NT) {
+    q_s[i] = nk::to_f<QT>(q[hrow0 * D + i]);
+    res_o[i] = 0.f;
+  }
+  if (tid < G) {
+    res_m[tid] = nk::NEG_INF;
+    res_l[tid] = 0.f;
+  }
+  const size_t row = (size_t)KV * D;   // between consecutive positions
+  const KT* kb = k + (size_t)b * T_len * row + (size_t)kvh * D;
+  const KT* vb = v + (size_t)b * T_len * row + (size_t)kvh * D;
+  constexpr int PIECES = Sh::ROW_BYTES / 16;   // per row
+
+  for (int c = lv.c_begin; c <= lv.c_end; ++c) {
+    const int c0 = c * CHUNK;
+    // the chunk's live rows in one go; the rest (and rows past T) read zero
+    for (int i = tid; i < CHUNK * PIECES; i += NT) {
+      const int r = i / PIECES, pc = i % PIECES;
+      const int t = c0 + r;
+      const bool ok = t >= lv.first && t <= lv.last;
+      const size_t off = (size_t)(ok ? t : 0) * row + pc * EP;
+      cp_async16(smem_u32(ks + r * D + pc * EP), kb + off, ok);
+      cp_async16(smem_u32(vs + r * D + pc * EP), vb + off, ok);
+    }
+    nk::cp_async_commit();
+    nk::cp_async_wait<0>();
+    __syncthreads();
+
+    // scores: thread -> (position r, half hh of D), all G heads at once;
+    // 16-byte reads rotated by the row, so a warp's reads spread over the
+    // banks
+    {
+      const int r = tid % CHUNK, hh = tid / CHUNK;
+      float acc[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NPH; ++i) {
+        const int col = hh * (D / 2) + ((i + r) % NPH) * EP;
+        float kf[EP];
+        load_piece(ks + r * D + col, kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+          for (int e = 0; e < EP; e += 4) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(q_s + g * D + col + e);
+            acc[g] = fmaf(qv.x, kf[e], acc[g]);
+            acc[g] = fmaf(qv.y, kf[e + 1], acc[g]);
+            acc[g] = fmaf(qv.z, kf[e + 2], acc[g]);
+            acc[g] = fmaf(qv.w, kf[e + 3], acc[g]);
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) sc_s[(hh * G + g) * CHUNK + r] = acc[g];
+    }
+    __syncthreads();
+
+    // the chunk's softmax: warp w takes heads w, w + 4; one max and one
+    // sum per head
+    {
+      const int warp = tid / 32, lane = tid % 32;
+      for (int g = warp; g < G; g += NT / 32) {
+        float s[2];
+        bool live[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int r = lane + 32 * u;
+          const int t = c0 + r;
+          live[u] = t >= lv.first && t <= lv.last;
+          s[u] = live[u] ? (sc_s[g * CHUNK + r] +
+                            sc_s[(G + g) * CHUNK + r]) * scale
+                         : nk::NEG_INF;
+        }
+        const float mc = nk::warp_max(fmaxf(s[0], s[1]));
+        float p[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          p[u] = live[u] ? expf(s[u] - mc) : 0.f;
+          p_s[g * CHUNK + lane + 32 * u] = p[u];
+        }
+        const float lc = nk::warp_sum(p[0] + p[1]);
+        if (lane == 0) {
+          chunk_s[g] = mc;
+          chunk_s[G + g] = lc;
+        }
+      }
+    }
+    __syncthreads();
+
+    // acc = p v: thread -> (column pair, every PGROUPS-th position); the
+    // run's state is rescaled to the new max meanwhile
+    {
+      const int pi = tid % PAIRS, grp = tid / PAIRS;
+      float acc[G][2];
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
+#pragma unroll 4
+      for (int r = grp; r < CHUNK; r += PGROUPS) {
+        const float2 vv = load_pair(vs + r * D + 2 * pi);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float pg = p_s[g * CHUNK + r];
+          acc[g][0] = fmaf(pg, vv.x, acc[g][0]);
+          acc[g][1] = fmaf(pg, vv.y, acc[g][1]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        red_s[(grp * G + g) * D + 2 * pi] = acc[g][0];
+        red_s[(grp * G + g) * D + 2 * pi + 1] = acc[g][1];
+      }
+      if (tid < G) {
+        const float m_new = fmaxf(res_m[tid], chunk_s[tid]);
+        wt_s[tid] = expf(res_m[tid] - m_new);
+        wt_s[G + tid] = expf(chunk_s[tid] - m_new);
+        res_l[tid] =
+            res_l[tid] * wt_s[tid] + chunk_s[G + tid] * wt_s[G + tid];
+        res_m[tid] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < G * D; i += NT) {
+      const int g = i / D;
+      float a = 0.f;
+#pragma unroll
+      for (int grp = 0; grp < PGROUPS; ++grp) a += red_s[(grp * G) * D + i];
+      res_o[i] = res_o[i] * wt_s[g] + a * wt_s[G + g];
+    }
+    __syncthreads();   // k, v, red_s and the weights are free again
+  }
+  finish<QT, G, D>(res_o, res_m, res_l, o, m_out, l_out, part, counter,
+                   hrow0, b * KV + kvh, split, lv.sf, lv.sl);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *pos;
-  void *o, *m, *l, *part_acc, *part_m, *part_l;
-  int B, T_len, HQ, KV, window, kv_len, nsplit, chunk;
+  void *o, *m, *l, *part, *counter;
+  int B, T_len, HQ, KV, window, kv_len, nsplit, cps, device;
   float scale;
   cudaStream_t stream;
 };
 
+constexpr int MAX_DEVICES = 64;
+
+// raise `kernel`'s shared-memory limit, once per device
+template <typename K>
+int raise_smem(K kernel, int bytes, bool (&raised)[MAX_DEVICES],
+               int device) {
+  if (device < 0 || device >= MAX_DEVICES) return NK_ERR_ARGS;
+  if (!raised[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    raised[device] = true;
+  }
+  return 0;
+}
+
 template <typename QT, typename KT, int D, int G>
 int launch(const Args& a) {
-  const size_t smem = (size_t)NW * G * (D + 2) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_fwd<QT, KT, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.KV, a.B, a.nsplit);
-  decode_fwd<QT, KT, D, G><<<grid, NW * 32, smem, a.stream>>>(
-      static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
-      static_cast<const KT*>(a.v), static_cast<const int*>(a.pos),
-      static_cast<QT*>(a.o), static_cast<float*>(a.m),
-      static_cast<float*>(a.l), static_cast<float*>(a.part_acc),
-      static_cast<float*>(a.part_m), static_cast<float*>(a.part_l), a.T_len,
-      a.HQ, a.KV, a.window, a.kv_len, a.chunk, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.nsplit == 1) return (int)err;
-  decode_combine<QT><<<a.B * a.HQ, 128, 0, a.stream>>>(
-      static_cast<const float*>(a.part_acc),
-      static_cast<const float*>(a.part_m),
-      static_cast<const float*>(a.part_l), static_cast<QT*>(a.o),
-      static_cast<float*>(a.m), static_cast<float*>(a.l), D, a.nsplit);
+  const dim3 grid(a.nsplit, a.KV, a.B);
+  if constexpr (sizeof(QT) == 2 && sizeof(KT) == 2 && D >= 64) {
+    using Sh = MmaShape<D, G>;
+    static bool raised[MAX_DEVICES] = {};
+    const int rc = raise_smem(decode_mma<D, G>, Sh::SMEM, raised, a.device);
+    if (rc) return rc;
+    decode_mma<D, G><<<grid, NT, Sh::SMEM, a.stream>>>(
+        static_cast<const __nv_bfloat16*>(a.q),
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v),
+        static_cast<const int*>(a.pos), static_cast<__nv_bfloat16*>(a.o),
+        static_cast<float*>(a.m), static_cast<float*>(a.l),
+        static_cast<float*>(a.part), static_cast<int*>(a.counter), a.T_len,
+        a.HQ, a.KV, a.window, a.kv_len, a.cps, a.scale * LOG2E);
+  } else {
+    using Sh = SimtShape<KT, D, G>;
+    static bool raised[MAX_DEVICES] = {};
+    const int rc =
+        raise_smem(decode_simt<QT, KT, D, G>, Sh::SMEM, raised, a.device);
+    if (rc) return rc;
+    decode_simt<QT, KT, D, G><<<grid, NT, Sh::SMEM, a.stream>>>(
+        static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
+        static_cast<const KT*>(a.v), static_cast<const int*>(a.pos),
+        static_cast<QT*>(a.o), static_cast<float*>(a.m),
+        static_cast<float*>(a.l), static_cast<float*>(a.part),
+        static_cast<int*>(a.counter), a.T_len, a.HQ, a.KV, a.window,
+        a.kv_len, a.cps, a.scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -261,26 +691,32 @@ int dispatch_d(int D, int G, const Args& a) {
 
 }  // namespace
 
+// The grid covers [0, kv_len) in nsplit runs of `chunk` positions (a
+// multiple of 64). part: B * KV * nsplit * (G * D + 2 * G) floats of
+// scratch (unused when nsplit is 1); counter: B * KV ints, zero before the
+// first launch, which every launch leaves zero again. Launches that share
+// a counter must not run concurrently.
 extern "C" int nk_decode_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* o,
-                                   void* m, void* l, void* part_acc,
-                                   void* part_m, void* part_l, int B,
-                                   int T_len, int HQ, int KV, int D,
-                                   int q_dtype, int kv_dtype, int window,
-                                   int kv_len, int nsplit, int chunk,
-                                   float scale, int device, void* stream) {
+                                   void* m, void* l, void* part,
+                                   void* counter, int B, int T_len, int HQ,
+                                   int KV, int D, int q_dtype, int kv_dtype,
+                                   int window, int kv_len, int nsplit,
+                                   int chunk, float scale, int device,
+                                   void* stream) {
   if (B <= 0 || T_len <= 0 || KV <= 0 || HQ % KV != 0 || B > 65535 ||
       KV > 65535 || kv_len <= 0 || kv_len > T_len || window < 0 ||
-      nsplit < 1 || nsplit > 65535 || chunk < 1 ||
+      chunk < CHUNK || chunk % CHUNK != 0 || nsplit < 1 ||
+      nsplit > 65535 || (long long)(nsplit - 1) * chunk >= kv_len ||
       (long long)nsplit * chunk < kv_len ||
-      (nsplit > 1 && (!part_acc || !part_m || !part_l)))
+      (nsplit > 1 && (!part || !counter)))
     return NK_ERR_ARGS;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int G = HQ / KV;
-  const Args a{q,      k,      v,      pos,    o,      m,   l,
-               part_acc, part_m, part_l, B,    T_len,  HQ,  KV,
-               window, kv_len, nsplit, chunk,  scale,
+  const Args a{q,      k,      v,      pos,    o,       m,      l,
+               part,   counter, B,     T_len,  HQ,      KV,     window,
+               kv_len, nsplit, chunk / CHUNK, device, scale,
                static_cast<cudaStream_t>(stream)};
   if (q_dtype == nk::DT_BF16 && kv_dtype == nk::DT_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, G, a);
@@ -294,5 +730,7 @@ extern "C" int nk_decode_attention(const void* q, const void* k,
 extern "C" const char* nk_error_string(int code) {
   if (code == NK_ERR_ARGS) return "arguments outside what the kernel supports";
   if (code == NK_ERR_DTYPE) return "dtype (combination) not supported";
+  if (code == NK_ERR_DRIVER)
+    return "the CUDA driver refused a TMA tensor map (or offers no encoder)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

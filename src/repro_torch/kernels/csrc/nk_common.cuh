@@ -12,6 +12,7 @@
 
 #define NK_ERR_ARGS -1    // shape, head grouping or head dim not supported
 #define NK_ERR_DTYPE -2   // dtype (combination) not supported
+#define NK_ERR_DRIVER -3  // the driver refused a TMA tensor map (or has none)
 
 namespace nk {
 

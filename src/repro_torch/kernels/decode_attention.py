@@ -12,9 +12,12 @@ running max and exp-sum per (sequence, head) that let shards of a cache be
 combined by log-sum-exp (the context-parallel decode contract).
 
 ``decode_attention`` takes the plain version only for tensors on the CPU;
-on CUDA tensors it launches the kernel or raises. Where (kv head, sequence)
-blocks alone would leave SMs idle, the kernel also splits each sequence
-into chunks (``split_plan``) and a second launch combines their partials.
+on CUDA tensors it launches the kernel or raises. The kernel is one launch
+per call: a block per (run of positions, kv head, sequence), where runs
+past ``pos[b]`` exit at once, and the last block of each (sequence, kv
+head) to finish combines the runs' partials (``split_plan``). That block
+finds itself through a per-device counter that the kernel sets back to
+zero, so calls on one device must not run concurrently on two streams.
 ``decode_attention.launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
@@ -35,15 +38,17 @@ DTYPE_PAIRS = {
     (torch.float32, torch.bfloat16): (build.DT_F32, build.DT_BF16),
     (torch.float32, torch.float32): (build.DT_F32, build.DT_F32),
 }
-# positions per sequence chunk are a multiple of one pass of the kernel's
-# 16 warps x 4 positions
+# positions per sequence chunk are a multiple of the kernel's 64-position
+# chunk
 SPLIT_ALIGN = 64
 
 
 def split_plan(b: int, kv: int, kv_len: int, sms: int):
-    """(nsplit, chunk): how many chunks of ``chunk`` positions the kernel
-    splits each sequence into. Enough (kv head, sequence, chunk) blocks to
-    give every SM two, but no chunk shorter than ``SPLIT_ALIGN``."""
+    """(nsplit, chunk): how many runs of ``chunk`` positions the kernel
+    splits each sequence into. Enough (run, kv head, sequence) blocks to
+    give every SM two, but no run shorter than ``SPLIT_ALIGN``. The runs
+    cover the padded cache; which of them hold live positions is decided
+    on the card from ``pos``, which the host never reads."""
     want = -(-2 * sms // (b * kv))
     nsplit = max(1, min(want, -(-kv_len // SPLIT_ALIGN)))
     chunk = -(-kv_len // nsplit)
@@ -54,6 +59,20 @@ def split_plan(b: int, kv: int, kv_len: int, sms: int):
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_counters = {}
+
+
+def _counter(index: int, n: int) -> torch.Tensor:
+    """The kernel's per-(sequence, kv head) tickets on card ``index``: zero
+    when made, and left zero by every launch."""
+    have = _counters.get(index)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 256), dtype=torch.int32,
+                           device=torch.device("cuda", index))
+        _counters[index] = have
+    return have
 
 
 def live_mask(pos, t: int, *, window: int = 0, kv_len=None) -> torch.Tensor:
@@ -142,22 +161,21 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, kv_len=None,
     index = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
     nsplit, chunk = split_plan(b, kv, kv_len, _sm_count(index))
+    g = hq // kv
     o = torch.empty_like(q)
-    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
-    # per-chunk partials (acc, m, l) that a second kernel combines
-    rows = b * hq * nsplit if nsplit > 1 else 0
-    part_acc = torch.empty((rows, d), dtype=torch.float32, device=q.device)
-    part_m, part_l = (torch.empty((rows,), dtype=torch.float32,
-                                  device=q.device) for _ in range(2))
+    m, l = torch.empty((2, b, hq), dtype=torch.float32,
+                       device=q.device).unbind(0)
+    # per-run partials (acc, m, l) that the last block of a group combines
+    part = torch.empty((b * kv * nsplit * (g * d + 2 * g) if nsplit > 1
+                        else 0,), dtype=torch.float32, device=q.device)
+    counter = _counter(index, b * kv)
     qdt, kdt = DTYPE_PAIRS[(q.dtype, k_cache.dtype)]
     lib = build.library()
     rc = lib.nk_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(), part_acc.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), b, t, hq, kv, d, qdt, kdt,
-        int(window), kv_len, nsplit, chunk,
-        float(scale or 1.0 / math.sqrt(d)), index,
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
+        counter.data_ptr(), b, t, hq, kv, d, qdt, kdt, int(window), kv_len,
+        nsplit, chunk, float(scale or 1.0 / math.sqrt(d)), index,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "decode_attention")
     decode_attention.launches += 1

@@ -68,6 +68,16 @@ def cuda():
     (2, 64, 192, 6, 3, 32, False, 0, 0, "float32"),
     (1, 77, 77, 4, 4, 16, True, 0, 0, "float32"),
     (1, 509, 509, 24, 8, 128, True, 0, 0, "float32"),
+    # the wgmma kernel's edges: one row, two rows, a ragged second q tile,
+    # the longest prefill, two sequences with a ragged T (the TMA map's
+    # sequence boundary) and q_offset > 0, D 64 over two ragged sequences
+    (1, 1, 1, 24, 8, 128, True, 0, 0, "bfloat16"),
+    (1, 2, 2, 24, 8, 128, True, 0, 0, "bfloat16"),
+    (1, 65, 65, 24, 8, 128, True, 0, 0, "bfloat16"),
+    (1, 1024, 1024, 24, 8, 128, True, 0, 0, "bfloat16"),
+    (2, 65, 130, 24, 8, 128, True, 0, 65, "bfloat16"),
+    (2, 77, 77, 8, 2, 64, True, 0, 0, "bfloat16"),
+    (2, 130, 130, 24, 8, 128, True, 100, 0, "bfloat16"),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
                                             window, q_offset, dtype):
@@ -100,6 +110,20 @@ SERVE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
     ("float32", "bfloat16", 8, 4, 32, 0, 1024, SERVE_POS, 600),
     ("bfloat16", "bfloat16", 24, 8, 128, 0, 4096, (3001,), None),  # 32 chunks
     ("bfloat16", "bfloat16", 24, 8, 128, 0, 40, (0, 39, 5), None),  # 1 chunk
+    # the one-launch kernel's edges: pos 0 and every chunk edge, B 1 (16
+    # runs), B 32 (2 runs of 512), the replay phase's T 16, D 64, a window
+    # over several runs, kv_len < T on the tensor-core path
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 1024,
+     (0, 63, 64, 127, 128, 255, 256, 1023), None),
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 1024, (1023,), None),
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 1024, (0,), None),
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 1024,
+     tuple(range(0, 1024, 33))[:32], None),
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 16, (1, 2, 3, 15), None),
+    ("bfloat16", "bfloat16", 8, 8, 64, 0, 1024, SERVE_POS, None),
+    ("bfloat16", "bfloat16", 24, 8, 128, 300, 4096, (3001, 5, 299, 4095),
+     None),
+    ("bfloat16", "bfloat16", 24, 8, 128, 0, 1024, SERVE_POS, 600),
 ])
 def test_decode_kernel_matches_plain_on_card(cuda, q_dtype, kv_dtype, hq, kv,
                                              d, window, t, pos, kv_len):
@@ -120,6 +144,30 @@ def test_decode_kernel_matches_plain_on_card(cuda, q_dtype, kv_dtype, hq, kv,
     torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,d,b", [("bfloat16", 128, 8),
+                                         ("bfloat16", 128, 32),
+                                         ("float32", 128, 8)])
+def test_decode_kernel_repeats_are_bit_identical(cuda, q_dtype, d, b):
+    """Two calls on the same inputs give the same (o, m, l) to the bit: the
+    last block of a sequence combines the runs' partials in run order, not
+    in the order they finished, and leaves its counter at zero."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    t = 1024
+    q = torch.randn((b, 24, d), generator=g, device=cuda).to(
+        getattr(torch, q_dtype))
+    k, v = (torch.randn((b, t, 8, d), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    pos = torch.randint(0, t, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    first = decode_attention(q, k, v, pos)
+    for _ in range(3):
+        again = decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -102,3 +102,14 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     for proc in runs:
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_attention_ab_refuses_to_run_without_a_card():
+    """The kernel timing tool measures the card and has no CPU mode."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would time it")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "attention_ab.py")],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 2
+    assert proc.stdout == ""

@@ -237,6 +237,18 @@ def test_decode_split_plan_covers_the_cache(b, kv, kv_len, sms):
     assert nsplit == 1 or b * kv * (nsplit - 1) < 2 * sms
 
 
+@pytest.mark.parametrize("b,kv,kv_len,want", [
+    (8, 8, 1024, (4, 256)),     # the serving step: 256 blocks, 2 an SM
+    (1, 8, 1024, (16, 64)),     # one sequence: every 64-position chunk
+    (32, 8, 1024, (2, 512)),
+    (4, 8, 16, (1, 64)),        # the replay phase's 16-position cache
+])
+def test_decode_split_plan_at_the_serving_shapes(b, kv, kv_len, want):
+    """The runs the kernel was measured with on the H100 (132 SMs): at the
+    serving step's B 8 x 8 kv heads, four runs of 256 positions."""
+    assert split_plan(b, kv, kv_len, 132) == want
+
+
 # ---------------------------------------------------------------------------
 # SSD intra-chunk scan
 # ---------------------------------------------------------------------------
