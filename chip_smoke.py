@@ -17,7 +17,7 @@ JSON object per line:
               the water-fill also against the exact sort-based fill, and
               twice on the same input (bit-identical); the SSD scan at
               mamba2-370m's width (1, 2 and 16 chunks, a padded last chunk,
-              cumsums to -180);
+              cumsums to -180; y, states, decays and state decays);
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -28,7 +28,8 @@ JSON object per line:
               through the plain path, same weights, logits compared;
    serve, profile and parity then run again on full-width mamba2-370m (the
    ssm family: every prefill layer through the SSD scan kernel; prefill
-   also timed at 4,096 tokens);
+   also timed at 4,096 tokens; its profile gives the SSD kernel's share of
+   a prefill's device time and shows no separate cumsum runs);
 7. control  — the vectorized control plane's fused tick on the card at
               1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
               counter trace): µs per tick, tenants/s, state bytes; its
@@ -66,9 +67,11 @@ JSON object per line:
               attention kernels the backend that
               ``scaled_dot_product_attention`` dispatches to (timed pinned
               to it) and the wrapper's host enqueue µs per call; decode at
-              mixed, full and serve-range positions; the SSD scan at a
-              512- and a 4,096-token prompt; the codec on the embedding
-              leaf.
+              mixed, full and serve-range positions; the water-fill at
+              the 3- and 4-tenant problems of the fairness and replay
+              phases and at the fused tick's populations; the SSD scan at
+              a 256-, 512- and 4,096-token prompt; the codec on the
+              embedding leaf.
 
 Then one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -104,7 +107,8 @@ SSD_Q, SSD_H, SSD_P, SSD_N = 256, 32, 64, 128
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL_DECAY = 1e-5
 SSM_PREFILL_LENS = (512, 4096)
-SSD_TIMED_CHUNKS = (2, 16)   # a 512- and a 4,096-token prompt
+SSD_TIMED_CHUNKS = (1, 2, 16)   # a 256-, 512- and 4,096-token prompt
+SSD_SUMMARY_CHUNKS = 2          # the kernels line: a 512-token prompt
 CODEC_TIMED = (128256, 3072)  # llama3.2-3b's embedding, the largest leaf
 
 REQUESTS_PER_TENANT = 4
@@ -120,6 +124,7 @@ HOST_CALLS = 200              # enqueue timing: calls back to back
 WATER_TOL_PLAIN = 1e-9
 WATER_TOL_EXACT = 1e-6
 WATER_N = (1, 3, 1000, 10_000, 100_000, 1_048_576)
+WATER_TIMED_SMALL = (3, 4)    # the fairness and replay phases' problems
 # the control-plane scale bench's counter trace
 CONTROL_CAPACITY = 1e6
 CONTROL_BACKLOG_FRAC = 0.1
@@ -264,13 +269,14 @@ def flash_work(b, s, t, hq, kv, d, elem, causal, window):
 
 def ssd_work(nc, elem):
     """Bytes (x*dt, B, C in ``elem`` bytes and dA in f32 read once; y in
-    f32, the states and decays written once) and flops (per chunk: C.B^T
-    over the Q(Q+1)/2 causal pairs once, M.x over them per head, the state
-    x^T B per head) of the SSD scan over ``nc`` full-width chunks."""
+    f32, the states, decays and state decays written once) and flops (per
+    chunk: C.B^T over the Q(Q+1)/2 causal pairs once, M.x over them per
+    head, the state x^T B per head) of the SSD scan over ``nc`` full-width
+    chunks."""
     q, h, p, n = SSD_Q, SSD_H, SSD_P, SSD_N
     pairs = q * (q + 1) // 2
     nbytes = nc * (q * h * p * elem + q * h * 4 + 2 * q * n * elem
-                   + q * h * p * 4 + h * p * n * 4 + h * 4)
+                   + q * h * p * 4 + h * p * n * 4 + h * 4 + q * h * 4)
     flops = nc * (2.0 * pairs * n + h * 2.0 * pairs * p + h * 2.0 * q * p * n)
     return nbytes, flops
 
@@ -456,7 +462,8 @@ def phase_ssd(torch, device):
     """The SSD scan kernel against its plain version at full width (Q 256,
     H 32, P 64, N 128): bf16 at 1, 2 and 16 chunks (the second with a
     padded last chunk, one with dt scaled down so the decay reaches across
-    the chunk), f32 at 2 chunks. Returns the worst |kernel - plain| of y."""
+    the chunk), f32 at 2 chunks; all four outputs, the state decay
+    included. Returns the worst |kernel - plain| of y."""
     from repro_torch.kernels.ssd_scan import (
         ssd_chunk_scan, ssd_chunk_scan_plain)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -467,41 +474,49 @@ def phase_ssd(torch, device):
     for nc, dt, dt_scale, pad in cases:
         xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, dt,
                                    dt_scale=dt_scale, pad_rows=pad)
-        y, st, dec = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32)
+        y, st, dec, sd = ssd_chunk_scan(xdt, dA, B, C,
+                                        out_dtype=torch.float32,
+                                        state_decay=True)
         torch.cuda.synchronize()
-        ry, rst, rdec = ssd_chunk_scan_plain(xdt, dA, B, C,
-                                             out_dtype=torch.float32)
-        finite = all(bool(torch.isfinite(t).all()) for t in (y, st, dec))
+        ry, rst, rdec, rsd = ssd_chunk_scan_plain(
+            xdt, dA, B, C, out_dtype=torch.float32, state_decay=True)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (y, st, dec, sd))
         e_y = (y - ry).abs().max().item()
         e_st = (st - rst).abs().max().item()
         e_dec = (dec - rdec).abs().max().item()
+        e_sd = (sd - rsd).abs().max().item()
         cs_min = torch.cumsum(dA[0].float(), dim=1).min().item()
         if dt == "float32":    # the reference's own bounds, abs + rel
             tol = SSD_TOL["float32"]
             ok = all(bool(((a - b).abs() <= tol * (1 + b.abs())).all())
                      for a, b in ((y, ry), (st, rst)))
-            ok = ok and bool(((dec - rdec).abs()
-                              <= SSD_TOL_DECAY * (1 + rdec.abs())).all())
-            bound = {"y": tol, "states": tol, "decay": SSD_TOL_DECAY}
+            ok = ok and all(bool(((a - b).abs()
+                                  <= SSD_TOL_DECAY * (1 + b.abs())).all())
+                            for a, b in ((dec, rdec), (sd, rsd)))
+            bound = {"y": tol, "states": tol, "decay": SSD_TOL_DECAY,
+                     "state_decay": SSD_TOL_DECAY}
         else:                  # relative to the largest value
             tol = SSD_TOL["bfloat16"]
             bound = {"y": tol * ry.abs().max().item(),
                      "states": tol * rst.abs().max().item(),
-                     "decay": SSD_TOL_DECAY}
+                     "decay": SSD_TOL_DECAY, "state_decay": SSD_TOL_DECAY}
             ok = e_y <= bound["y"] and e_st <= bound["states"] and \
-                e_dec <= bound["decay"]
+                e_dec <= bound["decay"] and e_sd <= bound["state_decay"]
         ok = ok and finite
         emit({"phase": "kernels", "kernel": "ssd_chunk_scan", "nc": nc,
               "Q": SSD_Q, "H": SSD_H, "P": SSD_P, "N": SSD_N, "dtype": dt,
               "dt_scale": dt_scale, "padded_rows": pad, "min_cumsum": cs_min,
               "max_abs_err_y": e_y, "max_abs_err_states": e_st,
-              "max_abs_err_decay": e_dec, "tol": bound,
+              "max_abs_err_decay": e_dec, "max_abs_err_state_decay": e_sd,
+              "tol": bound,
               "tol_rule": "f32: |d| <= tol * (1 + |plain|); bf16: |d| <= "
                           "tol * max |plain|", "finite": finite, "ok": ok})
         if not ok:
             raise AssertionError(f"ssd_chunk_scan nc={nc} {dt}: y {e_y}, "
-                                 f"states {e_st}, decay {e_dec} against "
-                                 f"{bound}, finite {finite}")
+                                 f"states {e_st}, decay {e_dec}, state "
+                                 f"decay {e_sd} against {bound}, finite "
+                                 f"{finite}")
         worst = max(worst, e_y)
     return worst
 
@@ -629,12 +644,14 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(torch, fn, top: int = 8):
+def _profile(torch, fn, top: int = 8, kernel=None):
     """Where ``fn``'s device time goes. ``fn`` runs twice: once with the
     host clock alone (``wall_ms``), once under torch.profiler, whose CUDA
     kernel events (and only those: an operator's own row would count its
     kernels twice) give the device time by kernel. Their ratio is the
-    device's busy share of the unprofiled run."""
+    device's busy share of the unprofiled run. ``kernel``: a substring of
+    kernel names whose device time and share are reported. The count of
+    ``aten::cumsum`` calls comes from the operators' CPU events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -651,17 +668,31 @@ def _profile(torch, fn, top: int = 8):
                    if getattr(e, "device_type", None) == DeviceType.CUDA
                    and _device_us(e) > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    return {"wall_ms": wall_us / 1e3,
-            "device_ms": busy / 1e3 if busy else "not measured",
-            "device_busy_share": busy / wall_us if busy else "not measured",
-            "kernel_launches": sum(r[2] for r in rows),
-            "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
-                    for us, k, n in rows[:top]]}
+    out = {"wall_ms": wall_us / 1e3,
+           "device_ms": busy / 1e3 if busy else "not measured",
+           "device_busy_share": busy / wall_us if busy else "not measured",
+           "kernel_launches": sum(r[2] for r in rows),
+           "aten_cumsum_calls": sum(
+               e.count for e in prof.key_averages()
+               if e.key == "aten::cumsum"
+               and getattr(e, "device_type", None) == DeviceType.CPU),
+           "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
+                   for us, k, n in rows[:top]]}
+    if kernel:
+        k_us = sum(us for us, k, _n in rows if kernel in k)
+        out["kernel"] = kernel
+        out["kernel_ms"] = k_us / 1e3 if busy else "not measured"
+        out["kernel_share_of_device"] = k_us / busy if busy \
+            else "not measured"
+    return out
 
 
-def phase_profile(torch, device, eng):
+def phase_profile(torch, device, eng, kernel=None):
     """Where a decode step and a prefill spend their time (torch.profiler
-    over the port's own entry points, all 8 slots busy)."""
+    over the port's own entry points, all 8 slots busy). ``kernel``: the
+    prefill's own scan kernel (a name substring), whose share of the
+    prefill's device time is reported; its prefill must run no separate
+    ``aten::cumsum`` (the scan returns the in-chunk decays)."""
     from repro_torch.models import forward_prefill
     from repro_torch.serve import Request
     rng = torch.Generator().manual_seed(SEED + 3)
@@ -681,11 +712,16 @@ def phase_profile(torch, device, eng):
     prompt = torch.randint(0, eng.cfg.vocab_size, (1, PROMPT_RANGE[1]),
                            generator=rng).to(device)
     prefill = _profile(torch, lambda: forward_prefill(
-        eng.params, prompt, eng.rcfg, max_seq=eng.max_seq))
+        eng.params, prompt, eng.rcfg, max_seq=eng.max_seq), kernel=kernel)
     eng.run_until_drained()
     emit({"phase": "profile", "model": eng.cfg.name,
           "decode_4_steps_B8": decode,
           f"prefill_S{PROMPT_RANGE[1]}": prefill})
+    if kernel and (prefill["aten_cumsum_calls"]
+                   or not prefill.get("kernel_ms")):
+        raise AssertionError(f"{eng.cfg.name} prefill: "
+                             f"{prefill['aten_cumsum_calls']} cumsum calls, "
+                             f"{prefill.get('kernel_ms')} ms in {kernel}")
 
 
 def parity_logits(torch, device, params, max_seq: int, paths, tokens=None):
@@ -788,25 +824,26 @@ def phase_parity_ssm(torch, device, eng):
     kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
     scan = ssm_mod.ssd_chunk_scan
     scan_plain = ssm_mod.ssd_chunk_scan_plain
-    layer_err = {"y": 0.0, "states": 0.0, "decay": 0.0}
+    layer_err = {"y": 0.0, "states": 0.0, "decay": 0.0, "state_decay": 0.0}
     checked = 0
 
-    def scan_checked(xdt, dA, B, C, *, out_dtype=None):
+    def scan_checked(xdt, dA, B, C, **kw):
         nonlocal checked
-        out = scan(xdt, dA, B, C, out_dtype=out_dtype)
-        want = ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=out_dtype)
+        out = scan(xdt, dA, B, C, **kw)
+        want = ssd_chunk_scan_plain(xdt, dA, B, C, **kw)
         for key, a, b in zip(("y", "states"), out, want):
             layer_err[key] = max(layer_err[key], (
                 (a.float() - b.float()).abs().max()
                 / b.float().abs().max()).item())
-        layer_err["decay"] = max(layer_err["decay"],
-                                 (out[2] - want[2]).abs().max().item())
+        for key, a, b in zip(("decay", "state_decay"), out[2:], want[2:]):
+            layer_err[key] = max(layer_err[key],
+                                 (a - b).abs().max().item())
         checked += 1
         return out
 
     def scan_nudged(*args, **kw):
-        y, st, dec = scan_plain(*args, **kw)
-        return y * (1 + 1e-6), st, dec
+        y, *rest = scan_plain(*args, **kw)
+        return (y * (1 + 1e-6), *rest)
 
     ssm_mod.ssd_chunk_scan = scan_checked
     try:
@@ -834,7 +871,8 @@ def phase_parity_ssm(torch, device, eng):
         "bf16_scan_per_layer": checked >= cfg.num_layers
         and layer_err["y"] <= SSD_TOL["bfloat16"]
         and layer_err["states"] <= SSD_TOL["bfloat16"]
-        and layer_err["decay"] <= SSD_TOL_DECAY,
+        and layer_err["decay"] <= SSD_TOL_DECAY
+        and layer_err["state_decay"] <= SSD_TOL_DECAY,
         "f32_end_to_end": max(rel32) <= PARITY_TOL}
     emit({"phase": "parity", "model": cfg.name, "prompt": 300,
           "decode_steps": 4,
@@ -842,7 +880,8 @@ def phase_parity_ssm(torch, device, eng):
                                   "max_rel_err": layer_err,
                                   "tol": {"y": SSD_TOL["bfloat16"],
                                           "states": SSD_TOL["bfloat16"],
-                                          "decay": SSD_TOL_DECAY}},
+                                          "decay": SSD_TOL_DECAY,
+                                          "state_decay": SSD_TOL_DECAY}},
           "f32_max_rel_logit_err": max(rel32),
           "f32_per_step_rel_err": rel32, "f32_argmax_agree_share": agree32,
           "tol": PARITY_TOL,
@@ -1594,7 +1633,9 @@ def phase_timings(torch, device, smi: str):
         rows[("decode_attention", name)] = row
     import numpy as np
     from repro_torch.kernels.waterfill import water_fill, water_fill_plain
-    for n in CONTROL_N:
+    # the fairness and replay phases' 3- and 4-tenant problems (most of
+    # the path's launches), then the fused tick's populations
+    for n in WATER_TIMED_SMALL + CONTROL_N:
         d, w, cap = water_case(np, n, seed=n)
         dd, ww = (torch.tensor(x, dtype=torch.float64, device=device)
                   for x in (d, w))
@@ -1621,11 +1662,13 @@ def phase_timings(torch, device, smi: str):
         row = {"phase": "timings", "kernel": "ssd_chunk_scan", "nb": 1,
                "nc": nc, "tokens": nc * SSD_Q, "Q": SSD_Q, "H": SSD_H,
                "P": SSD_P, "N": SSD_N, "dtype": "bfloat16",
-               "out_dtype": "float32",
+               "out_dtype": "float32", "state_decay": True,
                "ms": timer.ms(lambda: ssd_chunk_scan(
-                   xdt, dA, B, C, out_dtype=torch.float32)),
+                   xdt, dA, B, C, out_dtype=torch.float32,
+                   state_decay=True)),
                "plain_ms": timer.ms(lambda: ssd_chunk_scan_plain(
-                   xdt, dA, B, C, out_dtype=torch.float32)),
+                   xdt, dA, B, C, out_dtype=torch.float32,
+                   state_decay=True)),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "bytes": nbytes, "flops": flops, "gpu": smi}
         emit(row)
@@ -1725,7 +1768,7 @@ def main() -> int:
         {"ssd_chunk_scan": ssd_chunk_scan}, {},
         prefill_lens=SSM_PREFILL_LENS)
     launches.update(ssm_launches)
-    phase_profile(torch, device, eng)
+    phase_profile(torch, device, eng, kernel="ssd_")
     phase_parity_ssm(torch, device, eng)
     del eng
     torch.cuda.empty_cache()
@@ -1757,7 +1800,7 @@ def main() -> int:
     flash = rows[("flash_attention", 509)]
     dec = rows[("decode_attention", "mixed")]
     water = rows[("water_fill", CONTROL_N[-1])]
-    ssd = rows[("ssd_chunk_scan", SSD_TIMED_CHUNKS[0])]
+    ssd = rows[("ssd_chunk_scan", SSD_SUMMARY_CHUNKS)]
     quant = rows[("quantize_int8", CODEC_TIMED[0])]
     dequant = rows[("dequantize_int8", CODEC_TIMED[0])]
     summary = []

@@ -43,7 +43,7 @@ SIGNATURES = {
     "nk_flash_attention": [_P, _P, _P, _P] + [_I] * 10 + [_F, _I, _P],
     "nk_decode_attention": [_P] * 9 + [_I] * 11 + [_F, _I, _P],
     "nk_water_fill": [_P] * 6 + [_L, _I, _L, _I, _I, _P],
-    "nk_ssd_chunk_scan": [_P] * 7 + [_I] * 8 + [_P],
+    "nk_ssd_chunk_scan": [_P] * 8 + [_I] * 8 + [_P],
     "nk_quantize_int8": [_P] * 3 + [_L] + [_I] * 4 + [_P],
     "nk_dequantize_int8": [_P] * 3 + [_L] + [_I] * 4 + [_P],
 }

@@ -695,7 +695,9 @@ int dispatch_d(int D, int G, const Args& a) {
 // multiple of 64). part: B * KV * nsplit * (G * D + 2 * G) floats of
 // scratch (unused when nsplit is 1); counter: B * KV ints, zero before the
 // first launch, which every launch leaves zero again. Launches that share
-// a counter must not run concurrently.
+// a counter must not run concurrently: the wrapper keeps one counter per
+// (card, stream), so only launches on one stream, which run in order,
+// share one.
 extern "C" int nk_decode_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* o,
                                    void* m, void* l, void* part,

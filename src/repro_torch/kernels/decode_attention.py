@@ -64,14 +64,20 @@ def _sm_count(index: int) -> int:
 _counters = {}
 
 
-def _counter(index: int, n: int) -> torch.Tensor:
-    """The kernel's per-(sequence, kv head) tickets on card ``index``: zero
-    when made, and left zero by every launch."""
-    have = _counters.get(index)
+def _counter(index: int, stream, n: int) -> torch.Tensor:
+    """The kernel's per-(sequence, kv head) tickets for launches on
+    ``stream`` of card ``index``: zero when made, and left zero by every
+    launch. One counter per (card, stream): launches on one stream run in
+    order, so a launch never shares its tickets with one in flight, and a
+    counter that grows is replaced, made and zeroed on that same stream
+    (the allocator hands its old memory only to later work there)."""
+    key = (index, stream.cuda_stream)
+    have = _counters.get(key)
     if have is None or have.numel() < n:
-        have = torch.zeros(max(n, 256), dtype=torch.int32,
-                           device=torch.device("cuda", index))
-        _counters[index] = have
+        with torch.cuda.stream(stream):
+            have = torch.zeros(max(n, 256), dtype=torch.int32,
+                               device=torch.device("cuda", index))
+        _counters[key] = have
     return have
 
 
@@ -168,7 +174,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, kv_len=None,
     # per-run partials (acc, m, l) that the last block of a group combines
     part = torch.empty((b * kv * nsplit * (g * d + 2 * g) if nsplit > 1
                         else 0,), dtype=torch.float32, device=q.device)
-    counter = _counter(index, b * kv)
+    stream = torch.cuda.current_stream(q.device)
+    counter = _counter(index, stream, b * kv)
     qdt, kdt = DTYPE_PAIRS[(q.dtype, k_cache.dtype)]
     lib = build.library()
     rc = lib.nk_decode_attention(
@@ -176,7 +183,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, kv_len=None,
         o.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
         counter.data_ptr(), b, t, hq, kv, d, qdt, kdt, int(window), kv_len,
         nsplit, chunk, float(scale or 1.0 / math.sqrt(d)), index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream.cuda_stream)
     build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return o, m, l

@@ -7,15 +7,20 @@ head, with ``cs = cumsum(dA)`` over the chunk's Q positions:
 
 * ``y[l] = sum_{s <= l} (C[l] . B[s]) exp(cs[l] - cs[s]) xdt[s]``;
 * ``state = sum_s exp(cs[Q-1] - cs[s]) xdt[s]^T B[s]`` (P x N);
-* ``decay = exp(cs[Q-1])``.
+* ``decay = exp(cs[Q-1])``;
+* ``state_decay[l] = exp(cs[l])``, the reference model's weight of the
+  inter-chunk output (``repro/models/ssm.py::ssd_chunked``'s
+  ``state_decay``), asked for with ``state_decay=True``.
 
 The reference's signature: ``xdt (nb, nc, Q, H, P)``, ``dA (nb, nc, Q, H)``,
 ``B, C (nb, nc, Q, N)`` -> ``(y (nb, nc, Q, H, P), states (nb, nc, H, P, N)
 f32, decay (nb, nc, H) f32)``, any H (the Pallas kernel's ``head_block`` is
-not part of the contract). ``y`` comes out in ``out_dtype``, by default
-xdt's. The decay exponent is always a difference ``cs[l] - cs[s]``, masked
-before the exponential: a factored ``exp(cs[l]) * exp(-cs[s])`` underflows
-and overflows at full width, where ``cs`` reaches about -180 in a chunk.
+not part of the contract), and with ``state_decay=True`` a fourth output,
+``state_decay (nb, nc, Q, H) f32``. ``y`` comes out in ``out_dtype``, by
+default xdt's. The decay exponent is always a difference ``cs[l] -
+cs[s]``, masked before the exponential: a factored ``exp(cs[l]) *
+exp(-cs[s])`` underflows and overflows at full width, where ``cs`` reaches
+about -180 in a chunk.
 
 Both versions take f32 or bf16 inputs and give f32 results, as the Pallas
 kernel does: the kernel feeds the f32 masked decay matrix
@@ -38,7 +43,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: build.DT_F32, torch.bfloat16: build.DT_BF16}
-MAX_CHUNK = 256      # the kernel stages a whole chunk in shared memory
+MAX_CHUNK = 256      # the kernels keep a chunk's cumsum in shared memory
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -52,7 +57,8 @@ def segsum(x: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(ii[:, None] < ii[None, :], float("-inf"))
 
 
-def ssd_chunk_scan_plain(xdt, dA, B, C, *, out_dtype=None):
+def ssd_chunk_scan_plain(xdt, dA, B, C, *, out_dtype=None,
+                         state_decay=False):
     """The kernel's function in plain PyTorch: the inputs widened (exactly)
     to f64, every product and sum in f64, each output rounded once to
     f32 (``y`` then to ``out_dtype``)."""
@@ -65,8 +71,11 @@ def ssd_chunk_scan_plain(xdt, dA, B, C, *, out_dtype=None):
     w = torch.exp(cs[..., -1:] - cs)                     # (nb,nc,H,Q)
     st = torch.einsum("bcsn,bcshp->bchpn", B.double(),
                       x * w.transpose(-1, -2)[..., None])
-    return (y.float().to(out_dtype or xdt.dtype), st.float(),
-            torch.exp(cs[..., -1]).float())
+    out = (y.float().to(out_dtype or xdt.dtype), st.float(),
+           torch.exp(cs[..., -1]).float())
+    if state_decay:
+        out += (torch.exp(cs).transpose(-1, -2).float(),)
+    return out
 
 
 def _check(xdt, dA, B, C, out_dtype) -> None:
@@ -99,16 +108,18 @@ def _check(xdt, dA, B, C, out_dtype) -> None:
                              "aligned")
 
 
-def ssd_chunk_scan(xdt, dA, B, C, *, out_dtype=None):
+def ssd_chunk_scan(xdt, dA, B, C, *, out_dtype=None, state_decay=False):
     """xdt (nb,nc,Q,H,P), dA (nb,nc,Q,H), B/C (nb,nc,Q,N) -> (y
     (nb,nc,Q,H,P) in ``out_dtype`` (default xdt's), states (nb,nc,H,P,N)
-    f32, decay (nb,nc,H) f32).
+    f32, decay (nb,nc,H) f32), and ``state_decay`` (nb,nc,Q,H) f32 when
+    asked for (the kernel always writes it).
 
     On CPU tensors this is ``ssd_chunk_scan_plain``; on CUDA tensors it
     launches the kernel on the current stream (one launch, no
     synchronisation)."""
     if xdt.device.type == "cpu":
-        return ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=out_dtype)
+        return ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=out_dtype,
+                                    state_decay=state_decay)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan runs on cuda or cpu, not "
                          f"{xdt.device}")
@@ -121,18 +132,20 @@ def ssd_chunk_scan(xdt, dA, B, C, *, out_dtype=None):
     st = torch.empty((nb, nc, h, p, n), dtype=torch.float32,
                      device=xdt.device)
     dec = torch.empty((nb, nc, h), dtype=torch.float32, device=xdt.device)
+    sd = torch.empty((nb, nc, q, h), dtype=torch.float32, device=xdt.device)
+    out = (y, st, dec, sd) if state_decay else (y, st, dec)
     if nb * nc == 0 or h == 0:
-        return y, st, dec
+        return out
     dev = xdt.device.index if xdt.device.index is not None \
         else torch.cuda.current_device()
     rc = build.library().nk_ssd_chunk_scan(
         xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), st.data_ptr(), dec.data_ptr(), nb * nc, q, h, p, n,
-        DTYPES[xdt.dtype], DTYPES[out_dtype], dev,
+        y.data_ptr(), st.data_ptr(), dec.data_ptr(), sd.data_ptr(), nb * nc,
+        q, h, p, n, DTYPES[xdt.dtype], DTYPES[out_dtype], dev,
         torch.cuda.current_stream(xdt.device).cuda_stream)
     build.check(rc, "ssd_chunk_scan")
     ssd_chunk_scan.launches += 1
-    return y, st, dec
+    return out
 
 
 ssd_chunk_scan.launches = 0

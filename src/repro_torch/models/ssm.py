@@ -3,13 +3,15 @@
 The counterpart of ``repro/models/ssm.py``, with the same names and
 layouts: x ``(B, L, H, P)`` heads; B/C ``(B, L, N)`` single group; dt
 ``(B, L, H)``; state ``(B, H, P, N)`` f32. The chunked scan's intra-chunk
-part (the masked decay matrix, ``y_diag``, the chunk states and decays) is
-the hand-written kernel ``kernels/ssd_scan.py::ssd_chunk_scan`` (its plain
-version under ``RunConfig.attention_impl == "naive"``); the inter-chunk
-recurrence and ``y_off`` stay plain torch, as they stay ``jnp`` in the
-reference. ``_segsum`` lives beside the scan's plain version, which uses
-it (``kernels/ssd_scan.py::segsum``). Decode writes the new state and
-conv tails into the cache in place (the reference returns new arrays).
+part (the masked decay matrix, ``y_diag``, the chunk states and decays,
+and ``state_decay = exp(cumsum(dA))``, the weight of the inter-chunk
+output) is the hand-written kernel ``kernels/ssd_scan.py::ssd_chunk_scan``
+(its plain version under ``RunConfig.attention_impl == "naive"``); the
+inter-chunk recurrence and ``y_off`` stay plain torch, as they stay
+``jnp`` in the reference. ``_segsum`` lives beside the scan's plain
+version, which uses it (``kernels/ssd_scan.py::segsum``). Decode writes the
+new state and conv tails into the cache in place (the reference returns
+new arrays).
 
 Rounding points follow the reference: conv, gate and D-skip products round
 to the activation dtype where it rounds; ``y_diag`` is f32. One exception
@@ -111,10 +113,11 @@ def ssd_chunked(xdt, dA, B, C, chunk: int,
     Bc = B.reshape(b, nc, chunk, n)
     Cc = C.reshape(b, nc, chunk, n)
 
-    # --- intra-chunk (quadratic, attention-like) + chunk states: kernel ---
+    # --- intra-chunk (quadratic, attention-like), chunk states and the
+    # in-chunk decays: kernel ---
     scan = ssd_chunk_scan_plain if naive else ssd_chunk_scan
-    y_diag, states, chunk_decay = scan(xc, dAc, Bc, Cc,
-                                       out_dtype=torch.float32)
+    y_diag, states, chunk_decay, state_decay = scan(
+        xc, dAc, Bc, Cc, out_dtype=torch.float32, state_decay=True)
 
     # --- inter-chunk recurrence (linear scan over chunks) ---
     s = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device) \
@@ -125,8 +128,7 @@ def ssd_chunked(xdt, dA, B, C, chunk: int,
         s = s * chunk_decay[:, c, :, None, None] + states[:, c]
     entering = torch.stack(entering, dim=1)                   # (b,c,h,p,n)
 
-    # --- inter-chunk output ---
-    state_decay = torch.exp(torch.cumsum(f32(dAc), dim=2))   # (b,c,Q,h)
+    # --- inter-chunk output, weighted by state_decay (b,c,Q,h) ---
     # on the CPU the product goes through the host's BLAS, whose f32
     # blocking varies with its thread count and load: summed in f64 there
     # and rounded once, it depends on the inputs alone (as the plain scan)

@@ -18,7 +18,8 @@ The SSD scan kernel: f32 within 2e-4 abs + rel on y and states and 1e-5 on
 the decay (the reference's own bounds, ``tests/test_kernels.py:82-84``);
 bf16 within 2e-2 of the largest |y| and |state| (both compute in f32, the
 kernel's tensor-core products on hi + lo bf16 pairs; y may be asked in
-bf16); a zero-padded chunk gives exactly the prefix's y, state and decay.
+bf16); state_decay as the decay; a zero-padded chunk gives exactly the
+prefix's y, state, decay and state_decay; repeats are bit-identical.
 The int8 codec kernels equal their plain version bit for bit (codes,
 scales, and the dequantized values in f32 and bf16). The bytes plane runs
 on an NCCL world of one rank: every stock policy's ``nk_grad_sync`` equals
@@ -33,7 +34,7 @@ import torch
 from repro_torch.configs import RunConfig, get_smoke_config
 from repro_torch.control.vectorized import VectorizedControlPlane
 from repro_torch.kernels.decode_attention import (
-    decode_attention, decode_attention_plain)
+    _counters, decode_attention, decode_attention_plain, split_plan)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.quant_comm import (
@@ -168,6 +169,47 @@ def test_decode_kernel_repeats_are_bit_identical(cuda, q_dtype, d, b):
         torch.cuda.synchronize()
         for x, y in zip(first, again):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_decode_tickets_are_kept_per_stream(cuda):
+    """Decode launches on two streams at once, with different B*KV and
+    several runs per sequence (so each combines through its ticket
+    counter), each equal to the plain version: the counter is keyed by
+    (card, stream), so concurrent launches never share tickets."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def case(b, t, kv):
+        q = torch.randn((b, 3 * kv, 128), generator=g, device=cuda).to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, t, kv, 128), generator=g, device=cuda).to(
+            torch.bfloat16) for _ in range(2))
+        pos = torch.randint(t // 2, t, (b,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        return q, k, v, pos
+
+    cases = (case(1, 4096, 8), case(6, 2048, 4))
+    index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    for q, k, _v, _pos in cases:
+        assert split_plan(q.shape[0], k.shape[2], k.shape[1], sms)[0] > 1
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(16):
+        for i, (st, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                outs[i].append(decode_attention(*args))
+    torch.cuda.synchronize()
+    for args, got in zip(cases, outs):
+        ro, rm, rl = decode_attention_plain(*args)
+        for o, m, l in got:
+            torch.testing.assert_close(o.float(), ro.float(), rtol=2e-2,
+                                       atol=2e-2)
+            torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-4)
+    keys = {key for key in _counters if key[0] == index}
+    assert {(index, st.cuda_stream) for st in streams} <= keys
 
 
 @pytest.mark.cuda
@@ -322,6 +364,9 @@ def _ssd_case(device, nb, nc, q, h, p, n, dtype, *, dt_scale=1.0, seed=0):
     (2, 3, 64, 16, 32, 64, "bfloat16", "bfloat16", 0.1),     # ref test
     (1, 2, 200, 4, 64, 128, "bfloat16", "float32", 1.0),     # ragged Q
     (1, 2, 40, 6, 32, 32, "bfloat16", "float32", 0.1),       # CUDA cores
+    # the wgmma kernel at odd H, with a ragged Q and a bf16 y too
+    (1, 2, 256, 5, 64, 128, "bfloat16", "float32", 1.0),
+    (2, 1, 200, 33, 64, 128, "bfloat16", "bfloat16", 1.0),
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda, nb, nc, q, h, p, n, dtype,
                                           out, dt_scale):
@@ -329,12 +374,15 @@ def test_ssd_kernel_matches_plain_on_card(cuda, nb, nc, q, h, p, n, dtype,
                               dt_scale=dt_scale)
     out_dtype = getattr(torch, out)
     before = ssd_chunk_scan.launches
-    y, st, dec = ssd_chunk_scan(xdt, dA, B, C, out_dtype=out_dtype)
+    y, st, dec, sd = ssd_chunk_scan(xdt, dA, B, C, out_dtype=out_dtype,
+                                    state_decay=True)
     torch.cuda.synchronize()
     assert ssd_chunk_scan.launches == before + 1
     assert y.dtype == out_dtype and tuple(y.shape) == tuple(xdt.shape)
-    ry, rst, rdec = ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=out_dtype)
-    for t in (y, st, dec):
+    assert tuple(sd.shape) == (nb, nc, q, h)
+    ry, rst, rdec, rsd = ssd_chunk_scan_plain(
+        xdt, dA, B, C, out_dtype=out_dtype, state_decay=True)
+    for t in (y, st, dec, sd):
         assert torch.isfinite(t).all()
     if dtype == "float32":
         torch.testing.assert_close(y, ry, rtol=2e-4, atol=2e-4)
@@ -344,25 +392,48 @@ def test_ssd_kernel_matches_plain_on_card(cuda, nb, nc, q, h, p, n, dtype,
             2e-2 * ry.float().abs().max()
         assert (st - rst).abs().max() <= 2e-2 * rst.abs().max()
     torch.testing.assert_close(dec, rdec, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sd, rsd, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_ssd_kernel_padded_chunk_equals_the_prefix(cuda, dtype):
+@pytest.mark.parametrize("dtype,nc", [("bfloat16", 2), ("float32", 2),
+                                      ("bfloat16", 1)])
+def test_ssd_kernel_padded_chunk_equals_the_prefix(cuda, dtype, nc):
     """A 256-row chunk whose last 56 rows are zero x*dt and dA = 0 (how
     ``ssd_chunked`` pads a prompt) gives the 200-row prefix's y rows,
-    state and decay exactly."""
-    xdt, dA, B, C = _ssd_case(cuda, 1, 2, 256, 32, 64, 128, dtype, seed=3)
+    state, decay and state_decay rows exactly, at 1 and 2 chunks."""
+    xdt, dA, B, C = _ssd_case(cuda, 1, nc, 256, 32, 64, 128, dtype, seed=3)
     xdt[:, :, 200:] = 0
     dA[:, :, 200:] = 0
-    full = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32)
+    full = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32,
+                          state_decay=True)
     prefix = ssd_chunk_scan(*(t[:, :, :200].contiguous()
                               for t in (xdt, dA, B, C)),
-                            out_dtype=torch.float32)
+                            out_dtype=torch.float32, state_decay=True)
     torch.cuda.synchronize()
     assert torch.equal(full[0][:, :, :200], prefix[0])
     assert torch.equal(full[1], prefix[1])
     assert torch.equal(full[2], prefix[2])
+    assert torch.equal(full[3][:, :, :200], prefix[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,h,dtype", [(2, 32, "bfloat16"),
+                                        (1, 32, "bfloat16"),
+                                        (1, 5, "bfloat16"),
+                                        (2, 32, "float32")])
+def test_ssd_kernel_repeats_are_bit_identical(cuda, nc, h, dtype):
+    """Two launches on one input give the same four outputs to the bit:
+    no atomics, and every sum in a fixed order."""
+    xdt, dA, B, C = _ssd_case(cuda, 1, nc, 256, h, 64, 128, dtype, seed=4)
+    first = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32,
+                           state_decay=True)
+    for _ in range(3):
+        again = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32,
+                               state_decay=True)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

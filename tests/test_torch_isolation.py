@@ -113,3 +113,14 @@ def test_attention_ab_refuses_to_run_without_a_card():
         capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 2
     assert proc.stdout == ""
+
+
+def test_ssd_ab_refuses_to_run_without_a_card():
+    """The SSD scan's timing tool measures the card and has no CPU mode."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would time it")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "ssd_ab.py")],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 2
+    assert proc.stdout == ""

@@ -355,6 +355,34 @@ def test_ssd_padded_chunk_leaves_state_and_decay_as_the_prefix():
     torch.testing.assert_close(full[2], prefix[2], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("q,da_scale,x64", [(64, 0.1, False),
+                                             (256, 1.0, True)])
+def test_ssd_plain_state_decay_matches_reference_cumsum(q, da_scale, x64):
+    """The plain scan's fourth output, ``state_decay = exp(cumsum(dA))``
+    (f64, rounded once), against the reference model's own expression
+    (``repro/models/ssm.py::ssd_chunked``'s ``jnp.exp(A_cum)``): at the
+    reference kernel test's scale in f32 as the model runs it, and at
+    full-width cumsums (about -180, where f32 values reach the subnormal
+    range) in f64, rounded once; 1e-6 relative."""
+    xdt, da, b, c = _ssd_inputs(98, 2, 3, q, 8, 16, 32, da_scale=da_scale)
+    out = ssd_chunk_scan_plain(*(torch.from_numpy(a)
+                                 for a in (xdt, da, b, c)),
+                               state_decay=True)
+    assert len(out) == 4 and tuple(out[3].shape) == (2, 3, q, 8)
+    assert out[3].dtype == torch.float32
+    with jax.enable_x64(x64):
+        dtype = jnp.float64 if x64 else jnp.float32
+        want = np.asarray(jnp.exp(jnp.cumsum(jnp.asarray(da, dtype=dtype),
+                                             axis=2))).astype(np.float32)
+    np.testing.assert_allclose(_np(out[3]), want, rtol=1e-6, atol=0)
+    # the three-output call is the reference-shaped one, unchanged
+    three = ssd_chunk_scan_plain(*(torch.from_numpy(a)
+                                   for a in (xdt, da, b, c)))
+    assert len(three) == 3
+    for a, b_ in zip(three, out):
+        assert torch.equal(a, b_)
+
+
 def test_ssd_plain_computes_in_f32_from_bf16_operands():
     """bf16 operands are widened and everything runs in f32, as in the
     Pallas kernel: bf16 inputs give exactly what their f32 widening gives.

@@ -142,6 +142,27 @@ def test_ssd_chunked_is_fixed_by_its_inputs():
         assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
 
 
+def test_ssd_chunked_takes_state_decay_from_the_scan(monkeypatch):
+    """``ssd_chunked`` weights the inter-chunk output with the scan's own
+    ``state_decay`` and computes no cumsum of its own."""
+    import inspect
+    asked = []
+    plain = tssm.ssd_chunk_scan_plain
+
+    def spy(*args, **kw):
+        asked.append(kw.get("state_decay"))
+        return plain(*args, **kw)
+
+    arrays = [_t(a) for a in _scan_inputs(6, 2, 40, 4, 8, 16)]
+    want = tssm.ssd_chunked(*arrays, 16, naive=True)
+    monkeypatch.setattr(tssm, "ssd_chunk_scan_plain", spy)
+    got = tssm.ssd_chunked(*arrays, 16, naive=True)
+    assert asked == [True]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert "cumsum" not in inspect.getsource(tssm.ssd_chunked)
+
+
 def test_ssd_chunked_naive_and_kernel_paths_agree():
     """``naive`` picks the kernel's plain version; on the CPU the kernel
     wrapper takes that same plain version, so the two are equal."""
