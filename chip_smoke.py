@@ -66,7 +66,8 @@ JSON object per line:
               operations at the H100 SXM datasheet rates); for the
               attention kernels the backend that
               ``scaled_dot_product_attention`` dispatches to (timed pinned
-              to it) and the wrapper's host enqueue µs per call; decode at
+              to it); for them and the water-fill the wrapper's host
+              enqueue µs per call; decode at
               mixed, full and serve-range positions; the water-fill at
               the 3- and 4-tenant problems of the fairness and replay
               phases and at the fused tick's populations; the SSD scan at
@@ -123,7 +124,8 @@ HOST_CALLS = 200              # enqueue timing: calls back to back
 # water-fill: |kernel - plain| and |kernel - exact fill| per unit capacity
 WATER_TOL_PLAIN = 1e-9
 WATER_TOL_EXACT = 1e-6
-WATER_N = (1, 3, 1000, 10_000, 100_000, 1_048_576)
+# the one-warp kernel (n <= 32) and past it, one block, the first grid
+WATER_N = (1, 3, 4, 32, 33, 1000, 8193, 10_000, 100_000, 1_048_576)
 WATER_TIMED_SMALL = (3, 4)    # the fairness and replay phases' problems
 # the control-plane scale bench's counter trace
 CONTROL_CAPACITY = 1e6
@@ -1648,6 +1650,7 @@ def phase_timings(torch, device, smi: str):
                "dtype": "float64", "active": active,
                "ms": timer.ms(lambda: water_fill(dd, ww, cap)),
                "plain_ms": timer.ms(lambda: water_fill_plain(dd, ww, cap)),
+               "host_us": host_us(torch, lambda: water_fill(dd, ww, cap)),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "bytes": nbytes, "flops": flops, "gpu": smi}
         emit(row)

@@ -93,15 +93,27 @@ def _t(x):
     return torch.tensor(x, dtype=torch.float64)
 
 
-@pytest.mark.parametrize("n,kind", WATER_CASES)
-def test_water_fill_plain_matches_pallas_kernel(n, kind):
+# the bisection's step counts: none, one, and counts that are not a
+# multiple of the kernel's pass depths (its remainder pass), beside the
+# default 48; the default keeps each case's plain id
+WATER_ITERS = (0, 1, 5, 47, 48)
+WATER_ITER_CASES = [
+    pytest.param(n, kind, iters,
+                 id=f"{n}-{kind}" + ("" if iters == 48 else f"-iters{iters}"))
+    for n, kind in WATER_CASES for iters in WATER_ITERS]
+
+
+@pytest.mark.parametrize("n,kind,iters", WATER_ITER_CASES)
+def test_water_fill_plain_matches_pallas_kernel(n, kind, iters):
     d, w, cap = _water_case(n, seed=n, kind=kind)
     with _x64():
-        want = np.asarray(j_ops.water_fill(d, w, cap, impl="pallas"))
+        want = np.asarray(j_ops.water_fill(d, w, cap, impl="pallas",
+                                           iters=iters))
     assert want.dtype == np.float64
-    plain, level = water_fill_plain(_t(d), _t(w), cap)
-    wrapped, level2 = water_fill(_t(d), _t(w), cap)   # CPU: the plain path
-    via_ops = t_ops.water_fill(_t(d), _t(w), cap)
+    plain, level = water_fill_plain(_t(d), _t(w), cap, iters=iters)
+    # CPU: the plain path
+    wrapped, level2 = water_fill(_t(d), _t(w), cap, iters=iters)
+    via_ops = t_ops.water_fill(_t(d), _t(w), cap, iters=iters)
     tol = 1e-9 * max(cap, 1.0)
     for got in (plain, wrapped, via_ops):
         assert np.abs(got.numpy() - want).max() <= tol

@@ -42,7 +42,8 @@ from repro_torch.kernels.quant_comm import (
     quantize_int8_plain)
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
     ssd_chunk_scan_plain
-from repro_torch.kernels.waterfill import water_fill, water_fill_plain
+from repro_torch.kernels.waterfill import (
+    _scratch, water_fill, water_fill_plain)
 from repro_torch.models.params import init_params
 from repro_torch.serve import Request, ServeEngine, TenantScheduler
 
@@ -270,7 +271,23 @@ def _water_case(n, seed, kind="mixed"):
     elif kind == "all_inf":
         d[:] = np.inf
         w = np.abs(w) + 0.5
+    elif kind == "ties":
+        # a third greedy, a third with ratio exactly `level` (w is a
+        # power of two, so w * level / w is level), a third satisfied
+        # below it; the capacity puts the fill's level at `level`
+        level = 0.75 * cap / n
+        w = rng.choice([0.5, 1.0, 2.0, 4.0], n)
+        part = rng.integers(0, 3, n)
+        d = np.where(part == 0, np.inf, w * level)
+        d = np.where(part == 2, d * rng.uniform(0.1, 0.9, n), d)
+        cap = float(w[part < 2].sum() * level + d[part == 2].sum())
     return d, w, cap
+
+
+# the bisection's step count of each kind ("itersK": the mixed case in
+# K steps; none, one, a count under one pass of any depth, and more passes
+# than the grid launch has buffers, so that it reuses them)
+WATER_ITERS = {"iters0": 0, "iters1": 1, "iters7": 7, "iters200": 200}
 
 
 @pytest.mark.cuda
@@ -284,24 +301,68 @@ def _water_case(n, seed, kind="mixed"):
     (1000, "parked", "float64"), (100_000, "parked", "float64"),
     (1000, "zero_cap", "float64"), (100_000, "all_inf", "float64"),
     (1000, "mixed", "float32"), (20_000, "mixed", "float32"),
+    # the one-warp kernel (n <= 32) and its edges, one block's K = 1
+    (2, "mixed", "float64"), (4, "mixed", "float64"),
+    (31, "mixed", "float64"), (32, "mixed", "float64"),
+    (33, "mixed", "float64"), (255, "mixed", "float64"),
+    (256, "mixed", "float64"),
+    # the remainder pass: each launch kind at 0, 1, 7 and 200 steps
+    *[(n, kind, "float64") for n in (4, 1000, 100_000)
+      for kind in WATER_ITERS],
+    # many ratios exactly at the final level
+    (1000, "ties", "float64"), (100_000, "ties", "float64"),
 ])
 def test_water_fill_kernel_matches_plain_on_card(cuda, n, kind, dtype):
     d, w, cap = _water_case(n, seed=n, kind=kind)
+    iters = WATER_ITERS.get(kind, 48)
     dt = getattr(torch, dtype)
     dd, ww = (torch.tensor(x, dtype=dt, device=cuda) for x in (d, w))
     before = water_fill.launches
-    alloc, level = water_fill(dd, ww, cap)
-    again, level2 = water_fill(dd, ww, cap)
+    alloc, level = water_fill(dd, ww, cap, iters=iters)
+    again, level2 = water_fill(dd, ww, cap, iters=iters)
     torch.cuda.synchronize()
     assert water_fill.launches == before + 2
     assert torch.equal(alloc, again) and torch.equal(level, level2)
-    want, want_level = water_fill_plain(dd.cpu(), ww.cpu(), cap)
+    want, want_level = water_fill_plain(dd.cpu(), ww.cpu(), cap,
+                                        iters=iters)
     tol = (1e-9 if dtype == "float64" else 1e-3) * max(cap, 1.0)
     assert torch.isfinite(alloc).all()
     assert (alloc.cpu() - want).abs().max().item() <= tol
-    assert float(alloc.double().sum()) <= cap + tol * n
+    if iters == 48:    # fewer steps leave the level high: over capacity
+        assert float(alloc.double().sum()) <= cap + tol * n
     if kind in ("parked", "zero_cap"):
         assert not alloc.any()
+
+
+@pytest.mark.cuda
+def test_water_fill_scratch_is_kept_per_stream(cuda):
+    """Water-fills on two streams at once, each a cooperative grid launch
+    at another n (40 and 79 blocks: both grids fit on the card at once),
+    each bit for bit the same call's result alone and within 1e-9 x
+    capacity of the plain version: the partial sums' scratch is kept per
+    (card, stream), so concurrent grids never share it."""
+    cases = []
+    for n in (10_000, 20_000):
+        d, w, cap = _water_case(n, seed=n)
+        cases.append((*(torch.tensor(x, dtype=torch.float64, device=cuda)
+                        for x in (d, w)), cap))
+    alone = [water_fill(dd, ww, cap) for dd, ww, cap in cases]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(16):
+        for i, (st, (dd, ww, cap)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                outs[i].append(water_fill(dd, ww, cap))
+    torch.cuda.synchronize()
+    for (dd, ww, cap), (a0, l0), got in zip(cases, alone, outs):
+        want, _ = water_fill_plain(dd.cpu(), ww.cpu(), cap)
+        assert (a0.cpu() - want).abs().max().item() <= 1e-9 * cap
+        for a, lvl in got:
+            assert torch.equal(a, a0) and torch.equal(lvl, l0)
+    index = torch.cuda.current_device()
+    keys = {key for key in _scratch if key[0] == index}
+    assert {(index, st.cuda_stream) for st in streams} <= keys
 
 
 @pytest.mark.cuda
