@@ -40,13 +40,22 @@ JSON object per line:
               on the object and the vectorized control plane (fairness, and
               each tenant's rate within 2% across the two), adversarial
               against its hog-free baseline (the isolation bounds);
-9. codec    — the int8 codec kernels against their plain version, bit
+9. cluster  — 3 engines over the replay phase's model behind one
+              ``RateController``: migration, consolidation, hotspot,
+              stack_swap and failover (failover on the vectorized plane);
+              each scenario's claims, conservation on every plane, every
+              attention call through a kernel, the water-fill kernel on
+              the vectorized run, the cache's bytes freed on the card by
+              each park, the weights resident once, the traces checked by
+              ``tools/check_trace.py``, and the ledgers equal to a CPU run
+              of the smoke config;
+10. codec   — the int8 codec kernels against their plain version, bit
               for bit (R 1/255/257/4,096 x C 256/3,072/8,192, blocks 128
               and 256, f32 and bf16 in and out, a zero block and exact
               ties), then every leaf of full-width llama3.2-3b at bf16
               (3.2e9 elements) through ``ops.quantize``/``ops.dequantize``
               within the codec's stated bound, with its GB/s;
-10. bytes   — the bytes plane at world size 1 on the card (an NCCL group
+11. bytes   — the bytes plane at world size 1 on the card (an NCCL group
               of one): ``nk_grad_sync`` of that pytree under each stock
               policy's CoreEngine, plus ``nk_psum``/``nk_all_gather``/
               ``nk_reduce_scatter`` on one leaf; each stack's output
@@ -55,12 +64,12 @@ JSON object per line:
               billed bytes conserved across an export/import; ms per
               ``nk_grad_sync`` (the engine's host cost: no bytes cross a
               wire at world 1);
-11. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
+12. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
               scenarios on the port's ``SharedBottleneckSim`` with the
               object controller and the vectorized one on the card (its
               water-fill kernel), claims (a)-(c) and the two backends'
               agreement;
-12. timings — each kernel, its plain version and one PyTorch library call
+13. timings — each kernel, its plain version and one PyTorch library call
               where one computes the same function, timed with CUDA events
               beside the least time the card could take (bytes or
               operations at the H100 SXM datasheet rates); for the
@@ -141,6 +150,20 @@ REPLAY_MAX_SEQ = 16           # a request is 2 prompt + 6 new tokens
 # At 8 the virtual step doubles and the victims' p99 admit wait lands on
 # the 1 s histogram edge (same on any device: the clock is virtual)
 REPLAY_SLOTS = 4
+# the replay and cluster phases' decode positions: one per slot, under
+# REPLAY_MAX_SEQ and inside the first 64-position chunk
+REPLAY_DECODE_POS = (1, 2, 3, 15)
+# cluster phase: 3 engines share the replay phase's model; each scenario
+# runs REPLAY_INTERVALS intervals of REPLAY_TENANTS tenants with the replay
+# phase's slots and cache length, then again on the CPU at the smoke config
+CLUSTER_ENGINES = 3
+# scenario -> control backend; failover runs the vectorized plane, so the
+# shared controller's water-fill goes through its kernel on the card
+CLUSTER_RUNS = (("migration", "object"), ("consolidation", "object"),
+                ("hotspot", "object"), ("stack_swap", "object"),
+                ("failover", "vectorized"))
+CLUSTER_CORE_PLANE = ("hotspot", "stack_swap", "failover")
+CLUSTER_TRACED = ("migration", "stack_swap", "failover")
 # int8 codec: the kernel against its plain version on these shapes (every
 # R x C, both blocks, f32 and bf16 in and out), bit for bit; then the
 # full-width llama3.2-3b gradient pytree at bf16 through ops.quantize and
@@ -333,10 +356,13 @@ def phase_kernels(torch, device):
                                  f"window={window} q_offset={q_offset}: "
                                  f"err {err} > {FLASH_TOL[dt]}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-    b, t = 8, 1024
-    for dt, pos_list in (("bfloat16", DECODE_POS),
-                         ("bfloat16", SERVE_DECODE_POS),
-                         ("float32", DECODE_POS)):
+    # (B, T, q dtype, pos): the serve phase's cache, and the replay and
+    # cluster phases' (REPLAY_SLOTS slots of REPLAY_MAX_SEQ positions)
+    for b, t, dt, pos_list in (
+            (8, 1024, "bfloat16", DECODE_POS),
+            (8, 1024, "bfloat16", SERVE_DECODE_POS),
+            (8, 1024, "float32", DECODE_POS),
+            (REPLAY_SLOTS, REPLAY_MAX_SEQ, "bfloat16", REPLAY_DECODE_POS)):
         pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
         q = torch.randn((b, hq, d), generator=gen,
                         device=device).to(getattr(torch, dt))
@@ -364,7 +390,8 @@ def phase_kernels(torch, device):
               "max_abs_err_m": e_m, "max_rel_err_l": e_l, "tol": tol,
               "repeat_bit_identical": same, "ok": ok})
         if not ok:
-            raise AssertionError(f"decode_attention {dt} pos {pos_list}: o "
+            raise AssertionError(f"decode_attention B={b} T={t} {dt} pos "
+                                 f"{pos_list}: o "
                                  f"{e_o}, m {e_m}, l {e_l} against {tol}, "
                                  f"repeat identical {same}")
         errs["decode_attention"] = max(errs["decode_attention"], e_o)
@@ -1088,11 +1115,12 @@ def phase_control(torch, device, smi: str):
     return launches, rows
 
 
-def phase_replay(torch, device, cfg):
-    """``replay_scenario`` over full-width llama3.2-3b: steady on both
-    control planes, adversarial against its hog-free baseline. The
-    replayer's clock is virtual, so these are the whole path's fairness
-    numbers, not timings. Returns the water-fill launches."""
+def phase_replay(torch, device, cfg, params=None):
+    """``replay_scenario`` over full-width llama3.2-3b (``params``, or a
+    model made from a seed): steady on both control planes, adversarial
+    against its hog-free baseline. The replayer's clock is virtual, so
+    these are the whole path's fairness numbers, not timings. Returns the
+    water-fill launches."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.waterfill import water_fill
@@ -1100,8 +1128,9 @@ def phase_replay(torch, device, cfg):
     from repro_torch.serve.replay import (
         ADVERSARIAL_HOG, TraceReplayer, adversarial_baseline,
         make_replay_engine, replay_scenario, scenario_spec)
-    params = init_params(cfg, device=device, generator=torch.Generator(
-        device=device).manual_seed(SEED + 4))
+    if params is None:
+        params = init_params(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(SEED + 4))
     n, intervals = REPLAY_TENANTS, REPLAY_INTERVALS
     water = 0
     reports = {}
@@ -1197,6 +1226,293 @@ def phase_replay(torch, device, cfg):
     if not all(checks.values()):
         raise AssertionError(f"adversarial isolation: {checks}")
     return water
+
+
+def cluster_run(torch, device, name, backend, *, params=None, model=None,
+                trace_path=None, mem=None):
+    """One cluster scenario: ``CLUSTER_ENGINES`` engines serving one model
+    (``params``, or arch ``model``'s smoke config with fresh weights on
+    ``device``) behind one controller, driven by ``replay_scenario`` and
+    its own operator script. Hooks only measure: the bytes each
+    ``CoreEngine.route`` carried per tenant, the engines a serve swap
+    retires, and ``mem`` (the card's allocated bytes; None: not measured)
+    around every ``park`` and ``fail_engine``. Returns (summary, cluster,
+    report, facts)."""
+    from repro_torch.core.engine import CoreEngine
+    from repro_torch.serve.replay import (
+        CLUSTER_SCENARIOS, make_replay_cluster, replay_scenario,
+        scenario_spec)
+    n, intervals = REPLAY_TENANTS, REPLAY_INTERVALS
+    _trace, cap = scenario_spec(name, n_tenants=n, intervals=intervals)
+    kw = {"params": params} if params is not None else \
+        {"device": device, "model": model}
+    cl = make_replay_cluster(
+        capacity=cap, engines=CLUSTER_ENGINES, batch_slots=REPLAY_SLOTS,
+        max_seq=REPLAY_MAX_SEQ, autopilot=CLUSTER_SCENARIOS[name],
+        core_plane=name in CLUSTER_CORE_PLANE, backend=backend, **kw)
+    facts = {"parks": [], "crashes": [], "pumped": {}}
+    # every engine that served: a serve swap retires one, with its counts
+    served_by = list(cl.engines)
+    orig_park, orig_swap, orig_fail = \
+        cl.park, cl.swap_module, cl.fail_engine
+
+    def park(k, *, now=None):
+        cache = cl.engines[k]._cache_bytes()
+        before = mem() if mem is not None else None
+        orig_park(k, now=now)
+        after = mem() if mem is not None else None
+        facts["parks"].append({
+            "engine": k, "cache_bytes": cache,
+            "freed_bytes": cl._suspended_bytes[k],
+            "allocated_drop": None if mem is None else before - after})
+
+    def fail_engine(k, *, now=None):
+        # a crash wipes the modules' state in place and keeps the slot's
+        # stack, its cache included (StackModule.crash): the recovered
+        # engine serves again without allocating
+        cache = cl.engines[k]._cache_bytes()
+        before = mem() if mem is not None else None
+        rec = orig_fail(k, now=now)
+        after = mem() if mem is not None else None
+        facts["crashes"].append({
+            "engine": k, "cache_bytes": cache,
+            "cache_bytes_after": cl.engines[k]._cache_bytes(),
+            "allocated_drop": None if mem is None else before - after})
+        return rec
+
+    def swap_module(k, plane, factory, *, now=None):
+        rec = orig_swap(k, plane, factory, now=now)
+        if plane == "serve":
+            served_by.append(cl.engines[k])
+        return rec
+    cl.park, cl.swap_module, cl.fail_engine = park, swap_module, fail_engine
+    orig_route = CoreEngine.route
+
+    def route(self, op):
+        facts["pumped"][op.tenant_id] = \
+            facts["pumped"].get(op.tenant_id, 0) + op.size_bytes
+        return orig_route(self, op)
+    CoreEngine.route = route
+    t0 = time.perf_counter()
+    try:
+        rep = replay_scenario(name, n_tenants=n, intervals=intervals,
+                              engine=cl, trace_path=trace_path)
+    finally:
+        CoreEngine.route = orig_route
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    facts["wall_s"] = time.perf_counter() - t0
+    facts["admissions"] = sum(e.admissions for e in served_by)
+    facts["engine_decode_steps"] = sum(e.decode_steps for e in served_by)
+    summary = {
+        "served_tokens": {t: r.served_tokens
+                          for t, r in rep.per_tenant.items()},
+        "admitted_requests": {t: r.admitted_requests
+                              for t, r in rep.per_tenant.items()},
+        "completed_requests": {t: r.completed_requests
+                               for t, r in rep.per_tenant.items()},
+        "decode_steps": rep.decode_steps,
+        "engine_decode_steps": facts["engine_decode_steps"],
+        "admissions": facts["admissions"],
+        "placement": rep.placement, "migrations": rep.migrations,
+        "migrations_started": cl.migrations_started,
+        "swaps": rep.swaps, "checkpoints": rep.checkpoints,
+        "recoveries": rep.recoveries, "max_parked": rep.max_parked,
+        "autopilot_moves": rep.autopilot_moves,
+        "core_bytes": {t: cl.tenant_core_bytes(t) for t in rep.per_tenant},
+        "pumped_bytes": dict(facts["pumped"])}
+    return summary, cl, rep, facts
+
+
+def _cluster_checks(name, cl, rep, facts):
+    """The reference's scenario claims (``tests/test_replay.py``'s slow
+    tests) and conservation on every plane for every tenant."""
+    checks = {"jain_at_least_0.95": rep.jain() >= 0.95}
+    for t in rep.per_tenant:
+        cl.assert_ledger_conservation(t)          # raises on any plane
+    checks["served_equals_billed_ground_truth"] = all(
+        cl.tenant_served_tokens(t) == cl.tenant_billed_ground_truth(t)
+        for t in rep.per_tenant)
+    pumped = facts["pumped"]
+    if name in ("hotspot", "stack_swap"):
+        # hotspot's script pumps nothing: its bytes plane only moves
+        checks["bytes_plane_equals_pumped"] = all(
+            cl.tenant_core_bytes(t) == pumped.get(t, 0)
+            for t in rep.per_tenant) and bool(pumped) == (
+                name == "stack_swap")
+    if name == "failover":
+        # bytes routed after the restored checkpoint die with the crash
+        checks["bytes_plane_at_most_pumped"] = all(
+            0 < cl.tenant_core_bytes(t) <= pumped.get(t, 0)
+            for t in rep.per_tenant)
+    if name == "migration":
+        checks["migrated"] = rep.migrations >= 1
+        checks["hog_off_engine_0"] = rep.placement[REPLAY_TENANTS - 1] != 0
+        checks["parked_and_unparked"] = bool(facts["parks"]) and \
+            not cl.parked
+    elif name == "consolidation":
+        checks["parked"] = rep.max_parked >= 1
+        checks["cores_saved"] = rep.cores_saved > 0
+        checks["mem_saved"] = rep.mem_saved_bytes > 0
+        checks["peak_resident_above_parked"] = \
+            rep.peak_resident_cache_bytes > rep.max_parked_bytes
+        checks["autopilot_moved"] = rep.autopilot_moves >= 1
+        checks["all_served"] = all(r.achieved_rate > 0
+                                   for r in rep.per_tenant.values())
+    elif name == "hotspot":
+        moved = [mv.tenant for _, mv in cl.autopilot.move_log]
+        cl.autopilot.assert_no_ping_pong()
+        checks["hog_moved_once"] = moved.count(REPLAY_TENANTS - 1) == 1
+        checks["nobody_moved_twice"] = len(moved) == len(set(moved))
+    elif name == "stack_swap":
+        serve = [r for r in cl.swap_log if r.plane == "serve"]
+        byts = [r for r in cl.swap_log if r.plane == "bytes"]
+        checks["two_swaps_one_per_plane"] = rep.swaps == 2 and \
+            len(serve) == 1 and len(byts) == 1
+        checks["serve_policy_rr"] = bool(serve) and \
+            cl.engines[serve[0].engine].scheduler.policy == "rr"
+        checks["core_nsm_compressed"] = bool(byts) and \
+            cl.core_engines[byts[0].engine].default_nsm == "compressed"
+    elif name == "failover":
+        checks["checkpointed"] = rep.checkpoints >= 1
+        checks["recovered"] = rep.recoveries >= 1 and \
+            all(r.recovered for r in cl.failure_log)
+        checks["crash_keeps_the_slot_cache"] = bool(facts["crashes"]) and \
+            all(c["cache_bytes_after"] == c["cache_bytes"]
+                for c in facts["crashes"])
+    return checks
+
+
+def phase_cluster(torch, device, cfg, params, *, trace_dir=None):
+    """The engine cluster over ``params`` (one ``Model``, full-width
+    llama3.2-3b on the card): ``CLUSTER_ENGINES`` engines behind one
+    ``RateController`` through migration, consolidation, hotspot,
+    stack_swap and failover. Per scenario: the reference's scenario claims,
+    conservation on every plane, every attention call through a kernel,
+    the water-fill kernel on the vectorized run and on no other, the
+    cache's bytes freed by each park, the trace checked by
+    ``tools/check_trace.py``, and the ledgers equal to the same scenario
+    run again on the CPU at the arch's smoke config. The weights
+    stay resident once: building a cluster allocates only its caches.
+    Traces go to ``trace_dir`` (``build/cluster_traces``). Returns the
+    launches of each kernel over the phase."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.waterfill import water_fill
+    from repro_torch.serve.replay import make_replay_cluster, scenario_spec
+    arch = cfg.name.removesuffix("-smoke")
+    on_card = device.type == "cuda"
+    mem = (lambda: torch.cuda.memory_allocated(device)) if on_card else None
+    layers = cfg.num_layers
+    total = {"flash_attention": 0, "decode_attention": 0, "water_fill": 0}
+
+    # one copy of the weights: a cluster's construction adds its caches
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    if on_card:
+        torch.cuda.synchronize()
+        before = mem()
+        _tr, cap = scenario_spec("steady", n_tenants=REPLAY_TENANTS,
+                                 intervals=REPLAY_INTERVALS)
+        probe = make_replay_cluster(capacity=cap, engines=CLUSTER_ENGINES,
+                                    batch_slots=REPLAY_SLOTS,
+                                    max_seq=REPLAY_MAX_SEQ, params=params)
+        grown = mem() - before
+        caches = sum(e._cache_bytes() for e in probe.engines)
+        shared = all(e.params is params for e in probe.engines)
+        emit({"phase": "cluster", "run": "residency",
+              "engines": CLUSTER_ENGINES, "weight_bytes": weight_bytes,
+              "cache_bytes": caches, "allocated_growth_bytes": grown,
+              "one_model": shared})
+        if not (shared and caches <= grown < caches + weight_bytes // 100):
+            raise AssertionError(
+                f"cluster construction allocated {grown} bytes for "
+                f"{caches} cache bytes (weights {weight_bytes})")
+        del probe
+
+    trace_dir = Path(trace_dir or ROOT / "build" / "cluster_traces")
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    for name, backend in CLUSTER_RUNS:
+        path = trace_dir / f"{name}.json" if name in CLUSTER_TRACED \
+            else None
+        flash_attention.launches = 0
+        decode_attention.launches = 0
+        water_fill.launches = 0
+        summary, cl, rep, facts = cluster_run(
+            torch, device, name, backend, params=params, trace_path=path,
+            mem=mem)
+        got = {"flash_attention": flash_attention.launches,
+               "decode_attention": decode_attention.launches,
+               "water_fill": water_fill.launches}
+        ticks = cl.steps // cl.control_every
+        checks = _cluster_checks(name, cl, rep, facts)
+        checks["flash_per_admission"] = \
+            got["flash_attention"] == layers * facts["admissions"] > 0
+        checks["decode_per_step"] = got["decode_attention"] == \
+            layers * facts["engine_decode_steps"] > 0
+        checks["water_fill"] = (0 < got["water_fill"] <= ticks
+                                if backend == "vectorized"
+                                else got["water_fill"] == 0)
+        if on_card:
+            checks["park_frees_the_cache"] = all(
+                p["allocated_drop"] >= p["cache_bytes"]
+                and p["freed_bytes"] == p["cache_bytes"]
+                for p in facts["parks"]) and (
+                name not in ("migration", "consolidation")
+                or any(p["cache_bytes"] > 0 for p in facts["parks"]))
+            # the crashed slot's cache stays allocated: the drop is at most
+            # a few scheduler buffers, never the cache
+            checks["crash_frees_no_cache"] = all(
+                abs(c["allocated_drop"]) < max(c["cache_bytes"], 1) // 2
+                for c in facts["crashes"])
+        if path is not None:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "tools" / "check_trace.py"),
+                 str(path), "--scenario", name], capture_output=True,
+                text=True, timeout=120)
+            checks["trace_well_formed"] = proc.returncode == 0
+            if proc.returncode:
+                print(proc.stdout[-2000:], proc.stderr[-2000:],
+                      file=sys.stderr)
+        cpu_summary, *_ = cluster_run(torch, torch.device("cpu"), name,
+                                      backend, model=arch)
+        diff = sorted(k for k in summary if summary[k] != cpu_summary[k])
+        checks["ledgers_equal_a_cpu_run"] = not diff
+        for k in got:
+            total[k] += got[k]
+        steps = cl.steps
+        emit({"phase": "cluster", "run": name, "backend": backend,
+              "model": cfg.name, "layers": layers,
+              "engines": CLUSTER_ENGINES, "tenants": len(rep.per_tenant),
+              "intervals": REPLAY_INTERVALS, "capacity_tok_s":
+                  rep.capacity, "wall_s": facts["wall_s"],
+              "cluster_steps": steps,
+              "wall_ms_per_cluster_step": facts["wall_s"] / steps * 1e3,
+              "decode_steps_per_engine": [e.decode_steps
+                                          for e in cl.engines],
+              "admissions_per_engine": [e.admissions for e in cl.engines],
+              "admissions": facts["admissions"],
+              "engine_decode_steps": facts["engine_decode_steps"],
+              "controller_ticks": ticks, "launches": got,
+              "migrations": rep.migrations, "swaps": rep.swaps,
+              "checkpoints": rep.checkpoints,
+              "recoveries": rep.recoveries, "max_parked": rep.max_parked,
+              "cores_saved": rep.cores_saved,
+              "mem_saved_bytes": rep.mem_saved_bytes,
+              "max_parked_bytes": rep.max_parked_bytes,
+              "peak_resident_cache_bytes": rep.peak_resident_cache_bytes,
+              "parks": facts["parks"], "crashes": facts["crashes"],
+              "autopilot_moves":
+                  rep.autopilot_moves, "placement": rep.placement,
+              "jain": rep.jain(), "served_tokens": summary["served_tokens"],
+              "pumped_bytes": facts["pumped"],
+              "cpu_mismatch": diff, "checks": checks,
+              "ok": all(checks.values())})
+        if not all(checks.values()):
+            raise AssertionError(f"cluster {name}: {checks} "
+                                 f"(CPU mismatch: {diff})")
+        del cl, rep
+    return total
 
 
 def codec_input(torch, gen, device, r, c, dtype):
@@ -1779,15 +2095,21 @@ def main() -> int:
     # the control path's two entry points: the fused tick at fleet scale
     # and the replay harness; their water-fill launches add up
     control_launches, _rows = phase_control(torch, device, smi)
-    replay_launches = phase_replay(torch, device, cfg)
+    from repro_torch.models.params import init_params
+    model = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED + 4))
+    replay_launches = phase_replay(torch, device, cfg, model)
     launches["water_fill"] = control_launches + replay_launches
+    # the cluster half: 3 engines over the same model
+    for k, v in phase_cluster(torch, device, cfg, model).items():
+        launches[k] += v
+    del model
     torch.cuda.empty_cache()
 
     # the bytes plane over a real payload: the full-width llama3.2-3b
     # parameters as a gradient pytree, through the int8 codec and through
     # every stock policy's NSMs; then the fairness harness, whose
     # vectorized controller adds water-fill launches
-    from repro_torch.models.params import init_params
     model = init_params(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(SEED + 8))
     tree = params_tree(model)

@@ -7,12 +7,16 @@ shared bottleneck, and push allocations back into the dataplane — the
 paper's use case 2 (distributed congestion control / fair bandwidth
 sharing, Figs. 21-22) as a subsystem — on per-tenant objects or, with
 ``backend="vectorized"``, on the flat arrays of ``control/vectorized.py``.
-Placement comes with a later slice of the port.
+``placement.py`` closes the second loop: where tenants run on a cluster.
 """
 from repro_torch.control.congestion import (
     Aimd, CongestionControl, Dctcp, WaterFill, max_min_fair,
 )
 from repro_torch.control.controller import RateController
+from repro_torch.control.placement import (
+    PLACEMENT_POLICIES, ClusterView, Consolidate, PlacementController,
+    PlacementPlan, PlacementPolicy, PlannedMove, SpreadHot, make_policy,
+)
 from repro_torch.control.sim import SharedBottleneckSim, SimResult, SimTenant
 from repro_torch.control.telemetry import (
     EngineTelemetry, SchedulerTelemetry, TenantObs, format_prometheus,
@@ -22,6 +26,9 @@ from repro_torch.control.telemetry import (
 __all__ = [
     "Aimd", "CongestionControl", "Dctcp", "WaterFill", "max_min_fair",
     "RateController",
+    "PLACEMENT_POLICIES", "ClusterView", "Consolidate",
+    "PlacementController", "PlacementPlan", "PlacementPolicy",
+    "PlannedMove", "SpreadHot", "make_policy",
     "SharedBottleneckSim", "SimResult", "SimTenant",
     "EngineTelemetry", "SchedulerTelemetry", "TenantObs",
     "format_prometheus", "merge_obs",

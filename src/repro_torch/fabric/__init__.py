@@ -2,18 +2,24 @@
 
 NetKernel's core claim is that the network stack is a *module* behind a
 uniform, swappable interface. This package is that interface for tenant
-lifecycle: the serving plane's ``ServeEngine``/scheduler and the bytes
-plane's ``CoreEngine`` implement ``StackModule``, and tenants are moved,
-folded, conserved, suspended and resumed through it without naming a
-concrete engine class. The cluster planes and fabric checkpoints come with
-a later slice.
+lifecycle: the serving plane's ``ServeEngine``/scheduler, the bytes
+plane's ``CoreEngine`` and a model-free test double implement
+``StackModule``, and the cluster and placement layers move, fold,
+conserve, suspend, resume, checkpoint and restore tenants through it
+without naming a concrete engine class. ``StackPlane`` groups one
+module per engine slot with their shared ``ConservationLedger``;
+``FabricSnapshot`` is the whole fabric as one versioned value.
 """
+from repro_torch.fabric.checkpoint import (
+    FABRIC_SNAPSHOT_VERSION, FabricSnapshot, ModuleSnapshot, PlaneSnapshot,
+)
 from repro_torch.fabric.module import (
-    ConservationLedger, SchedulerServeModule, StackModule, TenantLoad,
-    TenantState,
+    ConservationLedger, SchedulerServeModule, StackModule, StackPlane,
+    TenantLoad, TenantState,
 )
 
 __all__ = [
-    "ConservationLedger", "SchedulerServeModule", "StackModule",
-    "TenantLoad", "TenantState",
+    "FABRIC_SNAPSHOT_VERSION", "FabricSnapshot", "ModuleSnapshot",
+    "PlaneSnapshot", "ConservationLedger", "SchedulerServeModule",
+    "StackModule", "StackPlane", "TenantLoad", "TenantState",
 ]

@@ -576,3 +576,22 @@ class ConservationLedger:
                 f"tenant {tenant_id} {plane or 'stack'} ledger broke "
                 f"conservation: ledger says {ledger} {self.conserved}, "
                 f"ground truth accounts for {truth}")
+
+
+@dataclass
+class StackPlane:
+    """One plane of a cluster: N ``StackModule``s (one per engine slot)
+    plus their shared ``ConservationLedger``."""
+
+    name: str
+    modules: List[StackModule]
+    ledger: ConservationLedger
+
+    @classmethod
+    def build(cls, name: str, modules: Sequence[StackModule]) -> "StackPlane":
+        """A list is kept by reference (shared with the caller and the
+        ledger), so one module set serves load, lifecycle and
+        conservation — growing the fleet later can't desync them."""
+        mods = modules if isinstance(modules, list) else list(modules)
+        return cls(name=name, modules=mods,
+                   ledger=ConservationLedger(mods))

@@ -1,6 +1,6 @@
 """End-to-end fairness replay: Trace -> real Requests -> live ServeEngine.
 
-The counterpart of ``repro/serve/replay.py``, its single-engine half.
+The counterpart of ``repro/serve/replay.py``.
 ``fair_replay`` (``serve/multiplex.py``) validates the paper's Fig. 21/22
 claims as a fluid-flow model; this module closes the gap to the actual
 datapath. A ``TraceReplayer`` takes the same ``Trace`` vocabulary (bursty,
@@ -27,10 +27,15 @@ The scheduler runs with ``charge_prompt=True`` so bucket pricing, telemetry
 observation and the served-token ledger share one unit and the controller's
 ``capacity`` is directly comparable to measured rates.
 
+The same replayer drives a multi-engine ``EngineCluster`` (N ServeEngines
+sharing one copy of the weights, one shared controller, operator-controlled
+placement) unchanged — see ``make_replay_cluster`` and the cluster
+scenarios (``CLUSTER_SCENARIOS``), whose operator events (a live migration,
+a stack swap, a checkpoint/kill/recover drill) land mid-replay via
+``run(events=...)``.
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: the multi-engine cluster (``make_replay_cluster``, ``engines > 1``,
-the scenarios of ``CLUSTER_SCENARIOS``, ``autopilot``, ``core_plane``) and
-the watchdog (``make_watchdog``, ``watch=``).
+item: the watchdog (``make_watchdog``, ``watch=``).
 """
 from __future__ import annotations
 
@@ -44,8 +49,6 @@ from repro_torch.serve import multiplex as mx
 from repro_torch.serve.multiplex import Trace, jain_index
 from repro_torch.serve.scheduler import Request, TenantScheduler
 
-_CLUSTER_ITEM = ("serve/cluster.py, control/placement.py and "
-                 "fabric/checkpoint.py")
 _WATCH_ITEM = "obs/timeseries.py and obs/slo.py, with serve/replay.py"
 
 
@@ -449,9 +452,72 @@ def make_replay_engine(*, capacity: float, batch_slots: int = 4,
                        control_every=control_every, device=device)
 
 
-def make_replay_cluster(**_kw):
-    """N ServeEngines behind one shared RateController: not ported yet."""
-    raise _not_ported("make_replay_cluster", _CLUSTER_ITEM)
+def make_replay_cluster(*, capacity: float, engines: int = 3,
+                        batch_slots: int = 4, max_seq: int = 32,
+                        control_every: int = 4, push_mode: str = "full",
+                        delta_tol: float = 0.05, model: str = "llama3.2-3b",
+                        weights=None, autopilot=None,
+                        place_every: int = 8, autopilot_kw=None,
+                        core_plane: bool = False, backend: str = "object",
+                        device=None, params=None):
+    """N ServeEngines behind ONE shared RateController — the multi-engine
+    fabric the e2e scenarios drive.
+
+    ``capacity`` is the single tokens/s bottleneck spanning the whole
+    cluster (the controller splits each tenant's allocation across engines
+    by observed demand). Every engine serves the same ``Model``: ``params``
+    (a ``Model`` of any width, whose config then wins) or ``model``'s smoke
+    config with fresh weights made once, by the first engine. Nothing
+    copies the weights: on a card the cluster holds one copy of them plus
+    one KV-cache per engine. ``device``: ``cuda`` unless ``"cpu"`` is
+    passed (``params``' device when given).
+
+    ``autopilot`` closes the placement loop: a policy name
+    ('consolidate'/'spread_hot') builds a ``PlacementController`` over the
+    cluster (extra policy/controller kwargs ride in ``autopilot_kw``;
+    'consolidate' defaults its ceiling to ``0.375 * capacity`` tokens/s —
+    between one and two equal shares of a 4-tenant fleet, so a busy fleet
+    spreads and an idle one packs), or pass a ready controller instance.
+    ``core_plane`` pairs each ServeEngine with a bytes-plane ``CoreEngine``
+    (no mesh: it admits, routes and accounts) so migrations move
+    collective-traffic state in the same plan.
+    """
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.control.controller import RateController
+    from repro_torch.serve.cluster import EngineCluster
+    from repro_torch.serve.engine import ServeEngine
+
+    if params is not None and device is None:
+        device = params.device
+    ctrl = RateController(capacity, weights=weights, alpha=0.6,
+                          push_mode=push_mode, delta_tol=delta_tol,
+                          backend=backend, device=device)
+    cfg = params.cfg if params is not None else get_smoke_config(model)
+    rcfg = RunConfig(attn_q_block=16, attn_kv_block=16)
+    engs = []
+    for _ in range(int(engines)):
+        sched = TenantScheduler(policy="wfq", charge_prompt=True,
+                                bucket_backend=backend)
+        # replicas serve the first engine's Model: one copy of the weights
+        eng = ServeEngine(cfg, rcfg, engs[0].params if engs else params,
+                          batch_slots=batch_slots, max_seq=max_seq,
+                          scheduler=sched, controller=None, device=device)
+        engs.append(eng)
+    cores = None
+    if core_plane:
+        from repro_torch.core.engine import CoreEngine
+        cores = [CoreEngine(enforcement="account") for _ in engs]
+    cluster = EngineCluster(engs, ctrl, control_every=control_every,
+                            core_engines=cores, place_every=place_every)
+    if autopilot is not None:
+        from repro_torch.control.placement import PlacementController
+        if isinstance(autopilot, str):
+            kw = dict(autopilot_kw or {})
+            if autopilot == "consolidate":
+                kw.setdefault("ceiling", 0.375 * float(capacity))
+            autopilot = PlacementController(cluster, policy=autopilot, **kw)
+        cluster.attach_autopilot(autopilot, place_every=place_every)
+    return cluster
 
 
 def make_watchdog(engine, **_kw):
@@ -531,6 +597,231 @@ def scenario_spec(name: str, *, n_tenants: int = 4, intervals: int = 20,
     return trace, cap
 
 
+def operator_rebalance(cluster, now=None, *, pin_tenant=None):
+    """One operator-triggered hot->cool rebalance, as a replay event.
+
+    The modern spelling of the deprecated ``EngineCluster.rebalance()``
+    (which delegates here, so the legacy semantics exist once): a
+    one-shot ``PlacementController.plan_once(force=True)`` over the
+    ``spread_hot`` policy (no bands, no cooldown, no drain gate).
+    ``pin_tenant`` overrides victim selection. Returns the
+    ``MigrationRecord`` of the move that landed, or None if the cluster
+    was already balanced."""
+    from repro_torch.control.placement import PlacementController
+    pc = PlacementController(cluster, policy="spread_hot",
+                             cooldown_s=0.0, drain_cost_factor=None)
+    before = len(cluster.migration_log)
+    pc.plan_once(now=now, pin_tenant=pin_tenant, force=True)
+    if len(cluster.migration_log) == before:
+        return None
+    return cluster.migration_log[before]
+
+
+class MaintenanceWindow:
+    """Scripted engine maintenance as replay events: drain the coolest
+    engine (migrate its tenants off), park it once quiesced, unpark it a
+    couple of intervals later.
+
+    The migration scenario runs one of these so a single replay exercises
+    the *whole* stack-module lifecycle — migrate, drain, finalize, park
+    (suspend), unpark (resume) — and its Chrome trace shows every phase
+    on one timeline. ``park`` is safe to schedule on consecutive
+    intervals: it no-ops until the drained engine's in-flight slots ran
+    dry, and again once the engine is asleep."""
+
+    def __init__(self):
+        self.engine: Optional[int] = None
+        self.parked = False
+
+    def drain(self, cluster, now=None):
+        """Pick the coolest engine and migrate every tenant off it."""
+        self.engine = k = cluster.coolest_engine()
+        for t, e in sorted(cluster.placement.items()):
+            if e == k and t not in cluster.draining:
+                dst = min((j for j in cluster.active_engines() if j != k),
+                          key=lambda j: (cluster.engine_load(j), j))
+                cluster.migrate(t, dst, now=now)
+        return k
+
+    def park(self, cluster, now=None):
+        if self.engine is None or self.parked:
+            return
+        if cluster.parkable(self.engine):
+            cluster.park(self.engine, now=now)
+            self.parked = True
+
+    def unpark(self, cluster, now=None):
+        if self.parked:
+            cluster.unpark(self.engine, now=now)
+            self.parked = False
+
+
+def migration_events(intervals: int):
+    """The migration scenario's operator script: the mid-window
+    hot->cool rebalance, then (window permitting) a maintenance
+    park/unpark of the coolest engine near the end."""
+    half = max(intervals // 2, 1)
+    events = [(half, operator_rebalance)]
+    if intervals >= half + 5:
+        mw = MaintenanceWindow()
+        events += [(intervals - 4, mw.drain),
+                   (intervals - 3, mw.park),
+                   (intervals - 2, mw.park),      # retry if still draining
+                   (intervals - 1, mw.unpark)]
+    return events
+
+
+def swap_live_stack(cluster, plane: str, *, engine=None, now=None):
+    """One live stack hot-swap, as a replay operator event — the paper's
+    kernel-TCP -> mTCP move under traffic.
+
+    On the **serve** plane the hottest engine's module is replaced by a
+    variant running the OTHER scheduler policy (wfq <-> rr), serving the
+    retired module's ``Model`` on its device (a swap copies no weights;
+    the replacement allocates its own KV-cache, and the retired one's is
+    freed with it). On the **bytes** plane the same engine slot's
+    ``CoreEngine`` flips its default transport between the native ``xla``
+    stack and the int8 ``compressed`` one. ``engine`` pins the slot.
+    Returns the ``SwapRecord``.
+    """
+    from repro_torch.core.engine import CoreEngine
+
+    if plane == "serve":
+        k = cluster.hottest_engine() if engine is None else int(engine)
+        old = cluster.engines[k]
+        policy = "rr" if old.scheduler.policy == "wfq" else "wfq"
+        if hasattr(old, "cfg"):                # a real ServeEngine
+            from repro_torch.serve.engine import ServeEngine
+
+            def factory():
+                sched = TenantScheduler(
+                    policy=policy,
+                    charge_prompt=old.scheduler.charge_prompt)
+                return ServeEngine(old.cfg, old.rcfg, old.params,
+                                   batch_slots=old.B, max_seq=old.max_seq,
+                                   scheduler=sched, controller=None,
+                                   device=old.device)
+        else:                                  # a model-free test double
+            def factory():
+                eng = type(old)(batch_slots=old.B)
+                eng.scheduler = TenantScheduler(
+                    policy=policy,
+                    charge_prompt=old.scheduler.charge_prompt)
+                return eng
+    elif plane == "bytes":
+        cores = getattr(cluster, "core_engines", None)
+        if not cores:
+            raise KeyError("the cluster has no bytes plane attached; "
+                           "build it with core_plane=True")
+        # swap beneath the hottest serve engine's paired core: placement
+        # routes that slot the most collective traffic too
+        k = cluster.hottest_engine() if engine is None else int(engine)
+        old = cores[k]
+        nsm = "compressed" if old.default_nsm != "compressed" else "xla"
+
+        def factory():
+            # the old engine's MeshAxes (or None): its process groups are
+            # shared, never created again
+            return CoreEngine(mesh=old.axes, default_nsm=nsm,
+                              enforcement=old.enforcement)
+    else:
+        raise KeyError(f"unknown plane {plane!r}; have 'serve'/'bytes'")
+    return cluster.swap_module(k, plane, factory, now=now)
+
+
+def _byte_pump_event(cluster, now=None, *, size_bytes: int = 4096):
+    """Per-interval bytes-plane traffic for the stack_swap scenario: one
+    collective op per placed tenant, routed through its engine's paired
+    core — so the bytes-plane swap happens under real traffic and its
+    conservation assert is non-trivial."""
+    from repro_torch.core.nqe import CommOp
+
+    cores = getattr(cluster, "core_engines", None)
+    if not cores:
+        return
+    t_now = 0.0 if now is None else float(now)
+    failed = getattr(cluster, "failed", ())
+    for t, k in sorted(cluster.placement.items()):
+        if k in failed:
+            continue       # a dark slot takes no collective traffic
+        op = CommOp(verb="psum", axes=("pod",), tenant_id=t,
+                    size_bytes=size_bytes)
+        cores[k].admit(op, t_now)
+        cores[k].route(op)
+
+
+def stack_swap_events(intervals: int):
+    """The stack_swap scenario's operator script: collective traffic every
+    interval, a live serve-plane swap a third of the way in (mid-burst,
+    on the hottest engine), and a bytes-plane swap (native xla ->
+    compressed int8 transport) two thirds in."""
+    serve_at = max(intervals // 3, 1)
+    bytes_at = max(2 * intervals // 3, serve_at + 1)
+    events = [(i, _byte_pump_event) for i in range(intervals)]
+    events += [
+        (serve_at, lambda cl, now=None: swap_live_stack(cl, "serve",
+                                                        now=now)),
+        (bytes_at, lambda cl, now=None: swap_live_stack(cl, "bytes",
+                                                        now=now)),
+    ]
+    return events
+
+
+class FailoverDrill:
+    """Scripted kill-and-restore failover as replay events: checkpoint
+    the whole fabric on a fixed cadence, crash the hottest engine
+    mid-burst, recover it from the last ``FabricSnapshot`` two intervals
+    later — the admission gap buffered in between replays on recovery.
+
+    Cadence ticks that land while the slot is dark (or mid-drain) are
+    skipped: ``EngineCluster.checkpoint`` refuses both, by contract."""
+
+    def __init__(self):
+        self.snapshot = None
+        self.engine: Optional[int] = None
+
+    def checkpoint(self, cluster, now=None):
+        if getattr(cluster, "failed", None) or cluster.draining:
+            return
+        self.snapshot = cluster.checkpoint(now=now)
+
+    def fail(self, cluster, now=None):
+        if self.snapshot is None:
+            raise RuntimeError(
+                "failover drill fired fail before any checkpoint")
+        self.engine = cluster.hottest_engine()
+        cluster.fail_engine(self.engine, now=now)
+
+    def recover(self, cluster, now=None):
+        cluster.recover_engine(self.engine, self.snapshot, now=now)
+
+
+# checkpoint cadence of the failover drill, in trace intervals — "one
+# checkpoint interval", the unit the token-loss bound is stated in
+FAILOVER_CHECKPOINT_EVERY = 3
+
+
+def failover_events(intervals: int, *, pump=None):
+    """The failover scenario's operator script: collective traffic every
+    interval, a fabric checkpoint every ``FAILOVER_CHECKPOINT_EVERY``
+    intervals, a crash of the hottest engine ~2/5 of the way in — nudged
+    OFF the checkpoint cadence, so real work lands between the last
+    snapshot and the kill and the measured token loss is non-trivial —
+    and recovery from that snapshot two intervals later. ``pump``
+    overrides the per-interval bytes-plane traffic event (the bench
+    passes an instrumented pump that counts what it routed)."""
+    drill = FailoverDrill()
+    every = FAILOVER_CHECKPOINT_EVERY
+    events = [(i, pump or _byte_pump_event) for i in range(intervals)]
+    events += [(i, drill.checkpoint) for i in range(1, intervals, every)]
+    fail_at = max(2 * intervals // 5, 2)
+    if (fail_at - 1) % every == 0:      # keep the kill off the cadence
+        fail_at += 1
+    recover_at = min(fail_at + 2, intervals - 1)
+    events += [(fail_at, drill.fail), (recover_at, drill.recover)]
+    return events
+
+
 # row index of the misbehaver in the adversarial trace (multiplex's default)
 ADVERSARIAL_HOG = -1
 
@@ -551,44 +842,95 @@ def replay_scenario(name: str, *, n_tenants: int = 4, intervals: int = 20,
                     backend: str = "object", device=None) -> ReplayReport:
     """Run one named scenario end-to-end and return the measured report.
 
-    ``engine``: a ready engine to drive (``make_replay_engine`` builds one
-    when None, on ``device``: ``cuda`` unless ``"cpu"`` is passed).
-    ``backend="vectorized"`` runs the whole control plane on the array
-    backend (scheduler bucket store, telemetry EWMA banks, the water-fill
-    kernel); every scenario claim must hold unchanged.
+    ``engine``: a ready engine or ``EngineCluster`` to drive (built when
+    None, on ``device``: ``cuda`` unless ``"cpu"`` is passed).
+
+    ``engines`` > 1 drives an ``EngineCluster`` (N ServeEngines behind one
+    shared controller) instead of a single engine; None picks the
+    scenario's natural scale (3 engines for the cluster scenarios, 1
+    otherwise). The ``migration`` scenario requires a cluster: mid-window
+    the operator rebalances the hottest engine, and near the end a
+    maintenance window drains, parks and unparks the coolest one — one
+    replay exercises the whole stack-module lifecycle. The ``stack_swap``
+    scenario hot-swaps live stack modules mid-burst (a serve-plane
+    scheduler variant a third of the way in, a bytes-plane native ->
+    compressed transport two thirds in) with collective traffic pumped
+    every interval; it forces ``core_plane=True``. The ``failover``
+    scenario checkpoints the fabric every third interval, kills the
+    hottest engine mid-burst and recovers it from the last snapshot two
+    intervals later (gap replayed, conservation asserted on every
+    plane); it also forces ``core_plane=True`` so the crash spans both
+    planes.
+
+    ``autopilot`` closes the placement loop on the cluster (policy name or
+    a ``PlacementController``); the ``consolidation`` and ``hotspot``
+    scenarios run their natural policy by default — no operator events,
+    the loop finds the moves itself. ``core_plane`` attaches a bytes-plane
+    CoreEngine per ServeEngine so every move carries both planes.
 
     ``trace_path``: write the run's flight-recorder timeline (Chrome
     trace-event JSON, loadable in Perfetto) to this path. A recording
     tracer is installed for the duration of the run and restored after.
 
-    Not ported yet (``NotImplementedError``): the scenarios of
-    ``CLUSTER_SCENARIOS``, ``engines > 1``, ``autopilot``, ``core_plane``
-    and ``watch``.
+    ``backend="vectorized"`` runs the whole control plane on the array
+    backend (scheduler bucket store, telemetry EWMA banks, the water-fill
+    kernel); every scenario claim must hold unchanged.
+
+    Not ported yet (``NotImplementedError``): ``watch``.
     """
     from repro_torch.obs.tracing import trace_to
 
     # fail fast, before any engine construction
-    if name in CLUSTER_SCENARIOS:
-        raise _not_ported(f"the {name} scenario (an engine cluster)",
-                          _CLUSTER_ITEM)
-    if (engines is not None and engines > 1) or autopilot is not None \
-            or core_plane:
-        raise _not_ported("engines > 1, autopilot and core_plane",
-                          _CLUSTER_ITEM)
     if watch:
         raise _not_ported("watch=", _WATCH_ITEM)
+    needs_cluster = name in CLUSTER_SCENARIOS
+    if engines is None:
+        engines = 3 if (needs_cluster and engine is None) else 1
+    if needs_cluster and (engines < 2 if engine is None
+                          else not hasattr(engine, "migrate")):
+        raise ValueError(f"the {name} scenario needs a cluster: "
+                         f"pass engines >= 2 (or an EngineCluster)")
+    if autopilot is None:
+        autopilot = CLUSTER_SCENARIOS.get(name)
+    if name in ("stack_swap", "failover"):
+        # stack_swap swaps one module per plane and failover crashes both
+        # planes at once, so the bytes plane must exist (and carry
+        # traffic — see the scenarios' shared byte pump)
+        core_plane = True
     trace, cap = scenario_spec(name, n_tenants=n_tenants,
                                intervals=intervals, capacity=capacity,
                                seed=seed)
     eng = engine
     if eng is None:
-        eng = make_replay_engine(capacity=cap, push_mode=push_mode,
-                                 weights=weights, backend=backend,
-                                 device=device)
+        if engines > 1:
+            eng = make_replay_cluster(capacity=cap, engines=engines,
+                                      push_mode=push_mode, weights=weights,
+                                      autopilot=autopilot,
+                                      core_plane=core_plane,
+                                      backend=backend, device=device)
+        else:
+            eng = make_replay_engine(capacity=cap, push_mode=push_mode,
+                                     weights=weights, backend=backend,
+                                     device=device)
+    elif autopilot is not None and getattr(eng, "autopilot", None) is None \
+            and hasattr(eng, "attach_autopilot"):
+        from repro_torch.control.placement import PlacementController
+        if isinstance(autopilot, str):
+            kw = {"ceiling": 0.375 * cap} if autopilot == "consolidate" \
+                else {}
+            autopilot = PlacementController(eng, policy=autopilot, **kw)
+        eng.attach_autopilot(autopilot)
+    events = None
+    if name == "migration":
+        events = migration_events(intervals)
+    elif name == "stack_swap":
+        events = stack_swap_events(intervals)
+    elif name == "failover":
+        events = failover_events(intervals)
     rep = TraceReplayer(eng, capacity=cap, weights=weights)
     if trace_path is None:
-        return rep.run(trace)
+        return rep.run(trace, events=events)
     with trace_to() as tr:
-        report = rep.run(trace)
+        report = rep.run(trace, events=events)
     tr.write(trace_path)
     return report

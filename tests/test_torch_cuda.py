@@ -629,3 +629,85 @@ def test_nk_grad_sync_on_an_nccl_world_of_one(cuda):
     assert not dist.is_initialized()
     assert [r["policy"] for r in rows] == list(cs.BYTES_POLICIES)
     assert all(r["ok"] for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# the engine cluster on the card
+# ---------------------------------------------------------------------------
+
+
+def _cluster_run(name, device, intervals=10):
+    """A smoke-config 3-engine cluster through one scenario; returns the
+    cluster, the report and what two runs must agree on (ledgers, records,
+    and a checkpoint's bytes once no drain is open)."""
+    from repro_torch.serve.replay import (
+        make_replay_cluster, replay_scenario, scenario_spec)
+    _trace, cap = scenario_spec(name, n_tenants=4, intervals=intervals)
+    cl = make_replay_cluster(capacity=cap, engines=3, device=device,
+                             core_plane=name in ("stack_swap", "failover"))
+    rep = replay_scenario(name, n_tenants=4, intervals=intervals, engine=cl)
+    now = rep.duration_s
+    while cl.draining:
+        now += 0.05
+        cl.step(now=now)
+    facts = {
+        "per_tenant": {t: dataclasses.astuple(r)
+                       for t, r in rep.per_tenant.items()},
+        "decode_steps": [e.decode_steps for e in cl.engines],
+        "placement": dict(cl.placement),
+        "migrations": [vars(r) for r in cl.migration_log],
+        "swaps": [vars(r) for r in cl.swap_log],
+        "failures": [vars(r) for r in cl.failure_log],
+        "served": cl.merged_ledger("served_tokens"),
+        "snapshot": cl.checkpoint(now=now).to_bytes()}
+    return cl, rep, facts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["migration", "failover"])
+def test_cluster_on_card_matches_cpu(cuda, name):
+    """Ledgers and records do not depend on the device: the same scenario
+    on the card and on the CPU gives the same per-tenant report, records
+    and placement, and the same ``FabricSnapshot`` bytes (object
+    backend; the clock is virtual). Every attention call of the card's run
+    went through a kernel."""
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    cl, rep, on_card = _cluster_run(name, cuda)
+    torch.cuda.synchronize()
+    layers = cl.engines[0].cfg.num_layers
+    assert flash_attention.launches - f0 == \
+        layers * sum(e.admissions for e in cl.engines)
+    assert decode_attention.launches - d0 == \
+        layers * sum(e.decode_steps for e in cl.engines)
+    _, _, on_cpu = _cluster_run(name, torch.device("cpu"))
+    assert on_card == on_cpu
+    assert rep.migrations >= 1 if name == "migration" else \
+        rep.recoveries == 1
+
+
+@pytest.mark.cuda
+def test_cluster_park_frees_the_cache_on_card(cuda):
+    """Parking drops exactly the parked engine's KV-cache from the card's
+    allocated bytes; unpark allocates nothing; the first admission after
+    it re-materialises the cache. The engines share one model."""
+    from repro_torch.serve.replay import make_replay_cluster
+    cl = make_replay_cluster(capacity=50.0, engines=3, device=cuda)
+    assert all(e.params is cl.engines[0].params for e in cl.engines)
+    torch.cuda.synchronize()
+    cache = cl.engines[2]._cache_bytes()
+    before = torch.cuda.memory_allocated(cuda)
+    cl.park(2)
+    parked = torch.cuda.memory_allocated(cuda)
+    assert before - parked == cache > 0
+    assert cl.parked_bytes() == cache
+    cl.unpark(2)
+    assert torch.cuda.memory_allocated(cuda) == parked
+    assert cl.engines[2].caches is None
+    cl.add_tenant(0, engine=2)
+    cl.submit(Request(tenant_id=0, prompt=[1, 2], max_new_tokens=3,
+                      req_id=1, arrival=0.0))
+    cl.step(now=0.0)
+    torch.cuda.synchronize()
+    assert cl.engines[2]._cache_bytes() == cache
+    assert cache <= torch.cuda.memory_allocated(cuda) - parked < \
+        cache + (1 << 20)

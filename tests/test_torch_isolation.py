@@ -52,7 +52,9 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.core.compression", "repro_torch.core.collectives",
             "repro_torch.core.overlap", "repro_torch.kernels.quant_comm",
             "repro_torch.control.sim",
-            "repro_torch.control.telemetry"} <= names
+            "repro_torch.control.telemetry",
+            "repro_torch.control.placement", "repro_torch.serve.cluster",
+            "repro_torch.fabric.checkpoint"} <= names
 
 
 def test_port_configs_equal_the_reference():

@@ -62,7 +62,8 @@ def test_replay_vectorized_backend_matches_object():
 
 @pytest.mark.parametrize("name", ["steady", "adversarial", "correlated",
                                   "ramp", "bursty", "migration",
-                                  "consolidation", "hotspot"])
+                                  "consolidation", "hotspot", "stack_swap",
+                                  "failover"])
 def test_scenario_specs_and_traces_equal_the_reference(name):
     t_trace, t_cap = scenario_spec(name, n_tenants=4, intervals=12, seed=1)
     j_trace, j_cap = j_spec(name, n_tenants=4, intervals=12, seed=1)
@@ -90,21 +91,31 @@ def test_multiplex_accounting_and_fair_replay_equal_the_reference():
         assert t_mx.jain_index(xs) == j_mx.jain_index(xs)
 
 
-def test_unported_scenarios_and_options_raise():
+def test_watchdog_still_raises_and_every_cluster_scenario_runs():
+    """Only the watchdog is left to port: ``watch=``, ``make_watchdog``
+    and ``EngineCluster.attach_watchdog`` raise, naming the ROADMAP item;
+    every cluster scenario and option runs (a short window of each)."""
     assert set(SCENARIOS) - set(CLUSTER_SCENARIOS) == {
         "steady", "adversarial", "correlated", "ramp", "bursty"}
-    for name in CLUSTER_SCENARIOS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            replay_scenario(name, device="cpu")
-    for kw in ({"engines": 3}, {"core_plane": True},
-               {"autopilot": "consolidate"}, {"watch": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            replay_scenario("steady", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_replay_cluster(capacity=10.0)
+        replay_scenario("steady", device="cpu", watch=True)
     eng = make_replay_engine(capacity=10.0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_watchdog(eng)
+    cluster = make_replay_cluster(capacity=10.0, engines=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cluster.attach_watchdog(object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_watchdog(cluster)
+    for name in CLUSTER_SCENARIOS:
+        rep = replay_scenario(name, n_tenants=4, intervals=4, device="cpu")
+        assert rep.engines == 3 and rep.decode_steps > 0, name
+        with pytest.raises(ValueError, match="needs a cluster"):
+            replay_scenario(name, intervals=4, engines=1, device="cpu")
+    rep = replay_scenario("steady", n_tenants=2, intervals=2, engines=2,
+                          core_plane=True, autopilot="consolidate",
+                          device="cpu")
+    assert rep.engines == 2 and rep.decode_steps > 0
 
 
 def test_replay_writes_a_trace(tmp_path):
