@@ -29,7 +29,12 @@ JSON object per line:
    serve, profile and parity then run again on full-width mamba2-370m (the
    ssm family: every prefill layer through the SSD scan kernel; prefill
    also timed at 4,096 tokens; its profile gives the SSD kernel's share of
-   a prefill's device time and shows no separate cumsum runs);
+   a prefill's device time and shows no separate cumsum runs), and on
+   full-width chameleon-34b at full depth (the vlm family: 48 layers, 64 GiB
+   of bf16 weights, q/k norms; its memory reported; parity at bf16 for
+   every attention kernel launch, asserted, and end to end, reported beside
+   the model's own bf16 noise floor; then its first 8 layers again at f32
+   once the bf16 model is freed, asserted end to end);
 7. control  — the vectorized control plane's fused tick on the card at
               1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
               counter trace): µs per tick, tenants/s, state bytes; its
@@ -49,13 +54,23 @@ JSON object per line:
               each park, the weights resident once, the traces checked by
               ``tools/check_trace.py``, and the ledgers equal to a CPU run
               of the smoke config;
-10. codec   — the int8 codec kernels against their plain version, bit
+10. watchdog — claim (k) of ``benchmarks/bench_fairness.py`` over the
+              replay phase's model: steady and adversarial on one engine,
+              failover (recording its scrapes) and stack_swap on 3
+              engines, each with the stock fabric watchdog, then a
+              watch-free steady replay and the tick timed right after it; every ``e2e_watchdog`` threshold of
+              ``bench_thresholds.json``, each run's alerts equal to a CPU
+              run of the smoke config, the watched ledgers equal to the
+              watch-free ones, the recorded scrapes replayed offline to the
+              same alerts, the failover trace checked by
+              ``tools/check_trace.py``;
+11. codec   — the int8 codec kernels against their plain version, bit
               for bit (R 1/255/257/4,096 x C 256/3,072/8,192, blocks 128
               and 256, f32 and bf16 in and out, a zero block and exact
               ties), then every leaf of full-width llama3.2-3b at bf16
               (3.2e9 elements) through ``ops.quantize``/``ops.dequantize``
               within the codec's stated bound, with its GB/s;
-11. bytes   — the bytes plane at world size 1 on the card (an NCCL group
+12. bytes   — the bytes plane at world size 1 on the card (an NCCL group
               of one): ``nk_grad_sync`` of that pytree under each stock
               policy's CoreEngine, plus ``nk_psum``/``nk_all_gather``/
               ``nk_reduce_scatter`` on one leaf; each stack's output
@@ -64,12 +79,12 @@ JSON object per line:
               billed bytes conserved across an export/import; ms per
               ``nk_grad_sync`` (the engine's host cost: no bytes cross a
               wire at world 1);
-12. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
+13. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
               scenarios on the port's ``SharedBottleneckSim`` with the
               object controller and the vectorized one on the card (its
               water-fill kernel), claims (a)-(c) and the two backends'
               agreement;
-13. timings — each kernel, its plain version and one PyTorch library call
+14. timings — each kernel, its plain version and one PyTorch library call
               where one computes the same function, timed with CUDA events
               beside the least time the card could take (bytes or
               operations at the H100 SXM datasheet rates); for the
@@ -83,7 +98,8 @@ JSON object per line:
               a 256-, 512- and 4,096-token prompt; the codec on the
               embedding leaf.
 
-Then one ``{"kernels": [...]}`` summary line, and as the last line
+Then the seconds of the vlm and watchdog phases and of the whole script,
+one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
 checkout, it exits non-zero at once.
@@ -117,6 +133,10 @@ SSD_Q, SSD_H, SSD_P, SSD_N = 256, 32, 64, 128
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL_DECAY = 1e-5
 SSM_PREFILL_LENS = (512, 4096)
+# chameleon-34b (the vlm family): its first layers again at f32, full
+# width, with an f32 cache; logits within P2's f32 bound of max |logit|
+VLM_F32_LAYERS = 8
+VLM_F32_TOL = 1e-4
 SSD_TIMED_CHUNKS = (1, 2, 16)   # a 256-, 512- and 4,096-token prompt
 SSD_SUMMARY_CHUNKS = 2          # the kernels line: a 512-token prompt
 CODEC_TIMED = (128256, 3072)  # llama3.2-3b's embedding, the largest leaf
@@ -129,6 +149,9 @@ DECODE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
 # the serve phase's live range: prompts of 64-512 tokens plus 32 new ones
 SERVE_DECODE_POS = (64, 132, 201, 269, 338, 406, 475, 544)
 HOST_CALLS = 200              # enqueue timing: calls back to back
+# (query heads, kv heads) at head_dim 128: llama3.2-3b's and chameleon-34b's
+LLAMA_HEADS = (24, 8)
+VLM_HEADS = (64, 8)
 
 # water-fill: |kernel - plain| and |kernel - exact fill| per unit capacity
 WATER_TOL_PLAIN = 1e-9
@@ -164,6 +187,18 @@ CLUSTER_RUNS = (("migration", "object"), ("consolidation", "object"),
                 ("failover", "vectorized"))
 CLUSTER_CORE_PLANE = ("hotspot", "stack_swap", "failover")
 CLUSTER_TRACED = ("migration", "stack_swap", "failover")
+# watchdog phase: claim (k) as benchmarks/bench_fairness.py runs it
+# (run_e2e_watchdog: 4 tenants, 12 intervals, the object control plane,
+# make_replay_engine's and make_replay_cluster's default slots and cache),
+# over the replay phase's model; each watched scenario with its watch mode
+WATCH_TENANTS = 4
+WATCH_INTERVALS = 12
+WATCH_RUNS = (("steady", True), ("adversarial", True),
+              ("failover", "record"), ("stack_swap", True))
+WATCH_TICK_REPS = 100         # timed watchdog ticks, after warm ticks,
+WATCH_TICK_BLOCKS = 5         # in blocks; the tick is the median block's
+# the gated rows of claim (k): benchmarks/bench_thresholds.json
+THRESHOLDS = ROOT / "benchmarks" / "bench_thresholds.json"
 # int8 codec: the kernel against its plain version on these shapes (every
 # R x C, both blocks, f32 and bf16 in and out), bit for bit; then the
 # full-width llama3.2-3b gradient pytree at bf16 through ops.quantize and
@@ -326,16 +361,20 @@ def phase_kernels(torch, device):
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device=device).manual_seed(SEED)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    hq, kv, d = 24, 8, 128
-    # (B, S, T, dtype, window, q_offset): the path's prefills, the replay
-    # phase's 2-token prompts, a ragged second q tile, a later chunk of two
-    # sequences (T > S), a window, the f32 kernel
-    cases = [(1, s, s, "bfloat16", 0, 0) for s in (64, 509, 1024)]
-    cases += [(1, 1, 1, "bfloat16", 0, 0), (1, 2, 2, "bfloat16", 0, 0),
-              (1, 65, 65, "bfloat16", 0, 0), (2, 100, 300, "bfloat16", 0, 200),
-              (1, 509, 509, "bfloat16", 128, 0),
-              (1, 509, 509, "float32", 0, 0)]
-    for b, s, t, dt, window, q_offset in cases:
+    d = 128
+    # (B, S, T, dtype, window, q_offset, (hq, kv)): the path's prefills, the
+    # replay phase's 2-token prompts, a ragged second q tile, a later chunk
+    # of two sequences (T > S), a window, the f32 kernel; and chameleon-34b's
+    # prefills at 64/8 heads
+    cases = [(1, s, s, "bfloat16", 0, 0, LLAMA_HEADS) for s in (64, 509, 1024)]
+    cases += [(1, 1, 1, "bfloat16", 0, 0, LLAMA_HEADS),
+              (1, 2, 2, "bfloat16", 0, 0, LLAMA_HEADS),
+              (1, 65, 65, "bfloat16", 0, 0, LLAMA_HEADS),
+              (2, 100, 300, "bfloat16", 0, 200, LLAMA_HEADS),
+              (1, 509, 509, "bfloat16", 128, 0, LLAMA_HEADS),
+              (1, 509, 509, "float32", 0, 0, LLAMA_HEADS)]
+    cases += [(1, s, s, "bfloat16", 0, 0, VLM_HEADS) for s in (64, 509)]
+    for b, s, t, dt, window, q_offset, (hq, kv) in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
         k = torch.randn((b, t, kv, d), generator=gen, device=device).to(dtype)
@@ -348,21 +387,27 @@ def phase_kernels(torch, device):
         err = (o.float() - ref.float()).abs().max().item()
         ok = err <= FLASH_TOL[dt] and bool(torch.isfinite(o).all())
         emit({"phase": "kernels", "kernel": "flash_attention", "B": b,
-              "S": s, "T": t, "dtype": dt, "window": window,
+              "S": s, "T": t, "hq": hq, "kv": kv, "dtype": dt,
+              "window": window,
               "q_offset": q_offset, "max_abs_err": err,
               "tol": FLASH_TOL[dt], "ok": ok})
         if not ok:
-            raise AssertionError(f"flash_attention B={b} S={s} T={t} {dt} "
+            raise AssertionError(f"flash_attention B={b} S={s} T={t} "
+                                 f"heads {hq}/{kv} {dt} "
                                  f"window={window} q_offset={q_offset}: "
                                  f"err {err} > {FLASH_TOL[dt]}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-    # (B, T, q dtype, pos): the serve phase's cache, and the replay and
-    # cluster phases' (REPLAY_SLOTS slots of REPLAY_MAX_SEQ positions)
-    for b, t, dt, pos_list in (
-            (8, 1024, "bfloat16", DECODE_POS),
-            (8, 1024, "bfloat16", SERVE_DECODE_POS),
-            (8, 1024, "float32", DECODE_POS),
-            (REPLAY_SLOTS, REPLAY_MAX_SEQ, "bfloat16", REPLAY_DECODE_POS)):
+    # (B, T, q dtype, pos, (hq, kv)): the serve phase's cache, the replay
+    # and cluster phases' (REPLAY_SLOTS slots of REPLAY_MAX_SEQ positions),
+    # and chameleon-34b's cache at 64/8 heads
+    for b, t, dt, pos_list, (hq, kv) in (
+            (8, 1024, "bfloat16", DECODE_POS, LLAMA_HEADS),
+            (8, 1024, "bfloat16", SERVE_DECODE_POS, LLAMA_HEADS),
+            (8, 1024, "float32", DECODE_POS, LLAMA_HEADS),
+            (REPLAY_SLOTS, REPLAY_MAX_SEQ, "bfloat16", REPLAY_DECODE_POS,
+             LLAMA_HEADS),
+            (8, 1024, "bfloat16", DECODE_POS, VLM_HEADS),
+            (8, 1024, "bfloat16", SERVE_DECODE_POS, VLM_HEADS)):
         pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
         q = torch.randn((b, hq, d), generator=gen,
                         device=device).to(getattr(torch, dt))
@@ -385,12 +430,13 @@ def phase_kernels(torch, device):
         ok = e_o <= tol["o"] and e_m <= tol["m"] and e_l <= tol["l"] \
             and bool(torch.isfinite(o).all()) and same
         emit({"phase": "kernels", "kernel": "decode_attention", "B": b,
-              "T": t, "q_dtype": dt, "cache_dtype": "bfloat16",
+              "T": t, "hq": hq, "kv": kv, "q_dtype": dt, "cache_dtype": "bfloat16",
               "pos": list(pos_list), "max_abs_err_o": e_o,
               "max_abs_err_m": e_m, "max_rel_err_l": e_l, "tol": tol,
               "repeat_bit_identical": same, "ok": ok})
         if not ok:
-            raise AssertionError(f"decode_attention B={b} T={t} {dt} pos "
+            raise AssertionError(f"decode_attention B={b} T={t} heads "
+                                 f"{hq}/{kv} {dt} pos "
                                  f"{pos_list}: o "
                                  f"{e_o}, m {e_m}, l {e_l} against {tol}, "
                                  f"repeat identical {same}")
@@ -572,20 +618,29 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
     Returns the engine and the launch counts of this run."""
     from repro_torch.configs import RunConfig
     from repro_torch.control import RateController
-    from repro_torch.models import forward_prefill
+    from repro_torch.models import forward_prefill, init_params
     from repro_torch.serve import Request, ServeEngine, TenantScheduler
     kernels = {**prefill_kernels, **decode_kernels}
 
     t0 = time.perf_counter()
+    mem = torch.cuda.memory_allocated
+    memory = {"allocated_before_init": mem()}
+    params = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    memory["weight_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in params.parameters())
+    memory["allocated_after_init"] = mem()
     sched = TenantScheduler(policy="wfq", charge_prompt=True)
     ctrl = RateController(1e6, alpha=0.6)    # tokens/s: admits everything,
     ctrl.attach_scheduler(sched)             # still ticks and pushes rates
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    eng = ServeEngine(cfg, RunConfig(), batch_slots=8, max_seq=1024,
-                      scheduler=sched, controller=ctrl, control_every=4,
-                      device=device, generator=gen)
+    eng = ServeEngine(cfg, RunConfig(), params, batch_slots=8, max_seq=1024,
+                      scheduler=sched, controller=ctrl, control_every=4)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    memory["cache_bytes"] = eng._cache_bytes()
+    memory["allocated_after_engine"] = mem()
+    memory["max_memory_allocated_init"] = torch.cuda.max_memory_allocated()
     reqs = make_requests(cfg, Request)
     torch.cuda.reset_peak_memory_stats()
 
@@ -660,7 +715,7 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
                               * 1e3 if decode_only else None),
            **prefill_ms,
            "slot_utilization": eng.slot_utilization(),
-           "max_memory_allocated": peak, "ok": True}
+           "memory": memory, "max_memory_allocated": peak, "ok": True}
     emit(out)
     return eng, launches
 
@@ -753,12 +808,14 @@ def phase_profile(torch, device, eng, kernel=None):
                              f"{prefill.get('kernel_ms')} ms in {kernel}")
 
 
-def parity_logits(torch, device, params, max_seq: int, paths, tokens=None):
+def parity_logits(torch, device, params, max_seq: int, paths, tokens=None,
+                  cache_dtype: str = "bfloat16"):
     """One 300-token prompt's prefill + 4 decode steps of ``params`` on each
     of ``paths`` (name -> RunConfig), each into a cache made by
-    ``init_cache`` (per-leaf dtypes: an SSM state is f32). Teacher-forced:
-    every path decodes ``tokens``, by default the first path's greedy
-    tokens. Returns (name -> the 5 logit rows in f32, the 4 tokens)."""
+    ``init_cache`` in ``cache_dtype`` (per-leaf dtypes: an SSM state is
+    f32). Teacher-forced: every path decodes ``tokens``, by default the
+    first path's greedy tokens. Returns (name -> the 5 logit rows in f32,
+    the 4 tokens)."""
     from repro_torch.models import forward_decode, forward_prefill, \
         init_cache
     cfg = params.cfg
@@ -769,7 +826,8 @@ def parity_logits(torch, device, params, max_seq: int, paths, tokens=None):
     for name, rc in paths.items():
         logits, c1 = forward_prefill(params, prompt, rc, max_seq=max_seq)
         runs[name] = {"logits": [logits.float()],
-                      "cache": init_cache(cfg, 1, max_seq, device=device)}
+                      "cache": init_cache(cfg, 1, max_seq, dtype=cache_dtype,
+                                          device=device)}
         for big, one in zip(runs[name]["cache"], c1):
             for k in big:
                 big[k].copy_(one[k])
@@ -791,11 +849,16 @@ def parity_logits(torch, device, params, max_seq: int, paths, tokens=None):
     return {name: run["logits"] for name, run in runs.items()}, used
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
 def logit_gap(a, b):
     """Per step max |a - b| / max |b|, and the share of steps whose argmax
     agrees."""
-    rel = [((x - y).abs().max() / y.abs().max()).item()
-           for x, y in zip(a, b)]
+    rel = [rel_err(x, y) for x, y in zip(a, b)]
     agree = sum(int(x.argmax() == y.argmax()) for x, y in zip(a, b))
     return rel, agree / len(rel)
 
@@ -828,6 +891,128 @@ def phase_parity(torch, device, eng):
     if worst > PARITY_TOL or not launched:
         raise AssertionError(f"kernel path vs plain: {worst} > {PARITY_TOL}"
                              f" or launches {launches} off the path")
+
+
+def phase_parity_vlm(torch, device, eng):
+    """A dense model's kernel path against its plain path at bf16, at a
+    depth where random weights amplify rounding past ``PARITY_TOL``
+    (chameleon-34b's 48 layers: ROADMAP P15):
+
+    * per layer, asserted: every attention kernel launch of one 300-token
+      prefill and 4 decode steps (each layer's flash and decode) held
+      against its plain version on the same inputs, max |do| / max |o|
+      within ``FLASH_TOL``/``DECODE_TOL`` at bf16;
+    * end to end, reported: the logits' gap, beside the model's own bf16
+      noise floor (the plain path against itself with every attention
+      output nudged by 2^-8 relative, about one bf16 ulp), all decoding
+      the same tokens."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import attention as attn
+    kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
+    flash_k, dec_k = attn.flash_attention, attn.decode_kernel
+    flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
+    err = {"flash_attention": [], "decode_attention": []}
+
+    def flash_checked(q, k, v, **kw):
+        o = flash_k(q, k, v, **kw)
+        err["flash_attention"].append(rel_err(o, flash_p(q, k, v, **kw)))
+        return o
+
+    def decode_checked(q, k, v, pos, **kw):
+        out = dec_k(q, k, v, pos, **kw)
+        err["decode_attention"].append(
+            rel_err(out[0], dec_p(q, k, v, pos, **kw)[0]))
+        return out
+
+    def flash_nudged(*args, **kw):
+        return flash_p(*args, **kw) * (1 + 2 ** -8)
+
+    def decode_nudged(*args, **kw):
+        o, *rest = dec_p(*args, **kw)
+        return (o * (1 + 2 ** -8), *rest)
+
+    attn.flash_attention, attn.decode_kernel = flash_checked, decode_checked
+    try:
+        runs, tokens = parity_logits(torch, device, eng.params, eng.max_seq,
+                                     {"kernel": kernel, "plain": plain})
+    finally:
+        attn.flash_attention, attn.decode_kernel = flash_k, dec_k
+    attn.flash_attention_plain, attn.decode_attention_plain = \
+        flash_nudged, decode_nudged
+    try:
+        nudged = parity_logits(torch, device, eng.params, eng.max_seq,
+                               {"plain": plain}, tokens)[0]["plain"]
+    finally:
+        attn.flash_attention_plain, attn.decode_attention_plain = \
+            flash_p, dec_p
+    layers = eng.cfg.num_layers
+    rel, agree = logit_gap(runs["kernel"], runs["plain"])
+    floor, _ = logit_gap(nudged, runs["plain"])
+    checks = {
+        "every_layer_checked":
+            len(err["flash_attention"]) == layers
+            and len(err["decode_attention"]) == 4 * layers,
+        "flash_per_layer": max(err["flash_attention"])
+        <= FLASH_TOL["bfloat16"],
+        "decode_per_layer": max(err["decode_attention"])
+        <= DECODE_TOL["bfloat16"]["o"]}
+    emit({"phase": "parity", "model": eng.cfg.name, "prompt": 300,
+          "decode_steps": 4,
+          "per_layer_max_rel_err": {k: max(v) for k, v in err.items()},
+          "per_layer_rel_err": err,
+          "per_layer_tol": {"flash_attention": FLASH_TOL["bfloat16"],
+                            "decode_attention": DECODE_TOL["bfloat16"]["o"]},
+          "max_rel_logit_err_not_asserted": max(rel),
+          "per_step_rel_err": rel, "parity_tol": PARITY_TOL,
+          "argmax_agree_share": agree,
+          "bf16_floor_plain_vs_plain_attention_nudged_2^-8": max(floor),
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"{eng.cfg.name} parity: {checks}, per layer "
+                             f"{ {k: max(v) for k, v in err.items()} }")
+
+
+def phase_parity_f32(torch, device, cfg, layers: int):
+    """The first ``layers`` layers of ``cfg`` at full width in f32 (fresh
+    weights from the serve phase's seed, so the same draws), kernel path
+    against plain path: greedy tokens identical, logits within
+    ``VLM_F32_TOL`` of max |logit|. The cache is f32 too: a bf16 cache
+    would round values that differ in their last f32 bits to neighbouring
+    bf16 values (ROADMAP P14)."""
+    import dataclasses
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_params
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                                param_dtype="float32")
+    model = init_params(cfg32, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED))
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    runs, _ = parity_logits(torch, device, model, 1024,
+                            {"kernel": RunConfig(),
+                             "plain": RunConfig(attention_impl="naive")},
+                            cache_dtype="float32")
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    del model
+    rel, agree = logit_gap(runs["kernel"], runs["plain"])
+    checks = {"launched": launches == {"flash_attention": layers,
+                                       "decode_attention": 4 * layers},
+              "tokens_identical": agree == 1.0,
+              "logits": max(rel) <= VLM_F32_TOL}
+    emit({"phase": "parity", "model": cfg.name, "dtype": "float32",
+          "layers": layers, "weight_bytes": weight_bytes, "prompt": 300,
+          "decode_steps": 4, "max_rel_logit_err": max(rel),
+          "per_step_rel_err": rel, "tol": VLM_F32_TOL,
+          "argmax_agree_share": agree, "launches": launches,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} f32 x {layers} layers: {checks}, "
+                             f"{max(rel)}")
 
 
 def phase_parity_ssm(torch, device, eng):
@@ -1515,6 +1700,238 @@ def phase_cluster(torch, device, cfg, params, *, trace_dir=None):
     return total
 
 
+def watch_run(torch, device, name, watch, *, params=None,
+              model="llama3.2-3b", trace_path=None):
+    """One replay of claim (k): scenario ``name`` with ``watch`` (True,
+    ``"record"``, or None for no watchdog) at the claim's settings, on one
+    engine or, for a cluster scenario, on ``CLUSTER_ENGINES`` engines, all
+    serving ``params`` (or arch ``model``'s smoke config with fresh weights
+    on ``device``). Returns (report, wall seconds, admissions, engine
+    decode steps), counting the engines a serve swap retires."""
+    from repro_torch.serve.replay import (
+        CLUSTER_SCENARIOS, make_replay_cluster, make_replay_engine,
+        replay_scenario, scenario_spec)
+    _tr, cap = scenario_spec(name, n_tenants=WATCH_TENANTS,
+                             intervals=WATCH_INTERVALS)
+    kw = {"params": params} if params is not None else \
+        {"device": device, "model": model}
+    if name in CLUSTER_SCENARIOS:
+        eng = make_replay_cluster(
+            capacity=cap, engines=CLUSTER_ENGINES,
+            autopilot=CLUSTER_SCENARIOS[name],
+            core_plane=name in CLUSTER_CORE_PLANE, **kw)
+        served = list(eng.engines)
+        swap = eng.swap_module
+
+        def swap_module(k, plane, factory, *, now=None):
+            rec = swap(k, plane, factory, now=now)
+            if plane == "serve":
+                served.append(eng.engines[k])
+            return rec
+        eng.swap_module = swap_module
+    else:
+        eng = make_replay_engine(capacity=cap, **kw)
+        served = [eng]
+    t0 = time.perf_counter()
+    rep = replay_scenario(name, n_tenants=WATCH_TENANTS,
+                          intervals=WATCH_INTERVALS, engine=eng, watch=watch,
+                          trace_path=trace_path)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rep, wall, sum(e.admissions for e in served), \
+        sum(e.decode_steps for e in served)
+
+
+def alert_rows(alerts):
+    """Alerts as comparable rows: (rule, labels, severity, fired_at,
+    resolved_at)."""
+    return [[a.rule, [list(kv) for kv in a.labels], a.severity, a.fired_at,
+             a.resolved_at] for a in alerts or ()]
+
+
+def ledgers(rep):
+    """A replay's per-tenant ledgers and its decode steps."""
+    return {"decode_steps": rep.decode_steps, "tenants": {
+        t: [r.served_tokens, r.admitted_requests, r.completed_requests,
+            r.deferred_polls, r.achieved_rate]
+        for t, r in sorted(rep.per_tenant.items())}}
+
+
+def watchdog_tick_s(wd, reps: int = WATCH_TICK_REPS) -> float:
+    """Seconds per watchdog tick (scrape, ingest, every rule) on a run's
+    own registry and store, after warm ticks fill the store's retention,
+    as ``run_e2e_watchdog`` measures it, but the median of
+    ``WATCH_TICK_BLOCKS`` blocks' means (it times one block of ``reps``):
+    a burst of load on a shared host then moves one block, not the
+    result."""
+    blocks = WATCH_TICK_BLOCKS
+    now = wd.store.times()[-1] + 1.0
+    for _ in range(wd.store.retention):
+        wd.tick(now)
+        now += 1.0
+    per_block = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        for _ in range(reps // blocks):
+            wd.tick(now)
+            now += 1.0
+        per_block.append((time.perf_counter() - t0) / (reps // blocks))
+    return statistics.median(per_block)
+
+
+def watchdog_claims(reps, base_wall: float, tick_s: float):
+    """Claim (k)'s values, as ``run_e2e_watchdog`` computes them, from the
+    four watched reports, the watch-free steady wall and the tick cost."""
+    hog = str(WATCH_TENANTS - 1)
+    adv, fail, swap = (reps["adversarial"], reps["failover"],
+                       reps["stack_swap"])
+    fairness_on_hog = sum(
+        1 for a in adv.alerts or ()
+        if a.rule == "fairness_burn" and dict(a.labels).get("tenant") == hog)
+    nonhog = [a for a in adv.alerts or ()
+              if "tenant" in dict(a.labels)
+              and dict(a.labels)["tenant"] != hog]
+    dark = [a for a in fail.alerts or () if a.rule == "engine_dark"]
+    offscript = [a for a in swap.alerts or ()
+                 if a.rule in ("engine_dark", "telemetry_stalled",
+                               "conservation_drift", "jain_floor",
+                               "parked_leak")
+                 or dict(a.labels).get("tenant") not in (hog, None)]
+    return {
+        "steady_alerts": float(reps["steady"].alerts_fired),
+        "adversarial_alerts": float(adv.alerts_fired),
+        "adversarial_fairness_on_hog": float(fairness_on_hog),
+        "adversarial_nonhog_tenant_alerts": float(len(nonhog)),
+        "failover_engine_dark_fired": float(len(dark)),
+        "failover_engine_dark_resolved": float(
+            sum(1 for a in dark if a.resolved_at is not None)),
+        "stack_swap_offscript_alerts": float(len(offscript)),
+        "watchdog_tick_us": tick_s * 1e6,
+        "step_overhead_frac": tick_s * (WATCH_INTERVALS + 1)
+        / max(base_wall, 1e-9)}
+
+
+def watchdog_limits():
+    """The ``e2e_watchdog`` rows of ``bench_thresholds.json``: value name
+    -> {"min"/"max": bound}."""
+    rows = json.loads(THRESHOLDS.read_text())
+    return {k.split(",", 1)[1]: v for k, v in rows.items()
+            if k.startswith("e2e_watchdog,")}
+
+
+def offline_alerts(text: str, interval_s=None):
+    """A recorded scrape sequence replayed through a fresh store and the
+    stock rules, as ``tools/nk_watch.py`` replays one: windows sized to
+    ``interval_s`` (its ``--interval``), else to the median scrape
+    spacing. Returns the alert history."""
+    from repro_torch.obs import (AlertEngine, SeriesStore, default_rules,
+                                 read_scrape_sequence)
+    scrapes = read_scrape_sequence(text)
+    if interval_s is None:
+        times = [ts for ts, _ in scrapes]
+        gaps = sorted(b - a for a, b in zip(times, times[1:]) if b > a)
+        interval_s = gaps[len(gaps) // 2] if gaps else 1.0
+    store, engine = SeriesStore(), AlertEngine(default_rules(interval_s))
+    for ts, body in sorted(scrapes):
+        store.ingest(body, ts)
+        engine.evaluate(store, ts)
+    return engine.history
+
+
+def phase_watchdog(torch, device, cfg, params, *, trace_dir=None):
+    """Claim (k) over ``params`` (the replay phase's model: full-width
+    llama3.2-3b on the card): steady and adversarial on one engine and
+    failover (recording its scrapes) and stack_swap on
+    ``CLUSTER_ENGINES`` engines, each with the stock fabric watchdog, then
+    one watch-free steady replay and, at once, the tick. Checks every ``e2e_watchdog`` threshold, every
+    attention call through a kernel, each run's alerts equal to the same
+    scenario on the CPU at the arch's smoke config, the watched steady
+    run's ledgers equal to the watch-free run's, the recorded scrapes
+    replayed offline to the same alerts, and the failover trace through
+    ``tools/check_trace.py``. Returns the launches of each kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    arch = cfg.name.removesuffix("-smoke")
+    layers = cfg.num_layers
+    trace_dir = Path(trace_dir or ROOT / "build" / "watchdog")
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    total = {"flash_attention": 0, "decode_attention": 0}
+    checks, walls, reps = {}, {}, {}
+
+    def run(label, name, watch, trace_path=None):
+        flash_attention.launches = 0
+        decode_attention.launches = 0
+        rep, wall, admissions, steps = watch_run(
+            torch, device, name, watch, params=params, trace_path=trace_path)
+        got = {"flash_attention": flash_attention.launches,
+               "decode_attention": decode_attention.launches}
+        checks[f"{label}_launches"] = \
+            got["flash_attention"] == layers * admissions > 0 and \
+            got["decode_attention"] == layers * steps > 0
+        for k in total:
+            total[k] += got[k]
+        walls[label] = wall
+        emit({"phase": "watchdog", "run": label, "scenario": name,
+              "watch": watch, "model": cfg.name, "layers": layers,
+              "tenants": WATCH_TENANTS, "intervals": WATCH_INTERVALS,
+              "wall_s": wall, "admissions": admissions,
+              "decode_steps": steps, "launches": got,
+              "alerts_fired": rep.alerts_fired,
+              "alerts_resolved": rep.alerts_resolved,
+              "alerts_active": rep.alerts_active,
+              "alerts": alert_rows(rep.alerts)})
+        return rep
+
+    trace = trace_dir / "failover.json"
+    for name, watch in WATCH_RUNS:
+        reps[name] = run(name, name, watch,
+                         trace_path=trace if name == "failover" else None)
+    # the watch-free wall, then at once the tick: one host speed for both
+    base = run("steady_unwatched", "steady", None)
+    claims = watchdog_claims(reps, walls["steady_unwatched"],
+                             watchdog_tick_s(reps["steady"].watchdog))
+    limits = watchdog_limits()
+    for key, lim in limits.items():
+        checks[key] = claims[key] >= lim.get("min", -math.inf) and \
+            claims[key] <= lim.get("max", math.inf)
+    checks["step_overhead_under_0.02"] = claims["step_overhead_frac"] < 0.02
+    # the watchdog only reads: watching changes no ledger
+    checks["watch_changes_no_ledger"] = ledgers(base) == \
+        ledgers(reps["steady"])
+    # the virtual clock: the same alerts as a CPU run at the smoke config
+    cpu_mismatch = []
+    for name, watch in WATCH_RUNS:
+        cpu, *_ = watch_run(torch, torch.device("cpu"), name, watch,
+                            model=arch)
+        if alert_rows(cpu.alerts) != alert_rows(reps[name].alerts):
+            cpu_mismatch.append(name)
+    checks["alerts_equal_a_cpu_run"] = not cpu_mismatch
+    # the recorded failover scrapes, written out and replayed offline
+    scrapes = trace_dir / "failover_scrapes.txt"
+    reps["failover"].watchdog.write_scrapes(str(scrapes))
+    checks["scrapes_replay_offline"] = alert_rows(offline_alerts(
+        scrapes.read_text(), reps["failover"].watchdog.interval_s)) \
+        == alert_rows(reps["failover"].alerts)
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_trace.py"), str(trace),
+         "--scenario", "failover"], capture_output=True, text=True,
+        timeout=120)
+    checks["failover_trace_well_formed"] = proc.returncode == 0
+    if proc.returncode:
+        print(proc.stdout[-2000:], proc.stderr[-2000:], file=sys.stderr)
+    emit({"phase": "watchdog", "run": "claim_k", "model": cfg.name,
+          **claims, "limits": limits, "walls_s": walls,
+          "watched_steady_over_unwatched":
+              walls["steady"] / walls["steady_unwatched"],
+          "cpu_mismatch": cpu_mismatch, "launches": total,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"watchdog: {checks} (CPU mismatch: "
+                             f"{cpu_mismatch})")
+    return total
+
+
 def codec_input(torch, gen, device, r, c, dtype):
     """Rows scaled from 1e-2 to 1e2, a block of zeros (scale
     1e-30 * float32(1/127)) and, where there are two rows, a block of
@@ -2041,6 +2458,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False         # precision, explicitly
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    t_script = time.perf_counter()
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -2092,6 +2510,30 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
+    # the vlm family: full-width chameleon-34b at full depth, 64 GiB of
+    # bf16 weights, through both attention kernels; then its first layers
+    # at f32 once the bf16 model is freed
+    seconds = {}
+    t_phase = time.perf_counter()
+    vlm_cfg = get_config("chameleon-34b")
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before "
+                             f"{vlm_cfg.name}'s weights")
+    eng, vlm_launches = phase_serve(
+        torch, device, vlm_cfg, vlm_cfg.num_layers,
+        {"flash_attention": flash_attention},
+        {"decode_attention": decode_attention})
+    for k, v in vlm_launches.items():
+        launches[k] += v
+    phase_profile(torch, device, eng)
+    phase_parity_vlm(torch, device, eng)
+    del eng
+    torch.cuda.empty_cache()
+    phase_parity_f32(torch, device, vlm_cfg, VLM_F32_LAYERS)
+    torch.cuda.empty_cache()
+    seconds["vlm"] = time.perf_counter() - t_phase
+
     # the control path's two entry points: the fused tick at fleet scale
     # and the replay harness; their water-fill launches add up
     control_launches, _rows = phase_control(torch, device, smi)
@@ -2103,6 +2545,11 @@ def main() -> int:
     # the cluster half: 3 engines over the same model
     for k, v in phase_cluster(torch, device, cfg, model).items():
         launches[k] += v
+    # claim (k): the fabric watchdog over the same model
+    t_phase = time.perf_counter()
+    for k, v in phase_watchdog(torch, device, cfg, model).items():
+        launches[k] += v
+    seconds["watchdog"] = time.perf_counter() - t_phase
     del model
     torch.cuda.empty_cache()
 
@@ -2154,6 +2601,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    seconds["script"] = time.perf_counter() - t_script
+    emit({"phase": "seconds", **seconds})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -8,7 +8,10 @@ layout: a tuple with one dict per segment, each leaf stacked over the
 segment's layers in its own dtype: attention k/v ``(L, B, max_seq, KV, hd)``
 in the cache dtype, an SSM layer's ``state`` ``(L, B, H, P, N)`` in f32 and
 its ``conv_*`` tails ``(L, B, W-1, C)`` in the cache dtype. The port has the
-``dense`` and ``ssm`` families; asking for any other raises.
+``dense``, ``vlm`` and ``ssm`` families; asking for any other raises. A
+``vlm`` model (chameleon) is scheduled as plain ``dense``, as in the
+reference: its frontend is a stub, token ids in, and its q/k norms live in
+the attention block.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.models.layers import apply_norm, embed_schema, \
     embed_tokens, lm_logits, norm_schema
 from repro_torch.models.schema import ParamTree
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "vlm", "ssm")
 # cache leaves laid out along the sequence (padded to max_seq at prefill);
 # the others (SSM state, conv tails) are per-sequence and pass through
 SEQ_LEAVES = ("k", "v")

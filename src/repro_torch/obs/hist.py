@@ -14,6 +14,8 @@ waits and the wall-clock benches alike. Stdlib only.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import math
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -162,21 +164,30 @@ class Histogram:
     def counters(self, name: str, **labels) -> Dict[str, float]:
         """Prometheus histogram samples: cumulative ``_bucket{le=...}``
         plus ``_sum`` and ``_count``, with any extra labels attached."""
-        from repro_torch.obs.metrics import escape_label_value
-        base = ",".join(f'{k}="{escape_label_value(v)}"'
-                        for k, v in sorted(labels.items()))
-        sep = "," if base else ""
-        out: Dict[str, float] = {}
-        cum = 0
-        for edge, c in zip(self.edges, self.counts):
-            cum += c
-            out[f'{name}_bucket{{{base}{sep}le="{format(edge, ".6g")}"}}']\
-                = float(cum)
-        out[f'{name}_bucket{{{base}{sep}le="+Inf"}}'] = float(self.total)
-        out[f"{name}_sum{{{base}}}" if base else f"{name}_sum"] = self.sum
-        out[f"{name}_count{{{base}}}" if base else f"{name}_count"]\
-            = float(self.total)
+        buckets, inf, sum_key, count_key = _series_keys(
+            name, tuple(sorted(labels.items())), self.edges)
+        out = dict(zip(buckets, map(float, itertools.accumulate(
+            self.counts))))
+        out[inf] = float(self.total)
+        out[sum_key] = self.sum
+        out[count_key] = float(self.total)
         return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _series_keys(name: str, labels: Tuple[Tuple[str, object], ...],
+                 edges: Tuple[float, ...]):
+    """The series strings of one histogram's samples: one ``_bucket`` key
+    per edge, the ``+Inf`` bucket, ``_sum`` and ``_count``. Memoized: a
+    watchdog scrapes the same histograms every tick."""
+    from repro_torch.obs.metrics import escape_label_value
+    base = ",".join(f'{k}="{escape_label_value(v)}"' for k, v in labels)
+    sep = "," if base else ""
+    buckets = tuple(f'{name}_bucket{{{base}{sep}le="{format(edge, ".6g")}"}}'
+                    for edge in edges)
+    return (buckets, f'{name}_bucket{{{base}{sep}le="+Inf"}}',
+            f"{name}_sum{{{base}}}" if base else f"{name}_sum",
+            f"{name}_count{{{base}}}" if base else f"{name}_count")
 
 
 class TenantHistograms:

@@ -1,20 +1,34 @@
-"""Prometheus exposition for every ``counters()`` provider.
+"""MetricsRegistry: one scrape surface for every ``counters()`` provider.
 
+The counterpart of ``repro/obs/metrics.py``. Every exporter
+(``EngineTelemetry``, ``SchedulerTelemetry``, ``RateController``,
+``PlacementController``, ``EngineCluster``) goes through one export path:
+
+  * ``MetricsRegistry`` — labeled counters / gauges / histograms plus thin
+    adapters over the existing ``counters()`` dicts (keys are already
+    ``name{label="v"}`` series strings; the registry parses them back into
+    (name, labels) pairs). ``collect()`` REFUSES duplicate series: two
+    providers emitting the same name+labels is the bug the
+    ``telemetry_updates_total`` plane label fixed, not something to merge
+    silently.
   * ``render_prometheus`` — the one spec-compliant text formatter: grouped
     families with ``# HELP``/``# TYPE``, label values escaped per the
     exposition-format rules (``\\``, ``"``, newline), ``+Inf``/``-Inf``/
     ``NaN`` rendered as the spec spells them.
-  * ``METRIC_HELP`` — the metric-name catalog.
+  * ``parse_prometheus_text`` — the inverse, used by ``tools/nk_top.py``
+    (render a fabric snapshot from a scrape alone) and
+    ``tools/check_metrics.py`` (the CI grammar gate).
+  * ``METRIC_HELP`` — the metric-name catalog (also the source of the table
+    in ``docs/observability.md``).
 
-Stdlib only. The port carries the formatter and what it needs; the
-metrics registry and the scrape-side parser come with a later slice.
+Stdlib only.
 """
 from __future__ import annotations
 
 import functools
 import math
 import re
-from typing import Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 Labels = Tuple[Tuple[str, str], ...]
 Series = Tuple[str, Labels]
@@ -159,6 +173,17 @@ def format_value(value: float) -> str:
     return format(v, ".10g")
 
 
+def parse_value(text: str) -> float:
+    t = text.strip()
+    if t == "+Inf":
+        return math.inf
+    if t == "-Inf":
+        return -math.inf
+    if t == "NaN":
+        return math.nan
+    return float(t)
+
+
 @functools.lru_cache(maxsize=8192)
 def parse_series_key(key: str) -> Series:
     """Parse one ``counters()``-dict key — ``name`` or
@@ -259,3 +284,223 @@ def render_prometheus(counters: Mapping[str, float],
         for (name, labels), v in grouped[fam]:
             out.append(f"{render_series(name, labels)} {format_value(v)}")
     return "\n".join(out) + "\n" if out else ""
+
+
+def parse_prometheus_text(text: str) -> Dict[Series, float]:
+    """Parse exposition text back into ``{(name, labels): value}`` —
+    the scrape-side inverse ``tools/nk_top.py`` renders from and
+    ``tools/check_metrics.py`` validates with. Raises ``ValueError`` on
+    any line the grammar rejects, including duplicate series.
+
+    Tolerated (OpenMetrics-style output, re-wrapped scrapes): blank
+    lines, trailing whitespace (including CRLF line endings), and
+    ``# EOF`` / other non-HELP/TYPE comment lines — so a recorded
+    watchdog scrape round-trips through render->parse->render."""
+    out: Dict[Series, float] = {}
+    typed: Dict[str, str] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        line = line.rstrip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) >= 3 and parts[1] == "TYPE":
+                if len(parts) < 4 or parts[3] not in (
+                        "counter", "gauge", "histogram", "summary",
+                        "untyped"):
+                    raise ValueError(f"line {lineno}: malformed TYPE")
+                if parts[2] in typed:
+                    raise ValueError(
+                        f"line {lineno}: duplicate TYPE for {parts[2]}")
+                typed[parts[2]] = parts[3]
+            elif len(parts) >= 3 and parts[1] == "HELP":
+                pass
+            continue
+        # sample line: series value [timestamp]
+        m = re.match(r"^(\S+?)(\{.*\})?\s+(\S+)(\s+-?\d+)?\s*$", line)
+        if not m:
+            raise ValueError(f"line {lineno}: malformed sample {line!r}")
+        name, body, valtext = m.group(1), m.group(2) or "", m.group(3)
+        try:
+            series = parse_series_key(name + body)
+            value = parse_value(valtext)
+        except ValueError as e:
+            raise ValueError(f"line {lineno}: {e}") from None
+        fam = metric_family(series[0])
+        if fam in typed and typed[fam] == "histogram":
+            pass      # bucket/sum/count share the family's TYPE
+        elif series[0] in typed or fam in typed:
+            pass
+        if series in out:
+            raise ValueError(
+                f"line {lineno}: duplicate series "
+                f"{render_series(*series)}")
+        out[series] = value
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The registry
+# ---------------------------------------------------------------------------
+
+
+class _Instrument:
+    """One directly-owned metric family with labeled children."""
+
+    def __init__(self, registry: "MetricsRegistry", name: str, kind: str,
+                 help_text: str):
+        self.registry = registry
+        self.name = name
+        self.kind = kind
+        self.help = help_text
+        self.values: Dict[Labels, float] = {}
+
+    def _labels(self, labels: Mapping[str, object]) -> Labels:
+        return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+    def collect(self) -> Dict[Series, float]:
+        return {(self.name, lb): v for lb, v in self.values.items()}
+
+
+class Counter(_Instrument):
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        lb = self._labels(labels)
+        self.values[lb] = self.values.get(lb, 0.0) + amount
+
+
+class Gauge(_Instrument):
+    def set(self, value: float, **labels) -> None:
+        self.values[self._labels(labels)] = float(value)
+
+
+class HistogramVec(_Instrument):
+    """Labeled histogram family backed by ``obs/hist.py``'s
+    ``Histogram``."""
+
+    def __init__(self, registry, name, help_text, buckets=None):
+        super().__init__(registry, name, "histogram", help_text)
+        from repro_torch.obs.hist import DEFAULT_BUCKETS, Histogram
+        self._hist_cls = Histogram
+        self.buckets = tuple(buckets if buckets is not None
+                             else DEFAULT_BUCKETS)
+        self.children: Dict[Labels, object] = {}
+
+    def observe(self, value: float, **labels) -> None:
+        lb = self._labels(labels)
+        h = self.children.get(lb)
+        if h is None:
+            h = self.children[lb] = self._hist_cls(self.buckets)
+        h.observe(value)
+
+    def collect(self) -> Dict[Series, float]:
+        out: Dict[Series, float] = {}
+        for lb, h in self.children.items():
+            for k, v in h.counters(self.name).items():
+                name, extra = parse_series_key(k)
+                out[(name, tuple(sorted(lb + extra)))] = v
+        return out
+
+
+def _raise_duplicate(before: List[Series], series: List[Series],
+                     starts: List[Tuple[int, str]], pname: str) -> None:
+    """Name the first of a provider's ``series`` that an earlier source
+    (``before``, in scrape order) or the provider itself emitted."""
+    seen = {s: k for k, s in enumerate(before)}
+    for s in series:
+        if s in seen:
+            at = seen[s]
+            first = [tag for i, tag in starts if i <= at][-1]
+            raise ValueError(
+                f"duplicate series {render_series(*s)}: emitted by "
+                f"{first} and provider {pname} — label one of the "
+                f"sources")
+        seen[s] = len(before)
+    raise AssertionError("no duplicate series found")
+
+
+class MetricsRegistry:
+    """Labeled instruments + ``counters()``-provider adapters, one scrape.
+
+    ``register_provider`` adapts any object with a ``counters() ->
+    Dict[str, float]`` method (or a bare callable returning such a dict):
+    its series are parsed and merged at collect time, so live state is
+    always scraped fresh. Duplicate series across providers/instruments
+    raise — the regression the ``telemetry_updates_total`` plane label
+    exists to prevent.
+    """
+
+    def __init__(self):
+        self._instruments: Dict[str, _Instrument] = {}
+        self._providers: List[Tuple[str, Callable[[], Mapping[str, float]]]]\
+            = []
+        # provider index -> (its last key tuple, those keys parsed)
+        self._parsed: Dict[int, Tuple[Tuple[str, ...], List[Series]]] = {}
+        self._help: Dict[str, str] = {}
+
+    # -- direct instruments -------------------------------------------------
+    def _add(self, inst: _Instrument) -> _Instrument:
+        if inst.name in self._instruments:
+            raise ValueError(f"metric {inst.name!r} already registered")
+        if not _NAME_RE.match(inst.name):
+            raise ValueError(f"illegal metric name {inst.name!r}")
+        self._instruments[inst.name] = inst
+        if inst.help:
+            self._help[inst.name] = inst.help
+        return inst
+
+    def counter(self, name: str, help_text: str = "") -> Counter:
+        return self._add(Counter(self, name, "counter", help_text))
+
+    def gauge(self, name: str, help_text: str = "") -> Gauge:
+        return self._add(Gauge(self, name, "gauge", help_text))
+
+    def histogram(self, name: str, help_text: str = "",
+                  buckets=None) -> HistogramVec:
+        return self._add(HistogramVec(self, name, help_text, buckets))
+
+    # -- provider adapters --------------------------------------------------
+    def register_provider(self, provider, name: Optional[str] = None):
+        """Adapt an existing exporter: anything with ``counters()`` or a
+        zero-arg callable returning a flat series dict. Returns self for
+        chaining."""
+        fn = provider.counters if hasattr(provider, "counters") else provider
+        if not callable(fn):
+            raise TypeError(f"provider {provider!r} has no counters() and "
+                            f"is not callable")
+        self._providers.append(
+            (name or type(provider).__name__, fn))
+        return self
+
+    # -- scrape -------------------------------------------------------------
+    def collect(self) -> Dict[Series, float]:
+        """Merged series from every instrument and provider. Raises on a
+        duplicate series (same name AND labels from two sources)."""
+        out: Dict[Series, float] = {}
+        # (first index in ``out``, source): names a duplicate's first
+        # source without a per-series record on the hot path
+        starts: List[Tuple[int, str]] = []
+        for inst in self._instruments.values():
+            starts.append((len(out), f"instrument {inst.name}"))
+            out.update(inst.collect())
+        for i, (pname, fn) in enumerate(self._providers):
+            starts.append((len(out), f"provider {pname}"))
+            got = fn()
+            keys = tuple(got)
+            parsed = self._parsed.get(i)
+            if parsed is None or parsed[0] != keys:
+                # a provider emits the same keys scrape after scrape:
+                # parse them when they change, not every scrape
+                parsed = self._parsed[i] = (
+                    keys, [parse_series_key(k) for k in keys])
+            n = len(out)
+            out.update(zip(parsed[1], map(float, got.values())))
+            if len(out) != n + len(keys):
+                _raise_duplicate(list(out)[:n], parsed[1], starts, pname)
+        return out
+
+    def export_prometheus(self) -> str:
+        flat = {render_series(name, labels): v
+                for (name, labels), v in self.collect().items()}
+        return render_prometheus(flat, self._help)

@@ -81,8 +81,6 @@ from repro_torch.obs.hist import TenantHistograms
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import Request
 
-_WATCH_ITEM = "obs/timeseries.py and obs/slo.py (ROADMAP: Modules to port)"
-
 
 @dataclass
 class MigrationRecord:
@@ -302,11 +300,13 @@ class EngineCluster:
         self.recoveries_total = 0
         self.completed: List[Request] = []
         self._seen_completed = [len(e.completed) for e in self.engines]
-        # liveness ledger (``health``): one heartbeat per engine per
-        # cluster step it actually ran (parked and failed engines do not
-        # beat — that absence IS the signal)
+        # liveness ledger the watchdog's engine-dark rule reads: one
+        # heartbeat per engine per cluster step it actually ran (parked
+        # and failed engines do not beat — that absence IS the signal)
         self.heartbeats: Dict[int, int] = {
             k: 0 for k in range(len(self.engines))}
+        self.watchdog = None
+        self.watch_every = 1
         self.steps = 0
         self.scheduler = ClusterLedger(self)
         self._note_resident()
@@ -327,11 +327,15 @@ class EngineCluster:
         return autopilot
 
     def attach_watchdog(self, watchdog, scrape_every: int = 1):
-        """Tick a fabric watchdog every ``scrape_every`` cluster steps:
-        not ported yet."""
-        raise NotImplementedError(
-            f"attach_watchdog is not ported yet; it comes with "
-            f"{_WATCH_ITEM}")
+        """Give the fabric its own pulse: tick ``watchdog`` (a
+        ``FabricWatchdog`` of ``obs/slo.py``) every ``scrape_every`` cluster
+        steps, alongside the controller/autopilot cadences. The caller
+        owns the watchdog's registry wiring; this cluster's ``counters``
+        and ``health`` providers are what it should scrape. Returns the
+        watchdog for chaining."""
+        self.watchdog = watchdog
+        self.watch_every = max(int(scrape_every), 1)
+        return watchdog
 
     # -- engine-like surface ------------------------------------------------
     @property
@@ -390,6 +394,9 @@ class EngineCluster:
         if self.autopilot is not None and \
                 self.steps % self.place_every == 0:
             self.autopilot.tick(time.monotonic() if now is None else now)
+        if self.watchdog is not None and \
+                self.steps % self.watch_every == 0:
+            self.watchdog.tick(time.monotonic() if now is None else now)
         return active
 
     # -- placement ----------------------------------------------------------

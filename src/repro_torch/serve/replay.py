@@ -33,9 +33,6 @@ placement) unchanged — see ``make_replay_cluster`` and the cluster
 scenarios (``CLUSTER_SCENARIOS``), whose operator events (a live migration,
 a stack swap, a checkpoint/kill/recover drill) land mid-replay via
 ``run(events=...)``.
-
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: the watchdog (``make_watchdog``, ``watch=``).
 """
 from __future__ import annotations
 
@@ -48,13 +45,6 @@ from repro_torch.control.congestion import max_min_fair
 from repro_torch.serve import multiplex as mx
 from repro_torch.serve.multiplex import Trace, jain_index
 from repro_torch.serve.scheduler import Request, TenantScheduler
-
-_WATCH_ITEM = "obs/timeseries.py and obs/slo.py, with serve/replay.py"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with "
-                               f"{item} (ROADMAP: Modules to port)")
 
 
 @dataclass
@@ -207,8 +197,7 @@ class TraceReplayer:
             keeps the management plane, not the slots, the binding
             constraint.
         weights: per-tenant WFQ weights (dimensionless), default 1.0.
-        watchdog: a fabric watchdog (``repro/obs/slo.py``, not ported
-            yet) to tick on the
+        watchdog: a ``FabricWatchdog`` (``obs/slo.py``) to tick on the
             virtual clock — once before the first interval (the rate
             baseline) and once at each interval boundary — so every
             replay doubles as an alert-precision fixture. Its alert
@@ -520,9 +509,49 @@ def make_replay_cluster(*, capacity: float, engines: int = 3,
     return cluster
 
 
-def make_watchdog(engine, **_kw):
-    """A fabric watchdog over ``engine``'s live metrics: not ported yet."""
-    raise _not_ported("make_watchdog", _WATCH_ITEM)
+def make_watchdog(engine, *, interval_s: float = 1.0, rules=None,
+                  record: bool = False):
+    """A ``FabricWatchdog`` wired over ``engine``'s live metrics.
+
+    Builds a fresh ``MetricsRegistry``, registers the engine's own
+    exporter (a cluster's ``counters`` folds controller + autopilot +
+    latency; a single engine contributes its controller's merged view)
+    plus the cluster ``health`` liveness provider when one exists, and
+    returns the watchdog running the stock rule catalog with windows
+    sized to ``interval_s`` (the replay's scrape cadence). ``record=True``
+    keeps every scrape's text for the offline ``nk_watch`` artifact.
+
+    The store's retention is bounded at 64 scrapes — far past the widest
+    stock rule window (8 intervals), and it bounds the per-tick
+    evaluation cost instead of letting window scans grow with uptime
+    (the recorded artifact is kept separately, so ``record=True`` still
+    retains the whole run)."""
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.slo import FabricWatchdog, default_rules
+    from repro_torch.obs.timeseries import SeriesStore
+
+    reg = MetricsRegistry()
+    if hasattr(engine, "migrate"):              # a cluster fabric
+        reg.register_provider(engine, name="cluster")
+        reg.register_provider(engine.health, name="health")
+    else:
+        ctrl = getattr(engine, "controller", None)
+        if ctrl is None:
+            raise ValueError("engine has no controller to scrape; pass a "
+                             "cluster or a controller-attached engine")
+        reg.register_provider(ctrl, name="controller")
+        lat_fn = getattr(engine, "latency", None)
+        if lat_fn is not None:
+            def latency_counters():
+                out = {}
+                for th in lat_fn().values():
+                    out.update(th.counters())
+                return out
+            reg.register_provider(latency_counters, name="latency")
+    return FabricWatchdog(
+        reg, default_rules(interval_s) if rules is None else rules,
+        store=SeriesStore(retention=64), record=record,
+        interval_s=interval_s)
 
 
 # every name scenario_spec accepts (trace vocabulary + the cluster-only
@@ -872,17 +901,22 @@ def replay_scenario(name: str, *, n_tenants: int = 4, intervals: int = 20,
     trace-event JSON, loadable in Perfetto) to this path. A recording
     tracer is installed for the duration of the run and restored after.
 
+    ``watch``: attach the fabric watchdog so the scenario doubles as an
+    alert-precision fixture. ``True`` builds the stock one over the
+    engine (``make_watchdog``); or pass a ready ``FabricWatchdog``
+    (e.g. one constructed with ``record=True`` to keep the scrape
+    sequence). The registry is scraped at every interval boundary and
+    the report's ``alerts*`` fields carry the outcome — steady fires
+    zero, adversarial fires fairness burn on the hog, failover fires
+    and resolves engine-dark (bench claim (k) pins all three).
+
     ``backend="vectorized"`` runs the whole control plane on the array
     backend (scheduler bucket store, telemetry EWMA banks, the water-fill
     kernel); every scenario claim must hold unchanged.
-
-    Not ported yet (``NotImplementedError``): ``watch``.
     """
     from repro_torch.obs.tracing import trace_to
 
     # fail fast, before any engine construction
-    if watch:
-        raise _not_ported("watch=", _WATCH_ITEM)
     needs_cluster = name in CLUSTER_SCENARIOS
     if engines is None:
         engines = 3 if (needs_cluster and engine is None) else 1
@@ -928,6 +962,16 @@ def replay_scenario(name: str, *, n_tenants: int = 4, intervals: int = 20,
     elif name == "failover":
         events = failover_events(intervals)
     rep = TraceReplayer(eng, capacity=cap, weights=weights)
+    wd = watch
+    if wd is True or wd == "record":
+        # the replayer's clock overshoots each interval by up to one
+        # step_dt, so the *effective* scrape period is what the rule
+        # windows must be sized to — else a "3-interval" window holds
+        # fewer scrapes than designed and the absence rules go blind
+        wd = make_watchdog(eng,
+                           interval_s=rep.interval_s + rep.step_dt,
+                           record=(wd == "record"))
+    rep.watchdog = wd or None
     if trace_path is None:
         return rep.run(trace, events=events)
     with trace_to() as tr:

@@ -86,7 +86,7 @@ def _pkg(name):
         from repro_torch.core.nqe import CommOp
         from repro_torch.fabric import FabricSnapshot
         from repro_torch.serve.cluster import EngineCluster
-        from repro_torch.serve.replay import swap_live_stack
+        from repro_torch.serve.replay import make_watchdog, swap_live_stack
         from repro_torch.serve.scheduler import Request
         fake = FakeEngine
     else:
@@ -98,14 +98,14 @@ def _pkg(name):
         from repro.core.nqe import CommOp
         from repro.fabric import FabricSnapshot
         from repro.serve.cluster import EngineCluster
-        from repro.serve.replay import swap_live_stack
+        from repro.serve.replay import make_watchdog, swap_live_stack
         from repro.serve.scheduler import Request
     return SimpleNamespace(
         name=name, Fake=fake, RateController=RateController,
         PlacementController=PlacementController, CoreEngine=CoreEngine,
         CommOp=CommOp, FabricSnapshot=FabricSnapshot,
         EngineCluster=EngineCluster, swap_live_stack=swap_live_stack,
-        Request=Request)
+        make_watchdog=make_watchdog, Request=Request)
 
 
 PKGS = {name: _pkg(name) for name in ("ref", "port")}

@@ -262,18 +262,46 @@ def test_r6_crash_of_a_tenant_with_history_raises_alike(case):
     assert msgs["port"] == msgs["ref"]
 
 
-def test_watchdog_refuses_and_health_reports_liveness():
-    cl = fake_cluster(PKGS["port"], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cl.attach_watchdog(object())
-    cl.add_tenant(0, engine=0)
-    cl.step(now=0.0)
-    cl.fail_engine(1, now=0.5)
-    cl.step(now=1.0)
-    h = cl.health()
-    assert h['nk_engine_up{engine="1"}'] == 0.0
-    assert h['nk_engine_heartbeat_total{engine="0"}'] == 2.0
-    assert h['nk_engine_heartbeat_total{engine="1"}'] == 1.0
+def test_attach_watchdog_ticks_alike_and_health_reports_liveness():
+    """Each package's stock watchdog attached to its cluster of doubles
+    (``attach_watchdog``, every second cluster step) through a crash and a
+    recovery under traffic: the same ticks at the same virtual times, and
+    engine-dark fired and resolved alike; ``health`` reports liveness."""
+    seen = {}
+    for p, P in PKGS.items():
+        ctrl = P.RateController(160.0, alpha=0.6)
+        cl = fake_cluster(P, 2, controller=ctrl, control_every=2)
+        wd = P.make_watchdog(cl, interval_s=0.5)
+        assert cl.attach_watchdog(wd, scrape_every=2) is wd
+        for t in range(2):
+            cl.add_tenant(t, engine=t)
+        ids, vt = iter(range(1, 1000)), 0.0
+
+        def run(steps):
+            nonlocal vt
+            for _ in range(steps):
+                for t in range(2):
+                    cl.submit(req(P, t, next(ids), now=vt))
+                cl.step(now=vt)
+                vt += 0.25
+        run(4)
+        snap = cl.checkpoint(now=vt)
+        cl.fail_engine(1, now=vt)
+        run(12)
+        h = cl.health()
+        assert h['nk_engine_up{engine="1"}'] == 0.0
+        assert h['nk_engine_heartbeat_total{engine="0"}'] == 16.0
+        assert h['nk_engine_heartbeat_total{engine="1"}'] == 4.0
+        cl.recover_engine(1, snap, now=vt)
+        run(8)
+        seen[p] = (wd.ticks, wd.store.times(),
+                   [(a.rule, a.labels, a.severity, a.fired_at,
+                     a.resolved_at) for a in wd.alerts.history])
+    assert seen["port"] == seen["ref"]
+    ticks, times, alerts = seen["port"]
+    assert ticks == 12 and times[0] == 0.25
+    assert ("engine_dark", (("engine", "1"),)) in \
+        [(a[0], a[1]) for a in alerts if a[4] is not None]
 
 
 # ---------------------------------------------------------------------------

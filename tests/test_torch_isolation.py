@@ -54,7 +54,8 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.control.sim",
             "repro_torch.control.telemetry",
             "repro_torch.control.placement", "repro_torch.serve.cluster",
-            "repro_torch.fabric.checkpoint"} <= names
+            "repro_torch.fabric.checkpoint", "repro_torch.obs.timeseries",
+            "repro_torch.obs.slo"} <= names
 
 
 def test_port_configs_equal_the_reference():
@@ -70,6 +71,31 @@ def test_port_configs_equal_the_reference():
         dataclasses.asdict(jconf.RunConfig())
     assert {k: dataclasses.asdict(v) for k, v in tconf.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconf.SHAPES.items()}
+
+
+def test_port_watchdog_catalog_equals_the_reference():
+    """The stock alert rules (names, severities, windows, every setting)
+    and the metric-name catalog are the reference's."""
+    import repro.obs as jobs
+    import repro_torch.obs as tobs
+    assert tobs.METRIC_HELP == jobs.METRIC_HELP
+    for interval in (0.5, 1.0, 1.2):
+        ref, port = jobs.default_rules(interval), \
+            tobs.default_rules(interval)
+        assert [type(r).__name__ for r in port] == \
+            [type(r).__name__ for r in ref]
+        for a, b in zip(port, ref):
+            assert vars(a).keys() == vars(b).keys(), b.name
+            for k, v in vars(b).items():
+                got = vars(a)[k]
+                if k == "spec":
+                    assert dataclasses.asdict(got) == dataclasses.asdict(v)
+                else:
+                    assert got == v, (b.name, k)
+    assert tobs.slo.SEVERITIES == jobs.slo.SEVERITIES
+    assert (tobs.slo.SCRAPE_HEADER, tobs.slo.SCRAPE_EOF) == \
+        (jobs.slo.SCRAPE_HEADER, jobs.slo.SCRAPE_EOF)
+    assert tobs.__all__ == jobs.__all__
 
 
 def test_entry_points_without_a_device_raise_when_no_card():

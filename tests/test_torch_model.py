@@ -137,18 +137,20 @@ def _pair(arch, dtype, mesh):
     return jcfg, tcfg, params, params_from_jax(tree, tcfg, device="cpu")
 
 
-def _run_reference(jcfg, params, mesh, prompt, tokens_in=None):
+def _run_reference(jcfg, params, mesh, prompt, tokens_in=None,
+                   compiler_options=None):
     """Prefill + STEPS greedy decode steps. ``tokens_in`` (STEPS, B)
-    teacher-forces the decoded tokens."""
+    teacher-forces the decoded tokens; ``compiler_options`` go to XLA."""
     shd, rcfg = ShardingCtx(mesh), JRunConfig(attn_q_block=16,
                                               attn_kv_block=16)
-    logits, caches = jax.jit(functools.partial(
+    jit = functools.partial(jax.jit, compiler_options=compiler_options)
+    logits, caches = jit(functools.partial(
         j_prefill, cfg=jcfg, shd=shd, rcfg=rcfg, max_seq=MAX_SEQ))(
         params, jnp.asarray(prompt))
     prefill_caches = caches
     # the serving engine installs the prefill cache into its bf16 cache
     caches = jax.tree.map(lambda c: c.astype(jnp.bfloat16), caches)
-    dec = jax.jit(functools.partial(j_decode, cfg=jcfg, shd=shd, rcfg=rcfg))
+    dec = jit(functools.partial(j_decode, cfg=jcfg, shd=shd, rcfg=rcfg))
     out_logits, toks = [np.asarray(logits, np.float32)], []
     for i in range(STEPS):
         tok = np.asarray(jnp.argmax(logits, -1), np.int32) \
@@ -251,8 +253,149 @@ def test_bridge_refuses_mismatched_trees(mesh1):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "hymba-1.5b",
-                                  "whisper-small", "chameleon-34b"])
+                                  "whisper-small"])
 def test_other_families_raise_not_implemented(arch):
     from repro_torch.models import Model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_smoke_config(arch), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# chameleon-34b: the vlm family (dense schedule, untied embeddings, q/k norms)
+# ---------------------------------------------------------------------------
+
+CHAMELEON = "chameleon-34b"
+
+
+def _bf16_straddles(port, ref):
+    """Entries where two f32 caches round to different bf16 values. Each
+    must be a straddle: f32 values within the packages' rounding distance
+    (1e-5) that land on adjacent bf16 values. Returns their count."""
+    n = 0
+    for tseg, jseg in zip(port, cache_from_jax(
+            jax.tree.map(np.asarray, ref), device="cpu")):
+        for k in tseg:
+            a, b = tseg[k].float(), jseg[k].float()
+            a16 = a.to(torch.bfloat16).view(torch.int16).int()
+            b16 = b.to(torch.bfloat16).view(torch.int16).int()
+            off = a16 != b16
+            assert torch.all((a16 - b16)[off].abs() == 1), k
+            assert torch.all((a - b)[off].abs() <= 1e-5), k
+            n += int(off.sum())
+    return n
+
+
+def test_chameleon_matches_reference_f32(mesh1):
+    """Prefill logits within 1e-4, greedy tokens identical over 16 steps,
+    caches as the dense families'. ROADMAP P14: the f32 prefill caches
+    agree within ~2e-6, but a few entries straddle a bf16 rounding
+    boundary and land one bf16 ulp apart once the engine installs them
+    into its bf16 cache. Decoding from the reference's installed cache,
+    the logits agree within 1e-4 at every step; from the port's own, the
+    straddles move them by a few 1e-4 of max |logit| (pinned below 1e-3)."""
+    jcfg, tcfg, params, model = _pair(CHAMELEON, "float32", mesh1)
+    prompt = _prompt(tcfg)
+    j_logits, j_toks, j_pc, j_dc = _run_reference(jcfg, params, mesh1, prompt)
+    t_logits, t_toks, t_pc, t_dc = _run_port(model, prompt)
+    np.testing.assert_array_equal(t_toks, j_toks)     # identical greedy
+    np.testing.assert_allclose(t_logits[0], j_logits[0], rtol=1e-4,
+                               atol=1e-4, err_msg="prefill")
+    _assert_caches(t_pc, j_pc, atol=1e-3, rtol=0)      # f32 prefill cache
+    _assert_caches(t_dc, j_dc, atol=1e-3, rtol=2 ** -7)  # bf16 decode cache
+    assert _bf16_straddles(t_pc, j_pc) > 0             # P14's cause
+    own = max(np.abs(a - b).max() / np.abs(b).max()
+              for a, b in zip(t_logits, j_logits))
+    assert own <= 1e-3, own
+    # the same decode from the reference's installed bf16 cache
+    caches = cache_from_jax(jax.tree.map(
+        lambda c: np.asarray(c.astype(jnp.bfloat16)), j_pc), device="cpu")
+    for i in range(STEPS):
+        pos = torch.full((B,), PROMPT + i, dtype=torch.int32)
+        logits, caches = forward_decode(
+            model, caches, torch.from_numpy(j_toks[i])[:, None], pos,
+            RunConfig())
+        np.testing.assert_allclose(_np(logits), j_logits[i + 1], rtol=1e-4,
+                                   atol=1e-4, err_msg=f"step {i + 1}")
+
+
+# XLA's default lets a chain of elementwise ops skip the bf16 roundings
+# between them (excess precision); with this off, the reference rounds
+# where its source casts, as torch does
+SOURCE_ROUNDING = {"xla_allow_excess_precision": False}
+
+
+def test_chameleon_matches_reference_bf16(mesh1):
+    """Logits within P2's 2e-2 of max |logit| at every step, against the
+    reference compiled to round where its source casts (``SOURCE_ROUNDING``).
+    ROADMAP P15: XLA's default excess precision skips some of those
+    roundings, and this model amplifies the difference (its bf16 logits sit
+    3.5e-2 from its own f32 ones, ~1.5e-2 for the dense smoke configs):
+    against the default-compiled reference the gap reaches 2.85e-2 at one
+    step of 17. Held there: the gap stays within the reference's own bf16
+    error, and the port's bf16 logits are no farther from the f32
+    reference than the reference's bf16 logits are."""
+    jcfg, tcfg, params, model = _pair(CHAMELEON, "bfloat16", mesh1)
+    prompt = _prompt(tcfg)
+    j_src, src_toks, _, _ = _run_reference(jcfg, params, mesh1, prompt,
+                                           compiler_options=SOURCE_ROUNDING)
+    t_src = _run_port(model, prompt, tokens_in=src_toks)[0]
+    for i, (a, b) in enumerate(zip(t_src, j_src)):
+        rel = np.abs(a - b).max() / np.abs(b).max()
+        assert rel <= 2e-2, (i, rel)
+    j_logits, j_toks, _, _ = _run_reference(jcfg, params, mesh1, prompt)
+    t_logits, _, _, _ = _run_port(model, prompt, tokens_in=j_toks)
+    j32 = dataclasses.replace(jcfg, dtype="float32", param_dtype="float32")
+    f32 = _run_reference(j32, jax.tree.map(
+        lambda a: a.astype(jnp.float32), params), mesh1, prompt,
+        tokens_in=j_toks)[0]
+
+    def gap(a_runs, b_runs):
+        return max(np.abs(a - b).max() / np.abs(b).max()
+                   for a, b in zip(a_runs, b_runs))
+    noise = gap(j_logits, f32)
+    assert gap(t_logits, j_logits) <= noise
+    assert gap(t_logits, f32) <= noise
+
+
+def test_chameleon_qk_norm_leaves_cross_and_matter(mesh1):
+    """The (head_dim,) q/k rmsnorm scales and the untied output embedding
+    cross bit for bit; with random scales the f32 prefill logits match the
+    reference's within 1e-4, and zeroing the scales changes the logits in
+    both packages alike."""
+    jcfg, tcfg, _, _ = _pair(CHAMELEON, "float32", mesh1)
+    tree = jax.tree.map(np.asarray,
+                        build_params(jcfg, mesh1, jax.random.PRNGKey(5)))
+    attn = tree["segments"][0]["attn"]
+    rng = np.random.default_rng(11)
+    for name in ("q_norm", "k_norm"):
+        scale = attn[name]["scale"]
+        assert scale.shape == (2, tcfg.head_dim)
+        attn[name]["scale"] = (1.0 + 0.5 * rng.standard_normal(
+            scale.shape)).astype(scale.dtype)
+    assert "head" in tree["embed"]             # untied embeddings
+    model = params_from_jax(tree, tcfg, device="cpu")
+    for layer in range(2):
+        for name in ("q_norm", "k_norm"):
+            np.testing.assert_array_equal(
+                model.blocks[layer]["attn"][name]["scale"].detach().numpy(),
+                attn[name]["scale"][layer])
+    np.testing.assert_array_equal(
+        model.embed["head"].detach().numpy(), tree["embed"]["head"])
+    prompt = _prompt(tcfg)
+    shd, rcfg = ShardingCtx(mesh1), JRunConfig(attn_q_block=16,
+                                               attn_kv_block=16)
+
+    def both(tr, m):
+        ref, _ = j_prefill(jax.tree.map(jnp.asarray, tr), jnp.asarray(prompt),
+                           cfg=jcfg, shd=shd, rcfg=rcfg, max_seq=MAX_SEQ)
+        port, _ = forward_prefill(m, torch.from_numpy(prompt), RunConfig(),
+                                  max_seq=MAX_SEQ)
+        ref = np.asarray(ref, np.float32)
+        np.testing.assert_allclose(_np(port), ref, rtol=1e-4, atol=1e-4)
+        return ref
+
+    scaled = both(tree, model)
+    for name in ("q_norm", "k_norm"):
+        attn[name]["scale"] = np.zeros_like(attn[name]["scale"])
+    zeroed = both(tree, params_from_jax(tree, tcfg, device="cpu"))
+    assert np.abs(scaled - zeroed).max() > 1e-2 * np.abs(scaled).max()

@@ -91,22 +91,30 @@ def test_multiplex_accounting_and_fair_replay_equal_the_reference():
         assert t_mx.jain_index(xs) == j_mx.jain_index(xs)
 
 
-def test_watchdog_still_raises_and_every_cluster_scenario_runs():
-    """Only the watchdog is left to port: ``watch=``, ``make_watchdog``
-    and ``EngineCluster.attach_watchdog`` raise, naming the ROADMAP item;
-    every cluster scenario and option runs (a short window of each)."""
+def test_watchdog_entry_points_work_and_every_cluster_scenario_runs():
+    """``watch=``, ``make_watchdog`` and ``EngineCluster.attach_watchdog``
+    each give a working fabric watchdog (it scrapes, ingests and
+    evaluates); every cluster scenario and option runs (a short window of
+    each)."""
+    from repro_torch.obs import FabricWatchdog
     assert set(SCENARIOS) - set(CLUSTER_SCENARIOS) == {
         "steady", "adversarial", "correlated", "ramp", "bursty"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        replay_scenario("steady", device="cpu", watch=True)
+    rep = replay_scenario("steady", n_tenants=2, intervals=3, device="cpu",
+                          watch=True)
+    assert isinstance(rep.watchdog, FabricWatchdog)
+    assert rep.watchdog.ticks == 4 and rep.alerts_fired == 0
     eng = make_replay_engine(capacity=10.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_watchdog(eng)
+    wd = make_watchdog(eng)
+    assert wd.tick(0.0) == [] and wd.ticks == 1
+    assert "controller_capacity" in wd.store.names()
     cluster = make_replay_cluster(capacity=10.0, engines=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cluster.attach_watchdog(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_watchdog(cluster)
+    wd = make_watchdog(cluster, record=True)
+    assert cluster.attach_watchdog(wd, scrape_every=2) is wd
+    for k in range(4):
+        cluster.step(now=0.5 * k)
+    assert wd.ticks == 2 and wd.store.times() == (0.5, 1.5)
+    assert "nk_engine_heartbeat_total" in wd.store.names()
+    assert len(wd.recorded) == 2
     for name in CLUSTER_SCENARIOS:
         rep = replay_scenario(name, n_tenants=4, intervals=4, device="cpu")
         assert rep.engines == 3 and rep.decode_steps > 0, name
