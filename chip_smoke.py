@@ -13,11 +13,17 @@ JSON object per line:
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the paths' shapes, with the tolerance stated (flash: S 1, 2,
               64, 65, 509, 1024, two sequences with T > S, a window, f32;
-              decode: mixed and serve positions, twice, bit-identical);
-              the water-fill also against the exact sort-based fill, and
-              twice on the same input (bit-identical); the SSD scan at
-              mamba2-370m's width (1, 2 and 16 chunks, a padded last chunk,
-              cumsums to -180; y, states, decays and state decays);
+              hymba-1.5b's 25/5 heads at d 64, S 1536 and 1100 under its
+              1024-token window, S 1536 global, f32; decode: mixed and
+              serve positions, twice, bit-identical; hymba's group 5 over
+              rings of 1024 slots at positions before and past the wrap,
+              also against the reference's absolute-position decode, a
+              global cache of 2048, f32); the water-fill also against the
+              exact sort-based fill, and twice on the same input
+              (bit-identical); the SSD scan at mamba2-370m's width (1, 2
+              and 16 chunks, a padded last chunk, cumsums to -180) and at
+              hymba's (12 chunks; 11 padded, bf16 and f32; y, states,
+              decays and state decays);
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -34,7 +40,15 @@ JSON object per line:
    of bf16 weights, q/k norms; its memory reported; parity at bf16 for
    every attention kernel launch, asserted, and end to end, reported beside
    the model's own bf16 noise floor; then its first 8 layers again at f32
-   once the bf16 model is freed, asserted end to end);
+   once the bf16 model is freed, asserted end to end), and on full-width
+   hymba-1.5b at full depth (the hybrid family: attention and SSM heads in
+   parallel in 32 layers, rings of 1024 slots in the 29 windowed ones;
+   ``max_seq`` 2048, prompts of 1024-1536 tokens, one of exactly 1024;
+   flash and the SSD scan once per layer and admission, decode once per
+   layer and step, every decode past the ring's wrap, the cache's bytes
+   the schema's; parity at bf16 for every flash, SSD and decode launch,
+   asserted, and end to end, reported beside the model's own bf16 noise
+   floor; the whole model again at f32 with an f32 cache, asserted);
 7. control  — the vectorized control plane's fused tick on the card at
               1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
               counter trace): µs per tick, tenants/s, state bytes; its
@@ -95,10 +109,13 @@ JSON object per line:
               mixed, full and serve-range positions; the water-fill at
               the 3- and 4-tenant problems of the fairness and replay
               phases and at the fused tick's populations; the SSD scan at
-              a 256-, 512- and 4,096-token prompt; the codec on the
-              embedding leaf.
+              a 256-, 512- and 4,096-token prompt; hymba-1.5b's shapes
+              (flash over 1536 tokens with the window and without, decode
+              over 8 rings, the SSD scan over 12 chunks of its width); the
+              codec on the embedding leaf.
 
-Then the seconds of the vlm and watchdog phases and of the whole script,
+Then the seconds of the vlm, hybrid and watchdog phases and of the whole
+script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
@@ -152,6 +169,26 @@ HOST_CALLS = 200              # enqueue timing: calls back to back
 # (query heads, kv heads) at head_dim 128: llama3.2-3b's and chameleon-34b's
 LLAMA_HEADS = (24, 8)
 VLM_HEADS = (64, 8)
+# hymba-1.5b (the hybrid family) at full width and depth: 25/5 heads at
+# head_dim 64 (group 5), a 1024-token window outside layers 0, 15 and 31.
+# Its windowed layers keep a ring of 1024 slots only where max_seq is above
+# the window, and a slot takes only prompts of at least the window there
+# (ROADMAP R7): prompts of 1024-1536 tokens, one of exactly 1024 (no roll)
+HYBRID_HEADS, HYBRID_D, HYBRID_WINDOW = (25, 5), 64, 1024
+HYBRID_MAX_SEQ = 2048
+HYBRID_PROMPT_RANGE = (1024, 1536)
+HYBRID_FIXED_LENGTHS = (1024,)
+HYBRID_PREFILL_LENS = (1536,)
+# the parity prompt: past the window and not a multiple of it
+HYBRID_PARITY_PROMPT = 1300
+# a ring step: positions before the ring fills, at its edge and past wraps
+# (the kernel reads slots 0..min(pos, 1023)); a global layer's positions
+RING_DECODE_POS = (1023, 1024, 1300, 1567, 0, 5, 2047, 1100)
+GLOBAL_DECODE_POS = (1024, 1100, 1200, 1300, 1400, 1500, 1566, 1567)
+# the SSD scan at hymba's width: Q 128, H 50, P 64, N 16; 12 chunks is a
+# 1536-token prompt, 11 with 108 padded rows the 1300-token parity prompt
+HYBRID_SSD = (128, 50, 64, 16)
+HYBRID_SSD_CHUNKS = 12
 
 # water-fill: |kernel - plain| and |kernel - exact fill| per unit capacity
 WATER_TOL_PLAIN = 1e-9
@@ -327,13 +364,13 @@ def flash_work(b, s, t, hq, kv, d, elem, causal, window):
     return nbytes, 4.0 * d * pairs * hq * b
 
 
-def ssd_work(nc, elem):
+def ssd_work(nc, elem, shape=None):
     """Bytes (x*dt, B, C in ``elem`` bytes and dA in f32 read once; y in
     f32, the states, decays and state decays written once) and flops (per
     chunk: C.B^T over the Q(Q+1)/2 causal pairs once, M.x over them per
-    head, the state x^T B per head) of the SSD scan over ``nc`` full-width
-    chunks."""
-    q, h, p, n = SSD_Q, SSD_H, SSD_P, SSD_N
+    head, the state x^T B per head) of the SSD scan over ``nc`` chunks of
+    ``shape`` (Q, H, P, N; mamba2-370m's by default)."""
+    q, h, p, n = shape or (SSD_Q, SSD_H, SSD_P, SSD_N)
     pairs = q * (q + 1) // 2
     nbytes = nc * (q * h * p * elem + q * h * 4 + 2 * q * n * elem
                    + q * h * p * 4 + h * p * n * 4 + h * 4 + q * h * 4)
@@ -361,11 +398,13 @@ def phase_kernels(torch, device):
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device=device).manual_seed(SEED)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    d = 128
-    # (B, S, T, dtype, window, q_offset, (hq, kv)): the path's prefills, the
-    # replay phase's 2-token prompts, a ragged second q tile, a later chunk
-    # of two sequences (T > S), a window, the f32 kernel; and chameleon-34b's
-    # prefills at 64/8 heads
+    # (B, S, T, dtype, window, q_offset, (hq, kv), d): the path's prefills,
+    # the replay phase's 2-token prompts, a ragged second q tile, a later
+    # chunk of two sequences (T > S), a window, the f32 kernel;
+    # chameleon-34b's prefills at 64/8 heads; hymba-1.5b's at 25/5 heads
+    # and d 64: the 1024-token window over 1536 and 1100 tokens (the first
+    # live kv tile of a q tile cut by the window's edge), a global layer,
+    # and the f32 parity's windowed prefill
     cases = [(1, s, s, "bfloat16", 0, 0, LLAMA_HEADS) for s in (64, 509, 1024)]
     cases += [(1, 1, 1, "bfloat16", 0, 0, LLAMA_HEADS),
               (1, 2, 2, "bfloat16", 0, 0, LLAMA_HEADS),
@@ -374,7 +413,15 @@ def phase_kernels(torch, device):
               (1, 509, 509, "bfloat16", 128, 0, LLAMA_HEADS),
               (1, 509, 509, "float32", 0, 0, LLAMA_HEADS)]
     cases += [(1, s, s, "bfloat16", 0, 0, VLM_HEADS) for s in (64, 509)]
-    for b, s, t, dt, window, q_offset, (hq, kv) in cases:
+    cases = [c + (128,) for c in cases]
+    cases += [(1, 1536, 1536, "bfloat16", HYBRID_WINDOW, 0, HYBRID_HEADS,
+               HYBRID_D),
+              (1, 1100, 1100, "bfloat16", HYBRID_WINDOW, 0, HYBRID_HEADS,
+               HYBRID_D),
+              (1, 1536, 1536, "bfloat16", 0, 0, HYBRID_HEADS, HYBRID_D),
+              (1, HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, "float32",
+               HYBRID_WINDOW, 0, HYBRID_HEADS, HYBRID_D)]
+    for b, s, t, dt, window, q_offset, (hq, kv), d in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
         k = torch.randn((b, t, kv, d), generator=gen, device=device).to(dtype)
@@ -387,7 +434,7 @@ def phase_kernels(torch, device):
         err = (o.float() - ref.float()).abs().max().item()
         ok = err <= FLASH_TOL[dt] and bool(torch.isfinite(o).all())
         emit({"phase": "kernels", "kernel": "flash_attention", "B": b,
-              "S": s, "T": t, "hq": hq, "kv": kv, "dtype": dt,
+              "S": s, "T": t, "hq": hq, "kv": kv, "d": d, "dtype": dt,
               "window": window,
               "q_offset": q_offset, "max_abs_err": err,
               "tol": FLASH_TOL[dt], "ok": ok})
@@ -400,6 +447,7 @@ def phase_kernels(torch, device):
     # (B, T, q dtype, pos, (hq, kv)): the serve phase's cache, the replay
     # and cluster phases' (REPLAY_SLOTS slots of REPLAY_MAX_SEQ positions),
     # and chameleon-34b's cache at 64/8 heads
+    d = 128
     for b, t, dt, pos_list, (hq, kv) in (
             (8, 1024, "bfloat16", DECODE_POS, LLAMA_HEADS),
             (8, 1024, "bfloat16", SERVE_DECODE_POS, LLAMA_HEADS),
@@ -441,7 +489,70 @@ def phase_kernels(torch, device):
                                  f"{e_o}, m {e_m}, l {e_l} against {tol}, "
                                  f"repeat identical {same}")
         errs["decode_attention"] = max(errs["decode_attention"], e_o)
+    errs["decode_attention"] = max(errs["decode_attention"],
+                                   hybrid_decode_cases(torch, device, gen))
     return errs
+
+
+def hybrid_decode_cases(torch, device, gen):
+    """hymba-1.5b's decode at 25/5 heads (group 5), d 64, 8 slots: a ring
+    step of 1024 slots at ``RING_DECODE_POS`` (the kernel reads the ring as
+    a linear cache at ``pos_eff = min(pos, 1023)``, no window), held
+    against its plain version on the same inputs and against the
+    reference's decode over absolute slot positions (``kv_pos``, the
+    window mask; p kept in f32, as the kernel keeps it); a global layer's
+    cache of 2048 at ``GLOBAL_DECODE_POS``;
+    the ring again at f32 (the f32 parity's path). Twice each,
+    bit-identical. Returns the worst |kernel - plain| of o."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.models.attention import decode_attention as by_kv_pos
+    from repro_torch.models.attention import q_to_kv_map, ring_slots
+    (hq, kv), d, b = HYBRID_HEADS, HYBRID_D, 8
+    worst = 0.0
+    for t, dt, pos_list, ring in (
+            (HYBRID_WINDOW, "bfloat16", RING_DECODE_POS, True),
+            (HYBRID_MAX_SEQ, "bfloat16", GLOBAL_DECODE_POS, False),
+            (HYBRID_WINDOW, "float32", RING_DECODE_POS, True)):
+        dtype = getattr(torch, dt)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        q = torch.randn((b, hq, d), generator=gen, device=device).to(dtype)
+        kc, vc = (torch.randn((b, t, kv, d), generator=gen, device=device)
+                  .to(dtype) for _ in range(2))
+        slots = ring_slots(pos, t, kv_pos=True) if ring else None
+        at = slots.pos_eff if ring else pos
+        o, m, l = decode_attention(q, kc, vc, at)
+        again = decode_attention(q, kc, vc, at)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip((o, m, l), again))
+        ro, rm, rl = decode_attention_plain(q, kc, vc, at)
+        e_o = (o.float() - ro.float()).abs().max().item()
+        e_m = (m - rm).abs().max().item()
+        e_l = ((l - rl).abs() / rl.abs()).max().item()
+        tol = DECODE_TOL[dt]
+        e_ref = None
+        if ring:    # the ring as the reference reads it, p kept in f32
+            want = by_kv_pos(q[:, None].float(), kc, vc, pos,
+                             kv_map=q_to_kv_map(hq, hq, kv, device),
+                             window=HYBRID_WINDOW, kv_pos=slots.kv_pos)
+            e_ref = (o.float() - want[:, 0].float()).abs().max().item()
+        ok = e_o <= tol["o"] and e_m <= tol["m"] and e_l <= tol["l"] \
+            and (e_ref is None or e_ref <= tol["o"]) \
+            and bool(torch.isfinite(o).all()) and same
+        emit({"phase": "kernels", "kernel": "decode_attention", "B": b,
+              "T": t, "hq": hq, "kv": kv, "d": d, "q_dtype": dt,
+              "cache_dtype": dt, "ring": ring, "pos": list(pos_list),
+              "kernel_pos": at.tolist(), "max_abs_err_o": e_o,
+              "max_abs_err_m": e_m, "max_rel_err_l": e_l,
+              "max_abs_err_o_vs_kv_pos_decode": e_ref, "tol": tol,
+              "repeat_bit_identical": same, "ok": ok})
+        if not ok:
+            raise AssertionError(f"decode_attention hymba T={t} {dt} ring "
+                                 f"{ring}: o {e_o}, m {e_m}, l {e_l}, "
+                                 f"kv_pos decode {e_ref} against {tol}, "
+                                 f"repeat identical {same}")
+        worst = max(worst, e_o)
+    return worst
 
 
 def water_case(np, n, seed, kind="mixed", cap=CONTROL_CAPACITY):
@@ -511,14 +622,15 @@ def phase_water_fill(torch, device):
 
 
 def ssd_inputs(torch, gen, device, nc, dtype, *, dt_scale=1.0,
-               pad_rows=0):
-    """Model-like SSD inputs for one sequence of ``nc`` chunks: dt =
-    softplus(N(0,1)) (about 0.7) times ``dt_scale``, dA = -dt (A = -1, the
-    reference's init), x*dt with x ~ N(0, 0.25), B and C ~ N(0, 0.25). At
-    ``dt_scale`` 1 the cumsum reaches about -180 in a 256-token chunk. The
-    last ``pad_rows`` rows of the last chunk are zero x*dt and dA, as
-    ``ssd_chunked`` pads a prompt."""
-    Q, H, P, N = SSD_Q, SSD_H, SSD_P, SSD_N
+               pad_rows=0, shape=None):
+    """Model-like SSD inputs for one sequence of ``nc`` chunks of ``shape``
+    (Q, H, P, N; mamba2-370m's by default): dt = softplus(N(0,1)) (about
+    0.7) times ``dt_scale``, dA = -dt (A = -1, the reference's init), x*dt
+    with x ~ N(0, 0.25), B and C ~ N(0, 0.25). At ``dt_scale`` 1 the cumsum
+    reaches about -180 in a 256-token chunk. The last ``pad_rows`` rows of
+    the last chunk are zero x*dt and dA, as ``ssd_chunked`` pads a
+    prompt."""
+    Q, H, P, N = shape or (SSD_Q, SSD_H, SSD_P, SSD_N)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
@@ -534,21 +646,31 @@ def ssd_inputs(torch, gen, device, nc, dtype, *, dt_scale=1.0,
 
 
 def phase_ssd(torch, device):
-    """The SSD scan kernel against its plain version at full width (Q 256,
-    H 32, P 64, N 128): bf16 at 1, 2 and 16 chunks (the second with a
-    padded last chunk, one with dt scaled down so the decay reaches across
-    the chunk), f32 at 2 chunks; all four outputs, the state decay
-    included. Returns the worst |kernel - plain| of y."""
+    """The SSD scan kernel against its plain version at mamba2-370m's width
+    (Q 256, H 32, P 64, N 128): bf16 at 1, 2 and 16 chunks (the second
+    with a padded last chunk, one with dt scaled down so the decay reaches
+    across the chunk), f32 at 2 chunks; and at hymba-1.5b's (Q 128, H 50,
+    P 64, N 16): bf16 at 12 chunks (a 1536-token prompt), bf16 and f32 at
+    11 with 108 padded rows (the 1300-token parity prompt); all four
+    outputs, the state decay included. Returns the worst |kernel - plain|
+    of y."""
     from repro_torch.kernels.ssd_scan import (
         ssd_chunk_scan, ssd_chunk_scan_plain)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    cases = [(1, "bfloat16", 1.0, 0), (2, "bfloat16", 1.0, 56),
-             (16, "bfloat16", 1.0, 0), (2, "bfloat16", 0.01, 0),
-             (2, "float32", 1.0, 56)]
+    mamba = (SSD_Q, SSD_H, SSD_P, SSD_N)
+    pad = 11 * HYBRID_SSD[0] - HYBRID_PARITY_PROMPT
+    cases = [(1, "bfloat16", 1.0, 0, mamba), (2, "bfloat16", 1.0, 56, mamba),
+             (16, "bfloat16", 1.0, 0, mamba),
+             (2, "bfloat16", 0.01, 0, mamba),
+             (2, "float32", 1.0, 56, mamba),
+             (HYBRID_SSD_CHUNKS, "bfloat16", 1.0, 0, HYBRID_SSD),
+             (11, "bfloat16", 1.0, pad, HYBRID_SSD),
+             (11, "float32", 1.0, pad, HYBRID_SSD)]
     worst = 0.0
-    for nc, dt, dt_scale, pad in cases:
+    for nc, dt, dt_scale, pad, shape in cases:
         xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, dt,
-                                   dt_scale=dt_scale, pad_rows=pad)
+                                   dt_scale=dt_scale, pad_rows=pad,
+                                   shape=shape)
         y, st, dec, sd = ssd_chunk_scan(xdt, dA, B, C,
                                         out_dtype=torch.float32,
                                         state_decay=True)
@@ -580,7 +702,7 @@ def phase_ssd(torch, device):
                 e_dec <= bound["decay"] and e_sd <= bound["state_decay"]
         ok = ok and finite
         emit({"phase": "kernels", "kernel": "ssd_chunk_scan", "nc": nc,
-              "Q": SSD_Q, "H": SSD_H, "P": SSD_P, "N": SSD_N, "dtype": dt,
+              **dict(zip("QHPN", shape)), "dtype": dt,
               "dt_scale": dt_scale, "padded_rows": pad, "min_cumsum": cs_min,
               "max_abs_err_y": e_y, "max_abs_err_states": e_st,
               "max_abs_err_decay": e_dec, "max_abs_err_state_decay": e_sd,
@@ -596,13 +718,18 @@ def phase_ssd(torch, device):
     return worst
 
 
-def make_requests(cfg, request_cls):
+def make_requests(cfg, request_cls, prompt_range=PROMPT_RANGE,
+                  fixed_lengths=()):
+    """3 tenants x 4 requests, prompt lengths drawn from ``prompt_range``
+    (inclusive) but for the first ones, which take ``fixed_lengths``."""
     import random
     rng = random.Random(SEED)
     reqs = []
     for i in range(REQUESTS_PER_TENANT):
         for tenant in range(TENANTS):
-            n = rng.randint(*PROMPT_RANGE)
+            n = rng.randint(*prompt_range)
+            if len(reqs) < len(fixed_lengths):
+                n = fixed_lengths[len(reqs)]
             prompt = [rng.randrange(cfg.vocab_size) for _ in range(n)]
             reqs.append(request_cls(tenant_id=tenant, prompt=prompt,
                                     max_new_tokens=NEW_TOKENS,
@@ -611,20 +738,27 @@ def make_requests(cfg, request_cls):
 
 
 def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
-                decode_kernels, prefill_lens=(PROMPT_RANGE[1],)):
-    """Serve 3 tenants x 4 requests until drained. ``prefill_kernels`` and
-    ``decode_kernels`` map a kernel's name to its wrapper: each must have
-    launched once per layer per admission (prefill) or per decode step.
-    Returns the engine and the launch counts of this run."""
+                decode_kernels, prefill_lens=(PROMPT_RANGE[1],), *,
+                max_seq: int = 1024, prompt_range=PROMPT_RANGE,
+                fixed_lengths=()):
+    """Serve 3 tenants x 4 requests until drained, prompts drawn from
+    ``prompt_range`` (``make_requests``) into 8 slots of ``max_seq``.
+    ``prefill_kernels`` and ``decode_kernels`` map a kernel's name to its
+    wrapper: each must have launched once per layer per admission
+    (prefill) or per decode step. Returns the engine, the launch counts of
+    this run and the positions each decode step ran at (its active
+    slots')."""
     from repro_torch.configs import RunConfig
     from repro_torch.control import RateController
     from repro_torch.models import forward_prefill, init_params
     from repro_torch.serve import Request, ServeEngine, TenantScheduler
+    from repro_torch.serve import engine as engine_mod
     kernels = {**prefill_kernels, **decode_kernels}
 
     t0 = time.perf_counter()
     mem = torch.cuda.memory_allocated
     memory = {"allocated_before_init": mem()}
+    torch.cuda.reset_peak_memory_stats()   # the init peak is this model's
     params = init_params(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(SEED))
     torch.cuda.synchronize()
@@ -634,15 +768,24 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
     sched = TenantScheduler(policy="wfq", charge_prompt=True)
     ctrl = RateController(1e6, alpha=0.6)    # tokens/s: admits everything,
     ctrl.attach_scheduler(sched)             # still ticks and pushes rates
-    eng = ServeEngine(cfg, RunConfig(), params, batch_slots=8, max_seq=1024,
-                      scheduler=sched, controller=ctrl, control_every=4)
+    eng = ServeEngine(cfg, RunConfig(), params, batch_slots=8,
+                      max_seq=max_seq, scheduler=sched, controller=ctrl,
+                      control_every=4)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     memory["cache_bytes"] = eng._cache_bytes()
     memory["allocated_after_engine"] = mem()
     memory["max_memory_allocated_init"] = torch.cuda.max_memory_allocated()
-    reqs = make_requests(cfg, Request)
+    reqs = make_requests(cfg, Request, prompt_range, fixed_lengths)
     torch.cuda.reset_peak_memory_stats()
+    # the active slots' positions at each decode step, read off the slot
+    # table as the engine calls its decode (no device read)
+    decode_pos = []
+    decode = engine_mod.forward_decode
+
+    def recorded(*args, **kw):
+        decode_pos.append([s.pos for s in eng.slots if s.active])
+        return decode(*args, **kw)
 
     for fn in kernels.values():
         fn.launches = 0
@@ -652,17 +795,24 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
         eng.submit(r)
     decode_only = []    # (seconds, active slots) of steps that admitted none
     steps = 0
-    while sched.pending() or any(s.active for s in eng.slots):
-        a0 = eng.admissions
-        ts = time.perf_counter()
-        n = eng.step()
-        dt = time.perf_counter() - ts
-        if eng.admissions == a0 and n:
-            decode_only.append((dt, n))
-        steps += 1
-        if steps > 10000:
-            raise AssertionError("engine did not drain")
+    engine_mod.forward_decode = recorded
+    try:
+        while sched.pending() or any(s.active for s in eng.slots):
+            a0 = eng.admissions
+            ts = time.perf_counter()
+            n = eng.step()
+            dt = time.perf_counter() - ts
+            if eng.admissions == a0 and n:
+                decode_only.append((dt, n))
+            steps += 1
+            if steps > 10000:
+                raise AssertionError("engine did not drain")
+    finally:
+        engine_mod.forward_decode = decode
     run_s = time.perf_counter() - t_run
+    if len(decode_pos) != eng.decode_steps:
+        raise AssertionError(f"{len(decode_pos)} decodes recorded, "
+                             f"{eng.decode_steps} steps")
     launches = {name: fn.launches for name, fn in kernels.items()}
 
     done = eng.completed
@@ -708,6 +858,8 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
            "requests": len(reqs), "completed": len(done),
            "admissions": eng.admissions, "decode_steps": eng.decode_steps,
            "launches": launches, "ledger": ledger,
+           "decode_positions": [min(min(p) for p in decode_pos),
+                                max(max(p) for p in decode_pos)],
            "controller_ticks": ctrl.ticks, "init_s": init_s,
            "run_s": run_s,
            "decode_tok_s": dec_tokens / dec_s if dec_s else None,
@@ -717,7 +869,7 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
            "slot_utilization": eng.slot_utilization(),
            "memory": memory, "max_memory_allocated": peak, "ok": True}
     emit(out)
-    return eng, launches
+    return eng, launches, decode_pos
 
 
 def _device_us(evt) -> float:
@@ -771,9 +923,11 @@ def _profile(torch, fn, top: int = 8, kernel=None):
     return out
 
 
-def phase_profile(torch, device, eng, kernel=None):
+def phase_profile(torch, device, eng, kernel=None, prompt_len: int = 256,
+                  prefill_len: int = PROMPT_RANGE[1]):
     """Where a decode step and a prefill spend their time (torch.profiler
-    over the port's own entry points, all 8 slots busy). ``kernel``: the
+    over the port's own entry points, all 8 slots busy with prompts of
+    ``prompt_len`` tokens; a prefill of ``prefill_len``). ``kernel``: the
     prefill's own scan kernel (a name substring), whose share of the
     prefill's device time is reported; its prefill must run no separate
     ``aten::cumsum`` (the scan returns the in-chunk decays)."""
@@ -781,7 +935,7 @@ def phase_profile(torch, device, eng, kernel=None):
     from repro_torch.serve import Request
     rng = torch.Generator().manual_seed(SEED + 3)
     for i in range(eng.B):
-        prompt = torch.randint(0, eng.cfg.vocab_size, (256,),
+        prompt = torch.randint(0, eng.cfg.vocab_size, (prompt_len,),
                                generator=rng).tolist()
         eng.submit(Request(tenant_id=i % TENANTS, prompt=prompt,
                            max_new_tokens=16, req_id=1000 + i))
@@ -793,14 +947,14 @@ def phase_profile(torch, device, eng, kernel=None):
         for _ in range(4):
             eng.step()
     decode = _profile(torch, decode4)
-    prompt = torch.randint(0, eng.cfg.vocab_size, (1, PROMPT_RANGE[1]),
+    prompt = torch.randint(0, eng.cfg.vocab_size, (1, prefill_len),
                            generator=rng).to(device)
     prefill = _profile(torch, lambda: forward_prefill(
         eng.params, prompt, eng.rcfg, max_seq=eng.max_seq), kernel=kernel)
     eng.run_until_drained()
     emit({"phase": "profile", "model": eng.cfg.name,
           "decode_4_steps_B8": decode,
-          f"prefill_S{PROMPT_RANGE[1]}": prefill})
+          f"prefill_S{prefill_len}": prefill})
     if kernel and (prefill["aten_cumsum_calls"]
                    or not prefill.get("kernel_ms")):
         raise AssertionError(f"{eng.cfg.name} prefill: "
@@ -809,19 +963,20 @@ def phase_profile(torch, device, eng, kernel=None):
 
 
 def parity_logits(torch, device, params, max_seq: int, paths, tokens=None,
-                  cache_dtype: str = "bfloat16"):
-    """One 300-token prompt's prefill + 4 decode steps of ``params`` on each
-    of ``paths`` (name -> RunConfig), each into a cache made by
-    ``init_cache`` in ``cache_dtype`` (per-leaf dtypes: an SSM state is
-    f32). Teacher-forced: every path decodes ``tokens``, by default the
-    first path's greedy tokens. Returns (name -> the 5 logit rows in f32,
-    the 4 tokens)."""
+                  cache_dtype: str = "bfloat16", prompt_len: int = 300):
+    """One ``prompt_len``-token prompt's prefill + 4 decode steps of
+    ``params`` on each of ``paths`` (name -> RunConfig), each into a cache
+    made by ``init_cache`` in ``cache_dtype`` (per-leaf dtypes: an SSM
+    state is f32). Teacher-forced: every path decodes ``tokens``, by
+    default the first path's greedy tokens. Returns (name -> the 5 logit
+    rows in f32, the 4 tokens)."""
     from repro_torch.models import forward_decode, forward_prefill, \
         init_cache
     cfg = params.cfg
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 300), generator=gen,
-                           device=device, dtype=torch.int64).int()
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           generator=gen, device=device,
+                           dtype=torch.int64).int()
     runs = {}
     for name, rc in paths.items():
         logits, c1 = forward_prefill(params, prompt, rc, max_seq=max_seq)
@@ -1107,6 +1262,191 @@ def phase_parity_ssm(torch, device, eng):
     if not all(checks.values()):
         raise AssertionError(f"{cfg.name} parity: {checks}, per-layer "
                              f"{layer_err}, f32 {max(rel32)}")
+
+
+def phase_parity_hybrid(torch, device, eng):
+    """hymba-1.5b's kernel path against its plain path over a
+    ``HYBRID_PARITY_PROMPT``-token prompt (past the window, so its windowed
+    layers decode from rings that rolled) and 4 decode steps:
+
+    * bf16, per launch, asserted: every flash, SSD scan and decode launch
+      of the kernel path held against its plain version on the same inputs
+      (max |d| / max |plain| within ``FLASH_TOL``, ``SSD_TOL`` and
+      ``DECODE_TOL``; the SSD decays within ``SSD_TOL_DECAY``);
+    * f32, end to end, asserted: the same weights widened to f32 with an
+      f32 cache (ROADMAP P14), all 32 layers: tokens identical, logits
+      within ``VLM_F32_TOL`` of max |logit|, every launch on the kernels;
+    * bf16, end to end, reported: the logits' gap beside the model's own
+      bf16 noise floor (the plain path against itself with every flash,
+      decode and scan output nudged by 2^-8 relative, about one bf16 ulp),
+      all decoding the same tokens."""
+    import dataclasses
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
+        ssd_chunk_scan_plain
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm as ssm_mod
+    cfg = eng.cfg
+    kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
+    flash_k, dec_k, scan_k = attn.flash_attention, attn.decode_kernel, \
+        ssm_mod.ssd_chunk_scan
+    flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
+    dec_ring_p, scan_p = attn.decode_attention, ssm_mod.ssd_chunk_scan_plain
+    err = {"flash_attention": [], "decode_attention": [],
+           "ssd_chunk_scan": [], "ssd_decays": []}
+
+    def flash_checked(q, k, v, **kw):
+        o = flash_k(q, k, v, **kw)
+        err["flash_attention"].append(rel_err(o, flash_p(q, k, v, **kw)))
+        return o
+
+    def decode_checked(q, k, v, pos, **kw):
+        out = dec_k(q, k, v, pos, **kw)
+        err["decode_attention"].append(
+            rel_err(out[0], dec_p(q, k, v, pos, **kw)[0]))
+        return out
+
+    def scan_checked(xdt, dA, B, C, **kw):
+        out = scan_k(xdt, dA, B, C, **kw)
+        want = ssd_chunk_scan_plain(xdt, dA, B, C, **kw)
+        err["ssd_chunk_scan"].append(max(rel_err(a, b) for a, b in
+                                         zip(out[:2], want[:2])))
+        err["ssd_decays"].append(max((a - b).abs().max().item() for a, b
+                                     in zip(out[2:], want[2:])))
+        return out
+
+    nudge = 1 + 2 ** -8
+
+    def flash_nudged(*args, **kw):
+        return flash_p(*args, **kw) * nudge
+
+    def decode_nudged(*args, **kw):
+        o, *rest = dec_p(*args, **kw)
+        return (o * nudge, *rest)
+
+    def decode_ring_nudged(*args, **kw):
+        return dec_ring_p(*args, **kw) * nudge
+
+    def scan_nudged(*args, **kw):
+        y, *rest = scan_p(*args, **kw)
+        return (y * nudge, *rest)
+
+    def run(params, paths, **kw):
+        return parity_logits(torch, device, params, eng.max_seq, paths,
+                             prompt_len=HYBRID_PARITY_PROMPT, **kw)
+
+    attn.flash_attention, attn.decode_kernel = flash_checked, decode_checked
+    ssm_mod.ssd_chunk_scan = scan_checked
+    try:
+        bf16, tokens = run(eng.params, {"kernel": kernel, "plain": plain})
+    finally:
+        attn.flash_attention, attn.decode_kernel = flash_k, dec_k
+        ssm_mod.ssd_chunk_scan = scan_k
+    # the plain path's decode: the kernel's plain version at the global
+    # layers, the reference's kv_pos decode at the ring layers
+    attn.flash_attention_plain, attn.decode_attention_plain, \
+        attn.decode_attention = flash_nudged, decode_nudged, \
+        decode_ring_nudged
+    ssm_mod.ssd_chunk_scan_plain = scan_nudged
+    try:
+        nudged = run(eng.params, {"plain": plain}, tokens=tokens)[0]["plain"]
+    finally:
+        attn.flash_attention_plain, attn.decode_attention_plain, \
+            attn.decode_attention = flash_p, dec_p, dec_ring_p
+        ssm_mod.ssd_chunk_scan_plain = scan_p
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    m32 = Model(cfg32, device=device)
+    m32.load_state_dict(eng.params.state_dict())     # widened, exactly
+    counters = (flash_attention, decode_attention, ssd_chunk_scan)
+    for fn in counters:
+        fn.launches = 0
+    f32, _ = run(m32, {"kernel": kernel, "plain": plain},
+                 cache_dtype="float32")
+    launches32 = {fn.__name__: fn.launches for fn in counters}
+    del m32
+    layers = cfg.num_layers
+    rel32, agree32 = logit_gap(f32["kernel"], f32["plain"])
+    rel16, agree16 = logit_gap(bf16["kernel"], bf16["plain"])
+    floor, _ = logit_gap(nudged, bf16["plain"])
+    tol = {"flash_attention": FLASH_TOL["bfloat16"],
+           "decode_attention": DECODE_TOL["bfloat16"]["o"],
+           "ssd_chunk_scan": SSD_TOL["bfloat16"],
+           "ssd_decays": SSD_TOL_DECAY}
+    checks = {
+        "every_launch_checked":
+            len(err["flash_attention"]) == layers
+            and len(err["ssd_chunk_scan"]) == layers
+            and len(err["decode_attention"]) == 4 * layers,
+        **{f"bf16_{k}_per_launch": max(v) <= tol[k] for k, v in err.items()},
+        "f32_launched": launches32 == {
+            "flash_attention": layers, "ssd_chunk_scan": layers,
+            "decode_attention": 4 * layers},
+        "f32_tokens_identical": agree32 == 1.0,
+        "f32_logits": max(rel32) <= VLM_F32_TOL}
+    emit({"phase": "parity", "model": cfg.name,
+          "prompt": HYBRID_PARITY_PROMPT, "decode_steps": 4,
+          "per_launch_max_rel_err": {k: max(v) for k, v in err.items()},
+          "per_launch_tol": tol,
+          "f32_max_rel_logit_err": max(rel32),
+          "f32_per_step_rel_err": rel32, "f32_argmax_agree_share": agree32,
+          "f32_tol": VLM_F32_TOL, "f32_launches": launches32,
+          "bf16_max_rel_logit_err_not_asserted": max(rel16),
+          "bf16_per_step_rel_err": rel16, "bf16_argmax_agree_share": agree16,
+          "parity_tol": PARITY_TOL,
+          "bf16_floor_plain_vs_plain_nudged_2^-8": max(floor),
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} parity: {checks}, per launch "
+                             f"{ {k: max(v) for k, v in err.items()} }, "
+                             f"f32 {max(rel32)}")
+
+
+def phase_hybrid(torch, device, cfg=None):
+    """hymba-1.5b (``cfg``: its full-width config by default) at full
+    depth: serve (flash and the SSD scan once per layer and admission,
+    decode once per layer and step; every decode position past the ring's
+    wrap; the cache's bytes the schema's), profile, parity. Returns the
+    launch counts of the serve run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.models import build_schedule, cache_schema
+    cfg = cfg or get_config("hymba-1.5b")
+    eng, launches, decode_pos = phase_serve(
+        torch, device, cfg, cfg.num_layers,
+        {"flash_attention": flash_attention,
+         "ssd_chunk_scan": ssd_chunk_scan},
+        {"decode_attention": decode_attention},
+        prefill_lens=HYBRID_PREFILL_LENS, max_seq=HYBRID_MAX_SEQ,
+        prompt_range=HYBRID_PROMPT_RANGE, fixed_lengths=HYBRID_FIXED_LENGTHS)
+    schema_bytes = sum(
+        math.prod(d.shape) * getattr(torch, d.dtype).itemsize
+        for seg in cache_schema(cfg, eng.B, eng.max_seq,
+                                eng.rcfg.kv_cache_dtype)
+        for d in seg.values())
+    rings = [seg.count for seg in build_schedule(cfg) if seg.window]
+    checks = {"cache_bytes_are_the_schemas": eng._cache_bytes()
+              == schema_bytes,
+              "ring_layers": sum(rings)
+              == cfg.num_layers - len(cfg.global_attn_layers),
+              "every_decode_past_the_wrap": min(min(p) for p in decode_pos)
+              >= HYBRID_WINDOW}
+    emit({"phase": "serve", "model": cfg.name, "checks": checks,
+          "cache_bytes": eng._cache_bytes(), "schema_bytes": schema_bytes,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} serve: {checks}")
+    phase_profile(torch, device, eng, kernel="ssd_",
+                  prompt_len=HYBRID_PROMPT_RANGE[0],
+                  prefill_len=HYBRID_PREFILL_LENS[-1])
+    phase_parity_hybrid(torch, device, eng)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 def control_trace(np, n: int, seed: int = 0):
@@ -2309,6 +2649,74 @@ def phase_fairness(torch, device):
     return launches
 
 
+def hybrid_attention_timings(torch, device, smi: str, timer, gen):
+    """hymba-1.5b's attention shapes (25/5 heads, d 64, bf16): flash over a
+    1536-token prompt with the 1024-token window and without (a global
+    layer); decode over 8 rings of 1024 slots at ``RING_DECODE_POS``, as
+    the path calls it (``pos_eff``, no window). Each beside its bound, its
+    plain version, ``scaled_dot_product_attention`` on the same function
+    (the window, and the ring's live slots, as a boolean mask) with the
+    backend it dispatches to, and the wrapper's host µs."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, live_mask)
+    from repro_torch.kernels.flash_attention import (
+        _mask, flash_attention, flash_attention_plain)
+    from repro_torch.models.attention import ring_slots
+    (hq, kv), d = HYBRID_HEADS, HYBRID_D
+    rows = {}
+    s = HYBRID_PROMPT_RANGE[1]
+    q, k, v = (torch.randn((1, s, h, d), generator=gen, device=device)
+               .to(torch.bfloat16) for h in (hq, kv, kv))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    for window in (HYBRID_WINDOW, 0):
+        nbytes, flops = flash_work(1, s, s, hq, kv, d, 2, True, window)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        lib = library_row(torch, timer, qt, kt, vt, attn_mask=_mask(
+            s, s, causal=True, window=window, q_offset=0, device=device),
+            enable_gqa=True) if window else library_row(
+            torch, timer, qt, kt, vt, is_causal=True, enable_gqa=True)
+        row = {"phase": "timings", "kernel": "flash_attention",
+               "model": "hymba-1.5b", "S": s, "hq": hq, "kv": kv, "d": d,
+               "window": window, "dtype": "bfloat16",
+               "ms": timer.ms(lambda: flash_attention(q, k, v,
+                                                      window=window)),
+               "plain_ms": timer.ms(lambda: flash_attention_plain(
+                   q, k, v, window=window)), **lib,
+               "host_us": host_us(torch, lambda: flash_attention(
+                   q, k, v, window=window)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("flash_attention", "hymba", window)] = row
+    b, t = 8, HYBRID_WINDOW
+    pos = torch.tensor(RING_DECODE_POS, dtype=torch.int32, device=device)
+    at = ring_slots(pos, t).pos_eff
+    q = torch.randn((b, hq, d), generator=gen,
+                    device=device).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, t, kv, d), generator=gen, device=device)
+              .to(torch.bfloat16) for _ in range(2))
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    nbytes, flops = decode_work(at.tolist(), t, hq, kv, d, 2, 2)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    row = {"phase": "timings", "kernel": "decode_attention",
+           "model": "hymba-1.5b", "B": b, "T": t, "hq": hq, "kv": kv,
+           "d": d, "pos": "ring", "positions": list(RING_DECODE_POS),
+           "kernel_positions": at.tolist(), "dtype": "bfloat16",
+           "ms": timer.ms(lambda: decode_attention(q, kc, vc, at)),
+           "plain_ms": timer.ms(
+               lambda: decode_attention_plain(q, kc, vc, at)),
+           **library_row(torch, timer, q[:, :, None, :], kt, vt,
+                         attn_mask=live_mask(at, t)[:, None, None, :],
+                         enable_gqa=True),
+           "host_us": host_us(torch, lambda: decode_attention(q, kc, vc,
+                                                              at)),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops, "gpu": smi}
+    emit(row)
+    rows[("decode_attention", "hymba")] = row
+    return rows
+
+
 def phase_timings(torch, device, smi: str):
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain, live_mask)
@@ -2366,6 +2774,7 @@ def phase_timings(torch, device, smi: str):
                "flops": flops, "gpu": smi}
         emit(row)
         rows[("decode_attention", name)] = row
+    rows.update(hybrid_attention_timings(torch, device, smi, timer, gen))
     import numpy as np
     from repro_torch.kernels.waterfill import water_fill, water_fill_plain
     # the fairness and replay phases' 3- and 4-tenant problems (most of
@@ -2409,6 +2818,23 @@ def phase_timings(torch, device, smi: str):
                "bytes": nbytes, "flops": flops, "gpu": smi}
         emit(row)
         rows[("ssd_chunk_scan", nc)] = row
+    xdt, dA, B, C = ssd_inputs(torch, gen, device, HYBRID_SSD_CHUNKS,
+                               "bfloat16", shape=HYBRID_SSD)
+    nbytes, flops = ssd_work(HYBRID_SSD_CHUNKS, 2, HYBRID_SSD)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    row = {"phase": "timings", "kernel": "ssd_chunk_scan", "model":
+           "hymba-1.5b", "nb": 1, "nc": HYBRID_SSD_CHUNKS,
+           "tokens": HYBRID_SSD_CHUNKS * HYBRID_SSD[0],
+           **dict(zip("QHPN", HYBRID_SSD)), "dtype": "bfloat16",
+           "out_dtype": "float32", "state_decay": True,
+           "ms": timer.ms(lambda: ssd_chunk_scan(
+               xdt, dA, B, C, out_dtype=torch.float32, state_decay=True)),
+           "plain_ms": timer.ms(lambda: ssd_chunk_scan_plain(
+               xdt, dA, B, C, out_dtype=torch.float32, state_decay=True)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops, "gpu": smi}
+    emit(row)
+    rows[("ssd_chunk_scan", "hymba")] = row
     from repro_torch.kernels.quant_comm import (
         dequantize_int8, dequantize_int8_plain, quantize_int8,
         quantize_int8_plain)
@@ -2488,7 +2914,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
     cfg = get_config("llama3.2-3b")
-    eng, launches = phase_serve(
+    eng, launches, _ = phase_serve(
         torch, device, cfg, cfg.num_layers,
         {"flash_attention": flash_attention},
         {"decode_attention": decode_attention})
@@ -2500,7 +2926,7 @@ def main() -> int:
     # the ssm family: full-width mamba2-370m, its prefill through the SSD
     # scan kernel, its decode an O(1) state update in plain torch
     ssm_cfg = get_config("mamba2-370m")
-    eng, ssm_launches = phase_serve(
+    eng, ssm_launches, _ = phase_serve(
         torch, device, ssm_cfg, ssm_cfg.num_layers,
         {"ssd_chunk_scan": ssd_chunk_scan}, {},
         prefill_lens=SSM_PREFILL_LENS)
@@ -2520,7 +2946,7 @@ def main() -> int:
     if left >= 1 << 30:
         raise AssertionError(f"{left} bytes still allocated before "
                              f"{vlm_cfg.name}'s weights")
-    eng, vlm_launches = phase_serve(
+    eng, vlm_launches, _ = phase_serve(
         torch, device, vlm_cfg, vlm_cfg.num_layers,
         {"flash_attention": flash_attention},
         {"decode_attention": decode_attention})
@@ -2533,6 +2959,14 @@ def main() -> int:
     phase_parity_f32(torch, device, vlm_cfg, VLM_F32_LAYERS)
     torch.cuda.empty_cache()
     seconds["vlm"] = time.perf_counter() - t_phase
+
+    # the hybrid family: full-width hymba-1.5b at full depth, every layer's
+    # prefill through flash and the SSD scan, its decode through the decode
+    # kernel over rings in the 29 windowed layers
+    t_phase = time.perf_counter()
+    for k, v in phase_hybrid(torch, device).items():
+        launches[k] += v
+    seconds["hybrid"] = time.perf_counter() - t_phase
 
     # the control path's two entry points: the fused tick at fleet scale
     # and the replay harness; their water-fill launches add up

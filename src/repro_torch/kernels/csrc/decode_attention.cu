@@ -665,6 +665,7 @@ int dispatch_g(int G, const Args& a) {
     NK_G(2)
     NK_G(3)
     NK_G(4)
+    NK_G(5)
     NK_G(6)
     NK_G(8)
     default:

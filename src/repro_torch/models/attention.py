@@ -17,6 +17,15 @@ how a run holds the kernel path against the plain one at full width.
 the plain ports of the reference's cores, held against it by the parity
 tests.
 
+A windowed layer whose cache holds no more slots than the window keeps a
+ring buffer, as in the reference: decode writes position ``pos`` into slot
+``pos % n_slots``. Slot ``j`` then holds position ``pos - ((pos - j) mod
+n_slots)``, which is live (not ahead of ``pos``, not negative, inside the
+window) exactly when ``j <= min(pos, n_slots - 1)``. Softmax does not
+depend on the order of its terms, so the kernel reads the ring as a linear
+cache at ``pos_eff = min(pos, n_slots - 1)`` with no window; the plain
+path masks by the reference's absolute positions instead.
+
 On one device the query heads are never padded (the reference's
 ``padded_heads`` returns ``h``), so the head mask is all ones and is not
 applied on the path; ``head_mask``/``q_to_kv_map`` keep the reference's
@@ -25,7 +34,7 @@ general definitions.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -209,6 +218,40 @@ def decode_attention(q, k_cache, v_cache, pos, *, kv_map, window=0,
 
 
 # ---------------------------------------------------------------------------
+# Ring-buffer window caches
+# ---------------------------------------------------------------------------
+
+
+class RingSlots(NamedTuple):
+    """A ring decode's slots for one step, shared by a segment's layers:
+    ``slot`` (B,) int64, where the new row goes; ``pos_eff`` (B,) int32,
+    the last live slot, which the kernel reads as a linear cache's
+    position; ``kv_pos`` (B, n_slots), the absolute position each slot
+    holds, for the plain path (None unless asked for)."""
+    slot: torch.Tensor
+    pos_eff: torch.Tensor
+    kv_pos: Optional[torch.Tensor]
+
+
+def is_ring(window: int, n_slots: int) -> bool:
+    """A windowed cache of no more slots than the window is a ring (the
+    reference's test; with ``max_seq <= window`` it is the linear layout)."""
+    return bool(window) and n_slots <= window
+
+
+def ring_slots(pos: torch.Tensor, n_slots: int, *,
+               kv_pos: bool = False) -> RingSlots:
+    """The ring slots of decode positions ``pos`` (B,) int32."""
+    p = pos.long()
+    held = None
+    if kv_pos:
+        j = torch.arange(n_slots, device=pos.device)[None, :]
+        held = p[:, None] - torch.remainder(p[:, None] - j, n_slots)
+    return RingSlots(torch.remainder(p, n_slots),
+                     pos.clamp(max=n_slots - 1), held)
+
+
+# ---------------------------------------------------------------------------
 # Full GQA attention block (projections + core + out-proj)
 # ---------------------------------------------------------------------------
 
@@ -227,14 +270,16 @@ def _out(o, w):
 
 def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                   window=0, cache: Optional[Dict] = None, decode_pos=None,
-                  return_cache=False):
+                  ring: Optional[RingSlots] = None, return_cache=False):
     """Unified GQA attention.
 
     Prefill: ``positions`` (S,); returns out (B,S,d) [and {"k", "v"} in
     x's dtype when ``return_cache``]. Decode: pass ``cache`` ({"k", "v"},
-    each (B, max_seq, KV, hd)) and ``decode_pos`` (B,) int32; x is
+    each (B, n_slots, KV, hd)) and ``decode_pos`` (B,) int32; x is
     (B,1,d). Returns (out, cache) with the new token's k/v written into
-    the cache rows in place."""
+    the cache rows in place. A ring cache (``is_ring``) takes its slots
+    from ``ring`` where the caller computed them once for many layers,
+    else computes them here."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     naive = rcfg.attention_impl == "naive"
     q = _heads(x, p["wq"])
@@ -265,22 +310,27 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
         q = apply_rope(q, cos, sin)
         knew = apply_rope(knew, cos, sin)
     k_c, v_c = cache["k"], cache["v"]
-    if window and k_c.shape[1] <= window:
-        raise NotImplementedError(
-            "ring-buffer window caches are not ported yet; they come with "
-            "the hybrid family (ROADMAP: ring kv_pos decode)")
+    n_slots = k_c.shape[1]
+    if ring is None and is_ring(window, n_slots):
+        ring = ring_slots(decode_pos, n_slots, kv_pos=naive)
     # In-place row write. The reference rebuilds the whole cache with a
     # one-hot where (a scatter would make its partitioner all-gather a
     # sequence-sharded cache); on one device the row write saves a full
     # cache copy per layer per step.
     rows = torch.arange(b, device=x.device)
-    slot = decode_pos.long()
+    slot = decode_pos.long() if ring is None else ring.slot
     k_c[rows, slot] = knew[:, 0].to(k_c.dtype)
     v_c[rows, slot] = vnew[:, 0].to(v_c.dtype)
     # the kernel reads the (bf16) cache and upcasts it inside, as the
     # reference decodes against the cache cast to x's dtype
+    if ring is not None and naive:
+        o = decode_attention(q, k_c, v_c, decode_pos,
+                             kv_map=q_to_kv_map(h, h, kv, x.device),
+                             window=window, kv_pos=ring.kv_pos)
+        return _out(o, p["wo"]), {"k": k_c, "v": v_c}
     decode = decode_attention_plain if naive else decode_kernel
-    o, _, _ = decode(q[:, 0].contiguous(), k_c, v_c,
-                     decode_pos.to(torch.int32), window=window)
+    at, win = (decode_pos.to(torch.int32), window) if ring is None \
+        else (ring.pos_eff, 0)
+    o, _, _ = decode(q[:, 0].contiguous(), k_c, v_c, at, window=win)
     o = o[:, None]
     return _out(o, p["wo"]), {"k": k_c, "v": v_c}

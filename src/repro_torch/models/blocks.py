@@ -1,10 +1,12 @@
-"""Block composition; the port has the ``dense`` and ``ssm`` kinds.
+"""Block composition: the ``dense``, ``ssm`` and ``hybrid`` kinds.
 
 The counterpart of ``repro/models/blocks.py``: ``dense`` is a pre-norm
 attention half plus a pre-norm MLP half (llama, internlm2, granite,
 nemotron, chameleon); ``ssm`` is a pre-norm Mamba-2 block and no FFN half
-(mamba2). The other kinds (moe, dense_prefix, hybrid, enc, dec) come with
-their families.
+(mamba2); ``hybrid`` feeds one pre-norm output to attention and to a
+Mamba-2 block in parallel, averages the two after a norm each, then runs
+the MLP half (hymba). The other kinds (moe, dense_prefix, enc, dec) come
+with their families.
 """
 from __future__ import annotations
 
@@ -13,13 +15,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attn_schema, gqa_attention
+from repro_torch.models.attention import RingSlots, attn_schema, \
+    gqa_attention
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_schema, \
     norm_schema
 from repro_torch.models.schema import ParamDesc
 from repro_torch.models.ssm import ssm_block, ssm_cache_schema, ssm_schema
 
-KINDS = ("dense", "ssm")
+KINDS = ("dense", "ssm", "hybrid")
 
 
 def check_kind(kind: str) -> str:
@@ -39,9 +42,13 @@ def block_schema(cfg: ModelConfig, kind: str) -> Dict:
         raise NotImplementedError(
             "MLA attention is not ported yet (ROADMAP: other model "
             "families, mla_attention)")
-    return {"ln1": norm_schema(d, nk, pd), "attn": attn_schema(cfg),
-            "ln2": norm_schema(d, nk, pd),
-            "mlp": mlp_schema(d, cfg.d_ff, cfg.activation, pd)}
+    s = {"ln1": norm_schema(d, nk, pd), "attn": attn_schema(cfg)}
+    if kind == "hybrid":
+        s.update(ssm=ssm_schema(cfg), attn_out_norm=norm_schema(d, nk, pd),
+                 ssm_out_norm=norm_schema(d, nk, pd))
+    s.update(ln2=norm_schema(d, nk, pd),
+             mlp=mlp_schema(d, cfg.d_ff, cfg.activation, pd))
+    return s
 
 
 def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
@@ -53,18 +60,24 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
         return ssm_cache_schema(cfg, batch, dtype)
     n = min(seq, window) if window else seq
     shape = (batch, n, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": ParamDesc(shape, dtype, "zeros"),
-            "v": ParamDesc(shape, dtype, "zeros")}
+    s = {"k": ParamDesc(shape, dtype, "zeros"),
+         "v": ParamDesc(shape, dtype, "zeros")}
+    if kind == "hybrid":
+        s.update(ssm_cache_schema(cfg, batch, dtype))
+    return s
 
 
 def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                 positions=None, window: int = 0,
                 cache: Optional[Dict] = None, decode_pos=None,
+                ring: Optional[RingSlots] = None,
                 mode: str = "prefill") -> Tuple[torch.Tensor, Dict]:
     """One layer. ``mode`` is "prefill" (returns the layer's new cache: k/v,
-    or the SSM state and conv tails) or "decode" (writes the new token's
-    k/v, or the new SSM state and conv tails, into ``cache`` in place and
-    returns it). Returns (x', cache)."""
+    the SSM state and conv tails, or both) or "decode" (writes the new
+    token's k/v and the new SSM state and conv tails into ``cache`` in
+    place and returns it). ``ring``: a windowed decode's ring slots,
+    computed once for the layer's segment (``attention.ring_slots``).
+    Returns (x', cache)."""
     check_kind(kind)
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
@@ -73,14 +86,22 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
         y, new_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
                                  decode=mode == "decode")
         return x + y, new_cache
-    if mode == "decode":
+    decode = mode == "decode"
+    if decode:
         a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
                                      positions=positions, window=window,
-                                     cache=cache, decode_pos=decode_pos)
+                                     cache=cache, decode_pos=decode_pos,
+                                     ring=ring)
     else:
         a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
                                      positions=positions, window=window,
                                      return_cache=True)
+    if kind == "hybrid":
+        s, ssm_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
+                                 decode=decode)
+        a = 0.5 * (apply_norm(p["attn_out_norm"], a, cfg.norm)
+                   + apply_norm(p["ssm_out_norm"], s, cfg.norm))
+        new_cache = {**new_cache, **ssm_cache}
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm)
     return x + apply_mlp(p["mlp"], h, cfg.activation), new_cache

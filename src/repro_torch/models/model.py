@@ -5,13 +5,17 @@ segments, each ``count`` layers of one block kind; where the reference
 stacks a segment's parameters over its layers and scans them, the port
 keeps one ``nn.Module`` per layer and loops. Caches keep the reference's
 layout: a tuple with one dict per segment, each leaf stacked over the
-segment's layers in its own dtype: attention k/v ``(L, B, max_seq, KV, hd)``
-in the cache dtype, an SSM layer's ``state`` ``(L, B, H, P, N)`` in f32 and
-its ``conv_*`` tails ``(L, B, W-1, C)`` in the cache dtype. The port has the
-``dense``, ``vlm`` and ``ssm`` families; asking for any other raises. A
-``vlm`` model (chameleon) is scheduled as plain ``dense``, as in the
-reference: its frontend is a stub, token ids in, and its q/k norms live in
-the attention block.
+segment's layers in its own dtype: attention k/v ``(L, B, n_slots, KV,
+hd)`` in the cache dtype, an SSM layer's ``state`` ``(L, B, H, P, N)`` in
+f32 and its ``conv_*`` tails ``(L, B, W-1, C)`` in the cache dtype.
+``n_slots`` is ``max_seq``, or ``min(max_seq, window)`` for a windowed
+segment, whose cache is then a ring (``attention.is_ring``). The port has
+the ``dense``, ``vlm``, ``ssm`` and ``hybrid`` families; asking for any
+other raises. A ``vlm`` model (chameleon) is scheduled as plain ``dense``,
+as in the reference: its frontend is a stub, token ids in, and its q/k
+norms live in the attention block. A ``hybrid`` model (hymba) runs its
+global-attention layers as one-layer segments and each run of windowed
+layers between them as one segment.
 """
 from __future__ import annotations
 
@@ -24,15 +28,17 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.models.attention import is_ring, ring_slots
 from repro_torch.models.blocks import apply_block, block_cache_schema, \
     block_schema
 from repro_torch.models.layers import apply_norm, embed_schema, \
     embed_tokens, lm_logits, norm_schema
 from repro_torch.models.schema import ParamTree
 
-FAMILIES = ("dense", "vlm", "ssm")
-# cache leaves laid out along the sequence (padded to max_seq at prefill);
-# the others (SSM state, conv tails) are per-sequence and pass through
+FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+# cache leaves laid out along the sequence (padded to max_seq, or turned
+# into a ring, at prefill); the others (SSM state, conv tails) are
+# per-sequence and pass through
 SEQ_LEAVES = ("k", "v")
 
 
@@ -56,6 +62,20 @@ def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
     check_family(cfg)
     if cfg.family == "ssm":
         return (Segment("ssm", cfg.num_layers),)
+    if cfg.family == "hybrid":
+        segs: List[Segment] = []
+        i = 0
+        while i < cfg.num_layers:
+            if i in cfg.global_attn_layers:
+                segs.append(Segment("hybrid", 1))
+                i += 1
+                continue
+            j = i
+            while j < cfg.num_layers and j not in cfg.global_attn_layers:
+                j += 1
+            segs.append(Segment("hybrid", j - i, window=cfg.attn_window))
+            i = j
+        return tuple(segs)
     return (Segment("dense", cfg.num_layers),)
 
 
@@ -138,27 +158,61 @@ def check_prompt(cfg: ModelConfig, s: int, max_seq: int) -> None:
             f"decodes from")
 
 
+def keeps_ring(seg: Segment, max_seq: int) -> bool:
+    """A windowed segment's prefill turns its k/v into a ring of
+    ``min(window, S)`` slots when the window is below ``max_seq`` (the
+    reference's test); otherwise it zero-pads them to ``max_seq``."""
+    return bool(seg.window) and seg.window < max_seq
+
+
+def check_slot_prompt(cfg: ModelConfig, s: int, max_seq: int) -> None:
+    """``check_prompt``, and the limit of an engine's slot install: where
+    a windowed segment keeps a ring (``window < max_seq``), a slot holds
+    ``window`` rows, and a prefill of ``s < window`` tokens gives a ring of
+    ``s`` rows (valid at model level, as in the reference, whose engine
+    fails to install it: ROADMAP R7)."""
+    check_prompt(cfg, s, max_seq)
+    if any(keeps_ring(seg, max_seq) for seg in build_schedule(cfg)) \
+            and s < cfg.attn_window:
+        raise ValueError(
+            f"{cfg.name}: prompt of {s} tokens is shorter than attn_window "
+            f"= {cfg.attn_window}, the ring a slot of max_seq {max_seq} "
+            f"holds")
+
+
+def to_ring(kv: torch.Tensor, window: int) -> torch.Tensor:
+    """A prefill's k or v ``(B, S, ...)`` in the ring layout ``(B, w, ...)``,
+    ``w = min(window, S)``: the last ``w`` positions, rolled so that
+    position ``t`` sits in slot ``t % w`` (the reference's
+    ``_to_ring_stacked``)."""
+    s = kv.shape[1]
+    w = min(window, s)
+    tail = kv[:, s - w:]
+    return torch.roll(tail, s % w, dims=1) if s % w else tail
+
+
 def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
                             max_seq: int) -> Dict:
     """Stack one segment's per-layer prefill caches over its layers: k/v to
     (L, B, max_seq, KV, hd), zero-padded past the prompt's ``s`` positions
-    (the decode layout); per-sequence leaves (SSM state, conv tails) as
-    they are."""
-    if seg.window and seg.window < max_seq:
-        raise NotImplementedError(
-            "ring-buffer window caches are not ported yet (ROADMAP: ring "
-            "kv_pos decode)")
+    (the decode layout), or to a ring where the segment ``keeps_ring``
+    (``to_ring``); per-sequence leaves (SSM state, conv tails) as they
+    are."""
+    ring = keeps_ring(seg, max_seq)
     out = {}
     for key in layer_caches[0]:
         if key not in SEQ_LEAVES:
             out[key] = torch.stack([c[key] for c in layer_caches])
-            continue
-        first = layer_caches[0][key]
-        full = first.new_zeros((len(layer_caches), first.shape[0], max_seq)
-                               + tuple(first.shape[2:]))
-        for i, c in enumerate(layer_caches):
-            full[i, :, :s] = c[key]
-        out[key] = full
+        elif ring:
+            out[key] = torch.stack([to_ring(c[key], seg.window)
+                                    for c in layer_caches])
+        else:
+            first = layer_caches[0][key]
+            full = first.new_zeros((len(layer_caches), first.shape[0],
+                                    max_seq) + tuple(first.shape[2:]))
+            for i, c in enumerate(layer_caches):
+                full[i, :, :s] = c[key]
+            out[key] = full
     return out
 
 
@@ -195,16 +249,21 @@ def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
                    pos: torch.Tensor, rcfg: RunConfig):
     """One decode step. tokens: (B, 1); pos: (B,) int32 positions of the
     new tokens. Writes the new k/v, SSM states and conv tails into
-    ``caches`` in place; returns (logits (B, V), caches)."""
+    ``caches`` in place; returns (logits (B, V), caches). A ring segment's
+    slots are computed once for all its layers."""
     cfg = model.cfg
     x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
     layer = 0
     for seg, c_seg in zip(build_schedule(cfg), caches):
+        ring = None
+        if "k" in c_seg and is_ring(seg.window, c_seg["k"].shape[2]):
+            ring = ring_slots(pos, c_seg["k"].shape[2],
+                              kv_pos=rcfg.attention_impl == "naive")
         for i in range(seg.count):
             c_l = {k: v[i] for k, v in c_seg.items()}
             x, _ = apply_block(model.blocks[layer], x, cfg, rcfg, seg.kind,
                                positions=pos, window=seg.window, cache=c_l,
-                               decode_pos=pos, mode="decode")
+                               decode_pos=pos, ring=ring, mode="decode")
             layer += 1
     x = apply_norm(model.final_norm, x, cfg.norm)
     logits = lm_logits(model.embed, x, cfg.logit_softcap)

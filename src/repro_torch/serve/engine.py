@@ -22,7 +22,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.fabric import SchedulerServeModule
 from repro_torch.models.model import (
-    Model, cache_nbytes, check_family, check_prompt, forward_decode,
+    Model, cache_nbytes, check_family, check_slot_prompt, forward_decode,
     forward_prefill, init_cache,
 )
 from repro_torch.models.params import init_params
@@ -113,8 +113,8 @@ class ServeEngine(SchedulerServeModule):
     def submit(self, req: Request):
         """Queue one request for admission (delegates to the scheduler).
         Raises ValueError, before queueing, for a prompt no prefill can
-        serve (``models.model.check_prompt``)."""
-        check_prompt(self.cfg, len(req.prompt), self.max_seq)
+        serve or no slot can hold (``models.model.check_slot_prompt``)."""
+        check_slot_prompt(self.cfg, len(req.prompt), self.max_seq)
         self.scheduler.submit(req)
 
     def _free_slot(self) -> Optional[int]:
@@ -142,7 +142,7 @@ class ServeEngine(SchedulerServeModule):
             self.admissions += 1
             # install the single-sequence cache into slot i: the WHOLE slot
             # row, zero padding included — inactive slots decode at pos 0
-            # and would otherwise leave a stale row 0 behind
+            # (ring slot 0 too) and would otherwise leave a stale row 0 behind
             for big, one in zip(self.caches, caches1):
                 for k in big:
                     big[k][:, i].copy_(one[k][:, 0])

@@ -83,6 +83,13 @@ def cuda():
     # chameleon-34b's prefills: 64/8 heads (group 8), d 128
     (1, 509, 509, 64, 8, 128, True, 0, 0, "bfloat16"),
     (1, 64, 64, 64, 8, 128, True, 0, 0, "bfloat16"),
+    # hymba-1.5b's: 25/5 heads, d 64, the 1024-token window over prompts
+    # longer than it (a q tile's first live kv tile cut by the window's
+    # edge), a global layer, and the f32 kernel under the window
+    (1, 1536, 1536, 25, 5, 64, True, 1024, 0, "bfloat16"),
+    (1, 1100, 1100, 25, 5, 64, True, 1024, 0, "bfloat16"),
+    (1, 1536, 1536, 25, 5, 64, True, 0, 0, "bfloat16"),
+    (1, 1300, 1300, 25, 5, 64, True, 1024, 0, "float32"),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
                                             window, q_offset, dtype):
@@ -134,6 +141,11 @@ SERVE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
     ("bfloat16", "bfloat16", 64, 8, 128, 0, 1024, SERVE_POS, None),
     ("bfloat16", "bfloat16", 64, 8, 128, 0, 1024,
      (64, 132, 201, 269, 338, 406, 475, 544), None),
+    # hymba-1.5b's global layers: 25/5 heads (group 5), d 64, 2048 slots;
+    # and the f32 path
+    ("bfloat16", "bfloat16", 25, 5, 64, 0, 2048,
+     (1024, 1100, 1200, 1300, 1400, 1500, 1566, 1567), None),
+    ("float32", "float32", 25, 5, 64, 0, 1024, SERVE_POS, None),
 ])
 def test_decode_kernel_matches_plain_on_card(cuda, q_dtype, kv_dtype, hq, kv,
                                              d, window, t, pos, kv_len):
@@ -178,6 +190,45 @@ def test_decode_kernel_repeats_are_bit_identical(cuda, q_dtype, d, b):
         torch.cuda.synchronize()
         for x, y in zip(first, again):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ring_decode_at_group_5_matches_the_kv_pos_decode(cuda, dtype):
+    """hymba-1.5b's windowed decode: 8 rings of 1024 slots at 25/5 heads,
+    d 64, positions before the ring fills, at its edge and past several
+    wraps. The kernel at ``pos_eff = min(pos, 1023)`` and no window equals
+    its plain version there and the reference's decode over absolute slot
+    positions (``kv_pos``, the 1024-token window; p in f32); two calls are
+    bit-identical."""
+    from repro_torch.models.attention import decode_attention as by_kv_pos
+    from repro_torch.models.attention import q_to_kv_map, ring_slots
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dt = getattr(torch, dtype)
+    t, hq, kv, d = 1024, 25, 5, 64
+    pos = torch.tensor((1023, 1024, 1300, 1567, 0, 5, 2047, 1100),
+                       dtype=torch.int32, device=cuda)
+    b = len(pos)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((b, t, kv, d), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    ring = ring_slots(pos, t, kv_pos=True)
+    before = decode_attention.launches
+    o, m, l = decode_attention(q, k, v, ring.pos_eff)
+    again = decode_attention(q, k, v, ring.pos_eff)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    for x, y in zip((o, m, l), again):
+        assert torch.equal(x, y)
+    ro, rm, rl = decode_attention_plain(q, k, v, ring.pos_eff)
+    want = by_kv_pos(q[:, None].float(), k, v, pos,
+                     kv_map=q_to_kv_map(hq, hq, kv, cuda), window=1024,
+                     kv_pos=ring.kv_pos)[:, 0]
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(o.float(), want, rtol=tol, atol=tol)
+    torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -765,3 +816,90 @@ def test_chameleon_full_width_two_layers_kernel_vs_plain(cuda):
     for i, (a, b) in enumerate(zip(logits["kernel"], logits["plain"])):
         rel = ((a - b).abs().max() / b.abs().max()).item()
         assert rel <= TOL["bfloat16"], (i, rel)
+
+
+@pytest.mark.cuda
+def test_hymba_full_width_four_layers_kernel_vs_plain(cuda):
+    """hymba-1.5b at full width (d_model 1600, 25/5 heads, head_dim 64, SSM
+    H 50, P 64, N 16, chunk 128) and 4 layers, 0 and 3 global, 1-2 under
+    the 1024-token window: a 1300-token prefill (the rings rolled by 276)
+    and 4 decode steps at max_seq 2048 through the kernels and through the
+    plain path decoding the same tokens, logits within 2e-2 of max |logit|
+    at every step; flash and the SSD scan launched once per layer, decode
+    once per layer and step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_decode, forward_prefill, \
+        init_cache
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), num_layers=4,
+                              global_attn_layers=(0, 3))
+    model = init_params(cfg, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 1300), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    paths = {"kernel": RunConfig(), "plain": RunConfig(
+        attention_impl="naive")}
+    counters = (flash_attention, ssd_chunk_scan, decode_attention)
+    for fn in counters:
+        fn.launches = 0
+    logits, caches = {}, {}
+    for name, rc in paths.items():
+        lg, c1 = forward_prefill(model, prompt, rc, max_seq=2048)
+        cache = init_cache(cfg, 1, 2048, device=cuda)
+        assert cache[1]["k"].shape[2] == 1024
+        for big, one in zip(cache, c1):
+            for k in big:
+                big[k].copy_(one[k])
+        logits[name], caches[name] = [lg.float()], cache
+    tok = int(logits["kernel"][0].argmax())
+    for step in range(4):
+        pos = torch.tensor([1300 + step], dtype=torch.int32, device=cuda)
+        t = torch.tensor([[tok]], dtype=torch.int32, device=cuda)
+        for name, rc in paths.items():
+            lg, _ = forward_decode(model, caches[name], t, pos, rc)
+            logits[name].append(lg.float())
+        tok = int(logits["kernel"][-1].argmax())
+    assert [fn.launches for fn in counters] == [4, 4, 16]
+    for i, (a, b) in enumerate(zip(logits["kernel"], logits["plain"])):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        assert rel <= TOL["bfloat16"], (i, rel)
+
+
+@pytest.mark.cuda
+def test_hybrid_serve_engine_on_card_matches_cpu(cuda):
+    """The f32 smoke hymba (window 32) served on the card at max_seq 64,
+    prompts of 32-45 tokens (its rings wrap), gives the tokens and ledger
+    the plain path gives on the CPU from the same weights; every prefill
+    went through flash and the SSD scan, every decode step through the
+    decode kernel."""
+    cfg = dataclasses.replace(get_smoke_config("hymba-1.5b"),
+                              dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (32, 37, 45, 33, 40, 32)]
+
+    def serve(device):
+        model = init_params(cfg, device="cpu", seed=0).to(device)
+        sched = TenantScheduler(policy="wfq", charge_prompt=True)
+        eng = ServeEngine(cfg, RunConfig(), model, batch_slots=4, max_seq=64,
+                          scheduler=sched, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(tenant_id=i % 3, prompt=p, max_new_tokens=12,
+                               req_id=i, arrival=0.0))
+        k = 0
+        while sched.pending() or any(s.active for s in eng.slots):
+            k += 1
+            eng.step(now=0.1 * k)
+            assert k < 200
+        return eng, ([(r.req_id, r.generated) for r in eng.completed],
+                     dict(sched.served_tokens), sched.ledger())
+
+    counters = (flash_attention, ssd_chunk_scan, decode_attention)
+    before = [fn.launches for fn in counters]
+    eng, on_card = serve(cuda)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        n * eng.admissions, n * eng.admissions, n * eng.decode_steps]
+    _, on_cpu = serve(torch.device("cpu"))
+    assert on_card == on_cpu

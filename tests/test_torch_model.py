@@ -33,7 +33,7 @@ from repro.models.model import build_params, forward_decode as j_decode, \
     forward_prefill as j_prefill
 from repro_torch.configs import RunConfig, get_smoke_config
 from repro_torch.models import forward_decode, forward_prefill, layers as tl
-from repro_torch.models.model import model_schema
+from repro_torch.models.model import build_schedule, model_schema
 from repro_torch.models.params import cache_from_jax, params_from_jax
 from repro_torch.models.schema import walk
 
@@ -114,8 +114,11 @@ def test_layers_match_reference(dtype):
 # ---------------------------------------------------------------------------
 
 
-def _pair(arch, dtype, mesh):
-    jcfg, tcfg = j_smoke(arch), get_smoke_config(arch)
+def _pair(arch, dtype, mesh, **changes):
+    """Both packages' smoke configs of ``arch`` (with ``changes``), the
+    reference's weights and the port's model holding them."""
+    jcfg = dataclasses.replace(j_smoke(arch), **changes)
+    tcfg = dataclasses.replace(get_smoke_config(arch), **changes)
     if dtype == "float32":
         jcfg = dataclasses.replace(jcfg, dtype="float32",
                                    param_dtype="float32")
@@ -123,16 +126,19 @@ def _pair(arch, dtype, mesh):
                                    param_dtype="float32")
     tree = jax.tree.map(np.asarray,
                         build_params(jcfg, mesh, jax.random.PRNGKey(0)))
-    stacked = tree["segments"][0]
-    for path, desc in walk(model_schema(tcfg)["layers"][0]):
-        if desc.init not in ("normal", "small_normal"):
-            continue
-        node = stacked
-        for key in path[:-1]:
-            node = node[key]
-        a = node[path[-1]]
-        node[path[-1]] = (a.astype(np.float32) * np.sqrt(
-            a.shape[0] / desc.init_fan_in)).astype(a.dtype)
+    layers = model_schema(tcfg)["layers"]
+    first = 0
+    for seg, stacked in zip(build_schedule(tcfg), tree["segments"]):
+        for path, desc in walk(layers[first]):
+            if desc.init not in ("normal", "small_normal"):
+                continue
+            node = stacked
+            for key in path[:-1]:
+                node = node[key]
+            a = node[path[-1]]
+            node[path[-1]] = (a.astype(np.float32) * np.sqrt(
+                a.shape[0] / desc.init_fan_in)).astype(a.dtype)
+        first += seg.count
     params = jax.tree.map(jnp.asarray, tree)
     return jcfg, tcfg, params, params_from_jax(tree, tcfg, device="cpu")
 
@@ -252,7 +258,7 @@ def test_bridge_refuses_mismatched_trees(mesh1):
                         device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "hymba-1.5b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b",
                                   "whisper-small"])
 def test_other_families_raise_not_implemented(arch):
     from repro_torch.models import Model
