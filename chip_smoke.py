@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and control paths on one NVIDIA
-GPU (H100).
+"""Drive the PyTorch/CUDA port's serving, control and training paths on
+one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -93,19 +93,38 @@ JSON object per line:
               billed bytes conserved across an export/import; ms per
               ``nk_grad_sync`` (the engine's host cost: no bytes cross a
               wire at world 1);
-13. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
+13. train   — full-width, full-depth llama3.2-3b (random bf16 weights
+              from a seed) trained through ``Runner`` -> ``make_train_step``
+              -> ``forward_train`` -> ``loss_fn`` -> ``adamw_update`` on
+              ``for_model``'s batches (seq 4096, global batch 4,
+              ``grad_accum`` 4, remat full, f32 moments, lr 3e-3 with one
+              warm-up step): one warm-up step, 3 timed steps (step ms,
+              tokens/s, MFU, the state's bytes, peak memory, 224 flash
+              launches a step asserted: forward and remat recompute per
+              layer and micro-batch, every parameter moved), one
+              profiled micro-batch (busy share, top kernels, the plain
+              backward attention's share); the kernel path against the plain path
+              on one micro-batch (bf16 at full depth: loss, grad norm and
+              every wq/wk/wv grad within 2e-2; f32 at 2 layers: loss
+              within 1e-5, every grad within 1e-4); one ``pod_step``
+              through the compressed stack on an NCCL world of one (254
+              gradient psums on ``("pod",)`` of the gradients' bytes, the
+              sync's ms); at 2 layers, 5 steps plain against 5 steps with
+              a checkpoint at 3 and a failure at 4: bit-identical states;
+14. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
               scenarios on the port's ``SharedBottleneckSim`` with the
               object controller and the vectorized one on the card (its
               water-fill kernel), claims (a)-(c) and the two backends'
               agreement;
-14. timings — each kernel, its plain version and one PyTorch library call
+15. timings — each kernel, its plain version and one PyTorch library call
               where one computes the same function, timed with CUDA events
               beside the least time the card could take (bytes or
               operations at the H100 SXM datasheet rates); for the
               attention kernels the backend that
               ``scaled_dot_product_attention`` dispatches to (timed pinned
               to it); for them and the water-fill the wrapper's host
-              enqueue µs per call; decode at
+              enqueue µs per call; flash at S 64, 509, 1024 and the
+              train phase's 4,096; decode at
               mixed, full and serve-range positions; the water-fill at
               the 3- and 4-tenant problems of the fairness and replay
               phases and at the fused tick's populations; the SSD scan at
@@ -114,8 +133,8 @@ JSON object per line:
               over 8 rings, the SSD scan over 12 chunks of its width); the
               codec on the embedding leaf.
 
-Then the seconds of the vlm, hybrid and watchdog phases and of the whole
-script,
+Then the seconds of the vlm, hybrid, watchdog and train phases and of the
+whole script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
@@ -123,8 +142,10 @@ checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -248,6 +269,26 @@ BYTES_POLICIES = ("xla", "ring", "hierarchical", "compressed", "shm-first")
 BYTES_AXES = ("pod", "data", "model")
 BYTES_REPS = 3
 # fairness: benchmarks/bench_fairness.py's parameters (bytes/s, seconds)
+# the train phase: llama3.2-3b at full width and depth, the train_4k
+# shape's length, one sequence per micro-batch
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_ACCUM = 4
+TRAIN_TIMED = 3               # timed steps, after one warm-up step
+# RunConfig's defaults but for the schedule: with its 100 warm-up steps
+# the first steps' lr (3e-6 to 1.2e-5) moves a bf16 norm scale of 1.0 by
+# less than half an ulp (0.002), so those scales could not move at all
+TRAIN_LR = 3e-3
+TRAIN_WARMUP = 1
+TRAIN_TOL = 2e-2              # bf16 kernel path vs plain path, full depth
+TRAIN_F32_LAYERS = 2
+TRAIN_F32_TOL = {"loss": 1e-5, "grad": 1e-4}
+TRAIN_FT_LAYERS = 2           # fault tolerance: a checkpoint of ~6 GB
+TRAIN_FT_STEPS = 5
+TRAIN_FT_CKPT_EVERY = 3
+TRAIN_FT_FAIL_AT = 4
+TRAIN_MIN_DISK = 16e9         # bytes free where the checkpoints go
+
 FAIR_CAPACITY = 1_000_000.0
 FAIR_DT = 0.05
 FAIR_T_RUN = 12.0
@@ -404,8 +445,10 @@ def phase_kernels(torch, device):
     # chameleon-34b's prefills at 64/8 heads; hymba-1.5b's at 25/5 heads
     # and d 64: the 1024-token window over 1536 and 1100 tokens (the first
     # live kv tile of a q tile cut by the window's edge), a global layer,
-    # and the f32 parity's windowed prefill
-    cases = [(1, s, s, "bfloat16", 0, 0, LLAMA_HEADS) for s in (64, 509, 1024)]
+    # and the f32 parity's windowed prefill; the train phase's sequence
+    # (32 kv tiles, the kernel's longest loop)
+    cases = [(1, s, s, "bfloat16", 0, 0, LLAMA_HEADS)
+             for s in (64, 509, 1024, TRAIN_SEQ)]
     cases += [(1, 1, 1, "bfloat16", 0, 0, LLAMA_HEADS),
               (1, 2, 2, "bfloat16", 0, 0, LLAMA_HEADS),
               (1, 65, 65, "bfloat16", 0, 0, LLAMA_HEADS),
@@ -880,14 +923,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(torch, fn, top: int = 8, kernel=None):
+def _profile(torch, fn, top: int = 8, kernel=None, ranges=()):
     """Where ``fn``'s device time goes. ``fn`` runs twice: once with the
     host clock alone (``wall_ms``), once under torch.profiler, whose CUDA
     kernel events (and only those: an operator's own row would count its
     kernels twice) give the device time by kernel. Their ratio is the
     device's busy share of the unprofiled run. ``kernel``: a substring of
-    kernel names whose device time and share are reported. The count of
-    ``aten::cumsum`` calls comes from the operators' CPU events."""
+    kernel names whose device time and share are reported. ``ranges``:
+    names of CPU events (an autograd node's ``evaluate_function``, say)
+    whose kernels' device time, their children's included, and share are
+    reported. The count of ``aten::cumsum`` calls comes from the
+    operators' CPU events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -899,8 +945,8 @@ def _profile(torch, fn, top: int = 8, kernel=None):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = sorted(((_device_us(e), e.key, e.count)
-                   for e in prof.key_averages()
+    avgs = prof.key_averages()      # parsing the trace is the slow part
+    rows = sorted(((_device_us(e), e.key, e.count) for e in avgs
                    if getattr(e, "device_type", None) == DeviceType.CUDA
                    and _device_us(e) > 0), reverse=True)
     busy = sum(r[0] for r in rows)
@@ -909,8 +955,7 @@ def _profile(torch, fn, top: int = 8, kernel=None):
            "device_busy_share": busy / wall_us if busy else "not measured",
            "kernel_launches": sum(r[2] for r in rows),
            "aten_cumsum_calls": sum(
-               e.count for e in prof.key_averages()
-               if e.key == "aten::cumsum"
+               e.count for e in avgs if e.key == "aten::cumsum"
                and getattr(e, "device_type", None) == DeviceType.CPU),
            "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
                    for us, k, n in rows[:top]]}
@@ -920,6 +965,16 @@ def _profile(torch, fn, top: int = 8, kernel=None):
         out["kernel_ms"] = k_us / 1e3 if busy else "not measured"
         out["kernel_share_of_device"] = k_us / busy if busy \
             else "not measured"
+    for name in ranges:
+        evts = [e for e in avgs if e.key == name
+                and getattr(e, "device_type", None) == DeviceType.CPU]
+        r_us = sum(float(getattr(e, "device_time_total", 0.0) or 0.0)
+                   for e in evts)
+        out.setdefault("ranges", {})[name] = {
+            "calls": sum(e.count for e in evts),
+            "ms": r_us / 1e3 if busy and evts else "not measured",
+            "share_of_device": r_us / busy if busy and evts
+            else "not measured"}
     return out
 
 
@@ -2538,6 +2593,277 @@ def phase_bytes(torch, device, tree, backend="nccl"):
     return rows
 
 
+def train_parity(torch, device, cfg, model, batch, keep):
+    """The kernel path (``FlashAttentionFn``) against the plain path
+    (``attention_impl="naive"``: ``flash_attention_plain`` under
+    autograd) on the same weights and micro-batch: the relative loss gap,
+    the relative gap of the global grad norm, and for each leaf that
+    ``keep(name)`` selects max |dgrad| / max |grad|."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_loop import _grads
+    out = {}
+    for impl in ("chunked", "naive"):
+        grads, metrics = _grads(model, batch, cfg,
+                                RunConfig(attention_impl=impl))
+        out[impl] = (metrics["loss"].item(),
+                     global_norm(grads.values()).item(),
+                     {n: g for n, g in grads.items() if keep(n)})
+        del grads
+    (lk, nk, gk), (lp, np_, gp) = out["chunked"], out["naive"]
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_gap": abs(lk - lp) / abs(lp),
+            "grad_norm_kernel": nk, "grad_norm_plain": np_,
+            "grad_norm_gap": abs(nk - np_) / abs(np_),
+            "grad_gaps": {n: rel_err(gk[n], gp[n]) for n in gk}}
+
+
+def state_bytes(state):
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    params = list(state["params"].parameters())
+    return {"params": nbytes(params),
+            "mu": nbytes(state["opt"]["mu"].values()),
+            "nu": nbytes(t for d in state["opt"]["nu"].values()
+                         for t in d.values()),
+            # _grads' f32 accumulators, one per parameter, live during a
+            # step's backward passes
+            "grad_accumulators": sum(p.numel() * 4 for p in params)}
+
+
+def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
+    """Training on the port: full-width llama3.2-3b through ``Runner`` ->
+    ``make_train_step`` -> ``forward_train`` (the flash kernel forward on
+    every layer, twice a micro-batch under remat) -> ``loss_fn`` ->
+    ``adamw_update``; the kernel path against the plain path at bf16 (full
+    depth) and f32 (2 layers); one ``pod_step`` through the compressed
+    stack on an NCCL world of one (``backend``: gloo for a CPU
+    rehearsal); bit-exact recovery at 2 layers. Returns the flash launches
+    of the Runner's timed steps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.core import make_engine
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.params import init_params
+    import repro_torch.train.train_loop as train_loop
+    from repro_torch.train import (FailurePlan, Runner, loss_fn,
+                                   make_train_step)
+    # the cluster and watchdog phases' engines hold their model in
+    # reference cycles, which only the cycle collector frees
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before the "
+                             f"train phase")
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    feed = for_model(cfg, shape, seed=SEED, device=device)
+    micro = {k: v[:TRAIN_BATCH // TRAIN_ACCUM]
+             for k, v in feed.batch_at(0).items()}
+    rcfg = RunConfig(grad_accum=TRAIN_ACCUM, learning_rate=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    model = init_params(cfg, device=device, seed=SEED)
+
+    # 1. the kernel path against the plain path: bf16, full depth
+    t0 = time.perf_counter()
+    par = train_parity(torch, device, cfg, model, micro,
+                       lambda n: n.endswith(("attn.wq", "attn.wk",
+                                             "attn.wv")))
+    worst = max(par["grad_gaps"].values())
+    emit({"phase": "train", "check": "parity_bf16", "model": cfg.name,
+          "layers": cfg.num_layers, "tokens": TRAIN_SEQ,
+          **{k: v for k, v in par.items() if k != "grad_gaps"},
+          "wq_wk_wv_grads": len(par["grad_gaps"]),
+          "wq_wk_wv_worst_gap": worst, "grad_gaps": par["grad_gaps"],
+          "tol": TRAIN_TOL, "seconds": time.perf_counter() - t0})
+    if len(par["grad_gaps"]) != 3 * cfg.num_layers or max(
+            par["loss_gap"], par["grad_norm_gap"], worst) > TRAIN_TOL:
+        raise AssertionError(f"train parity at bf16: {par}")
+
+    # 2. the main path: Runner, one warm-up step, then the timed steps
+    t_main = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        runner = Runner(cfg, rcfg, None, feed, d, device=device)
+        runner.init_state(model=model)
+        sizes = state_bytes(runner.state)
+        before = [p.detach().to("cpu", copy=True)
+                  for p in model.parameters()]
+        runner.run(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        runner.run(TRAIN_TIMED)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        want = cfg.num_layers * TRAIN_ACCUM * (1 if rcfg.remat == "none"
+                                               else 2) * TRAIN_TIMED
+        timed = runner.metrics_log[-TRAIN_TIMED:]
+        step_s = statistics.median(m["dt"] for m in timed)
+        moved = sum(not torch.equal(p.detach().cpu(), b)
+                    for p, b in zip(model.parameters(), before))
+        del before
+        finite = all(math.isfinite(m["loss"]) and math.isfinite(
+            m["grad_norm"]) for m in runner.metrics_log)
+        t_prof = time.perf_counter()
+        # the profiled window is one micro-batch's forward and backward, a
+        # quarter of a step's (the step adds AdamW): a whole step is ~1.7M
+        # trace events, which the profiler takes minutes to parse
+        params = list(model.parameters())
+
+        def micro_batch():
+            loss, _ = loss_fn(model, micro, cfg, rcfg)
+            torch.autograd.grad(loss, params)
+
+        prof = _profile(torch, micro_batch, top=10, ranges=(
+            "autograd::engine::evaluate_function: FlashAttentionFnBackward",
+        ))
+        prof["seconds"] = time.perf_counter() - t_prof
+        row = {"phase": "train", "check": "runner", "model": cfg.name,
+               "layers": cfg.num_layers, "seq": TRAIN_SEQ,
+               "global_batch": TRAIN_BATCH, "grad_accum": TRAIN_ACCUM,
+               "remat": rcfg.remat, "moment_dtype": rcfg.moment_dtype,
+               "learning_rate": rcfg.learning_rate,
+               "warmup_steps": rcfg.warmup_steps,
+               "tokens_per_step": tokens,
+               "step_ms": [m["dt"] * 1e3 for m in timed],
+               "step_ms_median": step_s * 1e3,
+               "tokens_per_s": tokens / step_s,
+               "mfu": 6 * cfg.num_params() * tokens / step_s
+               / PEAK_FLOPS_S["bfloat16"],
+               "params": cfg.num_params(),
+               "losses": [m["loss"] for m in runner.metrics_log],
+               "grad_norms": [m["grad_norm"] for m in runner.metrics_log],
+               "flash_launches": launches, "flash_launches_want": want,
+               "params_moved": moved,
+               "params_total": len(list(model.parameters())),
+               "state_bytes": sizes, "max_memory_allocated": peak,
+               "profile_micro_batch": prof,
+               "seconds": time.perf_counter() - t_main, "gpu": smi}
+        emit(row)
+        if launches != want or moved != row["params_total"] or not finite:
+            raise AssertionError(f"train runner: {row}")
+
+        # 3. one pod_step through the compressed stack, world of one
+        t0 = time.perf_counter()
+        axes = world1(device, backend)
+        try:
+            eng = make_engine(axes, "compressed")
+            step = make_train_step(cfg, dataclasses.replace(
+                rcfg, explicit_pod_sync=True, nsm_policy="compressed"),
+                axes, eng)
+            sync_ms = []
+            real = train_loop.nk_grad_sync
+
+            def timed_sync(grads, ax):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(grads, ax)
+                torch.cuda.synchronize()
+                sync_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            train_loop.nk_grad_sync = timed_sync
+            try:
+                _, m = step(runner.state, feed.batch_at(runner.step))
+            finally:
+                train_loop.nk_grad_sync = real
+            pod = [(ops, nb) for _, verb, ax, ops, nb in eng.ledger_table()
+                   if verb == "psum" and ax == ("pod",)]
+            grad_bytes = sum(p.numel() * 2 for p in model.parameters())
+            routed = sorted({n for _, n in eng.route_log})
+            row = {"phase": "train", "check": "pod_sync", "policy":
+                   "compressed", "world": 1, "ledger_pod_psums": pod,
+                   "grad_leaves": len(list(model.parameters())),
+                   "grad_bytes": grad_bytes, "routed_to": routed,
+                   "sync_ms": sync_ms[0], "loss": m["loss"].item(),
+                   "seconds": time.perf_counter() - t0, "gpu": smi}
+            emit(row)
+            if pod != [(row["grad_leaves"], grad_bytes)] \
+                    or routed != ["compressed"] \
+                    or not math.isfinite(row["loss"]):
+                raise AssertionError(f"train pod sync: {row}")
+        finally:
+            dist.destroy_process_group()
+        del runner, model, step
+    torch.cuda.empty_cache()
+
+    # 4. the kernel path against the plain path at f32, 2 layers
+    cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS,
+                                dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    model = init_params(cfg32, device=device, seed=SEED + 20)
+    par = train_parity(torch, device, cfg32, model, micro, lambda n: True)
+    worst = max(par["grad_gaps"].values())
+    emit({"phase": "train", "check": "parity_f32", "layers":
+          TRAIN_F32_LAYERS, **{k: v for k, v in par.items()
+                               if k != "grad_gaps"},
+          "grad_leaves": len(par["grad_gaps"]), "worst_grad_gap": worst,
+          "tol": TRAIN_F32_TOL, "seconds": time.perf_counter() - t0})
+    if par["loss_gap"] > TRAIN_F32_TOL["loss"] \
+            or worst > TRAIN_F32_TOL["grad"]:
+        raise AssertionError(f"train parity at f32: {par}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 5. fault tolerance at full width, 2 layers: a failure at step 4,
+    # the checkpoint of step 3 restored in place, bit-identical results
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_FT_LAYERS)
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        if free < TRAIN_MIN_DISK:
+            raise RuntimeError(f"{free} bytes free under {d}; the fault "
+                               f"tolerance check needs {TRAIN_MIN_DISK:.0f}")
+        for every, fail_at in ((10 ** 9, []),
+                               (TRAIN_FT_CKPT_EVERY, [TRAIN_FT_FAIL_AT])):
+            r = Runner(cfg2, dataclasses.replace(
+                rcfg, checkpoint_every=every, keep_checkpoints=1), None,
+                feed, os.path.join(d, f"every_{every}"),
+                failure_plan=FailurePlan(fail_at=fail_at), device=device)
+            r.init_state(model=init_params(cfg2, device=device,
+                                           seed=SEED + 21))
+            t0 = time.perf_counter()
+            out = r.run(TRAIN_FT_STEPS)
+            runs.append((out, time.perf_counter() - t0, r.ckpt.steps(),
+                         [t.detach().to("cpu", copy=True)
+                          for t in _state_tensors(r)]))
+            del r
+            torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
+    row = {"phase": "train", "check": "fault_tolerance",
+           "layers": TRAIN_FT_LAYERS, "steps": TRAIN_FT_STEPS,
+           "checkpoint_every": TRAIN_FT_CKPT_EVERY,
+           "fail_at": TRAIN_FT_FAIL_AT,
+           "runs": [{"final_step": o["final_step"],
+                     "recoveries": o["recoveries"], "seconds": s,
+                     "checkpoints_kept": kept}
+                    for o, s, kept, _ in runs],
+           "tensors_compared": len(runs[0][3]), "bit_identical": same,
+           "free_disk_bytes": free, "seconds": time.perf_counter() - t0}
+    emit(row)
+    if not same or [o["final_step"] for o, *_ in runs] != \
+            [TRAIN_FT_STEPS] * 2 or [o["recoveries"] for o, *_ in runs] \
+            != [0, 1]:
+        raise AssertionError(f"train fault tolerance: {row}")
+    return launches
+
+
+def _state_tensors(runner):
+    """Every tensor of a Runner's train state, in a fixed order."""
+    st = runner.state
+    return (list(st["params"].parameters()) + list(st["opt"]["mu"].values())
+            + [t for d in st["opt"]["nu"].values() for t in d.values()]
+            + [st["opt"]["count"], st["step"]])
+
+
 def fairness_convergence(ctl, **kw):
     """3 unequal tenants, 2 engines: (served/fair per tenant, claim (a)
     metric: the worst relative deviation from weighted max-min)."""
@@ -2730,7 +3056,7 @@ def phase_timings(torch, device, smi: str):
     emit({"phase": "timings", "timer_floor_ms": timer.ms(
         lambda: one.add_(1.0)), "gpu": smi})
     rows = {}
-    for s in (64, 509, 1024):
+    for s in (64, 509, 1024, TRAIN_SEQ):
         q, k, v = (torch.randn((1, s, h, d), generator=gen, device=device)
                    .to(torch.bfloat16) for h in (hq, kv, kv))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -3000,6 +3326,12 @@ def main() -> int:
     phase_bytes(torch, device, tree)
     del model, tree
     torch.cuda.empty_cache()
+
+    # training: full-width llama3.2-3b through the Runner, the flash
+    # kernel forward on every layer under autograd
+    t_phase = time.perf_counter()
+    launches["flash_attention"] += phase_train(torch, device, cfg, smi)
+    seconds["train"] = time.perf_counter() - t_phase
     launches["water_fill"] += phase_fairness(torch, device)
 
     rows = phase_timings(torch, device, smi)

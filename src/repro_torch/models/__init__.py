@@ -1,13 +1,15 @@
 from repro_torch.models.model import (
     Model, Segment, build_schedule, cache_schema, forward_decode,
-    forward_prefill, init_cache, model_schema,
+    forward_prefill, forward_train, init_cache, model_schema,
 )
 from repro_torch.models.params import (
-    cache_from_jax, init_params, params_from_jax,
+    Slot, cache_from_jax, init_params, opt_slots, params_from_jax,
+    train_state_from_jax, train_state_to_numpy,
 )
 
 __all__ = [
     "Model", "Segment", "build_schedule", "cache_schema", "forward_decode",
-    "forward_prefill", "init_cache", "model_schema", "cache_from_jax",
-    "init_params", "params_from_jax",
+    "forward_prefill", "forward_train", "init_cache", "model_schema",
+    "Slot", "cache_from_jax", "init_params", "opt_slots", "params_from_jax",
+    "train_state_from_jax", "train_state_to_numpy",
 ]

@@ -7,7 +7,10 @@ serving path the two cores are the hand-written CUDA kernels:
   ``blockwise_attention``;
 * decode runs ``kernels.decode_attention`` where the reference runs
   ``decode_attention`` through the ``tp == 1`` branch of
-  ``decode_attention_cp``.
+  ``decode_attention_cp``;
+* training runs the flash kernel forward through ``FlashAttentionFn``,
+  whose backward differentiates ``blockwise_attention``, the attention
+  the reference trains through.
 
 Both kernels take the grouped k/v layout directly, so the path never
 expands k/v over query heads. ``RunConfig.attention_impl == "naive"``
@@ -173,6 +176,53 @@ def naive_attention(q, k, v, *, kv_map, causal=True, window=0, q_offset=0,
 
 
 # ---------------------------------------------------------------------------
+# The flash kernel under autograd (training)
+# ---------------------------------------------------------------------------
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Prefill attention that training can differentiate.
+
+    The forward is ``kernels.flash_attention``: the CUDA kernel on the card
+    (its output comes from ``data_ptr``s, so autograd cannot see through
+    it), its plain version on the CPU. The backward recomputes the
+    attention the reference trains through, ``blockwise_attention`` with
+    the run's q and kv blocks, under autograd and returns its
+    vector-Jacobian product: the JAX package has no backward kernel to
+    port. k and v are expanded over each group's query heads by a
+    broadcast, whose backward is a plain sum over the group (an index with
+    repeats would accumulate with atomics on the card, and in no fixed
+    order on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_block: int,
+                kv_block: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, q_block, kv_block)
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_block, kv_block = ctx.opts
+        b, t, kv, d = k.shape
+        hq = q.shape[2]
+
+        def expand(x):
+            return x[:, :, :, None].expand(b, t, kv, hq // kv, d).reshape(
+                b, t, hq, d)
+
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+            o = blockwise_attention(
+                q, expand(k), expand(v), kv_map=torch.arange(
+                    hq, device=q.device), causal=causal, window=window,
+                q_block=q_block, kv_block=kv_block)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # Plain decode core (the reference's decode_attention)
 # ---------------------------------------------------------------------------
 
@@ -273,8 +323,11 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                   ring: Optional[RingSlots] = None, return_cache=False):
     """Unified GQA attention.
 
-    Prefill: ``positions`` (S,); returns out (B,S,d) [and {"k", "v"} in
-    x's dtype when ``return_cache``]. Decode: pass ``cache`` ({"k", "v"},
+    Prefill and training: ``positions`` (S,); returns out (B,S,d) [and
+    {"k", "v"} in x's dtype when ``return_cache``]. Under grad (training)
+    the flash kernel runs through ``FlashAttentionFn``; the plain path
+    (``attention_impl == "naive"``) is differentiated by autograd.
+    Decode: pass ``cache`` ({"k", "v"},
     each (B, n_slots, KV, hd)) and ``decode_pos`` (B,) int32; x is
     (B,1,d). Returns (out, cache) with the new token's k/v written into
     the cache rows in place. A ring cache (``is_ring``) takes its slots
@@ -296,8 +349,16 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
             cos, sin = rope_tables(positions, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             knew = apply_rope(knew, cos, sin)
-        flash = flash_attention_plain if naive else flash_attention
-        o = flash(q, knew, vnew, causal=causal, window=window)
+        if naive:
+            o = flash_attention_plain(q, knew, vnew, causal=causal,
+                                      window=window)
+        elif torch.is_grad_enabled():
+            # training: the kernel forward, the reference's backward
+            o = FlashAttentionFn.apply(q, knew, vnew, causal, window,
+                                       rcfg.attn_q_block,
+                                       rcfg.attn_kv_block)
+        else:
+            o = flash_attention(q, knew, vnew, causal=causal, window=window)
         out = _out(o, p["wo"])
         if return_cache:
             return out, {"k": knew, "v": vnew}

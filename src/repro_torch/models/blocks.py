@@ -23,6 +23,7 @@ from repro_torch.models.schema import ParamDesc
 from repro_torch.models.ssm import ssm_block, ssm_cache_schema, ssm_schema
 
 KINDS = ("dense", "ssm", "hybrid")
+MODES = ("train", "prefill", "decode")
 
 
 def check_kind(kind: str) -> str:
@@ -72,22 +73,30 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                 cache: Optional[Dict] = None, decode_pos=None,
                 ring: Optional[RingSlots] = None,
                 mode: str = "prefill") -> Tuple[torch.Tensor, Dict]:
-    """One layer. ``mode`` is "prefill" (returns the layer's new cache: k/v,
-    the SSM state and conv tails, or both) or "decode" (writes the new
-    token's k/v and the new SSM state and conv tails into ``cache`` in
-    place and returns it). ``ring``: a windowed decode's ring slots,
-    computed once for the layer's segment (``attention.ring_slots``).
-    Returns (x', cache)."""
+    """One layer. ``mode`` is "train" (no cache: returns None for it),
+    "prefill" (returns the layer's new cache: k/v, the SSM state and conv
+    tails, or both) or "decode" (writes the new token's k/v and the new
+    SSM state and conv tails into ``cache`` in place and returns it).
+    ``ring``: a windowed decode's ring slots, computed once for the
+    layer's segment (``attention.ring_slots``). Returns (x', cache)."""
     check_kind(kind)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "train" and kind != "dense":
+        raise NotImplementedError(
+            f"training the {kind!r} block kind is not ported yet: the SSD "
+            f"scan has no autograd wrapper (ROADMAP: ssm/hybrid training)")
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         y, new_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
                                  decode=mode == "decode")
         return x + y, new_cache
     decode = mode == "decode"
-    if decode:
+    if mode == "train":
+        a = gqa_attention(p["attn"], h, cfg, rcfg, positions=positions,
+                          window=window)
+        new_cache = None
+    elif decode:
         a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
                                      positions=positions, window=window,
                                      cache=cache, decode_pos=decode_pos,

@@ -1,4 +1,4 @@
-"""The model: layer schedule, parameter/cache schemas, prefill and decode.
+"""The model: layer schedule, parameter/cache schemas, train, prefill, decode.
 
 The counterpart of ``repro/models/model.py``. A model is a list of
 segments, each ``count`` layers of one block kind; where the reference
@@ -15,7 +15,9 @@ other raises. A ``vlm`` model (chameleon) is scheduled as plain ``dense``,
 as in the reference: its frontend is a stub, token ids in, and its q/k
 norms live in the attention block. A ``hybrid`` model (hymba) runs its
 global-attention layers as one-layer segments and each run of windowed
-layers between them as one segment.
+layers between them as one segment. ``forward_train`` takes the ``dense``
+and ``vlm`` families; parameters are made frozen, and a trainer turns
+``requires_grad`` on for its own model (``train.train_loop``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import dtype_of, resolve_device
@@ -36,6 +39,9 @@ from repro_torch.models.layers import apply_norm, embed_schema, \
 from repro_torch.models.schema import ParamTree
 
 FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+# families forward_train takes: the SSD scan has no autograd wrapper yet
+TRAIN_FAMILIES = ("dense", "vlm")
+REMAT = ("full", "dots", "none")
 # cache leaves laid out along the sequence (padded to max_seq, or turned
 # into a ring, at prefill); the others (SSM state, conv tails) are
 # per-sequence and pass through
@@ -55,6 +61,16 @@ def check_family(cfg: ModelConfig) -> ModelConfig:
             f"{cfg.name}: family {cfg.family!r} is not ported yet; only "
             f"{FAMILIES} serves on the port so far (ROADMAP: other model "
             f"families)")
+    return cfg
+
+
+def check_trainable(cfg: ModelConfig) -> ModelConfig:
+    check_family(cfg)
+    if cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            f"yet; the SSD scan has no autograd wrapper (ROADMAP: ssm/hybrid "
+            f"training)")
     return cfg
 
 
@@ -214,6 +230,44 @@ def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
                 full[i, :, :s] = c[key]
             out[key] = full
     return out
+
+
+def _train_layer(block, x, cfg, rcfg, seg: Segment, positions):
+    return apply_block(block, x, cfg, rcfg, seg.kind, positions=positions,
+                       window=seg.window, mode="train")[0]
+
+
+def _remat(fn, rcfg: RunConfig):
+    """``rcfg.remat`` on one layer: "full" keeps only the layer's input and
+    recomputes the layer in the backward (non-reentrant
+    ``torch.utils.checkpoint``, the reference's ``nothing_saveable``).
+    "dots" is treated as "full": the reference's policy also keeps the
+    products' outputs, which the port does not (ROADMAP: training)."""
+    if rcfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {rcfg.remat!r}")
+    if rcfg.remat == "none":
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
+                  rcfg: RunConfig):
+    """batch: tokens (B, S) int. Returns (logits (B, S, V) in the model's
+    dtype, aux), with autograd recording: embed, every layer (each under
+    ``rcfg.remat``), the final norm, the LM head. ``aux`` is empty (the
+    MoE losses come with that family)."""
+    check_trainable(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    layer_fn = _remat(_train_layer, rcfg)
+    layer = 0
+    for seg in build_schedule(cfg):
+        for _ in range(seg.count):
+            x = layer_fn(model.blocks[layer], x, cfg, rcfg, seg, positions)
+            layer += 1
+    x = apply_norm(model.final_norm, x, cfg.norm)
+    return lm_logits(model.embed, x, cfg.logit_softcap), {}
 
 
 @torch.no_grad()

@@ -19,10 +19,23 @@ importing ``ml_dtypes``; the SSM leaves cross like any other (``A_log``,
 ``cache_from_jax`` does the same for a cache tuple, each leaf in its own
 dtype (an SSM ``state`` ``(L, B, H, P, N)`` is f32, its ``conv_*`` tails
 ``(L, B, W-1, C)`` in the cache dtype).
+
+A train state crosses too. The optimizer keeps its moments in ``Slot``s
+(``opt_slots``): one per top-level parameter, one per layer for a
+parameter of two or more dims, and one per segment for a 1-D per-layer
+parameter (norm scales, biases), stacked over the segment's layers as the
+reference stacks it, because its factored second moment averages over
+those layers. ``train_state_from_jax`` carries the reference's state
+(parameters, ``opt.mu``, ``opt.nu`` with factored ``vr``/``vc``,
+``opt.count``, ``step``) into that layout, and ``train_state_to_numpy``
+gives it back in the reference's stacked layout, bf16 widened to f32
+(numpy has no bf16 without ``ml_dtypes``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,6 +138,129 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device=None) -> Model:
         raise ValueError(f"reference tree covers {layer} layers, the model "
                          f"has {len(model.blocks)}")
     return model
+
+
+# ---------------------------------------------------------------------------
+# The train state: optimizer slots and the bridge from the reference's
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Slot:
+    """One leaf of the optimizer state. ``params`` names the port's
+    parameters it updates (``Model.named_parameters``): one, or a
+    segment's layers when ``stacked``. ``ref_path`` is the reference leaf
+    it belongs to, and ``layer`` its index in that leaf's stack for a
+    per-layer slot (None otherwise)."""
+    name: str
+    params: Tuple[str, ...]
+    ref_path: Tuple
+    layer: Optional[int]
+    stacked: bool
+
+
+@functools.lru_cache(maxsize=None)
+def opt_slots(cfg: ModelConfig) -> Tuple[Slot, ...]:
+    """The model's optimizer slots, in the order the reference flattens
+    its parameter pytree (embed, final_norm, then each segment's leaves,
+    each leaf's layers in turn). Kept per config: an optimizer step
+    reads them."""
+    schema = model_schema(cfg)
+    out: List[Slot] = []
+    for top in ("embed", "final_norm"):
+        for path, desc in walk(schema[top]):
+            name = ".".join((top,) + path)
+            out.append(Slot(name, (name,), (top,) + path, None, False))
+    first = 0
+    for si, seg in enumerate(build_schedule(cfg)):
+        for path, desc in walk(schema["layers"][first]):
+            names = tuple(f"blocks.{first + i}." + ".".join(path)
+                          for i in range(seg.count))
+            ref = ("segments", si) + path
+            if len(desc.shape) <= 1:
+                out.append(Slot(f"segments.{si}." + ".".join(path), names,
+                                ref, None, True))
+            else:
+                out.extend(Slot(n, (n,), ref, i, False)
+                           for i, n in enumerate(names))
+        first += seg.count
+    return tuple(out)
+
+
+def _at(tree, path: Sequence):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+@torch.no_grad()
+def train_state_from_jax(state: Dict, cfg: ModelConfig, device=None) -> Dict:
+    """The reference's train state (numpy leaves) as the port's:
+    ``{"params": Model, "opt": {"mu": {slot: tensor}, "nu": {slot: {"full"}
+    or {"vr", "vc"}}, "count": int32}, "step": int32}``."""
+    model = params_from_jax(state["params"], cfg, device)
+    dev = model.device
+    ref_opt = state["opt"]
+    mu, nu = {}, {}
+    for slot in opt_slots(cfg):
+        def pick(a, _layer=slot.layer):
+            return a if _layer is None else a[_layer]
+        mu[slot.name] = to_torch(pick(_at(ref_opt["mu"], slot.ref_path)),
+                                 dev)
+        nu[slot.name] = {k: to_torch(pick(v), dev) for k, v in
+                         _at(ref_opt["nu"], slot.ref_path).items()}
+
+    def scalar(v):
+        return torch.tensor(int(v), dtype=torch.int32, device=dev)
+
+    return {"params": model,
+            "opt": {"mu": mu, "nu": nu, "count": scalar(ref_opt["count"])},
+            "step": scalar(state["step"])}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _put(tree: Dict, path: Sequence, value) -> None:
+    for key in path[:-1]:
+        tree = tree[key] if isinstance(key, int) else tree.setdefault(key,
+                                                                      {})
+    tree[path[-1]] = value
+
+
+def train_state_to_numpy(state: Dict, cfg: ModelConfig) -> Dict:
+    """A port train state in the reference's layout: every segment leaf
+    stacked over its layers, numpy leaves, bf16 widened to f32."""
+    params = dict(state["params"].named_parameters())
+    opt = state["opt"]
+    n_seg = len(build_schedule(cfg))
+    out = {k: {"segments": [{} for _ in range(n_seg)]}
+           for k in ("params", "mu", "nu")}
+    by_ref: Dict[Tuple, List[Slot]] = {}
+    for slot in opt_slots(cfg):
+        by_ref.setdefault(slot.ref_path, []).append(slot)
+    for ref, slots in by_ref.items():
+        if slots[0].layer is None:          # one slot holds the whole leaf
+            (s0,) = slots
+            p = np.stack([_np(params[n]) for n in s0.params]) \
+                if s0.stacked else _np(params[s0.params[0]])
+            m = _np(opt["mu"][s0.name])
+            v = {k: _np(t) for k, t in opt["nu"][s0.name].items()}
+        else:                               # one slot per layer
+            p = np.stack([_np(params[s.params[0]]) for s in slots])
+            m = np.stack([_np(opt["mu"][s.name]) for s in slots])
+            v = {k: np.stack([_np(opt["nu"][s.name][k]) for s in slots])
+                 for k in opt["nu"][slots[0].name]}
+        for key, val in (("params", p), ("mu", m), ("nu", v)):
+            _put(out[key], ref, val)
+    for tree in out.values():
+        tree["segments"] = tuple(tree["segments"])
+    return {"params": out["params"],
+            "opt": {"mu": out["mu"], "nu": out["nu"],
+                    "count": np.int32(int(opt["count"]))},
+            "step": np.int32(int(state["step"]))}
 
 
 def cache_from_jax(caches: Sequence[Dict], device=None) -> Tuple:

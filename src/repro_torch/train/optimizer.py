@@ -1,0 +1,162 @@
+"""AdamW with a configurable moment dtype, a cosine schedule and global
+clipping: the counterpart of ``repro/train/optimizer.py``.
+
+The moments live in the optimizer slots of ``models.params.opt_slots``:
+one per top-level parameter, one per layer for a parameter of two or more
+dims, one per segment for a 1-D per-layer parameter, stacked over the
+segment's layers as the reference stacks it. Two things follow from the
+reference's stacked layout and are kept: every block parameter decays
+(its stacked leaf has ``ndim >= 2``, the norm scales included), and a
+factored second moment of a 1-D per-layer parameter averages over the
+segment's layers (its ``vc``), so such a slot is updated stacked.
+
+The update runs in place under ``torch.no_grad()``. ``lr``, ``c1`` and
+``c2`` are f32, as in the reference; with ``moment_dtype="bfloat16"`` the
+moment arithmetic runs in bf16, each constant rounded to bf16 first (a
+Python scalar in a JAX bf16 product is weak-typed to bf16, where torch
+would keep it in f32).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterable, Tuple
+
+import torch
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.device import dtype_of
+from repro_torch.models.params import Slot, opt_slots
+
+
+def cosine_schedule(rcfg: RunConfig):
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        step = step.to(torch.float32)
+        warm = rcfg.learning_rate * (step + 1) / max(rcfg.warmup_steps, 1)
+        t = torch.clamp((step - rcfg.warmup_steps)
+                        / max(rcfg.total_steps - rcfg.warmup_steps, 1),
+                        0.0, 1.0)
+        cos = 0.5 * rcfg.learning_rate * (1 + torch.cos(math.pi * t))
+        return torch.where(step < rcfg.warmup_steps, warm, cos)
+    return lr
+
+
+def _decay_mask(slots: Iterable[Slot], params: Dict[str, torch.Tensor]
+                ) -> Dict[str, bool]:
+    """Weight decay per slot: the reference's ``ndim >= 2`` of the leaf as
+    it stacks it. A segment's leaf (a stacked slot, or one layer of it)
+    has one dim more than each layer's parameter, so every block
+    parameter decays, the norms' scales included; 1-D top-level
+    parameters, such as ``final_norm``, are spared."""
+    def ndim(s: Slot) -> int:
+        per_param = params[s.params[0]].dim()
+        return per_param + (s.stacked or s.layer is not None)
+    return {s.name: ndim(s) >= 2 for s in slots}
+
+
+def _nu_shapes(p_shape, factored: bool):
+    """Second-moment leaf layout: full, or Adafactor row/col factors over
+    the last two dims (stacked layer dims are kept)."""
+    if not factored or len(p_shape) < 2:
+        return {"full": p_shape}
+    return {"vr": p_shape[:-1], "vc": p_shape[:-2] + p_shape[-1:]}
+
+
+def _slot_shape(slot: Slot, params: Dict[str, torch.Tensor]):
+    shape = tuple(params[slot.params[0]].shape)
+    return (len(slot.params),) + shape if slot.stacked else shape
+
+
+@torch.no_grad()
+def init_opt_state(model, rcfg: RunConfig) -> Dict:
+    """Zero moments for every slot of ``model`` on its device."""
+    mdt = dtype_of(rcfg.moment_dtype)
+    params = dict(model.named_parameters())
+    dev = model.device
+    mu, nu = {}, {}
+    for slot in opt_slots(model.cfg):
+        shape = _slot_shape(slot, params)
+        mu[slot.name] = torch.zeros(shape, dtype=mdt, device=dev)
+        # row/col factors stay f32: they're tiny and precision matters
+        nu[slot.name] = {
+            k: torch.zeros(s, dtype=torch.float32 if rcfg.factored_nu
+                           and k != "full" else mdt, device=dev)
+            for k, s in _nu_shapes(shape, rcfg.factored_nu).items()}
+    return {"mu": mu, "nu": nu,
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    sq = sum(torch.sum(torch.square(g.float())) for g in tensors)
+    return torch.sqrt(sq)
+
+
+def _round(v: float, dtype: torch.dtype) -> float:
+    """``v`` as the nearest value of ``dtype`` (exact in f32 and bf16)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+@torch.no_grad()
+def adamw_update(model, grads: Dict[str, torch.Tensor], opt_state: Dict,
+                 rcfg: RunConfig) -> Tuple[object, Dict, Dict]:
+    """One AdamW step over ``grads`` (parameter name -> gradient), in
+    place on the model's parameters and on ``opt_state``. Returns (model,
+    opt_state, metrics) like the reference's (new_params, new_opt_state,
+    metrics)."""
+    count = opt_state["count"]
+    lr = cosine_schedule(rcfg)(count)
+    b1, b2 = rcfg.beta1, rcfg.beta2
+    eps = 1e-8
+    gnorm = global_norm(grads.values())
+    scale = torch.clamp(rcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0) if rcfg.grad_clip > 0 \
+        else torch.ones((), device=gnorm.device)
+    n = (count + 1).to(torch.float32)
+    c1 = 1.0 - torch.pow(torch.tensor(b1, device=n.device), n)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, device=n.device), n)
+
+    # moment math dtype: f32 normally; bf16 when moments are stored bf16
+    # (>=100B models); bias correction and the factored-nu reconstruction
+    # stay f32
+    cdt = torch.bfloat16 if rcfg.moment_dtype == "bfloat16" \
+        else torch.float32
+    b1c, b1m = _round(b1, cdt), _round(1 - b1, cdt)
+    b2c, b2m = _round(b2, cdt), _round(1 - b2, cdt)
+    scale_c = scale.to(cdt)
+
+    def nu_update(nu, g2):
+        if "full" in nu:
+            nu_f = nu["full"].to(cdt) * b2c + b2m * g2
+            nu["full"].copy_(nu_f)
+            return nu_f
+        g2f = g2.float()
+        vr = nu["vr"] * b2 + (1 - b2) * torch.mean(g2f, dim=-1)
+        vc = nu["vc"] * b2 + (1 - b2) * torch.mean(g2f, dim=-2)
+        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+        nu["vr"].copy_(vr)
+        nu["vc"].copy_(vc)
+        return (vr[..., None] * vc[..., None, :] / denom[..., None]).to(cdt)
+
+    params = dict(model.named_parameters())
+    slots = opt_slots(model.cfg)
+    mask = _decay_mask(slots, params)
+    for slot in slots:
+        ps = [params[n] for n in slot.params]
+        p = torch.stack(ps) if slot.stacked else ps[0]
+        g = torch.stack([grads[n] for n in slot.params]) if slot.stacked \
+            else grads[slot.params[0]]
+        mu = opt_state["mu"][slot.name]
+        g = g.to(cdt) * scale_c
+        mu_f = mu.to(cdt) * b1c + b1m * g
+        nu_f = nu_update(opt_state["nu"][slot.name], (g * g).to(cdt))
+        step = (mu_f.float() / c1) / (torch.sqrt(nu_f.float() / c2) + eps)
+        if mask[slot.name]:
+            step = step + rcfg.weight_decay * p.float()
+        new_p = (p.float() - lr * step).to(p.dtype)
+        mu.copy_(mu_f)
+        if slot.stacked:
+            for i, q in enumerate(ps):
+                q.copy_(new_p[i])
+        else:
+            p.copy_(new_p)
+    count += 1
+    return model, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -77,6 +77,8 @@ def cuda():
     (1, 2, 2, 24, 8, 128, True, 0, 0, "bfloat16"),
     (1, 65, 65, 24, 8, 128, True, 0, 0, "bfloat16"),
     (1, 1024, 1024, 24, 8, 128, True, 0, 0, "bfloat16"),
+    # the train phase's sequence: 32 kv tiles, the kernel's longest loop
+    (1, 4096, 4096, 24, 8, 128, True, 0, 0, "bfloat16"),
     (2, 65, 130, 24, 8, 128, True, 0, 65, "bfloat16"),
     (2, 77, 77, 8, 2, 64, True, 0, 0, "bfloat16"),
     (2, 130, 130, 24, 8, 128, True, 100, 0, "bfloat16"),
@@ -903,3 +905,119 @@ def test_hybrid_serve_engine_on_card_matches_cpu(cuda):
         n * eng.admissions, n * eng.admissions, n * eng.decode_steps]
     _, on_cpu = serve(torch.device("cpu"))
     assert on_card == on_cpu
+
+
+# ---------------------------------------------------------------------------
+# training: the flash kernel under autograd
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hq,kv,d,window", [
+    (509, 24, 8, 128, 0),           # llama3.2-3b's heads
+    (4096, 24, 8, 128, 0),          # the train phase's sequence
+    (1100, 25, 5, 64, 1024),        # hymba-1.5b's heads under its window
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_fn_on_card(cuda, s, hq, kv, d, window, dtype):
+    """``FlashAttentionFn``'s forward is ``flash_attention``'s output bit
+    for bit (the kernel) and matches ``flash_attention_plain`` within
+    ``TOL``; its grads of q, k and v match autograd through
+    ``blockwise_attention`` within 2e-2 (bf16) or 1e-4 (f32) of each
+    grad's largest |value|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import (
+        FlashAttentionFn, blockwise_attention, q_to_kv_map)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(s + hq)
+    q, k, v = (torch.randn((1, s, h, d), generator=gen, device=cuda)
+               .to(dt).requires_grad_() for h in (hq, kv, kv))
+    do = torch.randn((1, s, hq, d), generator=gen, device=cuda).to(dt)
+    before = fa.flash_attention.launches
+    o = FlashAttentionFn.apply(q, k, v, True, window, 512, 512)
+    assert fa.flash_attention.launches == before + 1
+    assert torch.equal(o, fa.flash_attention(q.detach(), k.detach(),
+                                             v.detach(), window=window))
+    plain = flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                  window=window)
+    torch.testing.assert_close(o.detach().float(), plain.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    del plain
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = blockwise_attention(q, k, v, kv_map=q_to_kv_map(hq, hq, kv, cuda),
+                              window=window, q_block=512, kv_block=512)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for name, a, b in zip("qkv", got, want):
+        assert a is not None and a.dtype == dt
+        err = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_gqa_attention_under_grad_gives_projection_grads_on_card(cuda):
+    """A training forward through ``gqa_attention`` on the card (the
+    kernel, whose output alone has no ``grad_fn``) gives wq, wk and wv
+    gradients, equal to the CPU's plain path within 1e-4 at f32."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import gqa_attention
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"),
+                              dtype="float32", param_dtype="float32")
+    rcfg = RunConfig(attn_q_block=16, attn_kv_block=16)
+    grads = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, device="cpu", seed=3).to(dev)
+        attn = model.blocks[0]["attn"]
+        ws = [attn[n].requires_grad_() for n in ("wq", "wk", "wv")]
+        x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator()
+                        .manual_seed(4)).to(dev)
+        before = fa.flash_attention.launches
+        out = gqa_attention(attn, x, cfg, rcfg,
+                            positions=torch.arange(40, device=dev))
+        if dev == cuda:
+            assert fa.flash_attention.launches == before + 1
+        g = torch.autograd.grad(out.square().sum(), ws)
+        assert all(t is not None for t in g)
+        grads[str(dev)] = [t.cpu() for t in g]
+    for name, a, b in zip(("wq", "wk", "wv"), grads["cuda"], grads["cpu"]):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_match_cpu(cuda):
+    """Two plain train steps (grad accumulation 2) of llama's smoke config
+    at f32 on the card, the kernel forward on every layer, against the
+    same steps on the CPU: losses within 1e-5, parameters within 1% of a
+    step (lr) absolute."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import make_train_state, make_train_step
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"),
+                              dtype="float32", param_dtype="float32")
+    rcfg = RunConfig(attn_q_block=16, attn_kv_block=16, grad_accum=2,
+                     warmup_steps=1, learning_rate=1e-2)
+    shape = ShapeConfig("t", 32, 4, "train")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, device="cpu", seed=5).to(dev)
+        state = make_train_state(cfg, rcfg, model=model)
+        step = make_train_step(cfg, rcfg)
+        feed = for_model(cfg, shape, device=dev)
+        before = fa.flash_attention.launches
+        losses = []
+        for i in range(2):
+            state, m = step(state, feed.batch_at(i))
+            losses.append(m["loss"].item())
+        if dev == cuda:
+            # forward and remat recompute, per layer and micro-batch
+            assert fa.flash_attention.launches - before == \
+                2 * cfg.num_layers * rcfg.grad_accum * 2
+        out[str(dev)] = (losses, {n: p.detach().cpu() for n, p in
+                                  state["params"].named_parameters()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, p in out["cuda"][1].items():
+        err = (p - out["cpu"][1][n]).abs().max().item()
+        assert err <= 0.01 * rcfg.learning_rate * 2, (n, err)

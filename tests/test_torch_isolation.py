@@ -55,7 +55,9 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.control.telemetry",
             "repro_torch.control.placement", "repro_torch.serve.cluster",
             "repro_torch.fabric.checkpoint", "repro_torch.obs.timeseries",
-            "repro_torch.obs.slo"} <= names
+            "repro_torch.obs.slo", "repro_torch.data.pipeline",
+            "repro_torch.train.optimizer", "repro_torch.train.train_loop",
+            "repro_torch.train.checkpoint", "repro_torch.train.runner"} <= names
 
 
 def test_port_configs_equal_the_reference():
@@ -98,19 +100,27 @@ def test_port_watchdog_catalog_equals_the_reference():
     assert tobs.__all__ == jobs.__all__
 
 
-def test_entry_points_without_a_device_raise_when_no_card():
+def test_entry_points_without_a_device_raise_when_no_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.data import for_model
     from repro_torch.device import resolve_device
     from repro_torch.models import Model, init_cache, init_params
     from repro_torch.serve import ServeEngine
+    from repro_torch.train import Runner, make_train_state
     cfg = tconf.get_smoke_config("llama3.2-3b")
+    shape = tconf.ShapeConfig("t", 16, 2, "train")
+    cpu_feed = for_model(cfg, shape, device="cpu")
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
                  lambda: Model(cfg),
                  lambda: init_params(cfg),
                  lambda: init_cache(cfg, 2, 16),
-                 lambda: ServeEngine(cfg, tconf.RunConfig())):
+                 lambda: ServeEngine(cfg, tconf.RunConfig()),
+                 lambda: for_model(cfg, shape).batch_at(0),
+                 lambda: make_train_state(cfg, tconf.RunConfig()),
+                 lambda: Runner(cfg, tconf.RunConfig(), None, cpu_feed,
+                                str(tmp_path))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu").type == "cpu"   # the explicit ask works

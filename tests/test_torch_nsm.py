@@ -2,12 +2,12 @@
 ``shard_map`` outputs, on the CPU.
 
 One spawned gloo world of 8 ranks in a (pod 2, data 2, model 2)
-``DeviceMesh`` serves the whole module (a module-scoped fixture). The ranks
-import torch and the port only: this file imports jax and the reference
-lazily, inside fixtures and tests, so a rank that unpickles ``_rank_main``
-from it never loads them. Every test gives its world calls a time limit of
-its own (``CALL_TIMEOUT_S``): a hung or failed rank fails that test, and the
-world is respawned for the next.
+``DeviceMesh`` serves the whole module (a module-scoped fixture,
+``tests/_torch_world.py``). The ranks import torch, the port and this
+module only: this file imports jax and the reference lazily, inside
+fixtures and tests, so the ranks never load them. Every world call has a
+time limit of its own (``_torch_world.CALL_TIMEOUT_S``): a hung or failed
+rank fails that test, and the world is respawned for the next.
 
 The reference side is the 8-host-device ``mesh_pod`` fixture of
 ``conftest.py`` (2, 2, pod=2), and each case is one of
@@ -19,23 +19,17 @@ derived from the measured int8 round-trip residuals).
 """
 from __future__ import annotations
 
-import queue
-import socket
-import time
-import traceback
-
 import numpy as np
 import pytest
 import torch
 
+from _torch_world import world_fixture
 from repro_torch.core import nsm as tnsm
 
 WORLD = 8
 SHAPE = (2, 2, 2)
 NAMES = ("pod", "data", "model")
 SIZES = dict(zip(NAMES, SHAPE))
-CALL_TIMEOUT_S = 120        # per test: a hung rank fails the test
-START_TIMEOUT_S = 120       # spawning 8 ranks that import torch
 
 _VERBS_UNDER_TEST = ("psum", "all_gather", "reduce_scatter")
 _PSUM_AXES = [("model",), ("data",), ("pod", "data")]
@@ -65,113 +59,8 @@ CASES = [(name, verb, axes, dt)
          for dt in _DTYPES]
 
 
-# ---------------------------------------------------------------------------
 # the world: 8 gloo ranks, one DeviceMesh, a command loop per rank
-# ---------------------------------------------------------------------------
-
-
-def _rank_main(rank, port, inbox, outbox):
-    """One rank: join the gloo world, build the mesh's groups, then run
-    the functions of this module it is sent, in order, until ``None``."""
-    import datetime
-
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    torch.set_num_threads(1)
-    try:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=WORLD, timeout=datetime.timedelta(seconds=60))
-        mesh = init_device_mesh("cpu", SHAPE, mesh_dim_names=NAMES)
-        axes = tnsm.MeshAxes(mesh)
-        outbox.put((rank, True, "ready"))
-    except BaseException:                       # reported, then exit
-        outbox.put((rank, False, traceback.format_exc()))
-        return
-    while True:
-        msg = inbox.get()
-        if msg is None:
-            break
-        fn, args = msg
-        try:
-            outbox.put((rank, True, globals()[fn](axes, *args)))
-        except BaseException:                   # reported to the test
-            outbox.put((rank, False, traceback.format_exc()))
-    dist.destroy_process_group()
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-class World:
-    """8 spawned ranks; ``run(fn, *args)`` calls ``fn(axes, *args)`` on
-    every rank and returns the 8 results in rank order, or fails within
-    ``CALL_TIMEOUT_S``."""
-
-    def __init__(self):
-        import multiprocessing as mp
-        self._ctx = mp.get_context("spawn")
-        self.procs = []
-
-    def _start(self):
-        ctx = self._ctx
-        port = _free_port()
-        self.outbox = ctx.Queue()
-        self.inboxes = [ctx.Queue() for _ in range(WORLD)]
-        self.procs = [ctx.Process(target=_rank_main, daemon=True,
-                                  args=(r, port, self.inboxes[r],
-                                        self.outbox))
-                      for r in range(WORLD)]
-        for p in self.procs:
-            p.start()
-        self._collect(START_TIMEOUT_S)
-
-    def _collect(self, timeout):
-        deadline = time.monotonic() + timeout
-        got = {}
-        while len(got) < WORLD:
-            left = deadline - time.monotonic()
-            try:
-                rank, ok, payload = self.outbox.get(timeout=max(left, 0.01))
-            except queue.Empty:
-                self.close()
-                pytest.fail(f"world call timed out after {timeout} s; "
-                            f"ranks that answered: {sorted(got)}")
-            if not ok:
-                self.close()
-                pytest.fail(f"rank {rank} failed:\n{payload}")
-            got[rank] = payload
-        return [got[r] for r in range(WORLD)]
-
-    def run(self, fn, *args, timeout=CALL_TIMEOUT_S):
-        if not self.procs:
-            self._start()
-        for box in self.inboxes:
-            box.put((fn.__name__, args))
-        return self._collect(timeout)
-
-    def close(self):
-        for box in getattr(self, "inboxes", []):
-            box.put(None)
-        for p in self.procs:
-            p.join(timeout=10)
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
-        self.procs = []
-
-
-@pytest.fixture(scope="module")
-def world():
-    w = World()
-    yield w
-    procs = list(w.procs)
-    w.close()
-    assert not any(p.is_alive() for p in procs)
+world = world_fixture(__name__, SHAPE, NAMES)
 
 
 # ---------------------------------------------------------------------------
