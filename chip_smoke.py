@@ -14,7 +14,8 @@ JSON object per line:
               the paths' shapes, with the tolerance stated (flash: S 1, 2,
               64, 65, 509, 1024, two sequences with T > S, a window, f32;
               hymba-1.5b's 25/5 heads at d 64, S 1536 and 1100 under its
-              1024-token window, S 1536 global, f32; decode: mixed and
+              1024-token window, S 1536 global, f32, and its trained S
+              4096 windowed and global; decode: mixed and
               serve positions, twice, bit-identical; hymba's group 5 over
               rings of 1024 slots at positions before and past the wrap,
               also against the reference's absolute-position decode, a
@@ -22,8 +23,14 @@ JSON object per line:
               exact sort-based fill, and twice on the same input
               (bit-identical); the SSD scan at mamba2-370m's width (1, 2
               and 16 chunks, a padded last chunk, cumsums to -180) and at
-              hymba's (12 chunks; 11 padded, bf16 and f32; y, states,
-              decays and state decays);
+              hymba's (12 and 32 chunks; 11 padded, bf16 and f32; y,
+              states, decays and state decays); ``SsdScanFn`` at the
+              trainers' shapes (the kernel's outputs, the plain scan's
+              grads); whisper-small's 12/12 heads at d 64: flash
+              bidirectional over 1500 frames (bf16, f32), causal
+              cross-attention with S 4 and 448 below T 1500, causal
+              self-attention at S = T 4 and 448, decode at group 1 over
+              1500 frames at pos 1499 and over 448 slots;
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -48,7 +55,13 @@ JSON object per line:
    layer and step, every decode past the ring's wrap, the cache's bytes
    the schema's; parity at bf16 for every flash, SSD and decode launch,
    asserted, and end to end, reported beside the model's own bf16 noise
-   floor; the whole model again at f32 with an f32 cache, asserted);
+   floor; the whole model again at f32 with an f32 cache, asserted), and
+   on full-width whisper-small (the encdec family, served through
+   ``forward_prefill(..., frames=)`` and greedy ``forward_decode``: 8
+   utterances of 1500 bf16 frames, prompts of 4, ``max_seq`` 448, 64 new
+   tokens; 36 flash launches a prefill, 24 decode launches a step, the
+   cache's bytes the schema's; the kernel path against the plain path at
+   bf16 and on an f32 copy);
 7. control  — the vectorized control plane's fused tick on the card at
               1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
               counter trace): µs per tick, tenants/s, state bytes; its
@@ -111,6 +124,17 @@ JSON object per line:
               gradient psums on ``("pod",)`` of the gradients' bytes, the
               sync's ms); at 2 layers, 5 steps plain against 5 steps with
               a checkpoint at 3 and a failure at 4: bit-identical states;
+              then full-width mamba2-370m and hymba-1.5b (seq 4096,
+              global batch 4) and whisper-small (448 tokens and 1500 f32
+              frames, global batch 16), each through the Runner for 2
+              steps (``grad_accum`` 4; flash and the SSD scan under
+              autograd; launches a step, every parameter moved, step ms,
+              tokens/s, MFU, state bytes, peak memory), the kernel path
+              against the plain path (bf16 at full depth: loss and grad
+              norm asserted, the kernel-fed leaves' grads reported beside
+              the model's bf16 noise floor; bf16 at 2 layers: those
+              leaves asserted; f32 at 2 layers: every grad), mamba2's
+              recovery at 2 layers bit-identical;
 14. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
               scenarios on the port's ``SharedBottleneckSim`` with the
               object controller and the vectorized one on the card (its
@@ -131,10 +155,11 @@ JSON object per line:
               a 256-, 512- and 4,096-token prompt; hymba-1.5b's shapes
               (flash over 1536 tokens with the window and without, decode
               over 8 rings, the SSD scan over 12 chunks of its width); the
-              codec on the embedding leaf.
+              codec on the embedding leaf; whisper-small's flash and
+              decode shapes and the trainers' SSD scans.
 
-Then the seconds of the vlm, hybrid, watchdog and train phases and of the
-whole script,
+Then the seconds of the vlm, hybrid, encdec, watchdog, train and
+train-families phases and of the whole script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
@@ -210,6 +235,21 @@ GLOBAL_DECODE_POS = (1024, 1100, 1200, 1300, 1400, 1500, 1566, 1567)
 # 1536-token prompt, 11 with 108 padded rows the 1300-token parity prompt
 HYBRID_SSD = (128, 50, 64, 16)
 HYBRID_SSD_CHUNKS = 12
+# whisper-small (the encdec family) at full width and depth: 12 encoder
+# and 12 decoder layers, 12/12 heads at head_dim 64, 1500 frames. Served as
+# the reference's own entry points serve it (its ServeEngine cannot:
+# ROADMAP R9): a prefill with frames, then greedy decode steps; 8
+# utterances, prompts of 4 tokens (the SOT sequence), max_seq 448 (the
+# published text context, arXiv:2212.04356), 64 new tokens
+ENCDEC_HEADS, ENCDEC_D, ENCDEC_FRAMES = (12, 12), 64, 1500
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_MAX_SEQ = 8, 4, 448
+ENCDEC_NEW = 64
+ENCDEC_PARITY_STEPS = 8       # decode steps of each parity run
+ENCDEC_F32_TOL = 1e-4         # f32 kernel path vs plain path, logits
+# the serve range of self-decode positions: 4-token prompts + 64 new
+ENCDEC_DECODE_POS = (4, 13, 22, 31, 40, 49, 58, 67)
+# its cache at the serve shape, bf16 (12 layers x 8 x 1500 / 448 x 12 x 64)
+ENCDEC_CROSS_BYTES, ENCDEC_SELF_BYTES = 442_368_000, 132_120_576
 
 # water-fill: |kernel - plain| and |kernel - exact fill| per unit capacity
 WATER_TOL_PLAIN = 1e-9
@@ -288,6 +328,16 @@ TRAIN_FT_STEPS = 5
 TRAIN_FT_CKPT_EVERY = 3
 TRAIN_FT_FAIL_AT = 4
 TRAIN_MIN_DISK = 16e9         # bytes free where the checkpoints go
+# the ssm, hybrid and encdec trainers: (arch, sequence, global batch) at
+# full width and depth, grad_accum TRAIN_ACCUM, FAMILY_STEPS steps each;
+# whisper's 448 tokens come with the pipeline's 1500 f32 frames
+FAMILY_TRAINERS = (("mamba2-370m", TRAIN_SEQ, TRAIN_BATCH),
+                   ("hymba-1.5b", TRAIN_SEQ, TRAIN_BATCH),
+                   ("whisper-small", ENCDEC_MAX_SEQ, 16))
+FAMILY_STEPS = 2
+FAMILY_F32_TOL = 1e-4         # loss and grads, f32, 2 layers
+FAMILY_FT_ARCH = "mamba2-370m"   # the one whose recovery is checked
+FLOOR_NUDGE = 2 ** -8         # relative, about one bf16 ulp: noise floors
 
 FAIR_CAPACITY = 1_000_000.0
 FAIR_DT = 0.05
@@ -394,14 +444,18 @@ def bound(nbytes: float, flops: float, dtype: str):
 
 
 def flash_work(b, s, t, hq, kv, d, elem, causal, window):
-    """Bytes (q, k, v read once, o written once) and flops (QK^T and PV
-    over the (query, key) pairs the mask keeps)."""
-    pairs = 0
+    """Bytes (q read once, o written once, and k and v read once over
+    the keys the mask keeps for some query: the first S of T where a
+    causal S is below T) and flops (QK^T and PV over the (query, key)
+    pairs the mask keeps)."""
+    pairs, keys = 0, set()
     for i in range(s):
         hi = min(i, t - 1) if causal else t - 1
         lo = max(0, i - window + 1) if window else 0
         pairs += max(hi - lo + 1, 0)
-    nbytes = elem * (2 * b * s * hq * d + 2 * b * t * kv * d)
+        keys.update((lo, hi + 1))
+    kept = max(keys) - min(keys) if keys else 0
+    nbytes = elem * (2 * b * s * hq * d + 2 * b * kept * kv * d)
     return nbytes, 4.0 * d * pairs * hq * b
 
 
@@ -446,7 +500,8 @@ def phase_kernels(torch, device):
     # and d 64: the 1024-token window over 1536 and 1100 tokens (the first
     # live kv tile of a q tile cut by the window's edge), a global layer,
     # and the f32 parity's windowed prefill; the train phase's sequence
-    # (32 kv tiles, the kernel's longest loop)
+    # (32 kv tiles, the kernel's longest loop), and hymba's trained
+    # micro-batch of it, windowed and global
     cases = [(1, s, s, "bfloat16", 0, 0, LLAMA_HEADS)
              for s in (64, 509, 1024, TRAIN_SEQ)]
     cases += [(1, 1, 1, "bfloat16", 0, 0, LLAMA_HEADS),
@@ -464,6 +519,9 @@ def phase_kernels(torch, device):
               (1, 1536, 1536, "bfloat16", 0, 0, HYBRID_HEADS, HYBRID_D),
               (1, HYBRID_PARITY_PROMPT, HYBRID_PARITY_PROMPT, "float32",
                HYBRID_WINDOW, 0, HYBRID_HEADS, HYBRID_D)]
+    cases += [(TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, TRAIN_SEQ, "bfloat16",
+               window, 0, HYBRID_HEADS, HYBRID_D)
+              for window in (HYBRID_WINDOW, 0)]
     for b, s, t, dt, window, q_offset, (hq, kv), d in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
@@ -534,6 +592,8 @@ def phase_kernels(torch, device):
         errs["decode_attention"] = max(errs["decode_attention"], e_o)
     errs["decode_attention"] = max(errs["decode_attention"],
                                    hybrid_decode_cases(torch, device, gen))
+    for k, v in encdec_kernel_cases(torch, device, gen).items():
+        errs[k] = max(errs[k], v)
     return errs
 
 
@@ -596,6 +656,123 @@ def hybrid_decode_cases(torch, device, gen):
                                  f"repeat identical {same}")
         worst = max(worst, e_o)
     return worst
+
+
+def encdec_kernel_cases(torch, device, gen):
+    """whisper-small's attention shapes (12/12 heads, d 64), each against
+    its plain version: flash bidirectional over 1500 frames (the encoder;
+    bf16 at serving, f32 in training), flash causal with S 4 and 448
+    below T 1500 (the decoder's cross-attention at prefill and in
+    training: position t sees frames 0..t, ROADMAP R8), flash causal at S
+    = T 4 and 448 (the decoder's self-attention at the served prefill and
+    in a trained micro-batch, bf16), decode at group 1
+    over 1500 frames at pos 1499 (the cross decode; bf16, and f32 with an
+    f32 cache for the f32 parity) and over 448 slots at the serve range
+    of positions (the self decode). Returns the worst |kernel - plain| of
+    flash and of decode."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    (hq, kv), d, t = ENCDEC_HEADS, ENCDEC_D, ENCDEC_FRAMES
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    micro = FAMILY_TRAINERS[-1][2] // TRAIN_ACCUM
+    for b, s, tk, dt, causal in (
+            (2, t, t, "bfloat16", False),
+            (2, t, t, "float32", False),
+            (ENCDEC_BATCH, ENCDEC_PROMPT, t, "bfloat16", True),
+            (2, ENCDEC_MAX_SEQ, t, "bfloat16", True),
+            (2, ENCDEC_MAX_SEQ, t, "float32", True),
+            (ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_PROMPT, "bfloat16", True),
+            (micro, ENCDEC_MAX_SEQ, ENCDEC_MAX_SEQ, "bfloat16", True)):
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((b, tk, kv, d), generator=gen, device=device)
+                .to(dtype) for _ in range(2))
+        o = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        err = (o.float() - ref.float()).abs().max().item()
+        ok = err <= FLASH_TOL[dt] and bool(torch.isfinite(o).all())
+        emit({"phase": "kernels", "kernel": "flash_attention",
+              "model": "whisper-small", "B": b, "S": s, "T": tk, "hq": hq,
+              "kv": kv, "d": d, "dtype": dt, "causal": causal,
+              "max_abs_err": err, "tol": FLASH_TOL[dt], "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention whisper B={b} S={s} "
+                                 f"T={tk} {dt} causal={causal}: err {err}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+    for tt, dt, cdt, pos_list in (
+            (t, "bfloat16", "bfloat16", (t - 1,) * ENCDEC_BATCH),
+            (t, "float32", "float32", (t - 1,) * ENCDEC_BATCH),
+            (ENCDEC_MAX_SEQ, "bfloat16", "bfloat16", ENCDEC_DECODE_POS)):
+        b = len(pos_list)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        q = torch.randn((b, hq, d), generator=gen,
+                        device=device).to(getattr(torch, dt))
+        kc, vc = (torch.randn((b, tt, kv, d), generator=gen, device=device)
+                  .to(getattr(torch, cdt)) for _ in range(2))
+        o, m, l = decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        ro, rm, rl = decode_attention_plain(q, kc, vc, pos)
+        e_o = (o.float() - ro.float()).abs().max().item()
+        e_m = (m - rm).abs().max().item()
+        e_l = ((l - rl).abs() / rl.abs()).max().item()
+        tol = DECODE_TOL[dt]
+        ok = e_o <= tol["o"] and e_m <= tol["m"] and e_l <= tol["l"] \
+            and bool(torch.isfinite(o).all())
+        emit({"phase": "kernels", "kernel": "decode_attention",
+              "model": "whisper-small", "B": b, "T": tt, "hq": hq,
+              "kv": kv, "d": d, "q_dtype": dt, "cache_dtype": cdt,
+              "pos": list(pos_list), "max_abs_err_o": e_o,
+              "max_abs_err_m": e_m, "max_rel_err_l": e_l, "tol": tol,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"decode_attention whisper T={tt} {dt}: "
+                                 f"o {e_o}, m {e_m}, l {e_l} against {tol}")
+        worst["decode_attention"] = max(worst["decode_attention"], e_o)
+    return worst
+
+
+def ssd_fn_cases(torch, device):
+    """``SsdScanFn`` on the card at the two trainers' shapes (mamba2-370m:
+    16 chunks of Q 256, H 32, P 64, N 128; hymba-1.5b: 32 chunks of Q 128,
+    H 50, P 64, N 16), bf16 and f32: its outputs are the kernel's, bit for
+    bit, and its gradients of xdt, dA, B and C (random cotangents on all
+    four outputs) are autograd's through the plain version on the same
+    inputs, within 1e-6 of each gradient's largest value."""
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunk_scan, ssd_chunk_scan_plain)
+    from repro_torch.models.ssm import SsdScanFn
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    for name, nc, shape in (("mamba2-370m", 16, None),
+                            ("hymba-1.5b", 32, HYBRID_SSD)):
+        for dt in ("bfloat16", "float32"):
+            ins = [x.requires_grad_() for x in ssd_inputs(
+                torch, gen, device, nc, dt, shape=shape)]
+            outs = SsdScanFn.apply(*ins)
+            with torch.no_grad():
+                kern = ssd_chunk_scan(*ins, out_dtype=torch.float32,
+                                      state_decay=True)
+            plain = ssd_chunk_scan_plain(*ins, out_dtype=torch.float32,
+                                         state_decay=True)
+            cots = [torch.randn(o.shape, generator=gen, device=device)
+                    for o in outs]
+            got = torch.autograd.grad(outs, ins, cots)
+            want = torch.autograd.grad(plain, ins, cots)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs, kern))
+            gaps = [rel_err(a, b) for a, b in zip(got, want)]
+            ok = same and max(gaps) <= 1e-6 and all(
+                bool(torch.isfinite(g).all()) for g in got)
+            emit({"phase": "kernels", "kernel": "ssd_chunk_scan",
+                  "check": "SsdScanFn", "model": name, "nc": nc,
+                  "dtype": dt, "outputs_are_the_kernels": same,
+                  "grad_gaps": dict(zip(("xdt", "dA", "B", "C"), gaps)),
+                  "tol": 1e-6, "ok": ok})
+            if not ok:
+                raise AssertionError(f"SsdScanFn {name} {dt}: outputs "
+                                     f"{same}, grad gaps {gaps}")
 
 
 def water_case(np, n, seed, kind="mixed", cap=CONTROL_CAPACITY):
@@ -692,11 +869,12 @@ def phase_ssd(torch, device):
     """The SSD scan kernel against its plain version at mamba2-370m's width
     (Q 256, H 32, P 64, N 128): bf16 at 1, 2 and 16 chunks (the second
     with a padded last chunk, one with dt scaled down so the decay reaches
-    across the chunk), f32 at 2 chunks; and at hymba-1.5b's (Q 128, H 50,
-    P 64, N 16): bf16 at 12 chunks (a 1536-token prompt), bf16 and f32 at
-    11 with 108 padded rows (the 1300-token parity prompt); all four
-    outputs, the state decay included. Returns the worst |kernel - plain|
-    of y."""
+    across the chunk; 16 is a training sequence), f32 at 2 chunks; and at
+    hymba-1.5b's (Q 128, H 50, P 64, N 16): bf16 at 12 chunks (a
+    1536-token prompt) and 32 (a training sequence), bf16 and f32 at 11
+    with 108 padded rows (the 1300-token parity prompt); all four outputs,
+    the state decay included. Then ``SsdScanFn`` at the training shapes
+    (``ssd_fn_cases``). Returns the worst |kernel - plain| of y."""
     from repro_torch.kernels.ssd_scan import (
         ssd_chunk_scan, ssd_chunk_scan_plain)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -708,7 +886,8 @@ def phase_ssd(torch, device):
              (2, "float32", 1.0, 56, mamba),
              (HYBRID_SSD_CHUNKS, "bfloat16", 1.0, 0, HYBRID_SSD),
              (11, "bfloat16", 1.0, pad, HYBRID_SSD),
-             (11, "float32", 1.0, pad, HYBRID_SSD)]
+             (11, "float32", 1.0, pad, HYBRID_SSD),
+             (32, "bfloat16", 1.0, 0, HYBRID_SSD)]
     worst = 0.0
     for nc, dt, dt_scale, pad, shape in cases:
         xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, dt,
@@ -758,6 +937,7 @@ def phase_ssd(torch, device):
                                  f"decay {e_sd} against {bound}, finite "
                                  f"{finite}")
         worst = max(worst, e_y)
+    ssd_fn_cases(torch, device)
     return worst
 
 
@@ -1501,6 +1681,156 @@ def phase_hybrid(torch, device, cfg=None):
     phase_parity_hybrid(torch, device, eng)
     del eng
     torch.cuda.empty_cache()
+    return launches
+
+
+def encdec_serve(torch, model, rcfg, prompts, frames, steps, forced=None):
+    """whisper served through the model's entry points: one prefill with
+    frames, then ``steps`` greedy decode steps (``forced`` (B, steps):
+    teacher-forced tokens instead). Returns (per-step logits in f32, the
+    tokens fed, the caches)."""
+    from repro_torch.models import forward_decode, forward_prefill
+    b, s = prompts.shape
+    logits, caches = forward_prefill(model, prompts, rcfg,
+                                     max_seq=ENCDEC_MAX_SEQ, frames=frames)
+    out, fed = [logits.float()], []
+    for i in range(steps):
+        tok = logits.argmax(-1).to(torch.int32) if forced is None \
+            else forced[:, i]
+        fed.append(tok)
+        logits, caches = forward_decode(
+            model, caches, tok[:, None], torch.full(
+                (b,), s + i, dtype=torch.int32, device=prompts.device),
+            rcfg)
+        out.append(logits.float())
+    return out, torch.stack(fed, 1), caches
+
+
+def phase_encdec(torch, device, cfg=None):
+    """whisper-small (``cfg``: its full-width config by default) at full
+    width and depth, random bf16 weights from a seed, served as the
+    reference's entry points serve it: ``ENCDEC_BATCH`` utterances of
+    ``encoder_seq`` bf16 frames, prompts of ``ENCDEC_PROMPT`` tokens, one
+    prefill (flash once per encoder layer, decoder layer and cross
+    attention), ``ENCDEC_NEW`` greedy decode steps (decode once per
+    decoder layer for the self cache and once for the cross cache, at
+    pos T - 1). Checks the launches, the cache's bytes against the
+    schema, finite logits; the kernel path against the plain path at bf16
+    (teacher-forced, logits within ``PARITY_TOL`` of max |logit|) and on
+    an f32 copy (greedy on both, identical tokens, logits within
+    ``ENCDEC_F32_TOL``). Returns the launch counts of the served run."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import (cache_schema, forward_decode,
+                                    forward_prefill, init_params)
+    from repro_torch.models.model import cache_nbytes
+    cfg = cfg or get_config("whisper-small")
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before "
+                             f"{cfg.name}'s weights")
+    b, t0 = ENCDEC_BATCH, time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    model = init_params(cfg, device=device, seed=SEED)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+    prompts = torch.randint(1, cfg.vocab_size, (b, ENCDEC_PROMPT),
+                            generator=gen, device=device, dtype=torch.int32)
+    rcfg = RunConfig()
+    encdec_serve(torch, model, rcfg, prompts, frames, 2)      # warm
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    t1 = time.perf_counter()
+    logits, caches = forward_prefill(model, prompts, rcfg,
+                                     max_seq=ENCDEC_MAX_SEQ, frames=frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    launches = {"flash_attention": fa.flash_attention.launches}
+    toks, t2 = [], time.perf_counter()
+    for i in range(ENCDEC_NEW):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        logits, caches = forward_decode(
+            model, caches, tok[:, None], torch.full(
+                (b,), ENCDEC_PROMPT + i, dtype=torch.int32, device=device),
+            rcfg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t2
+    launches["decode_attention"] = da.decode_attention.launches
+    schema = {k: math.prod(d.shape) * getattr(torch, d.dtype).itemsize
+              for seg in cache_schema(cfg, b, ENCDEC_MAX_SEQ)
+              for k, d in seg.items()}
+    cache = {k: sum(c[k].numel() * c[k].element_size() for c in caches)
+             for k in ("k", "v", "ck", "cv")}
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    want = {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
+            "decode_attention": 2 * cfg.num_layers * ENCDEC_NEW}
+    checks = {
+        "launches": launches == want,
+        "cache_bytes_are_the_schemas": cache_nbytes(caches)
+        == sum(schema.values()) and cache == schema,
+        "cache_dtypes_bf16": all(v.dtype == torch.bfloat16
+                                 for c in caches for v in c.values()),
+        "finite_logits": bool(torch.isfinite(logits).all()),
+        "tokens_in_vocab": all(bool(((x >= 0) & (x < cfg.vocab_size))
+                                    .all()) for x in toks)}
+    if cfg.name == "whisper-small":
+        checks["cross_and_self_bytes"] = (
+            cache["ck"] + cache["cv"], cache["k"] + cache["v"]) == (
+            ENCDEC_CROSS_BYTES, ENCDEC_SELF_BYTES)
+    row = {"phase": "serve", "model": cfg.name, "utterances": b,
+           "frames": cfg.encoder_seq, "prompt": ENCDEC_PROMPT,
+           "max_seq": ENCDEC_MAX_SEQ, "new_tokens": ENCDEC_NEW,
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "weight_bytes": weight_bytes, "cache_bytes": cache,
+           "schema_bytes": schema, "launches": launches,
+           "launches_want": want, "prefill_ms": prefill_s * 1e3,
+           "decode_step_ms": decode_s / ENCDEC_NEW * 1e3,
+           "decode_tokens_per_s": b * ENCDEC_NEW / decode_s,
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} serve: {row}")
+    del caches, logits
+
+    # the kernel path against the plain path, bf16, teacher-forced on the
+    # kernel path's tokens
+    ker, fed, _ = encdec_serve(torch, model, rcfg, prompts, frames,
+                               ENCDEC_PARITY_STEPS)
+    plain, _, _ = encdec_serve(torch, model, RunConfig(
+        attention_impl="naive"), prompts, frames, ENCDEC_PARITY_STEPS,
+        forced=fed)
+    rel, agree = logit_gap(ker, plain)
+    del model
+    torch.cuda.empty_cache()
+    # ... and on an f32 copy (f32 weights, frames and cache), greedy on both
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = init_params(cfg32, device=device, seed=SEED)
+    ker32, tok_k, _ = encdec_serve(torch, model, rcfg, prompts,
+                                   frames.float(), ENCDEC_PARITY_STEPS)
+    plain32, tok_p, _ = encdec_serve(torch, model, RunConfig(
+        attention_impl="naive"), prompts, frames.float(),
+        ENCDEC_PARITY_STEPS)
+    rel32, _ = logit_gap(ker32, plain32)
+    del model
+    torch.cuda.empty_cache()
+    row = {"phase": "parity", "model": cfg.name,
+           "steps": ENCDEC_PARITY_STEPS + 1, "bf16_rel_gaps": rel,
+           "bf16_argmax_agree": agree, "bf16_tol": PARITY_TOL,
+           "f32_rel_gaps": rel32, "f32_tokens_identical":
+           torch.equal(tok_k, tok_p), "f32_tol": ENCDEC_F32_TOL,
+           "seconds": time.perf_counter() - t0}
+    row["ok"] = max(rel) <= PARITY_TOL and max(rel32) <= ENCDEC_F32_TOL \
+        and row["f32_tokens_identical"]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"{cfg.name} parity: {row}")
     return launches
 
 
@@ -2593,29 +2923,60 @@ def phase_bytes(torch, device, tree, backend="nccl"):
     return rows
 
 
-def train_parity(torch, device, cfg, model, batch, keep):
-    """The kernel path (``FlashAttentionFn``) against the plain path
-    (``attention_impl="naive"``: ``flash_attention_plain`` under
-    autograd) on the same weights and micro-batch: the relative loss gap,
-    the relative gap of the global grad norm, and for each leaf that
-    ``keep(name)`` selects max |dgrad| / max |grad|."""
+def train_parity(torch, device, cfg, model, batch, keep, nudges=()):
+    """The kernel path (``FlashAttentionFn``, ``SsdScanFn``) against the
+    plain path (``attention_impl="naive"``: ``flash_attention_plain`` and
+    ``ssd_chunk_scan_plain`` under autograd) on the same weights and
+    micro-batch: the relative loss gap, the relative gap of the global
+    grad norm, and for each leaf that ``keep(name)`` selects max |dgrad|
+    / max |grad|. With ``nudges`` (functions of a tensor, as
+    ``uniform_nudge`` makes), also ``floor_gaps``, one dict for each: the
+    same leaves' gaps of the plain path against itself with every flash
+    and scan output nudged, the model's own noise floor."""
     from repro_torch.configs import RunConfig
+    from repro_torch.models import attention, ssm
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.train_loop import _grads
-    out = {}
-    for impl in ("chunked", "naive"):
+
+    def run(impl):
         grads, metrics = _grads(model, batch, cfg,
                                 RunConfig(attention_impl=impl))
-        out[impl] = (metrics["loss"].item(),
-                     global_norm(grads.values()).item(),
-                     {n: g for n, g in grads.items() if keep(n)})
-        del grads
-    (lk, nk, gk), (lp, np_, gp) = out["chunked"], out["naive"]
-    return {"loss_kernel": lk, "loss_plain": lp,
-            "loss_gap": abs(lk - lp) / abs(lp),
-            "grad_norm_kernel": nk, "grad_norm_plain": np_,
-            "grad_norm_gap": abs(nk - np_) / abs(np_),
-            "grad_gaps": {n: rel_err(gk[n], gp[n]) for n in gk}}
+        return (metrics["loss"].item(), global_norm(grads.values()).item(),
+                {n: g for n, g in grads.items() if keep(n)})
+
+    (lk, nk, gk), (lp, np_, gp) = run("chunked"), run("naive")
+    out = {"loss_kernel": lk, "loss_plain": lp,
+           "loss_gap": abs(lk - lp) / abs(lp),
+           "grad_norm_kernel": nk, "grad_norm_plain": np_,
+           "grad_norm_gap": abs(nk - np_) / abs(np_),
+           "grad_gaps": {n: rel_err(gk[n], gp[n]) for n in gk}}
+    del gk
+    flash_p, scan_p = attention.flash_attention_plain, \
+        ssm.ssd_chunk_scan_plain
+    for nudge in nudges:
+        def flash_nudged(*args, **kw):
+            return nudge(flash_p(*args, **kw))
+
+        def scan_nudged(*args, **kw):
+            y, *rest = scan_p(*args, **kw)
+            return (nudge(y), *rest)
+
+        attention.flash_attention_plain = flash_nudged
+        ssm.ssd_chunk_scan_plain = scan_nudged
+        try:
+            _, _, gn = run("naive")
+        finally:
+            attention.flash_attention_plain = flash_p
+            ssm.ssd_chunk_scan_plain = scan_p
+        out.setdefault("floor_gaps", []).append(
+            {n: rel_err(gn[n], gp[n]) for n in gn})
+    return out
+
+
+def uniform_nudge(n: float):
+    """A noise floor's nudge for ``train_parity``: every element scaled by
+    1 + n (``FLOOR_NUDGE``, 2^-8, is about one bf16 ulp)."""
+    return lambda t: t * (1 + n)
 
 
 def state_bytes(state):
@@ -2641,7 +3002,6 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
     rehearsal); bit-exact recovery at 2 layers. Returns the flash launches
     of the Runner's timed steps."""
     import dataclasses
-    import shutil
     import tempfile
 
     import torch.distributed as dist
@@ -2652,8 +3012,7 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.params import init_params
     import repro_torch.train.train_loop as train_loop
-    from repro_torch.train import (FailurePlan, Runner, loss_fn,
-                                   make_train_step)
+    from repro_torch.train import Runner, loss_fn, make_train_step
     # the cluster and watchdog phases' engines hold their model in
     # reference cycles, which only the cycle collector frees
     gc.collect()
@@ -2814,8 +3173,23 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
 
     # 5. fault tolerance at full width, 2 layers: a failure at step 4,
     # the checkpoint of step 3 restored in place, bit-identical results
+    fault_tolerance(torch, device, dataclasses.replace(
+        cfg, num_layers=TRAIN_FT_LAYERS), rcfg, feed, SEED + 21)
+    return launches
+
+
+def fault_tolerance(torch, device, cfg2, rcfg, feed, seed):
+    """At ``cfg2`` (2 layers): ``TRAIN_FT_STEPS`` steps plain against the
+    same steps with a checkpoint every ``TRAIN_FT_CKPT_EVERY`` and a
+    failure at ``TRAIN_FT_FAIL_AT``, from the weights of ``seed``: the
+    final states must be bit-identical. Emits and returns the row."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.models.params import init_params
+    from repro_torch.train import FailurePlan, Runner
     t0 = time.perf_counter()
-    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_FT_LAYERS)
     runs = []
     with tempfile.TemporaryDirectory() as d:
         free = shutil.disk_usage(d).free
@@ -2828,18 +3202,17 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
                 rcfg, checkpoint_every=every, keep_checkpoints=1), None,
                 feed, os.path.join(d, f"every_{every}"),
                 failure_plan=FailurePlan(fail_at=fail_at), device=device)
-            r.init_state(model=init_params(cfg2, device=device,
-                                           seed=SEED + 21))
-            t0 = time.perf_counter()
+            r.init_state(model=init_params(cfg2, device=device, seed=seed))
+            t1 = time.perf_counter()
             out = r.run(TRAIN_FT_STEPS)
-            runs.append((out, time.perf_counter() - t0, r.ckpt.steps(),
+            runs.append((out, time.perf_counter() - t1, r.ckpt.steps(),
                          [t.detach().to("cpu", copy=True)
                           for t in _state_tensors(r)]))
             del r
             torch.cuda.empty_cache()
     same = all(torch.equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
-    row = {"phase": "train", "check": "fault_tolerance",
-           "layers": TRAIN_FT_LAYERS, "steps": TRAIN_FT_STEPS,
+    row = {"phase": "train", "check": "fault_tolerance", "model": cfg2.name,
+           "layers": cfg2.num_layers, "steps": TRAIN_FT_STEPS,
            "checkpoint_every": TRAIN_FT_CKPT_EVERY,
            "fail_at": TRAIN_FT_FAIL_AT,
            "runs": [{"final_step": o["final_step"],
@@ -2853,7 +3226,190 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
             [TRAIN_FT_STEPS] * 2 or [o["recoveries"] for o, *_ in runs] \
             != [0, 1]:
         raise AssertionError(f"train fault tolerance: {row}")
+    return row
+
+
+def kernel_fed(name: str) -> bool:
+    """The parameters whose gradients come through a kernel's autograd
+    wrapper first: the attention and cross-attention projections (flash)
+    and the SSD scan's inputs (x, B, C, dt and A)."""
+    return name.endswith(("attn.wq", "attn.wk", "attn.wv", "cross.wq",
+                          "cross.wk", "cross.wv", "ssm.w_x", "ssm.w_B",
+                          "ssm.w_C", "ssm.w_dt", "ssm.A_log",
+                          "ssm.dt_bias"))
+
+
+def per_forward(cfg):
+    """Kernel launches of one training forward: flash once per attention
+    (every layer of the dense, vlm, hybrid and enc kinds, a dec layer's
+    self and cross attention), the SSD scan once per ssm or hybrid
+    layer."""
+    attn = cfg.num_layers if cfg.family != "ssm" else 0
+    return {"flash_attention": attn + cfg.encoder_layers
+            + (cfg.num_layers if cfg.encoder_layers else 0),
+            "ssd_chunk_scan": cfg.num_layers if cfg.ssm is not None else 0}
+
+
+def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
+    """One trainer of the ssm, hybrid or encdec family at full width and
+    depth, through ``Runner`` -> ``make_train_step`` -> ``forward_train``
+    (flash through ``FlashAttentionFn``, the SSD scan through
+    ``SsdScanFn``) -> ``adamw_update``: the kernel path against the plain
+    path on one micro-batch at bf16 (full depth, the kernel-fed leaves'
+    grads) and f32 (2 layers, loss and every grad); ``FAMILY_STEPS``
+    steps with their launches, every parameter moved, step ms, tokens/s,
+    MFU, the state's bytes and peak memory. Returns the launches of the
+    Runner's steps."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.params import init_params
+    from repro_torch.train import Runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before the "
+                             f"{cfg.name} trainer")
+    t0 = time.perf_counter()
+    shape = ShapeConfig("train", seq, batch, "train")
+    feed = for_model(cfg, shape, seed=SEED, device=device)
+    micro = {k: v[:batch // TRAIN_ACCUM] for k, v in feed.batch_at(0).items()}
+    rcfg = RunConfig(grad_accum=TRAIN_ACCUM, learning_rate=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP)
+    model = init_params(cfg, device=device, seed=SEED)
+
+    # 1. the kernel path against the plain path: bf16, full depth. The
+    # loss and the grad norm within TRAIN_TOL, asserted; each kernel-fed
+    # leaf's grad gap reported beside the model's own bf16 noise floor
+    # (ROADMAP P19: random deep models with SSM layers turn a one-ulp
+    # nudge into gaps of 0.1-0.7; tools/train_parity_floor.py samples more
+    # seeds and floors); the leaves are asserted at bf16 on 2 layers
+    # below, and at f32, and every launch at these shapes is held against
+    # its plain version in the kernels phase
+    par = train_parity(torch, device, cfg, model, micro, kernel_fed,
+                       nudges=(uniform_nudge(FLOOR_NUDGE),))
+    gaps, (floor,) = par.pop("grad_gaps"), par.pop("floor_gaps")
+    emit({"phase": "train", "check": "parity_bf16", "model": cfg.name,
+          "layers": cfg.num_layers, "tokens": seq, **par,
+          "kernel_fed_grads": len(gaps),
+          "kernel_fed_worst_gap": max(gaps.values()),
+          "kernel_fed_median_gap": statistics.median(gaps.values()),
+          "worst_leaves": sorted(gaps, key=gaps.get)[-3:],
+          "floor_worst_gap": max(floor.values()),
+          "floor_median_gap": statistics.median(floor.values()),
+          "tol": TRAIN_TOL, "seconds": time.perf_counter() - t0})
+    if max(par["loss_gap"], par["grad_norm_gap"]) > TRAIN_TOL:
+        raise AssertionError(f"{cfg.name} train parity at bf16: {par}")
+
+    # 2. the Runner: FAMILY_STEPS steps (the first one warms up)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        runner = Runner(cfg, rcfg, None, feed, d, device=device)
+        runner.init_state(model=model)
+        sizes = state_bytes(runner.state)
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().to("cpu", copy=True)
+                  for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
+        runner.run(FAMILY_STEPS)
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "ssd_chunk_scan": ss.ssd_chunk_scan.launches}
+        peak = torch.cuda.max_memory_allocated()
+        still = [n for n, p, b in zip(names, model.parameters(), before)
+                 if torch.equal(p.detach().cpu(), b)]
+        del before
+        log = runner.metrics_log
+        t_data = time.perf_counter()
+        feed.batch_at(0)
+        data_s = time.perf_counter() - t_data
+        del runner
+    step_s = log[-1]["dt"]
+    enc = sum(p.numel() for n, p in model.named_parameters()
+              if n.startswith("encoder."))
+    n_all = sum(p.numel() for p in model.parameters())
+    positions = batch * (seq + cfg.encoder_seq)
+    flops = 6 * ((n_all - enc) * batch * seq
+                 + enc * batch * cfg.encoder_seq)
+    want = {k: v * TRAIN_ACCUM * (1 if rcfg.remat == "none" else 2)
+            * FAMILY_STEPS for k, v in per_forward(cfg).items()}
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                 for m in log)
+    row = {"phase": "train", "check": "runner", "model": cfg.name,
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "seq": seq, "encoder_seq": cfg.encoder_seq,
+           "global_batch": batch, "grad_accum": TRAIN_ACCUM,
+           "remat": rcfg.remat, "steps": FAMILY_STEPS,
+           "step_ms": [m["dt"] * 1e3 for m in log],
+           "timed_step_ms": step_s * 1e3,
+           "tokens_per_s": batch * seq / step_s,
+           "positions_per_s": positions / step_s,
+           "mfu": flops / step_s / PEAK_FLOPS_S["bfloat16"],
+           "mfu_formula": "6 * (decoder params * B * S + encoder params * "
+                          "B * encoder_seq) / step s / 989e12 (bf16 peak; "
+                          "attention flops not counted)",
+           "params": n_all, "encoder_params": enc,
+           "data_batch_ms": data_s * 1e3,
+           "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log],
+           "launches": launches, "launches_want": want,
+           "params_moved": len(names) - len(still), "params_total":
+           len(names), "params_not_moved": still[:10],
+           "state_bytes": sizes, "state_bytes_total": sum(sizes.values()),
+           "max_memory_allocated": peak,
+           "seconds": time.perf_counter() - t1, "gpu": smi}
+    emit(row)
+    if {k: launches[k] for k in want} != want or still or not finite:
+        raise AssertionError(f"{cfg.name} train runner: {row}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 3. the kernel path against the plain path at 2 layers: bf16 (the
+    # kernel-fed leaves' grads within TRAIN_TOL) and f32 (the loss and
+    # every grad within FAMILY_F32_TOL)
+    for dt, keep, tol in (("bfloat16", kernel_fed, TRAIN_TOL),
+                          ("float32", lambda n: True, FAMILY_F32_TOL)):
+        t1 = time.perf_counter()
+        cfg2 = dataclasses.replace(
+            cfg, num_layers=TRAIN_F32_LAYERS, dtype=dt, param_dtype=dt,
+            encoder_layers=min(cfg.encoder_layers, TRAIN_F32_LAYERS))
+        model = init_params(cfg2, device=device, seed=SEED + 20)
+        par = train_parity(torch, device, cfg2, model, micro, keep)
+        worst = max(par["grad_gaps"].values())
+        emit({"phase": "train", "check": f"parity_{dt}_2_layers",
+              "model": cfg.name, "layers": TRAIN_F32_LAYERS,
+              **{k: v for k, v in par.items() if k != "grad_gaps"},
+              "grad_leaves": len(par["grad_gaps"]), "worst_grad_gap": worst,
+              "tol": tol, "seconds": time.perf_counter() - t1})
+        if max(par["loss_gap"], worst) > tol:
+            raise AssertionError(f"{cfg.name} train parity at {dt}, 2 "
+                                 f"layers: {par}")
+        del model
+        torch.cuda.empty_cache()
+    if cfg.name == FAMILY_FT_ARCH:
+        fault_tolerance(torch, device, dataclasses.replace(
+            cfg, num_layers=TRAIN_FT_LAYERS), rcfg, feed, SEED + 21)
     return launches
+
+
+def phase_train_families(torch, device, smi: str, cfgs=None):
+    """The ssm, hybrid and encdec trainers (``FAMILY_TRAINERS``; ``cfgs``:
+    their configs by name, the full-width ones by default), one after the
+    other, each freed before the next. Returns their launches, summed."""
+    from repro_torch.configs import get_config
+    total = {"flash_attention": 0, "ssd_chunk_scan": 0}
+    for arch, seq, batch in FAMILY_TRAINERS:
+        cfg = (cfgs or {}).get(arch) or get_config(arch)
+        for k, v in family_trainer(torch, device, cfg, smi, seq,
+                                   batch).items():
+            total[k] += v
+    return total
 
 
 def _state_tensors(runner):
@@ -3043,6 +3599,104 @@ def hybrid_attention_timings(torch, device, smi: str, timer, gen):
     return rows
 
 
+def encdec_timings(torch, device, smi: str, timer, gen):
+    """whisper-small's attention shapes (12/12 heads, d 64) and the SSD
+    trainers' scans, each beside its bound, its plain version and, for
+    attention, ``scaled_dot_product_attention`` on the same function
+    (``is_causal`` is its top-left mask, the cross-attention's): flash
+    bidirectional over 1500 frames (B 8 bf16, the served encoder; B 4 f32,
+    the trained one), causal cross-attention with S 4 (B 8 bf16, the
+    served prefill) and S 448 (B 4 f32, training) against T 1500; decode
+    over 1500 frames at pos 1499 (the cross decode) and over 448 slots at
+    the serve range (the self decode), B 8 bf16; the SSD scan over 16
+    chunks of mamba2-370m's width and 32 of hymba-1.5b's (bf16, one
+    training sequence of 4,096 tokens)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, live_mask)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunk_scan, ssd_chunk_scan_plain)
+    (hq, kv), d, t = ENCDEC_HEADS, ENCDEC_D, ENCDEC_FRAMES
+    rows = {}
+    for name, b, s, dt, causal in (
+            ("encoder", ENCDEC_BATCH, t, "bfloat16", False),
+            ("encoder_train", TRAIN_ACCUM, t, "float32", False),
+            ("cross", ENCDEC_BATCH, ENCDEC_PROMPT, "bfloat16", True),
+            ("cross_train", TRAIN_ACCUM, ENCDEC_MAX_SEQ, "float32", True)):
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((b, t, kv, d), generator=gen, device=device)
+                .to(dtype) for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        elem = torch.finfo(dtype).bits // 8
+        nbytes, flops = flash_work(b, s, t, hq, kv, d, elem, causal, 0)
+        b_ms, b_by = bound(nbytes, flops, dt)
+        row = {"phase": "timings", "kernel": "flash_attention",
+               "model": "whisper-small", "shape": name, "B": b, "S": s,
+               "T": t, "hq": hq, "kv": kv, "d": d, "causal": causal,
+               "dtype": dt,
+               "ms": timer.ms(lambda: flash_attention(q, k, v,
+                                                      causal=causal)),
+               "plain_ms": timer.ms(lambda: flash_attention_plain(
+                   q, k, v, causal=causal)),
+               **library_row(torch, timer, qt, kt, vt, is_causal=causal),
+               "host_us": host_us(torch, lambda: flash_attention(
+                   q, k, v, causal=causal)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("flash_attention", "whisper", name)] = row
+    b = ENCDEC_BATCH
+    for name, tt, pos_list in (("cross", t, (t - 1,) * b),
+                               ("self", ENCDEC_MAX_SEQ, ENCDEC_DECODE_POS)):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        q = torch.randn((b, hq, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        kc, vc = (torch.randn((b, tt, kv, d), generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(2))
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        nbytes, flops = decode_work(pos_list, tt, hq, kv, d, 2, 2)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "decode_attention",
+               "model": "whisper-small", "shape": name, "B": b, "T": tt,
+               "hq": hq, "kv": kv, "d": d, "positions": list(pos_list),
+               "dtype": "bfloat16",
+               "ms": timer.ms(lambda: decode_attention(q, kc, vc, pos)),
+               "plain_ms": timer.ms(
+                   lambda: decode_attention_plain(q, kc, vc, pos)),
+               **library_row(torch, timer, q[:, :, None, :], kt, vt,
+                             attn_mask=live_mask(pos, tt)[:, None, None, :]),
+               "host_us": host_us(torch, lambda: decode_attention(
+                   q, kc, vc, pos)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("decode_attention", "whisper", name)] = row
+    for name, nc, shape in (("mamba2-370m", 16, None),
+                            ("hymba-1.5b", 32, HYBRID_SSD)):
+        xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, "bfloat16",
+                                   shape=shape)
+        nbytes, flops = ssd_work(nc, 2, shape)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "ssd_chunk_scan",
+               "model": name, "shape": "train", "nb": 1, "nc": nc,
+               **dict(zip("QHPN", shape or (SSD_Q, SSD_H, SSD_P, SSD_N))),
+               "dtype": "bfloat16", "out_dtype": "float32",
+               "state_decay": True,
+               "ms": timer.ms(lambda: ssd_chunk_scan(
+                   xdt, dA, B, C, out_dtype=torch.float32,
+                   state_decay=True)),
+               "plain_ms": timer.ms(lambda: ssd_chunk_scan_plain(
+                   xdt, dA, B, C, out_dtype=torch.float32,
+                   state_decay=True)),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("ssd_chunk_scan", "train", name)] = row
+    return rows
+
+
 def phase_timings(torch, device, smi: str):
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain, live_mask)
@@ -3101,6 +3755,7 @@ def phase_timings(torch, device, smi: str):
         emit(row)
         rows[("decode_attention", name)] = row
     rows.update(hybrid_attention_timings(torch, device, smi, timer, gen))
+    rows.update(encdec_timings(torch, device, smi, timer, gen))
     import numpy as np
     from repro_torch.kernels.waterfill import water_fill, water_fill_plain
     # the fairness and replay phases' 3- and 4-tenant problems (most of
@@ -3294,6 +3949,14 @@ def main() -> int:
         launches[k] += v
     seconds["hybrid"] = time.perf_counter() - t_phase
 
+    # the encdec family: full-width whisper-small, its encoder, decoder and
+    # cross-attention through flash, its self and cross decode through the
+    # decode kernel
+    t_phase = time.perf_counter()
+    for k, v in phase_encdec(torch, device).items():
+        launches[k] += v
+    seconds["encdec"] = time.perf_counter() - t_phase
+
     # the control path's two entry points: the fused tick at fleet scale
     # and the replay harness; their water-fill launches add up
     control_launches, _rows = phase_control(torch, device, smi)
@@ -3332,6 +3995,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     launches["flash_attention"] += phase_train(torch, device, cfg, smi)
     seconds["train"] = time.perf_counter() - t_phase
+    # ... and the ssm, hybrid and encdec trainers: the SSD scan kernel
+    # forward under autograd too
+    t_phase = time.perf_counter()
+    for k, v in phase_train_families(torch, device, smi).items():
+        launches[k] += v
+    seconds["train_families"] = time.perf_counter() - t_phase
     launches["water_fill"] += phase_fairness(torch, device)
 
     rows = phase_timings(torch, device, smi)

@@ -29,6 +29,11 @@ depend on the order of its terms, so the kernel reads the ring as a linear
 cache at ``pos_eff = min(pos, n_slots - 1)`` with no window; the plain
 path masks by the reference's absolute positions instead.
 
+whisper's decoder layers add a cross-attention over the encoder output
+(``kv_x``): k and v come from the encoder, with no rope, through flash at
+prefill and in training; at decode the decode kernel reads the cached
+encoder k/v (``ck``/``cv``) at ``pos = T - 1`` and writes nothing.
+
 On one device the query heads are never padded (the reference's
 ``padded_heads`` returns ``h``), so the head mask is all ones and is not
 applied on the path; ``head_mask``/``q_to_kv_map`` keep the reference's
@@ -46,8 +51,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention as decode_kernel, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
-from repro_torch.models.layers import (apply_norm, apply_rope, norm_schema,
-                                       rope_tables)
+from repro_torch.models.layers import (apply_norm, apply_rope, matmul,
+                                       norm_schema, rope_tables)
 from repro_torch.models.schema import ParamDesc
 
 NEG_INF = -2.0e30
@@ -309,39 +314,69 @@ def ring_slots(pos: torch.Tensor, n_slots: int, *,
 def _heads(x, w):
     """x (B,S,d) @ w (d,H,hd) -> (B,S,H,hd)."""
     d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
+    return matmul(x, w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
 
 
 def _out(o, w):
     """o (B,S,H,hd) @ w (H,hd,d) -> (B,S,d)."""
     h, hd, d = w.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ w.reshape(h * hd, d)
+    return matmul(o.reshape(*o.shape[:-2], h * hd), w.reshape(h * hd, d))
+
+
+def _cross_decode(p, q, cache: Dict, naive: bool):
+    """Cross-attention decode (whisper's decoder): every row reads the
+    whole encoder cache ``ck``/``cv`` (B, T, KV, hd) at ``pos = T - 1``
+    and writes nothing, as the reference does. The cache meets q in q's
+    dtype (the reference's ``cache.astype(x.dtype)``); the kernel widens
+    a bf16 cache for an f32 q itself."""
+    ck, cv = cache["ck"], cache["cv"]
+    if q.dtype == torch.bfloat16 and ck.dtype != q.dtype:
+        ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+    at = torch.full((q.shape[0],), ck.shape[1] - 1, dtype=torch.int32,
+                    device=q.device)
+    decode = decode_attention_plain if naive else decode_kernel
+    o, _, _ = decode(q[:, 0].contiguous(), ck, cv, at)
+    return _out(o[:, None], p["wo"])
 
 
 def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                   window=0, cache: Optional[Dict] = None, decode_pos=None,
-                  ring: Optional[RingSlots] = None, return_cache=False):
+                  ring: Optional[RingSlots] = None, return_cache=False,
+                  kv_x=None, cross_decode=False):
     """Unified GQA attention.
 
     Prefill and training: ``positions`` (S,); returns out (B,S,d) [and
-    {"k", "v"} in x's dtype when ``return_cache``]. Under grad (training)
-    the flash kernel runs through ``FlashAttentionFn``; the plain path
-    (``attention_impl == "naive"``) is differentiated by autograd.
-    Decode: pass ``cache`` ({"k", "v"},
+    {"k", "v"} in their compute dtype when ``return_cache``]. Under grad
+    (training) the flash kernel runs through ``FlashAttentionFn``; the
+    plain path (``attention_impl == "naive"``) is differentiated by
+    autograd. Decode: pass ``cache`` ({"k", "v"},
     each (B, n_slots, KV, hd)) and ``decode_pos`` (B,) int32; x is
     (B,1,d). Returns (out, cache) with the new token's k/v written into
     the cache rows in place. A ring cache (``is_ring``) takes its slots
     from ``ring`` where the caller computed them once for many layers,
-    else computes them here."""
+    else computes them here.
+
+    Cross-attention (whisper's decoder): ``kv_x`` (B, T, d), the encoder
+    output, gives k and v at prefill and in training, with no rope and,
+    as in the reference, the ``causal`` mask: decoder position t sees
+    frames 0..t (ROADMAP R8). Where k/v are f32 (an f32 encoder) and q
+    is bf16, q widens (exactly) to f32 for the kernel, which takes one
+    dtype, and the output rounds back to q's dtype, as the reference's
+    mixed product does (ROADMAP P18). ``cross_decode`` reads the cached
+    encoder k/v (``cache`` {"ck", "cv"}) instead: see ``_cross_decode``."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     naive = rcfg.attention_impl == "naive"
     q = _heads(x, p["wq"])
-    knew = _heads(x, p["wk"])
-    vnew = _heads(x, p["wv"])
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
+    if cross_decode:
+        return _cross_decode(p, q, cache, naive)
+    src = x if kv_x is None else kv_x
+    knew = _heads(src, p["wk"])
+    vnew = _heads(src, p["wv"])
+    if cfg.qk_norm:
         knew = apply_norm(p["k_norm"], knew, "rmsnorm")
-    use_rope = cfg.rope_theta > 0
+    use_rope = cfg.rope_theta > 0 and kv_x is None
 
     if cache is None or decode_pos is None:
         # ---- prefill ----
@@ -349,6 +384,10 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
             cos, sin = rope_tables(positions, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             knew = apply_rope(knew, cos, sin)
+        q_dtype, kv_out = q.dtype, {"k": knew, "v": vnew}
+        if q.dtype != knew.dtype:
+            q = q.to(torch.promote_types(q.dtype, knew.dtype))
+            knew, vnew = knew.to(q.dtype), vnew.to(q.dtype)
         if naive:
             o = flash_attention_plain(q, knew, vnew, causal=causal,
                                       window=window)
@@ -359,10 +398,8 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                                        rcfg.attn_kv_block)
         else:
             o = flash_attention(q, knew, vnew, causal=causal, window=window)
-        out = _out(o, p["wo"])
-        if return_cache:
-            return out, {"k": knew, "v": vnew}
-        return out
+        out = _out(o.to(q_dtype), p["wo"])
+        return (out, kv_out) if return_cache else out
 
     # ---- decode ----
     b = x.shape[0]

@@ -1,12 +1,16 @@
-"""Block composition: the ``dense``, ``ssm`` and ``hybrid`` kinds.
+"""Block composition: the ``dense``, ``ssm``, ``hybrid``, ``enc`` and
+``dec`` kinds.
 
 The counterpart of ``repro/models/blocks.py``: ``dense`` is a pre-norm
 attention half plus a pre-norm MLP half (llama, internlm2, granite,
 nemotron, chameleon); ``ssm`` is a pre-norm Mamba-2 block and no FFN half
 (mamba2); ``hybrid`` feeds one pre-norm output to attention and to a
 Mamba-2 block in parallel, averages the two after a norm each, then runs
-the MLP half (hymba). The other kinds (moe, dense_prefix, enc, dec) come
-with their families.
+the MLP half (hymba); ``enc`` is ``dense`` with bidirectional attention
+(whisper's encoder), always run as in training (no cache); ``dec`` adds a
+pre-norm cross-attention half over the encoder output between the two
+(whisper's decoder), whose cache leaves ``ck``/``cv`` hold the encoder's
+k/v. The other kinds (moe, dense_prefix) come with their families.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from repro_torch.models.layers import apply_mlp, apply_norm, mlp_schema, \
 from repro_torch.models.schema import ParamDesc
 from repro_torch.models.ssm import ssm_block, ssm_cache_schema, ssm_schema
 
-KINDS = ("dense", "ssm", "hybrid")
+KINDS = ("dense", "ssm", "hybrid", "enc", "dec")
 MODES = ("train", "prefill", "decode")
 
 
@@ -44,6 +48,8 @@ def block_schema(cfg: ModelConfig, kind: str) -> Dict:
             "MLA attention is not ported yet (ROADMAP: other model "
             "families, mla_attention)")
     s = {"ln1": norm_schema(d, nk, pd), "attn": attn_schema(cfg)}
+    if kind == "dec":
+        s.update(ln_cross=norm_schema(d, nk, pd), cross=attn_schema(cfg))
     if kind == "hybrid":
         s.update(ssm=ssm_schema(cfg), attn_out_norm=norm_schema(d, nk, pd),
                  ssm_out_norm=norm_schema(d, nk, pd))
@@ -55,14 +61,22 @@ def block_schema(cfg: ModelConfig, kind: str) -> Dict:
 def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
                        window: int, dtype: str) -> Dict:
     """Cache descriptors for one layer of this kind. ``seq`` = max
-    positions; window layers keep a ring buffer of ``window`` slots."""
+    positions; window layers keep a ring buffer of ``window`` slots; a
+    ``dec`` layer also keeps the encoder's k/v over ``encoder_seq``
+    frames."""
     check_kind(kind)
     if kind == "ssm":
         return ssm_cache_schema(cfg, batch, dtype)
+    if kind == "enc":
+        return {}
     n = min(seq, window) if window else seq
     shape = (batch, n, cfg.num_kv_heads, cfg.head_dim)
     s = {"k": ParamDesc(shape, dtype, "zeros"),
          "v": ParamDesc(shape, dtype, "zeros")}
+    if kind == "dec":
+        cross = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        s.update(ck=ParamDesc(cross, dtype, "zeros"),
+                 cv=ParamDesc(cross, dtype, "zeros"))
     if kind == "hybrid":
         s.update(ssm_cache_schema(cfg, batch, dtype))
     return s
@@ -71,30 +85,29 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
 def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                 positions=None, window: int = 0,
                 cache: Optional[Dict] = None, decode_pos=None,
-                ring: Optional[RingSlots] = None,
+                ring: Optional[RingSlots] = None, enc_out=None,
                 mode: str = "prefill") -> Tuple[torch.Tensor, Dict]:
     """One layer. ``mode`` is "train" (no cache: returns None for it),
     "prefill" (returns the layer's new cache: k/v, the SSM state and conv
-    tails, or both) or "decode" (writes the new token's k/v and the new
-    SSM state and conv tails into ``cache`` in place and returns it).
-    ``ring``: a windowed decode's ring slots, computed once for the
-    layer's segment (``attention.ring_slots``). Returns (x', cache)."""
+    tails, or both; a ``dec`` layer's ``ck``/``cv`` too) or "decode"
+    (writes the new token's k/v and the new SSM state and conv tails into
+    ``cache`` in place and returns it). ``ring``: a windowed decode's ring
+    slots, computed once for the layer's segment
+    (``attention.ring_slots``). ``enc_out``: the encoder output a ``dec``
+    layer attends to at prefill and in training. Returns (x', cache)."""
     check_kind(kind)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "train" and kind != "dense":
-        raise NotImplementedError(
-            f"training the {kind!r} block kind is not ported yet: the SSD "
-            f"scan has no autograd wrapper (ROADMAP: ssm/hybrid training)")
+    train = mode == "train"
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         y, new_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
                                  decode=mode == "decode")
-        return x + y, new_cache
+        return x + y, None if train else new_cache
     decode = mode == "decode"
-    if mode == "train":
+    if train:
         a = gqa_attention(p["attn"], h, cfg, rcfg, positions=positions,
-                          window=window)
+                          window=window, causal=kind != "enc")
         new_cache = None
     elif decode:
         a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
@@ -104,13 +117,29 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     else:
         a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
                                      positions=positions, window=window,
+                                     causal=kind != "enc",
                                      return_cache=True)
     if kind == "hybrid":
         s, ssm_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
                                  decode=decode)
         a = 0.5 * (apply_norm(p["attn_out_norm"], a, cfg.norm)
                    + apply_norm(p["ssm_out_norm"], s, cfg.norm))
-        new_cache = {**new_cache, **ssm_cache}
+        if not train:
+            new_cache = {**new_cache, **ssm_cache}
     x = x + a
+    if kind == "dec":
+        h = apply_norm(p["ln_cross"], x, cfg.norm)
+        if decode:
+            c = gqa_attention(p["cross"], h, cfg, rcfg, positions=positions,
+                              cache=cache, cross_decode=True)
+        elif train:
+            c = gqa_attention(p["cross"], h, cfg, rcfg, positions=positions,
+                              kv_x=enc_out)
+        else:
+            c, cc = gqa_attention(p["cross"], h, cfg, rcfg,
+                                  positions=positions, kv_x=enc_out,
+                                  return_cache=True)
+            new_cache.update(ck=cc["k"], cv=cc["v"])
+        x = x + c
     h = apply_norm(p["ln2"], x, cfg.norm)
     return x + apply_mlp(p["mlp"], h, cfg.activation), new_cache

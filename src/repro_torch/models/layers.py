@@ -4,7 +4,9 @@ The counterpart of ``repro/models/layers.py``, with its bf16 rounding
 points kept: norms and rope compute in f32 and cast back to the input
 dtype, the gated MLP rounds ``silu(f32(g))`` to the activation dtype before
 the product with ``h``. Products are ``torch.matmul`` (f32 accumulation;
-bf16 results rounded once).
+bf16 results rounded once). ``matmul`` promotes as JAX does where a bf16
+and an f32 operand meet (whisper's f32 training encoder against its bf16
+weights): both widen, exactly, to f32.
 """
 from __future__ import annotations
 
@@ -16,6 +18,15 @@ from repro_torch.models.schema import ParamDesc
 
 def f32(x: torch.Tensor) -> torch.Tensor:
     return x.float()
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two (jnp's promotion: bf16
+    and f32 give f32); a plain product when the dtypes agree."""
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(t), w.to(t)
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -57,15 +68,15 @@ def mlp_schema(d: int, ff: int, activation: str, dtype: str):
 
 
 def apply_mlp(p, x: torch.Tensor, activation: str):
-    h = x @ p["w_in"]
+    h = matmul(x, p["w_in"])
     if activation == "silu_glu":
-        g = x @ p["w_gate"]
+        g = matmul(x, p["w_gate"])
         h = F.silu(f32(g)).to(x.dtype) * h
     elif activation == "relu2":
         h = torch.square(F.relu(f32(h))).to(x.dtype)
     else:  # gelu (tanh approximation, jax.nn.gelu's default)
         h = F.gelu(f32(h), approximate="tanh").to(x.dtype)
-    return h @ p["w_out"]
+    return matmul(h, p["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +105,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     y1 = f32(x1) * c - f32(x2) * s
     y2 = f32(x2) * c + f32(x1) * s
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoid_positions(positions: torch.Tensor, d_model: int):
+    """Sinusoidal absolute position embedding (the reference's
+    whisper-style stub): f32 ``positions.shape + (d_model,)``, sin then
+    cos."""
+    half = d_model // 2
+    log = torch.log(torch.tensor(10000.0, device=positions.device))
+    freq = torch.exp(-log * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

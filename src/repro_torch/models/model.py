@@ -7,16 +7,21 @@ keeps one ``nn.Module`` per layer and loops. Caches keep the reference's
 layout: a tuple with one dict per segment, each leaf stacked over the
 segment's layers in its own dtype: attention k/v ``(L, B, n_slots, KV,
 hd)`` in the cache dtype, an SSM layer's ``state`` ``(L, B, H, P, N)`` in
-f32 and its ``conv_*`` tails ``(L, B, W-1, C)`` in the cache dtype.
+f32 and its ``conv_*`` tails ``(L, B, W-1, C)`` in the cache dtype, a
+``dec`` layer's encoder k/v ``ck``/``cv`` ``(L, B, encoder_seq, KV, hd)``.
 ``n_slots`` is ``max_seq``, or ``min(max_seq, window)`` for a windowed
 segment, whose cache is then a ring (``attention.is_ring``). The port has
-the ``dense``, ``vlm``, ``ssm`` and ``hybrid`` families; asking for any
-other raises. A ``vlm`` model (chameleon) is scheduled as plain ``dense``,
-as in the reference: its frontend is a stub, token ids in, and its q/k
-norms live in the attention block. A ``hybrid`` model (hymba) runs its
-global-attention layers as one-layer segments and each run of windowed
-layers between them as one segment. ``forward_train`` takes the ``dense``
-and ``vlm`` families; parameters are made frozen, and a trainer turns
+the ``dense``, ``vlm``, ``ssm``, ``hybrid`` and ``encdec`` families; asking
+for any other raises. A ``vlm`` model (chameleon) is scheduled as plain
+``dense``, as in the reference: its frontend is a stub, token ids in, and
+its q/k norms live in the attention block. A ``hybrid`` model (hymba) runs
+its global-attention layers as one-layer segments and each run of
+windowed layers between them as one segment. An ``encdec`` model
+(whisper) is one segment of ``dec`` layers behind an ``encoder`` of
+``enc`` layers over stub frame embeddings (its conv stem is the
+reference's stub too); both add sinusoid positions to their inputs, and
+``input_specs`` gives a cell's inputs as meta tensors. ``forward_train``
+takes every family; parameters are made frozen, and a trainer turns
 ``requires_grad`` on for its own model (``train.train_loop``).
 """
 from __future__ import annotations
@@ -29,18 +34,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models.attention import is_ring, ring_slots
 from repro_torch.models.blocks import apply_block, block_cache_schema, \
     block_schema
 from repro_torch.models.layers import apply_norm, embed_schema, \
-    embed_tokens, lm_logits, norm_schema
+    embed_tokens, lm_logits, norm_schema, sinusoid_positions
 from repro_torch.models.schema import ParamTree
 
-FAMILIES = ("dense", "vlm", "ssm", "hybrid")
-# families forward_train takes: the SSD scan has no autograd wrapper yet
-TRAIN_FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "ssm", "hybrid", "encdec")
 REMAT = ("full", "dots", "none")
 # cache leaves laid out along the sequence (padded to max_seq, or turned
 # into a ring, at prefill); the others (SSM state, conv tails) are
@@ -64,20 +67,12 @@ def check_family(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-def check_trainable(cfg: ModelConfig) -> ModelConfig:
-    check_family(cfg)
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet; the SSD scan has no autograd wrapper (ROADMAP: ssm/hybrid "
-            f"training)")
-    return cfg
-
-
 def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
     check_family(cfg)
     if cfg.family == "ssm":
         return (Segment("ssm", cfg.num_layers),)
+    if cfg.family == "encdec":
+        return (Segment("dec", cfg.num_layers),)
     if cfg.family == "hybrid":
         segs: List[Segment] = []
         i = 0
@@ -97,8 +92,10 @@ def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
 
 def model_schema(cfg: ModelConfig) -> Dict:
     """Per-layer (unstacked) parameter schema: ``layers`` holds one block
-    schema per layer, in schedule order."""
-    return {
+    schema per layer, in schedule order; an encoder model's ``encoder``
+    holds its ``layers`` (``encoder_layers`` ``enc`` blocks, the
+    reference's ``encoder.segments[0]``) and its ``final_norm``."""
+    s = {
         "embed": embed_schema(cfg.vocab_size, cfg.d_model, cfg.param_dtype,
                               cfg.tie_embeddings),
         "final_norm": norm_schema(cfg.d_model, cfg.norm, cfg.param_dtype),
@@ -106,12 +103,30 @@ def model_schema(cfg: ModelConfig) -> Dict:
                    for seg in build_schedule(cfg)
                    for _ in range(seg.count)],
     }
+    if cfg.encoder_layers:
+        s["encoder"] = {
+            "layers": [block_schema(cfg, "enc")] * cfg.encoder_layers,
+            "final_norm": norm_schema(cfg.d_model, cfg.norm,
+                                      cfg.param_dtype)}
+    return s
+
+
+class Encoder(nn.Module):
+    """An encoder's parameters: one ``ParamTree`` per ``enc`` layer in
+    ``blocks`` and its ``final_norm``."""
+
+    def __init__(self, schema: Dict, device: torch.device):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            [ParamTree(s, device) for s in schema["layers"]])
+        self.final_norm = ParamTree(schema["final_norm"], device)
 
 
 class Model(nn.Module):
-    """A model's parameters: ``embed``, ``final_norm`` and one ``ParamTree``
-    per layer in ``blocks``. Created uninitialized on ``device`` (``cuda``
-    unless ``"cpu"`` is passed); ``models.params`` fills it."""
+    """A model's parameters: ``embed``, an encoder model's ``encoder``,
+    ``final_norm`` and one ``ParamTree`` per layer in ``blocks``. Created
+    uninitialized on ``device`` (``cuda`` unless ``"cpu"`` is passed);
+    ``models.params`` fills it."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -119,6 +134,8 @@ class Model(nn.Module):
         self.cfg = check_family(cfg)
         schema = model_schema(cfg)
         self.embed = ParamTree(schema["embed"], dev)
+        if cfg.encoder_layers:
+            self.encoder = Encoder(schema["encoder"], dev)
         self.final_norm = ParamTree(schema["final_norm"], dev)
         self.blocks = nn.ModuleList(
             [ParamTree(s, dev) for s in schema["layers"]])
@@ -232,9 +249,9 @@ def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
     return out
 
 
-def _train_layer(block, x, cfg, rcfg, seg: Segment, positions):
+def _train_layer(block, x, cfg, rcfg, seg: Segment, positions, enc_out):
     return apply_block(block, x, cfg, rcfg, seg.kind, positions=positions,
-                       window=seg.window, mode="train")[0]
+                       window=seg.window, enc_out=enc_out, mode="train")[0]
 
 
 def _remat(fn, rcfg: RunConfig):
@@ -250,21 +267,63 @@ def _remat(fn, rcfg: RunConfig):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
+    """The encoder over stub frame embeddings ``frames`` (B, encoder_seq,
+    d): sinusoid positions added in the frames' dtype, the ``enc`` layers
+    (each under ``rcfg.remat`` when autograd records), the encoder's final
+    norm. As in the reference the encoder computes in the frames' dtype:
+    f32 frames (the data pipeline's) run it in f32 against bf16 weights,
+    bf16 ones (``input_specs``'s, serving) in bf16."""
+    cfg = model.cfg
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + sinusoid_positions(pos, cfg.d_model)[None].to(frames.dtype)
+    layer_fn = _remat(_train_layer, rcfg) if torch.is_grad_enabled() \
+        else _train_layer
+    seg = Segment("enc", cfg.encoder_layers)
+    for block in model.encoder.blocks:
+        x = layer_fn(block, x, cfg, rcfg, seg, pos, None)
+    return apply_norm(model.encoder.final_norm, x, cfg.norm)
+
+
+def _embed_in(model: Model, tokens: torch.Tensor, positions: torch.Tensor):
+    """The decoder's input: token embeddings in the model's dtype, plus an
+    encoder model's sinusoid positions (``positions`` (S,) at prefill and
+    in training, (B, 1) per row at decode), rounded to that dtype."""
+    cfg = model.cfg
+    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
+    if cfg.family == "encdec":
+        x = x + sinusoid_positions(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def _encoded(model: Model, frames, rcfg: RunConfig):
+    cfg = model.cfg
+    if not cfg.encoder_layers:
+        return None
+    if frames is None:
+        raise ValueError(f"{cfg.name}: an encoder model needs frames "
+                         f"(B, {cfg.encoder_seq}, {cfg.d_model})")
+    return encode(model, frames, rcfg)
+
+
 def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
                   rcfg: RunConfig):
-    """batch: tokens (B, S) int. Returns (logits (B, S, V) in the model's
-    dtype, aux), with autograd recording: embed, every layer (each under
+    """batch: tokens (B, S) int [+ frames (B, encoder_seq, d) for an
+    encoder model]. Returns (logits (B, S, V) in the model's dtype, aux),
+    with autograd recording: embed, the encoder, every layer (each under
     ``rcfg.remat``), the final norm, the LM head. ``aux`` is empty (the
     MoE losses come with that family)."""
-    check_trainable(cfg)
+    check_family(cfg)
     tokens = batch["tokens"]
-    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_in(model, tokens, positions)
+    enc_out = _encoded(model, batch.get("frames"), rcfg)
     layer_fn = _remat(_train_layer, rcfg)
     layer = 0
     for seg in build_schedule(cfg):
         for _ in range(seg.count):
-            x = layer_fn(model.blocks[layer], x, cfg, rcfg, seg, positions)
+            x = layer_fn(model.blocks[layer], x, cfg, rcfg, seg, positions,
+                         enc_out)
             layer += 1
     x = apply_norm(model.final_norm, x, cfg.norm)
     return lm_logits(model.embed, x, cfg.logit_softcap), {}
@@ -272,15 +331,18 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
 
 @torch.no_grad()
 def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
-                    max_seq: int):
-    """Full-sequence prefill. tokens: (B, S) int. Returns (last_logits
-    (B, V), caches): k/v and conv tails in the model's dtype, k/v
-    zero-padded to ``max_seq`` positions, SSM states in f32."""
+                    max_seq: int, frames: Optional[torch.Tensor] = None):
+    """Full-sequence prefill. tokens: (B, S) int; ``frames`` (B,
+    encoder_seq, d) for an encoder model. Returns (last_logits (B, V),
+    caches): k/v and conv tails in the model's dtype, k/v zero-padded to
+    ``max_seq`` positions, SSM states in f32, the encoder's k/v
+    ``ck``/``cv`` in the encoder's dtype."""
     cfg = model.cfg
     b, s = tokens.shape
     check_prompt(cfg, s, max_seq)
-    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
     positions = torch.arange(s, device=tokens.device)
+    x = _embed_in(model, tokens, positions)
+    enc_out = _encoded(model, frames, rcfg)
     caches_out = []
     layer = 0
     for seg in build_schedule(cfg):
@@ -288,7 +350,7 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
         for _ in range(seg.count):
             x, c = apply_block(model.blocks[layer], x, cfg, rcfg, seg.kind,
                                positions=positions, window=seg.window,
-                               mode="prefill")
+                               enc_out=enc_out, mode="prefill")
             per_layer.append(c)
             layer += 1
         caches_out.append(_finalize_prefill_cache(per_layer, seg, s,
@@ -304,9 +366,10 @@ def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1); pos: (B,) int32 positions of the
     new tokens. Writes the new k/v, SSM states and conv tails into
     ``caches`` in place; returns (logits (B, V), caches). A ring segment's
-    slots are computed once for all its layers."""
+    slots are computed once for all its layers. An encoder model's
+    ``ck``/``cv`` pass through untouched."""
     cfg = model.cfg
-    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
+    x = _embed_in(model, tokens, pos[:, None])
     layer = 0
     for seg, c_seg in zip(build_schedule(cfg), caches):
         ring = None
@@ -322,3 +385,37 @@ def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
     x = apply_norm(model.final_norm, x, cfg.norm)
     logits = lm_logits(model.embed, x, cfg.logit_softcap)
     return logits[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs per (cfg, shape)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                cache_dtype: str = "bfloat16") -> Dict:
+    """Meta-device stand-ins for every model input of this cell, with the
+    shapes and dtypes of the reference's ``ShapeDtypeStruct``s: tokens
+    and labels (train), tokens [+ frames in the model's dtype for an
+    encoder model] (train, prefill), or tokens (B, 1), pos and the caches
+    (decode)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    out: Dict = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = meta((b, s), torch.int32)
+        if shape.kind == "train":
+            out["labels"] = meta((b, s), torch.int32)
+        if cfg.encoder_layers:
+            out["frames"] = meta((b, cfg.encoder_seq, cfg.d_model),
+                                 dtype_of(cfg.dtype))
+    else:
+        out["tokens"] = meta((b, 1), torch.int32)
+        out["pos"] = meta((b,), torch.int32)
+        out["caches"] = tuple(
+            {k: meta(d.shape, dtype_of(d.dtype)) for k, d in seg.items()}
+            for seg in cache_schema(cfg, b, s, cache_dtype))
+    return out

@@ -15,7 +15,9 @@ pytree with every leaf already a numpy array (``jax.tree.map(np.asarray,
 params)``, done by the caller), splits the per-segment layer stacking into
 the port's per-layer modules, and carries bf16 bit for bit without
 importing ``ml_dtypes``; the SSM leaves cross like any other (``A_log``,
-``D`` and ``dt_bias`` f32 ``(H,)``, conv taps ``(W, C)``).
+``D`` and ``dt_bias`` f32 ``(H,)``, conv taps ``(W, C)``), and an encoder
+model's ``encoder.segments[0]`` and ``encoder.final_norm`` cross into
+``Model.encoder``.
 ``cache_from_jax`` does the same for a cache tuple, each leaf in its own
 dtype (an SSM ``state`` ``(L, B, H, P, N)`` is f32, its ``conv_*`` tails
 ``(L, B, W-1, C)`` in the cache dtype).
@@ -57,10 +59,11 @@ def init_params(cfg: ModelConfig, *, device=None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     schema = model_schema(cfg)
-    trees = [(schema["embed"], model.embed),
-             (schema["final_norm"], model.final_norm)]
-    trees += list(zip(schema["layers"], model.blocks))
-    for sch, tree in trees:
+    trees = [(sch, name) for _ref, sch, name in _tops(cfg, schema)]
+    trees += [(sch, name) for _ref, sch, names in _stacks(cfg, schema)
+              for name in names]
+    for sch, name in trees:
+        tree = model.get_submodule(name)
         for path, desc in walk(sch):
             p = leaf(tree, path)
             if desc.init == "zeros":
@@ -113,6 +116,34 @@ def _get(tree: Dict, path: Sequence[str]):
     return node
 
 
+def _tops(cfg: ModelConfig, schema: Dict):
+    """(the reference's path, the schema, the port's module name) of every
+    unstacked subtree, in the order the reference flattens them."""
+    out = [(("embed",), schema["embed"], "embed")]
+    if cfg.encoder_layers:
+        out.append((("encoder", "final_norm"),
+                    schema["encoder"]["final_norm"], "encoder.final_norm"))
+    out.append((("final_norm",), schema["final_norm"], "final_norm"))
+    return out
+
+
+def _stacks(cfg: ModelConfig, schema: Dict):
+    """(the reference's path of a stacked segment, its first layer's
+    schema, the port's module names of its layers), for every segment:
+    the decoder's, then an encoder's."""
+    out, first = [], 0
+    for si, seg in enumerate(build_schedule(cfg)):
+        out.append((("segments", si), schema["layers"][first],
+                    [f"blocks.{first + i}" for i in range(seg.count)]))
+        first += seg.count
+    if cfg.encoder_layers:
+        out.append((("encoder", "segments", 0),
+                    schema["encoder"]["layers"][0],
+                    [f"encoder.blocks.{i}"
+                     for i in range(cfg.encoder_layers)]))
+    return out
+
+
 @torch.no_grad()
 def params_from_jax(tree: Dict, cfg: ModelConfig, device=None) -> Model:
     """The port's model holding the reference's weights. ``tree`` is the
@@ -120,23 +151,17 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     schema = model_schema(cfg)
-    for name, sub in (("embed", model.embed),
-                      ("final_norm", model.final_norm)):
-        for path, _desc in walk(schema[name]):
-            _assign(leaf(sub, path), _get(tree[name], path),
-                    ".".join((name,) + path))
-    layer = 0
-    for si, seg in enumerate(build_schedule(cfg)):
-        stacked = tree["segments"][si]
-        for i in range(seg.count):
-            for path, _desc in walk(schema["layers"][layer]):
-                _assign(leaf(model.blocks[layer], path),
+    for top, sch, name in _tops(cfg, schema):
+        for path, _desc in walk(sch):
+            _assign(leaf(model.get_submodule(name), path),
+                    _get(_at(tree, top), path), ".".join(top + path))
+    for ref, sch, names in _stacks(cfg, schema):
+        stacked = _at(tree, ref)
+        for i, name in enumerate(names):
+            for path, _desc in walk(sch):
+                _assign(leaf(model.get_submodule(name), path),
                         _get(stacked, path)[i],
-                        f"segments[{si}][{i}]." + ".".join(path))
-            layer += 1
-    if layer != len(model.blocks):
-        raise ValueError(f"reference tree covers {layer} layers, the model "
-                         f"has {len(model.blocks)}")
+                        f"{ref}[{i}]." + ".".join(path))
     return model
 
 
@@ -159,38 +184,34 @@ class Slot:
     stacked: bool
 
 
-@functools.lru_cache(maxsize=None)
-def opt_slots(cfg: ModelConfig) -> Tuple[Slot, ...]:
-    """The model's optimizer slots, in the order the reference flattens
-    its parameter pytree (embed, final_norm, then each segment's leaves,
-    each leaf's layers in turn). Kept per config: an optimizer step
-    reads them."""
-    schema = model_schema(cfg)
-    out: List[Slot] = []
-    for top in ("embed", "final_norm"):
-        for path, desc in walk(schema[top]):
-            name = ".".join((top,) + path)
-            out.append(Slot(name, (name,), (top,) + path, None, False))
-    first = 0
-    for si, seg in enumerate(build_schedule(cfg)):
-        for path, desc in walk(schema["layers"][first]):
-            names = tuple(f"blocks.{first + i}." + ".".join(path)
-                          for i in range(seg.count))
-            ref = ("segments", si) + path
-            if len(desc.shape) <= 1:
-                out.append(Slot(f"segments.{si}." + ".".join(path), names,
-                                ref, None, True))
-            else:
-                out.extend(Slot(n, (n,), ref, i, False)
-                           for i, n in enumerate(names))
-        first += seg.count
-    return tuple(out)
-
-
 def _at(tree, path: Sequence):
     for key in path:
         tree = tree[key]
     return tree
+
+
+@functools.lru_cache(maxsize=None)
+def opt_slots(cfg: ModelConfig) -> Tuple[Slot, ...]:
+    """The model's optimizer slots: the top-level leaves (embed, an
+    encoder's final norm, final_norm), then each segment's leaves, each
+    leaf's layers in turn, an encoder's segment last. Kept per config: an
+    optimizer step reads them."""
+    schema = model_schema(cfg)
+    out: List[Slot] = []
+    for top, sch, module in _tops(cfg, schema):
+        for path, desc in walk(sch):
+            name = ".".join((module,) + path)
+            out.append(Slot(name, (name,), top + path, None, False))
+    for ref, sch, modules in _stacks(cfg, schema):
+        for path, desc in walk(sch):
+            pnames = tuple(".".join((m,) + path) for m in modules)
+            if len(desc.shape) <= 1:
+                out.append(Slot(".".join(map(str, ref + path)), pnames,
+                                ref + path, None, True))
+            else:
+                out.extend(Slot(n, (n,), ref + path, i, False)
+                           for i, n in enumerate(pnames))
+    return tuple(out)
 
 
 @torch.no_grad()
@@ -238,6 +259,9 @@ def train_state_to_numpy(state: Dict, cfg: ModelConfig) -> Dict:
     n_seg = len(build_schedule(cfg))
     out = {k: {"segments": [{} for _ in range(n_seg)]}
            for k in ("params", "mu", "nu")}
+    if cfg.encoder_layers:
+        for tree in out.values():
+            tree["encoder"] = {"segments": [{}]}
     by_ref: Dict[Tuple, List[Slot]] = {}
     for slot in opt_slots(cfg):
         by_ref.setdefault(slot.ref_path, []).append(slot)
@@ -257,6 +281,9 @@ def train_state_to_numpy(state: Dict, cfg: ModelConfig) -> Dict:
             _put(out[key], ref, val)
     for tree in out.values():
         tree["segments"] = tuple(tree["segments"])
+        if cfg.encoder_layers:
+            tree["encoder"]["segments"] = tuple(
+                tree["encoder"]["segments"])
     return {"params": out["params"],
             "opt": {"mu": out["mu"], "nu": out["nu"],
                     "count": np.int32(int(opt["count"]))},

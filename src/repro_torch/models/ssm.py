@@ -8,10 +8,12 @@ and ``state_decay = exp(cumsum(dA))``, the weight of the inter-chunk
 output) is the hand-written kernel ``kernels/ssd_scan.py::ssd_chunk_scan``
 (its plain version under ``RunConfig.attention_impl == "naive"``); the
 inter-chunk recurrence and ``y_off`` stay plain torch, as they stay
-``jnp`` in the reference. ``_segsum`` lives beside the scan's plain
-version, which uses it (``kernels/ssd_scan.py::segsum``). Decode writes the
-new state and conv tails into the cache in place (the reference returns
-new arrays).
+``jnp`` in the reference. Training runs the kernel forward through
+``SsdScanFn``, whose backward differentiates the scan's plain version.
+``_segsum`` lives beside the scan's plain version, which uses it
+(``kernels/ssd_scan.py::segsum``). Decode writes the new state and conv
+tails into the cache in place (the reference returns new arrays); in
+training ``ssm_block`` returns no cache.
 
 Rounding points follow the reference: conv, gate and D-skip products round
 to the activation dtype where it rounds; ``y_diag`` is f32. One exception
@@ -89,13 +91,41 @@ def conv_step(u_t: torch.Tensor, state: torch.Tensor, w: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+class SsdScanFn(torch.autograd.Function):
+    """The intra-chunk scan that training can differentiate, modelled on
+    ``attention.FlashAttentionFn``.
+
+    The forward is ``kernels.ssd_chunk_scan`` with all four outputs (y,
+    states, chunk decays, state decays; f32): the CUDA kernel on the card
+    (its outputs come from ``data_ptr``s, so autograd cannot see through
+    it), its plain version on the CPU. The backward recomputes
+    ``ssd_chunk_scan_plain`` under autograd and returns its
+    vector-Jacobian product with respect to xdt, dA, B and C, taking the
+    gradients of all four outputs: the JAX package has no backward kernel
+    to port (it trains through its inline ``ssd_chunked``)."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, B, C):
+        ctx.save_for_backward(xdt, dA, B, C)
+        return ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32,
+                              state_decay=True)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = ssd_chunk_scan_plain(*ins, out_dtype=torch.float32,
+                                        state_decay=True)
+            return torch.autograd.grad(outs, ins, douts)
+
+
 def ssd_chunked(xdt, dA, B, C, chunk: int,
                 initial_state: Optional[torch.Tensor] = None, *,
                 naive: bool = False):
     """SSD scan. xdt: (b,l,h,p) = x*dt; dA: (b,l,h) = dt*A (negative);
     B, C: (b,l,n). Returns (y (b,l,h,p) f32, final_state (b,h,p,n) f32).
     ``naive`` runs the intra-chunk part's plain version instead of the
-    kernel."""
+    kernel; under grad the kernel runs through ``SsdScanFn``."""
     b, l_real, h, p = xdt.shape
     n = B.shape[-1]
     # pad to a chunk multiple: trailing zeros in xdt and dA=0 (decay exp(0)=1)
@@ -115,9 +145,15 @@ def ssd_chunked(xdt, dA, B, C, chunk: int,
 
     # --- intra-chunk (quadratic, attention-like), chunk states and the
     # in-chunk decays: kernel ---
-    scan = ssd_chunk_scan_plain if naive else ssd_chunk_scan
-    y_diag, states, chunk_decay, state_decay = scan(
-        xc, dAc, Bc, Cc, out_dtype=torch.float32, state_decay=True)
+    if naive:
+        out = ssd_chunk_scan_plain(xc, dAc, Bc, Cc, out_dtype=torch.float32,
+                                   state_decay=True)
+    elif torch.is_grad_enabled():
+        out = SsdScanFn.apply(xc, dAc, Bc, Cc)
+    else:
+        out = ssd_chunk_scan(xc, dAc, Bc, Cc, out_dtype=torch.float32,
+                             state_decay=True)
+    y_diag, states, chunk_decay, state_decay = out
 
     # --- inter-chunk recurrence (linear scan over chunks) ---
     s = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device) \
@@ -158,10 +194,11 @@ def ssd_decode_step(x_t, dt_t, A, B_t, C_t, state):
 
 def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
               cache: Optional[Dict] = None, decode: bool = False):
-    """x: (B,L,D) (prefill) or (B,1,D) (decode). Prefill returns (y, the
-    layer's cache {"state" f32, "conv_x", "conv_B", "conv_C"} in x's
-    dtype); decode reads ``cache`` and writes the new state and conv tails
-    into it in place, returning (y, cache)."""
+    """x: (B,L,D) (prefill, training) or (B,1,D) (decode). Prefill
+    returns (y, the layer's cache {"state" f32, "conv_x", "conv_B",
+    "conv_C"} in x's dtype), which training drops; decode reads ``cache``
+    and writes the new state and conv tails into it in place, returning
+    (y, cache)."""
     s = cfg.ssm
     d = cfg.d_model
     di = s.d_inner(d)

@@ -8,6 +8,11 @@ all tenants share one copy of the weights. Each admission runs one prefill
 installs the request's cache into a free slot; each step runs one batched
 decode (the decode-attention kernel, or the SSM state update) over all
 slots plus a greedy argmax.
+
+A request carries token ids only, so an encoder model (whisper), whose
+prefill needs frames, is refused at construction (ROADMAP R9: the
+reference's engine takes it and fails at its first prefill); it is served
+through ``forward_prefill(..., frames=)`` and ``forward_decode``.
 """
 from __future__ import annotations
 
@@ -63,6 +68,11 @@ class ServeEngine(SchedulerServeModule):
         ``device``: ``cuda`` unless ``"cpu"`` is passed (raises without a
         card)."""
         self.cfg, self.rcfg = check_family(cfg), rcfg
+        if cfg.encoder_layers:
+            raise ValueError(
+                f"{cfg.name}: ServeEngine cannot serve an encoder model; its "
+                f"prefill needs frames, which a Request does not carry "
+                f"(ROADMAP R9)")
         self.device = resolve_device(
             params.device if params is not None and device is None
             else device)

@@ -33,7 +33,7 @@ from repro_torch.core.collectives import nk_grad_sync, use_engine
 from repro_torch.core.compression import int8_roundtrip_residual
 from repro_torch.core.engine import CoreEngine, make_engine
 from repro_torch.device import dtype_of, resolve_device
-from repro_torch.models.model import Model, check_trainable, forward_train
+from repro_torch.models.model import Model, check_family, forward_train
 from repro_torch.models.params import init_params
 from repro_torch.train.optimizer import adamw_update, init_opt_state
 
@@ -147,7 +147,7 @@ def make_train_step(cfg: ModelConfig, rcfg: RunConfig, mesh=None,
     ``MeshAxes`` of a ``torch.distributed`` world (None on one card);
     ``engine`` routes the pod sync (default: the native stack,
     ``make_engine(mesh, "xla")``)."""
-    check_trainable(cfg)
+    check_family(cfg)
 
     def plain_step(state, batch):
         grads, metrics = _grads(state["params"], batch, cfg, rcfg)
@@ -195,7 +195,7 @@ def make_train_state(cfg: ModelConfig, rcfg: RunConfig, *,
     given ``model``, or the port's ``init_params`` from ``seed``, or, with
     ``abstract``, an uninitialized model (the template a checkpoint
     restore fills in place); zero moments, count and step."""
-    check_trainable(cfg)
+    check_family(cfg)
     if model is None:
         dev = resolve_device(device)
         model = Model(cfg, device=dev) if abstract \

@@ -20,7 +20,11 @@ bf16 within 2e-2 of the largest |y| and |state| (both compute in f32, the
 kernel's tensor-core products on hi + lo bf16 pairs; y may be asked in
 bf16); state_decay as the decay; a zero-padded chunk gives exactly the
 prefix's y, state, decay and state_decay; repeats are bit-identical.
-The int8 codec kernels equal their plain version bit for bit (codes,
+``SsdScanFn`` (the SSD kernel forward, the plain version's VJP) gives
+the kernel's outputs bit for bit and the plain autograd's grads within
+1e-6 of each grad's largest value. whisper's shapes (12/12 heads, d 64,
+1500 frames, group 1) hold ``TOL``. The int8 codec kernels equal their
+plain version bit for bit (codes,
 scales, and the dequantized values in f32 and bf16). The bytes plane runs
 on an NCCL world of one rank: every stock policy's ``nk_grad_sync`` equals
 its plain result bit for bit.
@@ -92,6 +96,13 @@ def cuda():
     (1, 1100, 1100, 25, 5, 64, True, 1024, 0, "bfloat16"),
     (1, 1536, 1536, 25, 5, 64, True, 0, 0, "bfloat16"),
     (1, 1300, 1300, 25, 5, 64, True, 1024, 0, "float32"),
+    # hymba-1.5b's trained micro-batch: S 4096, windowed and global
+    (1, 4096, 4096, 25, 5, 64, True, 1024, 0, "bfloat16"),
+    (1, 4096, 4096, 25, 5, 64, True, 0, 0, "bfloat16"),
+    # whisper-small's decoder self-attention, 12/12 heads at d 64: a
+    # trained micro-batch (4 x 448) and the served prefill (8 x 4)
+    (4, 448, 448, 12, 12, 64, True, 0, 0, "bfloat16"),
+    (8, 4, 4, 12, 12, 64, True, 0, 0, "bfloat16"),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
                                             window, q_offset, dtype):
@@ -1021,3 +1032,164 @@ def test_train_steps_on_card_match_cpu(cuda):
     for n, p in out["cuda"][1].items():
         err = (p - out["cpu"][1][n]).abs().max().item()
         assert err <= 0.01 * rcfg.learning_rate * 2, (n, err)
+
+
+# ---------------------------------------------------------------------------
+# the ssm, hybrid and encdec families in training; whisper's shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,causal", [
+    (2, 1500, False),               # the encoder: bidirectional
+    (8, 4, True),                   # the served prefill's cross-attention
+    (2, 448, True),                 # the trained cross-attention
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_whisper_flash_shapes_on_card(cuda, b, s, causal, dtype):
+    """Flash at whisper-small's heads (12/12, d 64) against 1500 frames:
+    T not a multiple of any tile, and for the cross-attention the causal
+    mask with S < T (position t sees frames 0..t)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((b, s, 12, 64), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((b, 1500, 12, 64), generator=gen, device=cuda)
+            .to(dt) for _ in range(2))
+    o = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(o.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,pos,dtype,cache_dtype", [
+    (1500, (1499,) * 8, "bfloat16", "bfloat16"),     # the cross decode
+    (1500, (1499,) * 8, "float32", "float32"),
+    (1500, (1499,) * 8, "float32", "bfloat16"),
+    (448, (4, 13, 22, 31, 40, 49, 58, 67), "bfloat16", "bfloat16"),
+])
+def test_whisper_decode_shapes_on_card(cuda, t, pos, dtype, cache_dtype):
+    """Decode at group 1 (12/12 heads, d 64): whisper's cross decode over
+    1500 frames at pos 1499, and its self decode over 448 slots."""
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    b = len(pos)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, 12, 64), generator=gen,
+                    device=cuda).to(getattr(torch, dtype))
+    kc, vc = (torch.randn((b, t, 12, 64), generator=gen, device=cuda)
+              .to(getattr(torch, cache_dtype)) for _ in range(2))
+    o, m, l = decode_attention(q, kc, vc, p)
+    ro, rm, rl = decode_attention_plain(q, kc, vc, p)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,shape", [
+    (16, (256, 32, 64, 128)),       # mamba2-370m, a 4,096-token sequence
+    (32, (128, 50, 64, 16)),        # hymba-1.5b, the same
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_scan_fn_on_card(cuda, nc, shape, dtype):
+    """``SsdScanFn``: the kernel forward (one launch, its four outputs bit
+    for bit) and the plain version's VJP, against autograd straight
+    through ``ssd_chunk_scan_plain`` on the same inputs and cotangents."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.ssm import SsdScanFn
+    q, h, p, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(nc)
+    dt = getattr(torch, dtype)
+    dts = torch.nn.functional.softplus(
+        torch.randn((1, nc, q, h), generator=gen, device=cuda))
+    xdt = (torch.randn((1, nc, q, h, p), generator=gen, device=cuda) * 0.5
+           * dts[..., None]).to(dt).requires_grad_()
+    dA = (-dts).requires_grad_()
+    B, C = (torch.randn((1, nc, q, n), generator=gen, device=cuda)
+            .mul(0.5).to(dt).requires_grad_() for _ in range(2))
+    before = ss.ssd_chunk_scan.launches
+    outs = SsdScanFn.apply(xdt, dA, B, C)
+    assert ss.ssd_chunk_scan.launches == before + 1
+    kern = ss.ssd_chunk_scan(xdt.detach(), dA.detach(), B.detach(),
+                             C.detach(), out_dtype=torch.float32,
+                             state_decay=True)
+    for a, b in zip(outs, kern):
+        assert torch.equal(a.detach(), b)
+    plain = ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=torch.float32,
+                                 state_decay=True)
+    cots = [torch.randn(o.shape, generator=gen, device=cuda) for o in outs]
+    got = torch.autograd.grad(outs, (xdt, dA, B, C), cots)
+    want = torch.autograd.grad(plain, (xdt, dA, B, C), cots)
+    for name, a, b in zip(("xdt", "dA", "B", "C"), got, want):
+        assert a.dtype == b.dtype
+        err = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        assert err <= 1e-6, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_one_layer_ssm_and_hybrid_get_grads_on_card(cuda, arch):
+    """One full-width layer of mamba2-370m and of hymba-1.5b (bf16, 512
+    tokens) trained on the card: the SSD scan kernel launches under
+    autograd and ``A_log``, ``dt_bias`` and the ``w_x``/``w_B``/``w_C``/
+    ``w_dt`` projections get finite, non-zero gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.train.train_loop import loss_fn
+    cfg = dataclasses.replace(get_config(arch), num_layers=1,
+                              global_attn_layers=())
+    model = init_params(cfg, device=cuda, seed=6)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    ssm = model.blocks[0]["ssm"]
+    names = ("A_log", "dt_bias", "w_x", "w_B", "w_C", "w_dt")
+    leaves = [ssm[n].requires_grad_() for n in names]
+    before = ss.ssd_chunk_scan.launches
+    loss, _ = loss_fn(model, batch, cfg, RunConfig(remat="none"))
+    assert ss.ssd_chunk_scan.launches == before + 1
+    grads = torch.autograd.grad(loss, leaves)
+    for name, g in zip(names, grads):
+        assert bool(torch.isfinite(g).all()), name
+        assert g.abs().max().item() > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_whisper_cross_attention_on_card(cuda, dtype):
+    """whisper's cross-attention at its smoke config on the card against
+    the CPU's plain path: at prefill (flash, causal, S 12 < T 24; also
+    under grad through ``FlashAttentionFn``, the wq/wk/wv grads) and at
+    decode (the decode kernel over the encoder cache at pos T - 1)."""
+    from repro_torch.models.attention import gqa_attention
+    cfg = get_smoke_config("whisper-small")
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    h = torch.randn((2, 12, cfg.d_model), generator=gen).to(dt)
+    enc = torch.randn((2, 24, cfg.d_model), generator=gen).to(dt)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, device="cpu", seed=9).to(dev)
+        p = model.blocks[0]["cross"]
+        ws = [p[n].requires_grad_() for n in ("wq", "wk", "wv")]
+        pos = torch.arange(12, device=dev)
+        o, kv = gqa_attention(p, h.to(dev), cfg, RunConfig(),
+                              positions=pos, kv_x=enc.to(dev),
+                              return_cache=True)
+        g = torch.autograd.grad(o.float().square().sum(), ws)
+        with torch.no_grad():
+            d = gqa_attention(p, h[:, :1].to(dev), cfg, RunConfig(),
+                              positions=pos[:2],
+                              cache={"ck": kv["k"], "cv": kv["v"]},
+                              cross_decode=True)
+        out[str(dev)] = [t.detach().float().cpu() for t in (o, d, *g)]
+    for name, a, b in zip(("prefill", "decode", "wq", "wk", "wv"),
+                          out["cuda"], out["cpu"]):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= TOL[dtype], (name, err)

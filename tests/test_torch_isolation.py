@@ -60,6 +60,59 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.train.checkpoint", "repro_torch.train.runner"} <= names
 
 
+def test_family_training_and_encdec_serving_run_without_jax():
+    """The slice-12 paths in a process where importing ``jax`` fails: one
+    train step of the mamba2, hymba and whisper smoke configs on the CPU
+    (``SsdScanFn``, ``FlashAttentionFn``, the encoder), whisper's
+    prefill with frames and two decode steps, ``input_specs``; no
+    ``repro`` module is loaded."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["ml_dtypes"] = None
+        sys.path[:0] = [{str(ROOT / "src")!r}]
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import (RunConfig, ShapeConfig, SHAPES,
+                                         get_config, get_smoke_config)
+        from repro_torch.data import for_model
+        from repro_torch.models import (forward_decode, forward_prefill,
+                                        init_params, input_specs)
+        from repro_torch.train import make_train_state, make_train_step
+        rcfg = RunConfig(attn_q_block=8, attn_kv_block=8, warmup_steps=1,
+                         learning_rate=1e-2)
+        for arch, seq in (("mamba2-370m", 40), ("hymba-1.5b", 40),
+                          ("whisper-small", 20)):
+            cfg = get_smoke_config(arch)
+            state = make_train_state(cfg, rcfg, device="cpu")
+            feed = for_model(cfg, ShapeConfig("t", seq, 2, "train"),
+                             device="cpu")
+            state, m = make_train_step(cfg, rcfg)(state, feed.batch_at(0))
+            assert torch.isfinite(m["loss"]), arch
+        cfg = get_smoke_config("whisper-small")
+        model = init_params(cfg, device="cpu")
+        frames = torch.randn(2, cfg.encoder_seq, cfg.d_model).bfloat16()
+        tok = torch.ones((2, 4), dtype=torch.int32)
+        logits, caches = forward_prefill(model, tok, rcfg, max_seq=8,
+                                         frames=frames)
+        for i in range(2):
+            logits, caches = forward_decode(
+                model, caches, logits.argmax(-1)[:, None].int(),
+                torch.full((2,), 4 + i, dtype=torch.int32), rcfg)
+        assert torch.isfinite(logits).all()
+        specs = input_specs(get_config("whisper-small"), SHAPES["train_4k"])
+        assert specs["frames"].device.type == "meta"
+        bad = sorted(k for k in sys.modules
+                     if k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_port_configs_equal_the_reference():
     assert sorted(tconf.ARCHS) == sorted(jconf.ARCHS)
     for name in jconf.ARCHS:

@@ -258,8 +258,7 @@ def test_bridge_refuses_mismatched_trees(mesh1):
                         device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b",
-                                  "whisper-small"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b"])
 def test_other_families_raise_not_implemented(arch):
     from repro_torch.models import Model
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -26,7 +26,12 @@ layer count as fan-in, which swamps any bf16 comparison). Tolerances:
   moments within 1e-4 of the leaf's max (one bf16 ulp, 2^-7, where
   accumulation casts the gradient to bf16), metrics within 1e-5;
 * the Runner: losses within 1e-4 of the reference's over 5 steps at f32;
-  recovery bit-exact.
+  recovery bit-exact;
+* the ssm, hybrid and encdec families (mamba2, hymba, whisper smoke
+  configs at f32): loss within 1e-5, every grad within 1e-4, and after one
+  train step every parameter within 1% of lr and the moments within 1e-4;
+  ``SsdScanFn`` against autograd through the scan's plain version within
+  1e-6 (f64 inside both, rounded to f32).
 """
 import dataclasses
 import functools
@@ -104,25 +109,34 @@ def _rcfgs(**kw):
     return JRunConfig(**base), RunConfig(**base)
 
 
+def _rescale(stacked, schema):
+    """A stacked segment's normal-init leaves rescaled from the
+    reference's fan-in (the layer count) to their true one."""
+    for path, desc in walk(schema):
+        if desc.init not in ("normal", "small_normal"):
+            continue
+        node = stacked
+        for key_ in path[:-1]:
+            node = node[key_]
+        a = node[path[-1]]
+        node[path[-1]] = (a.astype(np.float32) * np.sqrt(
+            a.shape[0] / desc.init_fan_in)).astype(a.dtype)
+
+
 def _ref_state(jcfg, tcfg, jrcfg, key=0):
-    """The reference's train state (numpy leaves), its block weights
-    rescaled to their true fan-in."""
+    """The reference's train state (numpy leaves), its block weights (an
+    encoder's too) rescaled to their true fan-in."""
     state = jax.tree.map(np.asarray, j_make_state(
         jcfg, jrcfg, make_host_mesh(1, 1), jax.random.PRNGKey(key)))
-    layers = model_schema(tcfg)["layers"]
+    schema = model_schema(tcfg)
     first = 0
     for seg, stacked in zip(build_schedule(tcfg),
                             state["params"]["segments"]):
-        for path, desc in walk(layers[first]):
-            if desc.init not in ("normal", "small_normal"):
-                continue
-            node = stacked
-            for key_ in path[:-1]:
-                node = node[key_]
-            a = node[path[-1]]
-            node[path[-1]] = (a.astype(np.float32) * np.sqrt(
-                a.shape[0] / desc.init_fan_in)).astype(a.dtype)
+        _rescale(stacked, schema["layers"][first])
         first += seg.count
+    if tcfg.encoder_layers:
+        _rescale(state["params"]["encoder"]["segments"][0],
+                 schema["encoder"]["layers"][0])
     return state
 
 
@@ -161,7 +175,7 @@ def _by_ref(named: dict, tcfg):
     out = {}
     for ref, ns in names.items():
         arrs = [named[n].detach().float().numpy() for n in ns]
-        out[ref] = np.stack(arrs) if ref[0] == "segments" else arrs[0]
+        out[ref] = np.stack(arrs) if "segments" in ref else arrs[0]
     return out
 
 
@@ -172,9 +186,10 @@ def _ref_at(tree, path):
 
 
 def _batch(jcfg, b, s, step=0, seed=0):
-    arrs = JDataPipeline(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=s,
-                                     global_batch=b, seed=seed)).batch_at(
-        step)
+    arrs = JDataPipeline(JDataConfig(
+        vocab_size=jcfg.vocab_size, seq_len=s, global_batch=b, seed=seed,
+        with_frames=bool(jcfg.encoder_layers),
+        encoder_seq=jcfg.encoder_seq, d_model=jcfg.d_model)).batch_at(step)
     arrs = {k: np.asarray(v) for k, v in arrs.items()}
     return arrs, {k: torch.from_numpy(v.copy()) for k, v in arrs.items()}
 
@@ -394,10 +409,12 @@ def test_flash_attention_fn_grads_match_blockwise_autograd():
 
 
 def test_training_other_families_and_remesh_raise():
-    for arch in ("mamba2-370m", "hymba-1.5b"):
+    for arch in ("arctic-480b", "deepseek-v2-236b"):
         cfg = get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ssm/hybrid training"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_state(cfg, RunConfig(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_train_step(cfg, RunConfig())
     cfg = get_smoke_config(LLAMA)
     with tempfile.TemporaryDirectory() as d:
         r = Runner(cfg, RunConfig(), None, for_model(
@@ -405,6 +422,146 @@ def test_training_other_families_and_remesh_raise():
             device="cpu")
         with pytest.raises(NotImplementedError, match="item 5"):
             r.remesh(None)
+
+
+# ---------------------------------------------------------------------------
+# the ssm, hybrid and encdec families
+# ---------------------------------------------------------------------------
+
+# sequence lengths of the smoke configs: mamba2 and hymba 40 (a chunk of 32
+# and a padded one; past hymba's window of 32), whisper 20 (below its 24
+# frames, as whisper's 448 tokens are below its 1500)
+FAMILY_SEQ = {"mamba2-370m": 40, "hymba-1.5b": 40, "whisper-small": 20}
+
+
+def test_ssd_scan_fn_grads_match_plain_autograd():
+    """On the CPU ``SsdScanFn``'s forward is the kernel's plain version and
+    its backward the VJP of that version: the four outputs and the grads
+    of xdt, dA, B and C equal autograd straight through
+    ``ssd_chunk_scan_plain``, with every output's cotangent non-zero (a
+    padded chunk: dA = 0 and zero inputs past 45 of 64 positions)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_plain
+    from repro_torch.models.ssm import SsdScanFn
+    gen = np.random.default_rng(4)
+
+    def leaf(*shape, scale=1.0):
+        return torch.from_numpy((gen.standard_normal(shape) * scale)
+                                .astype(np.float32)).requires_grad_()
+
+    nb, nc, q, h, p, n = 2, 2, 32, 3, 8, 16
+    xdt, B, C = leaf(nb, nc, q, h, p, scale=0.2), leaf(nb, nc, q, n,
+                                                       scale=0.4), \
+        leaf(nb, nc, q, n, scale=0.4)
+    dA = torch.from_numpy(-np.abs(gen.standard_normal((nb, nc, q, h)))
+                          .astype(np.float32) * 0.2)
+    with torch.no_grad():
+        for t in (xdt, B, C):
+            t[:, -1, 13:] = 0
+        dA[:, -1, 13:] = 0
+    dA.requires_grad_()
+    outs = SsdScanFn.apply(xdt, dA, B, C)
+    want = ssd_chunk_scan_plain(xdt, dA, B, C, out_dtype=torch.float32,
+                                state_decay=True)
+    cots = [torch.from_numpy(gen.standard_normal(o.shape).astype(
+        np.float32)) for o in want]
+    got_g = torch.autograd.grad(outs, (xdt, dA, B, C), cots)
+    want_g = torch.autograd.grad(want, (xdt, dA, B, C), cots)
+    for a, b in zip(outs, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_array_equal(a.detach().numpy(),
+                                      b.detach().numpy())
+    for a, b in zip(got_g, want_g):
+        assert float(b.abs().max()) > 0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_SEQ))
+def test_family_loss_grads_and_step_match_reference(arch):
+    """mamba2 (the ssm family: every grad through ``SsdScanFn``, A_log and
+    dt_bias included), hymba (hybrid: flash and the SSD scan in parallel
+    in every layer, a window of 32 over 40 tokens) and whisper (encdec:
+    the encoder's grads through the cross-attention, the frames from the
+    reference's pipeline) at f32: ``loss_fn`` and the gradient of every
+    leaf against ``jax.value_and_grad`` of the reference's, then one step
+    of each package's ``make_train_step`` from the same state, the whole
+    states compared."""
+    jcfg, tcfg = _cfgs(arch, "float32")
+    jrcfg, trcfg = _rcfgs(warmup_steps=1, learning_rate=1e-2)
+    state = _ref_state(jcfg, tcfg, jrcfg)
+    jb, tb = _batch(jcfg, 2, FAMILY_SEQ[arch])
+    assert ("frames" in tb) == (arch == "whisper-small")
+    mesh = make_host_mesh(1, 1)
+    vg = jax.jit(jax.value_and_grad(functools.partial(
+        j_loss_fn, cfg=jcfg, shd=ShardingCtx(mesh), rcfg=jrcfg),
+        has_aux=True))
+    (jloss, jmet), jgrads = vg(jax.tree.map(jnp.asarray, state["params"]),
+                               jax.tree.map(jnp.asarray, jb))
+    port = train_state_from_jax(state, tcfg, device="cpu")
+    grads, tmet = _grads(port["params"], tb, tcfg, trcfg)
+    for k in ("loss", "ce_loss", "z_loss"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=1e-5, err_msg=k)
+    stacked = _by_ref(grads, tcfg)
+    assert len(stacked) == len(jax.tree.leaves(jgrads))
+    for ref_path, got in stacked.items():
+        want = np.asarray(_ref_at(jgrads, ref_path))
+        assert got.shape == want.shape, ref_path
+        assert np.abs(got).max() > 0 or np.abs(want).max() == 0, ref_path
+        assert _rel(got, want) <= 1e-4, (ref_path, _rel(got, want))
+    jstep = jax.jit(j_make_step(jcfg, jrcfg, mesh))
+    jstate, jm = jstep(jax.tree.map(jnp.asarray, state),
+                       jax.tree.map(jnp.asarray, jb))
+    port, tm = make_train_step(tcfg, trcfg)(port, tb)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   err_msg=k)
+    got = train_state_to_numpy(port, tcfg)
+    want = jax.tree.map(np.asarray, jstate)
+    for (path, a), (_, b) in zip(_leaves_with_paths(got["params"]),
+                                 _leaves_with_paths(want["params"])):
+        err = float(np.abs(a - b).max())
+        assert err <= 0.01 * trcfg.learning_rate, (path, err)
+    _assert_trees(got["opt"]["mu"], want["opt"]["mu"], 1e-4, "mu")
+    _assert_trees(got["opt"]["nu"], want["opt"]["nu"], 1e-4, "nu")
+
+
+def test_family_decay_mask_and_slots_follow_the_stacked_reference():
+    """The SSM leaves and an encoder's: every block leaf decays (its
+    stacked ndim >= 2: ``A_log``, ``D`` and ``dt_bias`` are (L, H), the
+    conv taps (L, W, C)), the 1-D top-level ones (both final norms) do
+    not; with factored nu the 1-D per-layer leaves' ``vc`` averages over
+    the segment's layers and a per-layer 2-D leaf keeps (vr, vc). Held
+    against the reference's mask and its optimizer state's layout."""
+    from repro.train.optimizer import _decay_mask as j_decay_mask
+    for arch in ("mamba2-370m", "hymba-1.5b", "whisper-small"):
+        jcfg, tcfg = _cfgs(arch)
+        jrcfg, _ = _rcfgs(factored_nu=True)
+        state = _ref_state(jcfg, tcfg, jrcfg)
+        model = init_params(tcfg, device="cpu", seed=0)
+        mask = _decay_mask(opt_slots(tcfg), dict(model.named_parameters()))
+        want = j_decay_mask(state["params"])
+        by = {s.ref_path: mask[s.name] for s in opt_slots(tcfg)}
+        for path, m in _leaves_with_paths(want):
+            ref = tuple(int(k.strip("[]")) if k.strip("[]").isdigit() else
+                        k.strip("[]'") for k in path.replace("][", "]|[")
+                        .split("|"))
+            assert by[ref] == bool(m), (arch, path)
+        names = {s.name for s in opt_slots(tcfg)}
+        if tcfg.ssm is not None:
+            assert mask["segments.0.ssm.A_log"] and \
+                mask["segments.0.ssm.dt_bias"]
+            assert mask["blocks.0.ssm.conv_x"]
+        if tcfg.encoder_layers:
+            assert not mask["encoder.final_norm.scale"]
+            assert mask["encoder.segments.0.ln1.bias"]
+            assert "encoder.blocks.1.cross" not in names
+        port = train_state_from_jax(state, tcfg, device="cpu")
+        back = train_state_to_numpy(port, tcfg)
+        for (p1, a), (p2, b) in zip(
+                _leaves_with_paths(back["opt"]["nu"]),
+                _leaves_with_paths(state["opt"]["nu"])):
+            assert p1 == p2 and a.shape == b.shape, (arch, p1)
 
 
 # ---------------------------------------------------------------------------
@@ -721,3 +878,57 @@ def test_train_phase_rehearses_on_the_cpu(monkeypatch):
     ft = by["fault_tolerance"]
     assert ft["bit_identical"] and [r["recoveries"] for r in ft["runs"]] \
         == [0, 1]
+
+
+def test_family_train_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s ssm, hybrid and encdec trainers on the CPU at the
+    smoke configs (mamba2 and hymba over 40 tokens, whisper over 20 and
+    its 24 frames; global batch 4, ``grad_accum`` 4), the plain kernels
+    wrapped to count launches: both parity checks, the launches of the 2
+    Runner steps (flash and the SSD scan twice per layer and micro-batch
+    under remat, whisper's encoder and cross-attention included), every
+    parameter moved, and mamba2's bit-identical recovery."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import attention, ssm
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "TRAIN_MIN_DISK", 1e6)
+    monkeypatch.setattr(cs, "FAMILY_TRAINERS", tuple(
+        (arch, seq, 4) for arch, seq in FAMILY_SEQ.items()))
+    monkeypatch.setattr(cs, "FAMILY_FT_ARCH", "mamba2-370m-smoke")
+    for mod, name, counter in ((attention, "flash_attention",
+                                fa.flash_attention),
+                               (ssm, "ssd_chunk_scan", ss.ssd_chunk_scan)):
+        real = getattr(mod, name)
+
+        def counted(*args, _real=real, _counter=counter, **kw):
+            _counter.launches += 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    rows = []
+    monkeypatch.setattr(cs, "emit", rows.append)
+    launches = cs.phase_train_families(
+        torch, torch.device("cpu"), "cpu",
+        cfgs={arch: get_smoke_config(arch) for arch in FAMILY_SEQ})
+    per_step = 4 * 2 * 2          # micro-batches x (forward + remat) x steps
+    assert launches == {"flash_attention": (2 + 6) * per_step,
+                        "ssd_chunk_scan": (2 + 2) * per_step}
+    runners = [r for r in rows if r["check"] == "runner"]
+    assert [r["model"] for r in runners] == [
+        get_smoke_config(a).name for a in FAMILY_SEQ]
+    for r in runners:
+        assert r["params_moved"] == r["params_total"], r["params_not_moved"]
+    assert [r["check"] for r in rows].count("fault_tolerance") == 1
+    assert all(r["bit_identical"] for r in rows
+               if r["check"] == "fault_tolerance")
