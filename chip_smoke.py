@@ -31,6 +31,8 @@ JSON object per line:
               cross-attention with S 4 and 448 below T 1500, causal
               self-attention at S = T 4 and 448, decode at group 1 over
               1500 frames at pos 1499 and over 448 slots;
+              arctic-480b's 56/8 heads: flash S 64 and 509, decode at
+              group 7 over 8 caches of 1024, bf16 and f32 queries;
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -61,7 +63,20 @@ JSON object per line:
    utterances of 1500 bf16 frames, prompts of 4, ``max_seq`` 448, 64 new
    tokens; 36 flash launches a prefill, 24 decode launches a step, the
    cache's bytes the schema's; the kernel path against the plain path at
-   bf16 and on an f32 copy);
+   bf16 and on an f32 copy), and on the moe family at full width and cut
+   depth (the moe phase): arctic-480b's 2 of 35 layers (128 experts top-2
+   beside a dense branch, 56/8 heads: flash once per layer and admission,
+   decode at group 7 once per layer and step) and deepseek-v2-236b's
+   dense layer and 7 moe layers (160 experts top-6, 2 shared; MLA in
+   plain torch over a latent cache, no attention kernel), each served,
+   profiled and held against the plain path at bf16 (every attention
+   launch asserted; the end-to-end gap and the routing choices that
+   differ reported beside the model's own bf16 noise floor), its first
+   layers at f32 (1 and 4: identical tokens and routing, logits within
+   1e-4) once the bf16 model is freed, and its smoke config on the card
+   against the CPU (dispatch tables, y and aux, and the engine's tokens
+   and ledger); capacities, drop shares, weight bytes, the step beside
+   the bytes it must read, the latent cache beside a k/v cache reported;
 7. control  — the vectorized control plane's fused tick on the card at
               1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
               counter trace): µs per tick, tenants/s, state bytes; its
@@ -156,9 +171,10 @@ JSON object per line:
               (flash over 1536 tokens with the window and without, decode
               over 8 rings, the SSD scan over 12 chunks of its width); the
               codec on the embedding leaf; whisper-small's flash and
-              decode shapes and the trainers' SSD scans.
+              decode shapes and the trainers' SSD scans; arctic-480b's
+              flash and group-7 decode shapes.
 
-Then the seconds of the vlm, hybrid, encdec, watchdog, train and
+Then the seconds of the vlm, hybrid, encdec, moe, watchdog, train and
 train-families phases and of the whole script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -167,6 +183,7 @@ checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -215,6 +232,7 @@ HOST_CALLS = 200              # enqueue timing: calls back to back
 # (query heads, kv heads) at head_dim 128: llama3.2-3b's and chameleon-34b's
 LLAMA_HEADS = (24, 8)
 VLM_HEADS = (64, 8)
+ARCTIC_HEADS = (56, 8)        # group 7
 # hymba-1.5b (the hybrid family) at full width and depth: 25/5 heads at
 # head_dim 64 (group 5), a 1024-token window outside layers 0, 15 and 31.
 # Its windowed layers keep a ring of 1024 slots only where max_seq is above
@@ -252,6 +270,14 @@ ENCDEC_DECODE_POS = (4, 13, 22, 31, 40, 49, 58, 67)
 ENCDEC_CROSS_BYTES, ENCDEC_SELF_BYTES = 442_368_000, 132_120_576
 
 # water-fill: |kernel - plain| and |kernel - exact fill| per unit capacity
+# the moe phase: (arch, layers served at full width, layers of its f32
+# parity); arctic-480b's 2 of 35 layers hold 55.4 GB of bf16 weights,
+# deepseek-v2-236b's dense layer and 7 of its 59 moe layers 59.7 GB
+MOE_MODELS = (("arctic-480b", 2, 1), ("deepseek-v2-236b", 8, 4))
+MOE_F32_TOL = 1e-4
+MOE_SMOKE_PROMPTS = (5, 9, 16, 7, 30, 12)   # the smoke engines' requests
+MOE_SMOKE_TOL = 1e-5          # apply_moe on the card vs the CPU, f32
+
 WATER_TOL_PLAIN = 1e-9
 WATER_TOL_EXACT = 1e-6
 # the one-warp kernel (n <= 32) and past it, one block, the first grid
@@ -510,7 +536,8 @@ def phase_kernels(torch, device):
               (2, 100, 300, "bfloat16", 0, 200, LLAMA_HEADS),
               (1, 509, 509, "bfloat16", 128, 0, LLAMA_HEADS),
               (1, 509, 509, "float32", 0, 0, LLAMA_HEADS)]
-    cases += [(1, s, s, "bfloat16", 0, 0, VLM_HEADS) for s in (64, 509)]
+    cases += [(1, s, s, "bfloat16", 0, 0, heads) for s in (64, 509)
+              for heads in (VLM_HEADS, ARCTIC_HEADS)]
     cases = [c + (128,) for c in cases]
     cases += [(1, 1536, 1536, "bfloat16", HYBRID_WINDOW, 0, HYBRID_HEADS,
                HYBRID_D),
@@ -547,7 +574,8 @@ def phase_kernels(torch, device):
         errs["flash_attention"] = max(errs["flash_attention"], err)
     # (B, T, q dtype, pos, (hq, kv)): the serve phase's cache, the replay
     # and cluster phases' (REPLAY_SLOTS slots of REPLAY_MAX_SEQ positions),
-    # and chameleon-34b's cache at 64/8 heads
+    # chameleon-34b's cache at 64/8 heads, and arctic-480b's at 56/8 (group
+    # 7: bf16 q on the tensor-core path, f32 q on the CUDA-core one)
     d = 128
     for b, t, dt, pos_list, (hq, kv) in (
             (8, 1024, "bfloat16", DECODE_POS, LLAMA_HEADS),
@@ -556,7 +584,10 @@ def phase_kernels(torch, device):
             (REPLAY_SLOTS, REPLAY_MAX_SEQ, "bfloat16", REPLAY_DECODE_POS,
              LLAMA_HEADS),
             (8, 1024, "bfloat16", DECODE_POS, VLM_HEADS),
-            (8, 1024, "bfloat16", SERVE_DECODE_POS, VLM_HEADS)):
+            (8, 1024, "bfloat16", SERVE_DECODE_POS, VLM_HEADS),
+            (8, 1024, "bfloat16", DECODE_POS, ARCTIC_HEADS),
+            (8, 1024, "bfloat16", SERVE_DECODE_POS, ARCTIC_HEADS),
+            (8, 1024, "float32", DECODE_POS, ARCTIC_HEADS)):
         pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
         q = torch.randn((b, hq, d), generator=gen,
                         device=device).to(getattr(torch, dt))
@@ -963,14 +994,14 @@ def make_requests(cfg, request_cls, prompt_range=PROMPT_RANGE,
 def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
                 decode_kernels, prefill_lens=(PROMPT_RANGE[1],), *,
                 max_seq: int = 1024, prompt_range=PROMPT_RANGE,
-                fixed_lengths=()):
+                fixed_lengths=(), row_out=None):
     """Serve 3 tenants x 4 requests until drained, prompts drawn from
     ``prompt_range`` (``make_requests``) into 8 slots of ``max_seq``.
     ``prefill_kernels`` and ``decode_kernels`` map a kernel's name to its
     wrapper: each must have launched once per layer per admission
     (prefill) or per decode step. Returns the engine, the launch counts of
     this run and the positions each decode step ran at (its active
-    slots')."""
+    slots'); ``row_out``, a dict, receives the emitted row."""
     from repro_torch.configs import RunConfig
     from repro_torch.control import RateController
     from repro_torch.models import forward_prefill, init_params
@@ -1092,6 +1123,8 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
            "slot_utilization": eng.slot_utilization(),
            "memory": memory, "max_memory_allocated": peak, "ok": True}
     emit(out)
+    if row_out is not None:
+        row_out.update(out)
     return eng, launches, decode_pos
 
 
@@ -1283,6 +1316,57 @@ def phase_parity(torch, device, eng):
                              f" or launches {launches} off the path")
 
 
+@contextlib.contextmanager
+def attention_checked(err: dict):
+    """The attention kernels as the model calls them
+    (``models.attention.flash_attention``/``decode_kernel``), each launch
+    held against its plain version on the same inputs: max |do| / max |o|
+    appended to ``err["flash_attention"]``/``err["decode_attention"]``."""
+    from repro_torch.models import attention as attn
+    flash_k, dec_k = attn.flash_attention, attn.decode_kernel
+    flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
+
+    def flash_checked(q, k, v, **kw):
+        o = flash_k(q, k, v, **kw)
+        err["flash_attention"].append(rel_err(o, flash_p(q, k, v, **kw)))
+        return o
+
+    def decode_checked(q, k, v, pos, **kw):
+        out = dec_k(q, k, v, pos, **kw)
+        err["decode_attention"].append(
+            rel_err(out[0], dec_p(q, k, v, pos, **kw)[0]))
+        return out
+
+    attn.flash_attention, attn.decode_kernel = flash_checked, decode_checked
+    try:
+        yield err
+    finally:
+        attn.flash_attention, attn.decode_kernel = flash_k, dec_k
+
+
+@contextlib.contextmanager
+def attention_nudged(scale: float):
+    """The plain attention versions (the plain path's) with every output
+    scaled by ``scale``: a bf16 noise floor's perturbation."""
+    from repro_torch.models import attention as attn
+    flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
+
+    def flash_nudged(*args, **kw):
+        return flash_p(*args, **kw) * scale
+
+    def decode_nudged(*args, **kw):
+        o, *rest = dec_p(*args, **kw)
+        return (o * scale, *rest)
+
+    attn.flash_attention_plain, attn.decode_attention_plain = \
+        flash_nudged, decode_nudged
+    try:
+        yield
+    finally:
+        attn.flash_attention_plain, attn.decode_attention_plain = \
+            flash_p, dec_p
+
+
 def phase_parity_vlm(torch, device, eng):
     """A dense model's kernel path against its plain path at bf16, at a
     depth where random weights amplify rounding past ``PARITY_TOL``
@@ -1297,44 +1381,14 @@ def phase_parity_vlm(torch, device, eng):
       output nudged by 2^-8 relative, about one bf16 ulp), all decoding
       the same tokens."""
     from repro_torch.configs import RunConfig
-    from repro_torch.models import attention as attn
     kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
-    flash_k, dec_k = attn.flash_attention, attn.decode_kernel
-    flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
     err = {"flash_attention": [], "decode_attention": []}
-
-    def flash_checked(q, k, v, **kw):
-        o = flash_k(q, k, v, **kw)
-        err["flash_attention"].append(rel_err(o, flash_p(q, k, v, **kw)))
-        return o
-
-    def decode_checked(q, k, v, pos, **kw):
-        out = dec_k(q, k, v, pos, **kw)
-        err["decode_attention"].append(
-            rel_err(out[0], dec_p(q, k, v, pos, **kw)[0]))
-        return out
-
-    def flash_nudged(*args, **kw):
-        return flash_p(*args, **kw) * (1 + 2 ** -8)
-
-    def decode_nudged(*args, **kw):
-        o, *rest = dec_p(*args, **kw)
-        return (o * (1 + 2 ** -8), *rest)
-
-    attn.flash_attention, attn.decode_kernel = flash_checked, decode_checked
-    try:
+    with attention_checked(err):
         runs, tokens = parity_logits(torch, device, eng.params, eng.max_seq,
                                      {"kernel": kernel, "plain": plain})
-    finally:
-        attn.flash_attention, attn.decode_kernel = flash_k, dec_k
-    attn.flash_attention_plain, attn.decode_attention_plain = \
-        flash_nudged, decode_nudged
-    try:
+    with attention_nudged(1 + FLOOR_NUDGE):
         nudged = parity_logits(torch, device, eng.params, eng.max_seq,
                                {"plain": plain}, tokens)[0]["plain"]
-    finally:
-        attn.flash_attention_plain, attn.decode_attention_plain = \
-            flash_p, dec_p
     layers = eng.cfg.num_layers
     rel, agree = logit_gap(runs["kernel"], runs["plain"])
     floor, _ = logit_gap(nudged, runs["plain"])
@@ -1526,23 +1580,11 @@ def phase_parity_hybrid(torch, device, eng):
     from repro_torch.models import ssm as ssm_mod
     cfg = eng.cfg
     kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
-    flash_k, dec_k, scan_k = attn.flash_attention, attn.decode_kernel, \
-        ssm_mod.ssd_chunk_scan
+    scan_k = ssm_mod.ssd_chunk_scan
     flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
     dec_ring_p, scan_p = attn.decode_attention, ssm_mod.ssd_chunk_scan_plain
     err = {"flash_attention": [], "decode_attention": [],
            "ssd_chunk_scan": [], "ssd_decays": []}
-
-    def flash_checked(q, k, v, **kw):
-        o = flash_k(q, k, v, **kw)
-        err["flash_attention"].append(rel_err(o, flash_p(q, k, v, **kw)))
-        return o
-
-    def decode_checked(q, k, v, pos, **kw):
-        out = dec_k(q, k, v, pos, **kw)
-        err["decode_attention"].append(
-            rel_err(out[0], dec_p(q, k, v, pos, **kw)[0]))
-        return out
 
     def scan_checked(xdt, dA, B, C, **kw):
         out = scan_k(xdt, dA, B, C, **kw)
@@ -1573,12 +1615,12 @@ def phase_parity_hybrid(torch, device, eng):
         return parity_logits(torch, device, params, eng.max_seq, paths,
                              prompt_len=HYBRID_PARITY_PROMPT, **kw)
 
-    attn.flash_attention, attn.decode_kernel = flash_checked, decode_checked
     ssm_mod.ssd_chunk_scan = scan_checked
     try:
-        bf16, tokens = run(eng.params, {"kernel": kernel, "plain": plain})
+        with attention_checked(err):
+            bf16, tokens = run(eng.params, {"kernel": kernel,
+                                            "plain": plain})
     finally:
-        attn.flash_attention, attn.decode_kernel = flash_k, dec_k
         ssm_mod.ssd_chunk_scan = scan_k
     # the plain path's decode: the kernel's plain version at the global
     # layers, the reference's kv_pos decode at the ring layers
@@ -1832,6 +1874,387 @@ def phase_encdec(torch, device, cfg=None):
     if not row["ok"]:
         raise AssertionError(f"{cfg.name} parity: {row}")
     return launches
+
+
+@contextlib.contextmanager
+def recording_routes(out: list):
+    """Every ``route_topk`` call appends its expert ids (T, k) to ``out``,
+    on the host."""
+    from repro_torch.models import moe
+    real = moe.route_topk
+
+    def recorded(router_w, x, m):
+        gate, eidx, aux = real(router_w, x, m)
+        out.append(eidx.cpu())
+        return gate, eidx, aux
+
+    moe.route_topk = recorded
+    try:
+        yield out
+    finally:
+        moe.route_topk = real
+
+
+@contextlib.contextmanager
+def recording_moe(out: list):
+    """Every moe layer's call appends (tokens in its batch, its sequence
+    length, its drop share as a 0-d tensor, left on the device)."""
+    from repro_torch.models import blocks
+    real = blocks.apply_moe
+
+    def recorded(p, x, cfg):
+        y, aux = real(p, x, cfg)
+        out.append((x.shape[0], x.shape[1], aux["moe_drop_frac"]))
+        return y, aux
+
+    blocks.apply_moe = recorded
+    try:
+        yield out
+    finally:
+        blocks.apply_moe = real
+
+
+def route_flips(a, b):
+    """The top-k choices of ``a`` that ``b`` did not make, call by call
+    (each call's (T, k) expert ids as sets per token), and the choices
+    each call made."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} routing calls against {len(b)}")
+    return ([int((x[:, :, None] != y[:, None, :]).all(-1).sum())
+             for x, y in zip(a, b)], [x.numel() for x in a])
+
+
+def flips_by_step(flips, n_moe: int):
+    """Per-call flips summed per forward: the prefill, then each decode
+    step (``n_moe`` routing calls each)."""
+    return [sum(flips[i:i + n_moe]) for i in range(0, len(flips), n_moe)]
+
+
+def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
+    """The moe model ``arch`` (``cfg``: its config, depth already cut; at
+    full width on the card): serve 3 tenants x 4 requests through
+    ``ServeEngine`` (8 slots of 1024, WFQ, a ``RateController``), profile,
+    parity at bf16 (``phase_parity_moe``),
+    the model's first ``f32_layers`` layers at f32 (``phase_parity_moe_
+    f32``) once the bf16 model is freed, and the smoke config on the card
+    against the CPU (``moe_smoke_on_card``). arctic's attention runs
+    through flash (once per layer and admission) and decode at group 7
+    (once per layer and step); deepseek's MLA is plain torch, so neither
+    kernel launches. Checks: 12/12 requests and the ledger (in
+    ``phase_serve``), the launches, no decode drop (8 tokens top-k against
+    a capacity of 8), the cache's bytes the schema's. Reported: the
+    capacities, the prefills' drop shares, the weight bytes, the step
+    beside the bytes a step must read at 3.35 TB/s, the latent cache
+    beside a k/v cache of as many heads. Returns the serve run's launch
+    counts."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import cache_schema
+    from repro_torch.models.moe import _capacity
+    from repro_torch.serve import ServeEngine
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before "
+                             f"{cfg.name}'s weights")
+    mla = cfg.mla is not None
+    kernels = {"flash_attention": flash_attention,
+               "decode_attention": decode_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    n_moe = cfg.num_layers - cfg.dense_layer_prefix
+    calls, row = [], {}
+    with recording_moe(calls):
+        eng, launches, _ = phase_serve(
+            torch, device, cfg, cfg.num_layers,
+            {} if mla else {"flash_attention": flash_attention},
+            {} if mla else {"decode_attention": decode_attention},
+            row_out=row)
+    if mla:
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    prefills = [float(d) for _b, s, d in calls if s > 1]
+    prefills = prefills[:eng.admissions * n_moe]
+    decode_drops = [float(d) for _b, s, d in calls if s == 1]
+    admit_drop = [sum(prefills[i:i + n_moe]) / n_moe
+                  for i in range(0, len(prefills), n_moe)]
+    params = eng.params
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    table = params.embed["tokens"]
+    # a decode step reads every weight but the token table (B rows of it)
+    read_bytes = weight_bytes - table.numel() * table.element_size() \
+        + eng.B * table.shape[1] * table.element_size()
+    schema_bytes = sum(
+        math.prod(d.shape) * getattr(torch, d.dtype).itemsize
+        for seg in cache_schema(cfg, eng.B, eng.max_seq,
+                                eng.rcfg.kv_cache_dtype)
+        for d in seg.values())
+    checks = {"cache_bytes_are_the_schemas":
+              eng._cache_bytes() == schema_bytes,
+              "no_decode_drop": len(decode_drops)
+              == eng.decode_steps * n_moe and max(decode_drops) == 0.0,
+              "prefills_routed": len(prefills) == eng.admissions * n_moe}
+    if mla:
+        checks["no_attention_kernel"] = launches == {
+            "flash_attention": 0, "decode_attention": 0}
+    else:
+        checks["flash_once_per_layer_and_admission"] = \
+            launches["flash_attention"] == cfg.num_layers * eng.admissions
+        checks["decode_once_per_layer_and_step"] = \
+            launches["decode_attention"] == cfg.num_layers * eng.decode_steps
+    out = {"phase": "moe", "model": cfg.name, "layers": cfg.num_layers,
+           "moe_layers": n_moe, "experts": cfg.moe.num_experts,
+           "top_k": cfg.moe.top_k, "launches": launches,
+           "admissions": eng.admissions, "decode_steps": eng.decode_steps,
+           "capacity_decode_B8": _capacity(eng.B, cfg.moe),
+           "capacity_prefill_512": _capacity(PROMPT_RANGE[1], cfg.moe),
+           "prefill_drop_frac": {"mean": statistics.mean(admit_drop),
+                                 "max": max(admit_drop),
+                                 "per_admission": admit_drop},
+           "decode_drop_frac_max": max(decode_drops),
+           "weight_bytes": weight_bytes, "decode_read_bytes": read_bytes,
+           "step_ms_median": row["step_ms_median"],
+           "step_floor_ms": read_bytes / PEAK_BYTES_S * 1e3,
+           "step_over_floor": row["step_ms_median"]
+           / (read_bytes / PEAK_BYTES_S * 1e3),
+           "prefill_ms_512": row[f"prefill_ms_{PROMPT_RANGE[1]}"],
+           "prefill_tok_s_512": PROMPT_RANGE[1]
+           / row[f"prefill_ms_{PROMPT_RANGE[1]}"] * 1e3,
+           "decode_tok_s": row["decode_tok_s"],
+           "max_memory_allocated": row["max_memory_allocated"],
+           "cache_bytes": eng._cache_bytes(), "schema_bytes": schema_bytes,
+           "checks": checks, "ok": all(checks.values())}
+    if mla:
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        out["latent_bytes_per_layer"] = eng.B * eng.max_seq * width * 2
+        # k and v of every head at the v head dim, as a GQA cache of
+        # cfg.num_heads kv heads would hold them
+        out["kv_bytes_per_layer_if_gqa"] = \
+            2 * eng.B * eng.max_seq * cfg.num_heads * cfg.head_dim * 2
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} moe serve: {checks}")
+    # the profile fills all 8 slots in one step: an engine on the same
+    # weights with no rate controller, whose buckets would hold back
+    # prompts the serve run has just billed
+    del eng
+    eng = ServeEngine(cfg, RunConfig(), params, batch_slots=8,
+                      max_seq=1024)
+    phase_profile(torch, device, eng)
+    phase_parity_moe(torch, device, eng)
+    del eng, params, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_moe_f32(torch, device, cfg, f32_layers)
+    torch.cuda.empty_cache()
+    moe_smoke_on_card(torch, device, arch)
+    return launches
+
+
+def phase_parity_moe(torch, device, eng):
+    """The moe model's kernel path against its plain path at bf16, each
+    run alone (one 300-token prefill and 4 decode steps, the plain run fed
+    the kernel run's tokens), every routing call recorded:
+
+    * per launch, asserted: every flash and decode launch of the kernel run
+      against its plain version on the same inputs, within
+      ``FLASH_TOL``/``DECODE_TOL`` at bf16 (none on an MLA model);
+    * end to end, reported: the logits' gap and the top-k choices that
+      differ between the two runs (routing is discrete: a bf16 ulp can flip
+      a choice, and a capacity drop with it), beside the same two numbers
+      for the plain path against itself with every attention output nudged
+      by 1 + 2^-8 and by 1 - 2^-8 (the model's own bf16 noise floor; an
+      MLA model has no attention kernel, so its paths are one
+      computation), each per forward (the prefill, then each decode
+      step): a flipped choice for a decode token moves that step's
+      logits far more than flips among a prefill's 300 tokens."""
+    from repro_torch.configs import RunConfig
+    kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
+    err = {"flash_attention": [], "decode_attention": []}
+    routes = {"kernel": [], "plain": []}
+    with attention_checked(err), recording_routes(routes["kernel"]):
+        k_runs, tokens = parity_logits(torch, device, eng.params,
+                                       eng.max_seq, {"kernel": kernel})
+    with recording_routes(routes["plain"]):
+        p_runs, _ = parity_logits(torch, device, eng.params, eng.max_seq,
+                                  {"plain": plain}, tokens)
+    cfg = eng.cfg
+    n_attn = 0 if cfg.mla is not None else cfg.num_layers
+    n_moe = cfg.num_layers - cfg.dense_layer_prefix
+    rel, agree = logit_gap(k_runs["kernel"], p_runs["plain"])
+    flips, choices = route_flips(routes["kernel"], routes["plain"])
+    # the noise floor: the plain path against itself with every attention
+    # output scaled by 1 + 2^-8 and by 1 - 2^-8
+    floors = {}
+    for sign in (1, -1):
+        nudged = []
+        with attention_nudged(1 + sign * FLOOR_NUDGE), \
+                recording_routes(nudged):
+            n_runs, _ = parity_logits(torch, device, eng.params, eng.max_seq,
+                                      {"plain": plain}, tokens)
+        gap, _ = logit_gap(n_runs["plain"], p_runs["plain"])
+        floors["+" if sign > 0 else "-"] = {
+            "per_step_rel_err": gap, "routing_flips_by_step": flips_by_step(
+                route_flips(nudged, routes["plain"])[0], n_moe)}
+    checks = {
+        "every_launch_checked": len(err["flash_attention"]) == n_attn
+        and len(err["decode_attention"]) == 4 * n_attn,
+        "every_moe_layer_routed": len(routes["kernel"]) == 5 * n_moe,
+        "flash_per_launch": max(err["flash_attention"], default=0.0)
+        <= FLASH_TOL["bfloat16"],
+        "decode_per_launch": max(err["decode_attention"], default=0.0)
+        <= DECODE_TOL["bfloat16"]["o"]}
+    emit({"phase": "parity", "model": cfg.name, "prompt": 300,
+          "decode_steps": 4,
+          "per_launch_max_rel_err": {k: max(v, default=None)
+                                     for k, v in err.items()},
+          "max_rel_logit_err_not_asserted": max(rel),
+          "per_step_rel_err": rel, "parity_tol": PARITY_TOL,
+          "argmax_agree_share": agree,
+          "routing_choices_differing": sum(flips),
+          "routing_choices": sum(choices),
+          "routing_flips_by_step": flips_by_step(flips, n_moe),
+          "bf16_floor_plain_vs_plain_attention_nudged_2^-8": max(
+              max(f["per_step_rel_err"]) for f in floors.values()),
+          "bf16_floor_routing_choices_differing": sum(
+              sum(f["routing_flips_by_step"]) for f in floors.values()),
+          "bf16_floors": floors,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        worst = {k: max(v, default=None) for k, v in err.items()}
+        raise AssertionError(f"{cfg.name} parity: {checks}, per launch "
+                             f"{worst}")
+
+
+def phase_parity_moe_f32(torch, device, cfg, layers: int):
+    """The first ``layers`` layers of ``cfg`` at full width in f32 (fresh
+    weights from the serve phase's seed) with an f32 cache, kernel path
+    and plain path each run alone (the plain run fed the kernel run's
+    tokens), asserted: identical greedy tokens, identical routing at every
+    moe layer and step, logits within ``MOE_F32_TOL`` of max |logit|, the
+    kernels launched once per layer (flash) and per layer and step
+    (decode), none on an MLA model."""
+    import dataclasses
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_params
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                                param_dtype="float32")
+    model = init_params(cfg32, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED))
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    rk, rp = [], []
+    with recording_routes(rk):
+        k_runs, tokens = parity_logits(torch, device, model, 1024,
+                                       {"kernel": RunConfig()},
+                                       cache_dtype="float32")
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    with recording_routes(rp):
+        p_runs, _ = parity_logits(
+            torch, device, model, 1024,
+            {"plain": RunConfig(attention_impl="naive")}, tokens,
+            cache_dtype="float32")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    del model
+    gc.collect()
+    rel, agree = logit_gap(k_runs["kernel"], p_runs["plain"])
+    flips, choices = route_flips(rk, rp)
+    n_attn = 0 if cfg.mla is not None else layers
+    checks = {"launched": launches == {"flash_attention": n_attn,
+                                       "decode_attention": 4 * n_attn},
+              "tokens_identical": agree == 1.0,
+              "routing_identical": sum(flips) == 0
+              and len(rk) == 5 * (layers - cfg.dense_layer_prefix),
+              "logits": max(rel) <= MOE_F32_TOL}
+    emit({"phase": "parity", "model": cfg.name, "dtype": "float32",
+          "layers": layers, "weight_bytes": weight_bytes, "prompt": 300,
+          "decode_steps": 4, "max_rel_logit_err": max(rel),
+          "per_step_rel_err": rel, "tol": MOE_F32_TOL,
+          "argmax_agree_share": agree,
+          "routing_choices_differing": sum(flips),
+          "routing_choices": sum(choices), "launches": launches,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} f32 x {layers} layers: {checks}, "
+                             f"{max(rel)}, flips {sum(flips)}")
+
+
+def moe_smoke_on_card(torch, device, arch: str):
+    """The smoke config of ``arch`` at f32 on the card against the same
+    port on the CPU, from the same weights: one moe layer's dispatch tables
+    equal to the integer, its y and aux within ``MOE_SMOKE_TOL``; then
+    both ``ServeEngine``s (4 slots of 64: every slot is routed at decode,
+    so decode can drop) serve the same 6 requests to the same tokens and
+    ledger."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models import moe
+    from repro_torch.serve import Request, ServeEngine, TenantScheduler
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              param_dtype="float32")
+    host = init_params(cfg, device=cpu, seed=0)
+    card = init_params(cfg, device=cpu, seed=0).to(device)
+    layer = cfg.dense_layer_prefix
+    gen = torch.Generator().manual_seed(SEED + 40)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    ys = {}
+    for name, model, dev in (("cpu", host, cpu), ("card", card, device)):
+        p = model.blocks[layer]["moe"]
+        xf = x.reshape(-1, cfg.d_model).to(dev)
+        gate, eidx, _ = moe.route_topk(p["router"], xf, cfg.moe)
+        cap = moe._capacity(xf.shape[0], cfg.moe)
+        tables = moe._dispatch_tables(eidx, gate, cfg.moe.num_experts, cap,
+                                      xf.shape[0], cfg.moe.top_k)
+        y, aux = moe.apply_moe(p, x.to(dev), cfg)
+        ys[name] = ([t.cpu() for t in tables[:2]], y.cpu(),
+                    {k: float(v) for k, v in aux.items()})
+    tables_equal = all(torch.equal(a, b) for a, b in
+                       zip(ys["cpu"][0], ys["card"][0]))
+    y_err = rel_err(ys["card"][1], ys["cpu"][1])
+    aux_err = max(abs(ys["card"][2][k] - ys["cpu"][2][k])
+                  / max(abs(ys["cpu"][2][k]), 1e-30) for k in moe.AUX_KEYS)
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in MOE_SMOKE_PROMPTS]
+
+    def serve(model, dev):
+        sched = TenantScheduler(policy="wfq", charge_prompt=True)
+        eng = ServeEngine(cfg, RunConfig(), model, batch_slots=4, max_seq=64,
+                          scheduler=sched, device=dev)
+        for i, prompt in enumerate(prompts):
+            eng.submit(Request(tenant_id=i % TENANTS, prompt=prompt,
+                               max_new_tokens=10, req_id=i, arrival=0.0))
+        k = 0
+        while sched.pending() or any(s.active for s in eng.slots):
+            k += 1
+            eng.step(now=0.1 * k)
+            if k > 200:
+                raise AssertionError("smoke engine did not drain")
+        return ([(r.req_id, r.generated) for r in eng.completed],
+                dict(sched.served_tokens), sched.ledger())
+
+    drops = []
+    with recording_moe(drops):
+        on_card = serve(card, device)
+    decode_drop = max(float(d) for _b, s, d in drops if s == 1)
+    on_cpu = serve(host, cpu)
+    checks = {"dispatch_tables_equal": tables_equal,
+              "y": y_err <= MOE_SMOKE_TOL, "aux": aux_err <= MOE_SMOKE_TOL,
+              "engine_tokens_and_ledger_equal": on_card == on_cpu}
+    emit({"phase": "moe_smoke", "model": cfg.name, "device": str(device),
+          "y_rel_err": y_err, "aux_rel_err": aux_err, "tol": MOE_SMOKE_TOL,
+          "requests": len(prompts), "decode_drop_frac_max": decode_drop,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} on the card vs the CPU: {checks}")
+    del card
+    torch.cuda.empty_cache()
 
 
 def control_trace(np, n: int, seed: int = 0):
@@ -3599,6 +4022,66 @@ def hybrid_attention_timings(torch, device, smi: str, timer, gen):
     return rows
 
 
+def arctic_attention_timings(torch, device, smi: str, timer, gen):
+    """arctic-480b's attention shapes (56/8 heads: group 7, d 128, bf16):
+    flash over its 64- and 509-token prompts, causal; decode over 8 caches
+    of 1024 at mixed and at serve-range positions. Each beside its bound,
+    its plain version, ``scaled_dot_product_attention`` with the backend
+    it dispatches to, and the wrapper's host µs."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, live_mask)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    (hq, kv), d = ARCTIC_HEADS, 128
+    rows = {}
+    for s in (64, 509):
+        q, k, v = (torch.randn((1, s, h, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for h in (hq, kv, kv))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes, flops = flash_work(1, s, s, hq, kv, d, 2, True, 0)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "flash_attention",
+               "model": "arctic-480b", "S": s, "hq": hq, "kv": kv, "d": d,
+               "dtype": "bfloat16",
+               "ms": timer.ms(lambda: flash_attention(q, k, v)),
+               "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v)),
+               **library_row(torch, timer, qt, kt, vt, is_causal=True,
+                             enable_gqa=True),
+               "host_us": host_us(torch, lambda: flash_attention(q, k, v)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("flash_attention", "arctic", s)] = row
+    b, t = 8, 1024
+    for name, pos_list in (("mixed", DECODE_POS),
+                           ("serve", SERVE_DECODE_POS)):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        q = torch.randn((b, hq, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        kc, vc = (torch.randn((b, t, kv, d), generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(2))
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        nbytes, flops = decode_work(pos_list, t, hq, kv, d, 2, 2)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "decode_attention",
+               "model": "arctic-480b", "B": b, "T": t, "hq": hq, "kv": kv,
+               "d": d, "pos": name, "positions": list(pos_list),
+               "dtype": "bfloat16",
+               "ms": timer.ms(lambda: decode_attention(q, kc, vc, pos)),
+               "plain_ms": timer.ms(
+                   lambda: decode_attention_plain(q, kc, vc, pos)),
+               **library_row(torch, timer, q[:, :, None, :], kt, vt,
+                             attn_mask=live_mask(pos, t)[:, None, None, :],
+                             enable_gqa=True),
+               "host_us": host_us(
+                   torch, lambda: decode_attention(q, kc, vc, pos)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("decode_attention", "arctic", name)] = row
+    return rows
+
+
 def encdec_timings(torch, device, smi: str, timer, gen):
     """whisper-small's attention shapes (12/12 heads, d 64) and the SSD
     trainers' scans, each beside its bound, its plain version and, for
@@ -3756,6 +4239,7 @@ def phase_timings(torch, device, smi: str):
         rows[("decode_attention", name)] = row
     rows.update(hybrid_attention_timings(torch, device, smi, timer, gen))
     rows.update(encdec_timings(torch, device, smi, timer, gen))
+    rows.update(arctic_attention_timings(torch, device, smi, timer, gen))
     import numpy as np
     from repro_torch.kernels.waterfill import water_fill, water_fill_plain
     # the fairness and replay phases' 3- and 4-tenant problems (most of
@@ -3956,6 +4440,18 @@ def main() -> int:
     for k, v in phase_encdec(torch, device).items():
         launches[k] += v
     seconds["encdec"] = time.perf_counter() - t_phase
+
+    # the moe family at full width and cut depth: arctic-480b (flash and
+    # decode at group 7) and deepseek-v2-236b (MLA, plain torch), each
+    # freed before the next
+    t_phase = time.perf_counter()
+    import dataclasses
+    for arch, layers, f32_layers in MOE_MODELS:
+        moe_cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        for k, v in phase_moe(torch, device, arch, moe_cfg,
+                              f32_layers).items():
+            launches[k] += v
+    seconds["moe"] = time.perf_counter() - t_phase
 
     # the control path's two entry points: the fused tick at fleet scale
     # and the replay harness; their water-fill launches add up

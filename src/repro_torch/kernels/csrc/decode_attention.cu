@@ -667,6 +667,7 @@ int dispatch_g(int G, const Args& a) {
     NK_G(4)
     NK_G(5)
     NK_G(6)
+    NK_G(7)
     NK_G(8)
     default:
       return NK_ERR_ARGS;

@@ -31,7 +31,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.0e30
 HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 3, 4, 5, 6, 8)
+GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
 # (q dtype, cache dtype) pairs the kernel is built for
 DTYPE_PAIRS = {
     (torch.bfloat16, torch.bfloat16): (build.DT_BF16, build.DT_BF16),

@@ -38,6 +38,16 @@ On one device the query heads are never padded (the reference's
 ``padded_heads`` returns ``h``), so the head mask is all ones and is not
 applied on the path; ``head_mask``/``q_to_kv_map`` keep the reference's
 general definitions.
+
+DeepSeek-V2's multi-head latent attention (``mla_attention``) caches one
+latent row per position, ``lat = concat(c_kv, k_pe)``: the rms-normed
+down-projection (``kv_lora_rank``) and the key's rope channel
+(``qk_rope_head_dim``), shared by all heads. It runs plain PyTorch on
+every device, as the reference runs plain ``jnp``: its prefill attends
+with dk = nope + rope (192 at full width) and dv = ``v_head_dim`` (128),
+outside the one head dim for q, k and v that the flash kernel computes,
+so it goes through ``blockwise_attention``; its decode is the absorbed
+form against the latent cache, with no k/v to hand the decode kernel.
 """
 from __future__ import annotations
 
@@ -70,6 +80,21 @@ def attn_schema(cfg: ModelConfig) -> Dict:
         s["q_norm"] = norm_schema(hd, "rmsnorm", cfg.param_dtype)
         s["k_norm"] = norm_schema(hd, "rmsnorm", cfg.param_dtype)
     return s
+
+
+def mla_schema(cfg: ModelConfig) -> Dict:
+    mla, d, h, pd = cfg.mla, cfg.d_model, cfg.num_heads, cfg.param_dtype
+    nope, rope, r = mla.qk_nope_head_dim, mla.qk_rope_head_dim, \
+        mla.kv_lora_rank
+    return {
+        "wq": ParamDesc((d, h, nope + rope), pd),
+        "w_dkv": ParamDesc((d, r + rope), pd),
+        "w_uk": ParamDesc((r, h, nope), pd),
+        "w_uv": ParamDesc((r, h, mla.v_head_dim), pd),
+        "wo": ParamDesc((h, mla.v_head_dim, d), pd,
+                        fan_in=h * mla.v_head_dim),
+        "kv_norm": norm_schema(r, "rmsnorm", pd),
+    }
 
 
 def head_mask(num_real: int, num_padded: int, dtype, device=None):
@@ -432,3 +457,80 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
     o, _, _ = decode(q[:, 0].contiguous(), k_c, v_c, at, window=win)
     o = o[:, None]
     return _out(o, p["wo"]), {"k": k_c, "v": v_c}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent cache, absorbed-weight decode
+# ---------------------------------------------------------------------------
+
+
+def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
+                  cache: Optional[Dict] = None, decode_pos=None,
+                  return_cache=False):
+    """Multi-head latent attention.
+
+    Prefill and training: ``positions`` (S,); k and v are made explicit
+    from the latent (k = concat(c_kv w_uk, k_pe) with k_pe roped on the
+    rope dims and broadcast over heads, v = c_kv w_uv) and attend through
+    ``blockwise_attention`` (causal, each head its own kv head, scale
+    1/sqrt(nope + rope)). Returns out (B, S, d) [and {"lat": (B, S, r +
+    rope)} in x's dtype when ``return_cache``].
+
+    Decode: ``cache`` {"lat": (B, n, r + rope)}, ``decode_pos`` (B,)
+    int32, x (B, 1, d). The new latent row is written in place at
+    ``decode_pos``; the scores are q_nope absorbed through w_uk against
+    the latent plus q_rope against the rope channel, f32, masked to
+    ``t <= pos``; p is rounded to x's dtype before the latent PV product,
+    which w_uv takes back to heads. Returns (out, cache)."""
+    mla = cfg.mla
+    nope, rope_d, r = mla.qk_nope_head_dim, mla.qk_rope_head_dim, \
+        mla.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    h = p["wq"].shape[1]
+    q = _heads(x, p["wq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = matmul(x, p["w_dkv"])
+    c_kv = apply_norm(p["kv_norm"], dkv[..., :r], "rmsnorm")
+    k_pe_new = dkv[..., r:]
+
+    if cache is None or decode_pos is None:
+        # ---- train / prefill: explicit k, v ----
+        cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_pe = apply_rope(k_pe_new[:, :, None, :], cos, sin)   # (B,S,1,rope)
+        k_nope = _heads(c_kv, p["w_uk"])
+        v = _heads(c_kv, p["w_uv"])
+        k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], rope_d)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        o = blockwise_attention(
+            qq, k, v, kv_map=torch.arange(h, device=x.device), causal=True,
+            q_block=rcfg.attn_q_block, kv_block=rcfg.attn_kv_block,
+            softmax_scale=scale)
+        out = _out(o, p["wo"])
+        if return_cache:
+            return out, {"lat": torch.cat([c_kv, k_pe[:, :, 0]], -1)}
+        return out
+
+    # ---- decode: absorbed form against the latent cache ----
+    b = x.shape[0]
+    cos, sin = rope_tables(decode_pos[:, None], rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_pe = apply_rope(k_pe_new[:, :, None, :], cos, sin)[:, 0, 0]
+    lat = cache["lat"]
+    # in-place row write, as gqa_attention writes k/v (the reference
+    # rebuilds the cache with a one-hot where)
+    lat[torch.arange(b, device=x.device), decode_pos.long()] = torch.cat(
+        [c_kv[:, 0], k_pe], -1).to(lat.dtype)
+    latx = lat.to(x.dtype)
+    c_c, pe_c = latx[..., :r], latx[..., r:]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"])
+    s_lat = torch.einsum("bhr,btr->bht", q_lat.float(), c_c.float())
+    s_pe = torch.einsum("bhk,btk->bht", q_rope[:, 0].float(), pe_c.float())
+    sres = (s_lat + s_pe) * scale
+    valid = torch.arange(lat.shape[1], device=x.device)[None, :] \
+        <= decode_pos.long()[:, None]
+    sres = torch.where(valid[:, None, :], sres, NEG_INF)
+    pr = torch.softmax(sres, dim=-1)
+    o_lat = torch.einsum("bht,btr->bhr", pr.to(x.dtype), c_c)
+    o = torch.einsum("bhr,rhk->bhk", o_lat, p["w_uv"])
+    return _out(o[:, None], p["wo"]), {"lat": lat}

@@ -1,16 +1,20 @@
-"""Block composition: the ``dense``, ``ssm``, ``hybrid``, ``enc`` and
-``dec`` kinds.
+"""Block composition: the ``dense``, ``moe``, ``dense_prefix``, ``ssm``,
+``hybrid``, ``enc`` and ``dec`` kinds.
 
 The counterpart of ``repro/models/blocks.py``: ``dense`` is a pre-norm
 attention half plus a pre-norm MLP half (llama, internlm2, granite,
-nemotron, chameleon); ``ssm`` is a pre-norm Mamba-2 block and no FFN half
-(mamba2); ``hybrid`` feeds one pre-norm output to attention and to a
-Mamba-2 block in parallel, averages the two after a norm each, then runs
-the MLP half (hymba); ``enc`` is ``dense`` with bidirectional attention
-(whisper's encoder), always run as in training (no cache); ``dec`` adds a
-pre-norm cross-attention half over the encoder output between the two
-(whisper's decoder), whose cache leaves ``ck``/``cv`` hold the encoder's
-k/v. The other kinds (moe, dense_prefix) come with their families.
+nemotron, chameleon); ``moe`` swaps the MLP for a mixture of experts with
+its shared experts or parallel dense branch (arctic, deepseek's body);
+``dense_prefix`` is ``dense`` with ``dense_prefix_ff`` (deepseek's layer
+0); ``ssm`` is a pre-norm Mamba-2 block and no FFN half (mamba2);
+``hybrid`` feeds one pre-norm output to attention and to a Mamba-2 block
+in parallel, averages the two after a norm each, then runs the MLP half
+(hymba); ``enc`` is ``dense`` with bidirectional attention (whisper's
+encoder), always run as in training (no cache); ``dec`` adds a pre-norm
+cross-attention half over the encoder output between the two (whisper's
+decoder), whose cache leaves ``ck``/``cv`` hold the encoder's k/v. A
+config with MLA (deepseek) runs ``mla_attention`` in the attention half
+and caches its latent ``lat`` in place of k/v.
 """
 from __future__ import annotations
 
@@ -20,21 +24,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import RingSlots, attn_schema, \
-    gqa_attention
+    gqa_attention, mla_attention, mla_schema
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_schema, \
     norm_schema
+from repro_torch.models.moe import apply_moe, moe_schema
 from repro_torch.models.schema import ParamDesc
 from repro_torch.models.ssm import ssm_block, ssm_cache_schema, ssm_schema
 
-KINDS = ("dense", "ssm", "hybrid", "enc", "dec")
+KINDS = ("dense", "moe", "dense_prefix", "ssm", "hybrid", "enc", "dec")
 MODES = ("train", "prefill", "decode")
 
 
 def check_kind(kind: str) -> str:
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; it comes with the "
-            f"other model families (ROADMAP: other model families)")
+        raise ValueError(f"block kind must be one of {KINDS}, got "
+                         f"{kind!r}")
     return kind
 
 
@@ -43,18 +47,21 @@ def block_schema(cfg: ModelConfig, kind: str) -> Dict:
     d, nk, pd = cfg.d_model, cfg.norm, cfg.param_dtype
     if kind == "ssm":
         return {"ln1": norm_schema(d, nk, pd), "ssm": ssm_schema(cfg)}
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP: other model "
-            "families, mla_attention)")
-    s = {"ln1": norm_schema(d, nk, pd), "attn": attn_schema(cfg)}
+    s = {"ln1": norm_schema(d, nk, pd),
+         "attn": mla_schema(cfg) if cfg.mla is not None
+         else attn_schema(cfg)}
     if kind == "dec":
         s.update(ln_cross=norm_schema(d, nk, pd), cross=attn_schema(cfg))
     if kind == "hybrid":
         s.update(ssm=ssm_schema(cfg), attn_out_norm=norm_schema(d, nk, pd),
                  ssm_out_norm=norm_schema(d, nk, pd))
-    s.update(ln2=norm_schema(d, nk, pd),
-             mlp=mlp_schema(d, cfg.d_ff, cfg.activation, pd))
+    s["ln2"] = norm_schema(d, nk, pd)
+    if kind == "moe":
+        s["moe"] = moe_schema(cfg)
+    else:
+        ff = (cfg.dense_prefix_ff or cfg.d_ff) if kind == "dense_prefix" \
+            else cfg.d_ff
+        s["mlp"] = mlp_schema(d, ff, cfg.activation, pd)
     return s
 
 
@@ -69,6 +76,9 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
         return ssm_cache_schema(cfg, batch, dtype)
     if kind == "enc":
         return {}
+    if cfg.mla is not None:
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        return {"lat": ParamDesc((batch, seq, width), dtype, "zeros")}
     n = min(seq, window) if window else seq
     shape = (batch, n, cfg.num_kv_heads, cfg.head_dim)
     s = {"k": ParamDesc(shape, dtype, "zeros"),
@@ -82,19 +92,33 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
     return s
 
 
+def _attn(p, h, cfg: ModelConfig, rcfg, **kw):
+    """The attention half's core: ``mla_attention`` when the config has
+    MLA, which takes no window, ring, cross input or causal flag (the
+    reference's ``_attn`` drops them), else ``gqa_attention``."""
+    if cfg.mla is None:
+        return gqa_attention(p, h, cfg, rcfg, **kw)
+    for key in ("window", "ring", "causal"):
+        kw.pop(key, None)
+    return mla_attention(p, h, cfg, rcfg, **kw)
+
+
 def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                 positions=None, window: int = 0,
                 cache: Optional[Dict] = None, decode_pos=None,
                 ring: Optional[RingSlots] = None, enc_out=None,
-                mode: str = "prefill") -> Tuple[torch.Tensor, Dict]:
+                mode: str = "prefill") -> Tuple[torch.Tensor, Dict, Dict]:
     """One layer. ``mode`` is "train" (no cache: returns None for it),
-    "prefill" (returns the layer's new cache: k/v, the SSM state and conv
-    tails, or both; a ``dec`` layer's ``ck``/``cv`` too) or "decode"
-    (writes the new token's k/v and the new SSM state and conv tails into
-    ``cache`` in place and returns it). ``ring``: a windowed decode's ring
-    slots, computed once for the layer's segment
-    (``attention.ring_slots``). ``enc_out``: the encoder output a ``dec``
-    layer attends to at prefill and in training. Returns (x', cache)."""
+    "prefill" (returns the layer's new cache: k/v or an MLA latent, the
+    SSM state and conv tails, or both; a ``dec`` layer's ``ck``/``cv``
+    too) or "decode" (writes the new token's k/v or latent and the new SSM
+    state and conv tails into ``cache`` in place and returns it).
+    ``ring``: a windowed decode's ring slots, computed once for the
+    layer's segment (``attention.ring_slots``). ``enc_out``: the encoder
+    output a ``dec`` layer attends to at prefill and in training. Returns
+    (x', cache, aux): aux holds a ``moe`` layer's losses and routing
+    statistics (``moe.AUX_KEYS``) and is empty for the other kinds; the
+    cache never holds them."""
     check_kind(kind)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -103,22 +127,20 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     if kind == "ssm":
         y, new_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
                                  decode=mode == "decode")
-        return x + y, None if train else new_cache
+        return x + y, None if train else new_cache, {}
     decode = mode == "decode"
     if train:
-        a = gqa_attention(p["attn"], h, cfg, rcfg, positions=positions,
-                          window=window, causal=kind != "enc")
+        a = _attn(p["attn"], h, cfg, rcfg, positions=positions,
+                  window=window, causal=kind != "enc")
         new_cache = None
     elif decode:
-        a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
-                                     positions=positions, window=window,
-                                     cache=cache, decode_pos=decode_pos,
-                                     ring=ring)
+        a, new_cache = _attn(p["attn"], h, cfg, rcfg, positions=positions,
+                             window=window, cache=cache,
+                             decode_pos=decode_pos, ring=ring)
     else:
-        a, new_cache = gqa_attention(p["attn"], h, cfg, rcfg,
-                                     positions=positions, window=window,
-                                     causal=kind != "enc",
-                                     return_cache=True)
+        a, new_cache = _attn(p["attn"], h, cfg, rcfg, positions=positions,
+                             window=window, causal=kind != "enc",
+                             return_cache=True)
     if kind == "hybrid":
         s, ssm_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
                                  decode=decode)
@@ -142,4 +164,7 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
             new_cache.update(ck=cc["k"], cv=cc["v"])
         x = x + c
     h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], h, cfg.activation), new_cache
+    if kind == "moe":
+        y, aux = apply_moe(p["moe"], h, cfg)
+        return x + y, new_cache, aux
+    return x + apply_mlp(p["mlp"], h, cfg.activation), new_cache, {}

@@ -10,10 +10,16 @@ hd)`` in the cache dtype, an SSM layer's ``state`` ``(L, B, H, P, N)`` in
 f32 and its ``conv_*`` tails ``(L, B, W-1, C)`` in the cache dtype, a
 ``dec`` layer's encoder k/v ``ck``/``cv`` ``(L, B, encoder_seq, KV, hd)``.
 ``n_slots`` is ``max_seq``, or ``min(max_seq, window)`` for a windowed
-segment, whose cache is then a ring (``attention.is_ring``). The port has
-the ``dense``, ``vlm``, ``ssm``, ``hybrid`` and ``encdec`` families; asking
-for any other raises. A ``vlm`` model (chameleon) is scheduled as plain
-``dense``, as in the reference: its frontend is a stub, token ids in, and
+segment, whose cache is then a ring (``attention.is_ring``); an MLA model
+caches a latent ``lat`` ``(L, B, max_seq, kv_lora_rank + rope)`` in the
+cache dtype in place of k/v. The port has every family of the reference:
+``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid`` and ``encdec``. A ``moe``
+model (arctic, deepseek) is one segment of ``moe`` layers behind
+deepseek's ``dense_prefix`` layer; its layers' aux (the load-balance and
+z losses, the busiest expert's share, the drop share) is averaged over a
+segment's layers and summed over segments, as the reference does, and
+``forward_train`` returns it. A ``vlm`` model (chameleon) is scheduled as
+plain ``dense``, as in the reference: its frontend is a stub, token ids in, and
 its q/k norms live in the attention block. A ``hybrid`` model (hymba) runs
 its global-attention layers as one-layer segments and each run of
 windowed layers between them as one segment. An ``encdec`` model
@@ -43,12 +49,12 @@ from repro_torch.models.layers import apply_norm, embed_schema, \
     embed_tokens, lm_logits, norm_schema, sinusoid_positions
 from repro_torch.models.schema import ParamTree
 
-FAMILIES = ("dense", "vlm", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 REMAT = ("full", "dots", "none")
 # cache leaves laid out along the sequence (padded to max_seq, or turned
 # into a ring, at prefill); the others (SSM state, conv tails) are
 # per-sequence and pass through
-SEQ_LEAVES = ("k", "v")
+SEQ_LEAVES = ("k", "v", "lat")
 
 
 @dataclass(frozen=True)
@@ -59,11 +65,9 @@ class Segment:
 
 
 def check_family(cfg: ModelConfig) -> ModelConfig:
-    if cfg.family not in FAMILIES or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; only "
-            f"{FAMILIES} serves on the port so far (ROADMAP: other model "
-            f"families)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family must be one of {FAMILIES}, "
+                         f"got {cfg.family!r}")
     return cfg
 
 
@@ -87,6 +91,11 @@ def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
             segs.append(Segment("hybrid", j - i, window=cfg.attn_window))
             i = j
         return tuple(segs)
+    if cfg.moe is not None:
+        segs = [Segment("dense_prefix", cfg.dense_layer_prefix)] \
+            if cfg.dense_layer_prefix else []
+        return tuple(segs + [Segment(
+            "moe", cfg.num_layers - cfg.dense_layer_prefix)])
     return (Segment("dense", cfg.num_layers),)
 
 
@@ -227,8 +236,9 @@ def to_ring(kv: torch.Tensor, window: int) -> torch.Tensor:
 def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
                             max_seq: int) -> Dict:
     """Stack one segment's per-layer prefill caches over its layers: k/v to
-    (L, B, max_seq, KV, hd), zero-padded past the prompt's ``s`` positions
-    (the decode layout), or to a ring where the segment ``keeps_ring``
+    (L, B, max_seq, KV, hd) and an MLA latent to (L, B, max_seq, r +
+    rope), zero-padded past the prompt's ``s`` positions (the decode
+    layout), or k/v to a ring where the segment ``keeps_ring``
     (``to_ring``); per-sequence leaves (SSM state, conv tails) as they
     are."""
     ring = keeps_ring(seg, max_seq)
@@ -250,8 +260,11 @@ def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
 
 
 def _train_layer(block, x, cfg, rcfg, seg: Segment, positions, enc_out):
-    return apply_block(block, x, cfg, rcfg, seg.kind, positions=positions,
-                       window=seg.window, enc_out=enc_out, mode="train")[0]
+    """One layer in training: (x', aux)."""
+    x, _, aux = apply_block(block, x, cfg, rcfg, seg.kind,
+                            positions=positions, window=seg.window,
+                            enc_out=enc_out, mode="train")
+    return x, aux
 
 
 def _remat(fn, rcfg: RunConfig):
@@ -281,7 +294,7 @@ def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
         else _train_layer
     seg = Segment("enc", cfg.encoder_layers)
     for block in model.encoder.blocks:
-        x = layer_fn(block, x, cfg, rcfg, seg, pos, None)
+        x = layer_fn(block, x, cfg, rcfg, seg, pos, None)[0]
     return apply_norm(model.encoder.final_norm, x, cfg.norm)
 
 
@@ -311,8 +324,9 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     """batch: tokens (B, S) int [+ frames (B, encoder_seq, d) for an
     encoder model]. Returns (logits (B, S, V) in the model's dtype, aux),
     with autograd recording: embed, the encoder, every layer (each under
-    ``rcfg.remat``), the final norm, the LM head. ``aux`` is empty (the
-    MoE losses come with that family)."""
+    ``rcfg.remat``), the final norm, the LM head. ``aux``: a ``moe``
+    model's losses and routing statistics, each the mean over a segment's
+    layers summed over segments (0-d f32); empty for other families."""
     check_family(cfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -320,13 +334,19 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     enc_out = _encoded(model, batch.get("frames"), rcfg)
     layer_fn = _remat(_train_layer, rcfg)
     layer = 0
+    aux_all: Dict = {}
     for seg in build_schedule(cfg):
+        seg_aux: Dict = {}
         for _ in range(seg.count):
-            x = layer_fn(model.blocks[layer], x, cfg, rcfg, seg, positions,
-                         enc_out)
+            x, aux = layer_fn(model.blocks[layer], x, cfg, rcfg, seg,
+                              positions, enc_out)
+            for k, v in aux.items():
+                seg_aux[k] = seg_aux.get(k, 0.0) + v
             layer += 1
+        for k, v in seg_aux.items():
+            aux_all[k] = aux_all.get(k, 0.0) + v / seg.count
     x = apply_norm(model.final_norm, x, cfg.norm)
-    return lm_logits(model.embed, x, cfg.logit_softcap), {}
+    return lm_logits(model.embed, x, cfg.logit_softcap), aux_all
 
 
 @torch.no_grad()
@@ -334,9 +354,9 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
                     max_seq: int, frames: Optional[torch.Tensor] = None):
     """Full-sequence prefill. tokens: (B, S) int; ``frames`` (B,
     encoder_seq, d) for an encoder model. Returns (last_logits (B, V),
-    caches): k/v and conv tails in the model's dtype, k/v zero-padded to
-    ``max_seq`` positions, SSM states in f32, the encoder's k/v
-    ``ck``/``cv`` in the encoder's dtype."""
+    caches): k/v (or an MLA latent) and conv tails in the model's dtype,
+    k/v and latents zero-padded to ``max_seq`` positions, SSM states in
+    f32, the encoder's k/v ``ck``/``cv`` in the encoder's dtype."""
     cfg = model.cfg
     b, s = tokens.shape
     check_prompt(cfg, s, max_seq)
@@ -348,9 +368,10 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
     for seg in build_schedule(cfg):
         per_layer = []
         for _ in range(seg.count):
-            x, c = apply_block(model.blocks[layer], x, cfg, rcfg, seg.kind,
-                               positions=positions, window=seg.window,
-                               enc_out=enc_out, mode="prefill")
+            x, c, _ = apply_block(model.blocks[layer], x, cfg, rcfg,
+                                  seg.kind, positions=positions,
+                                  window=seg.window, enc_out=enc_out,
+                                  mode="prefill")
             per_layer.append(c)
             layer += 1
         caches_out.append(_finalize_prefill_cache(per_layer, seg, s,
@@ -378,9 +399,10 @@ def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
                               kv_pos=rcfg.attention_impl == "naive")
         for i in range(seg.count):
             c_l = {k: v[i] for k, v in c_seg.items()}
-            x, _ = apply_block(model.blocks[layer], x, cfg, rcfg, seg.kind,
-                               positions=pos, window=seg.window, cache=c_l,
-                               decode_pos=pos, ring=ring, mode="decode")
+            x, _, _ = apply_block(model.blocks[layer], x, cfg, rcfg,
+                                  seg.kind, positions=pos, window=seg.window,
+                                  cache=c_l, decode_pos=pos, ring=ring,
+                                  mode="decode")
             layer += 1
     x = apply_norm(model.final_norm, x, cfg.norm)
     logits = lm_logits(model.embed, x, cfg.logit_softcap)

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts: top-k routing with sort-based capacity dispatch.
+
+The counterpart of ``repro/models/moe.py``. Dispatch is the sort/gather
+formulation, no (T, E, C) one-hot tensor:
+
+  1. top-k per token, flattened to T*k assignments;
+  2. a stable sort by expert, each assignment's position in its expert
+     from the experts' cumulative counts;
+  3. assignments past the capacity C = ``_capacity(T)`` are dropped;
+  4. a gather to (E, C, d), one batched product per expert weight;
+  5. a weighted sum of each token's k picks, back in f32.
+
+DeepSeek-V2's shared experts (an always-on MLP of ``num_shared *
+shared_ff``) and Arctic's parallel dense branch (an MLP of ``d_ff``) are
+added after the routed sum. The aux losses are switch's load balance and
+the router's z-loss; ``moe_max_frac`` and ``moe_drop_frac`` report the
+busiest expert's share and the share of assignments dropped.
+
+The reference splits the tokens into G groups, one per device of its data
+axis, each routed and truncated alone; on one device G is 1 and the
+group axis is left out. The rounding points are the reference's: the
+router and its logits are f32, the expert products run in the parameter
+dtype, the gate's activation is computed in f32 and rounded to the
+activation dtype before the product with ``h``, and the combine sums the
+k picks in f32 before rounding back. Ties go as in ``jax.lax.top_k`` (the
+lower expert first, from a stable descending sort), and an expert's
+capacity goes to its assignments in flat order (a stable sort by expert):
+the lower flat index keeps its slot. A dropped assignment, and an empty
+slot of an expert, gather a clamped row that a mask zeroes, so each adds
+exactly zero. All of it is plain PyTorch on any device: the reference has
+no Pallas kernel here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import apply_mlp, f32, mlp_schema
+from repro_torch.models.schema import ParamDesc
+
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_max_frac", "moe_drop_frac")
+
+
+def moe_schema(cfg: ModelConfig) -> Dict:
+    m, d, pd = cfg.moe, cfg.d_model, cfg.param_dtype
+    e, ff = m.num_experts, m.expert_ff
+    s: Dict = {
+        "router": ParamDesc((d, e), "float32"),
+        "w_in": ParamDesc((e, d, ff), pd, fan_in=d),
+        "w_out": ParamDesc((e, ff, d), pd, fan_in=ff),
+    }
+    if cfg.activation == "silu_glu":
+        s["w_gate"] = ParamDesc((e, d, ff), pd, fan_in=d)
+    if m.num_shared_experts:
+        s["shared"] = mlp_schema(
+            d, m.num_shared_experts * (m.shared_ff or m.expert_ff),
+            cfg.activation, pd)
+    if m.parallel_dense:
+        s["dense"] = mlp_schema(d, cfg.d_ff, cfg.activation, pd)
+    return s
+
+
+def _capacity(tokens: int, m) -> int:
+    c = int(tokens * m.top_k * m.capacity_factor / m.num_experts) + 1
+    return max(8, min(c, tokens)) if tokens >= 8 else max(1, min(c, tokens))
+
+
+def route_topk(router_w, x_flat, m) -> Tuple[torch.Tensor, torch.Tensor,
+                                             Dict]:
+    """x_flat (T, d) -> (gate weights (T, k) f32, expert ids (T, k) int64,
+    aux: ``moe_lb_loss``, ``moe_z_loss``, ``moe_max_frac``)."""
+    logits = f32(x_flat) @ f32(router_w)
+    probs = torch.softmax(logits, dim=-1)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = top[:, :m.top_k], idx[:, :m.top_k]
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    t, e = probs.shape
+    frac = torch.bincount(eidx.reshape(-1), minlength=e).float() \
+        / (t * m.top_k)
+    imp = probs.mean(dim=0)
+    aux = {"moe_lb_loss": e * torch.sum(frac * imp),
+           "moe_z_loss": torch.mean(torch.square(
+               torch.logsumexp(logits, dim=-1))),
+           "moe_max_frac": frac.max()}
+    return gate, eidx, aux
+
+
+def _dispatch_tables(eidx, gate, n_experts: int, cap: int, tokens: int,
+                     k: int):
+    """(table (E*C,), slot_of (T*k,), w_flat (T*k,), drop): the token in
+    each expert slot (``tokens`` where the slot is empty), the slot of
+    each assignment (E*C where it was dropped), the assignments' gate
+    weights, and the share of assignments dropped."""
+    dev = eidx.device
+    n = tokens * k
+    e_flat = eidx.reshape(-1)
+    tok_flat = torch.arange(n, device=dev) // k
+    order = torch.sort(e_flat, stable=True).indices
+    e_sorted = e_flat[order]
+    counts = torch.bincount(e_flat, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(n, device=dev) - starts[e_sorted]
+    keep = pos_in_e < cap
+    slot_sorted = torch.where(keep, e_sorted * cap + pos_in_e,
+                              n_experts * cap)
+    table = torch.full((n_experts * cap + 1,), tokens, dtype=torch.long,
+                       device=dev)
+    table[slot_sorted] = torch.where(keep, tok_flat[order], tokens)
+    slot_of = torch.empty_like(slot_sorted)
+    slot_of[order] = slot_sorted          # the inverse permutation
+    drop = torch.sum(1.0 - keep.float()) / n
+    return table[:-1], slot_of, gate.reshape(-1), drop
+
+
+def _expert_act(h, g, activation: str, dtype):
+    if activation == "silu_glu":
+        return F.silu(f32(g)).to(dtype) * h
+    if activation == "relu2":
+        return torch.square(F.relu(f32(h))).to(dtype)
+    return F.gelu(f32(h), approximate="tanh").to(dtype)
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
+                                                               Dict]:
+    """x (B, S, d) -> (y (B, S, d) in x's dtype, aux with ``AUX_KEYS``)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    k, e = m.top_k, m.num_experts
+    cap = _capacity(t, m)
+    xf = x.reshape(t, d)
+    gate, eidx, aux = route_topk(p["router"], xf, m)
+    table, slot_of, w_flat, drop = _dispatch_tables(eidx, gate, e, cap, t, k)
+    xe = xf[table.clamp(max=t - 1)] * (table < t)[:, None].to(x.dtype)
+    xe = xe.reshape(e, cap, d)
+    h = torch.bmm(xe, p["w_in"])
+    g = torch.bmm(xe, p["w_gate"]) if cfg.activation == "silu_glu" else None
+    h = _expert_act(h, g, cfg.activation, x.dtype)
+    yflat = torch.bmm(h, p["w_out"]).reshape(e * cap, d)
+    picked = yflat[slot_of.clamp(max=e * cap - 1)] \
+        * (slot_of < e * cap)[:, None].to(yflat.dtype)
+    y = torch.sum(f32(picked).reshape(t, k, d) * w_flat.reshape(t, k, 1),
+                  dim=1)
+    y = y.to(x.dtype).reshape(b, s, d)
+    if m.num_shared_experts:
+        y = y + apply_mlp(p["shared"], x, cfg.activation)
+    if m.parallel_dense:
+        y = y + apply_mlp(p["dense"], x, cfg.activation)
+    aux["moe_drop_frac"] = drop
+    return y, aux

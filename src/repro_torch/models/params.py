@@ -48,6 +48,14 @@ from repro_torch.models.model import Model, build_schedule, model_schema
 from repro_torch.models.schema import leaf, walk
 
 
+# leaves up to INIT_WHOLE elements are drawn in one f32 temporary (every
+# leaf of the dense, ssm, hybrid and encdec models); larger ones (a MoE
+# layer's expert stacks at full width) in slices of their leading dim of
+# at most INIT_SLICE elements, so no f32 copy of a whole stack exists
+INIT_WHOLE = 1 << 30
+INIT_SLICE = 1 << 28
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, *, device=None,
                 generator: Optional[torch.Generator] = None,
@@ -73,9 +81,12 @@ def init_params(cfg: ModelConfig, *, device=None,
             else:
                 scale = desc.init_scale / max(1.0, float(desc.init_fan_in)) \
                     ** 0.5
-                w = torch.randn(desc.shape, generator=generator,
-                                dtype=torch.float32, device=dev)
-                p.copy_(w.mul_(scale))
+                rows = max(1, INIT_SLICE // p[0].numel()) \
+                    if p.numel() > INIT_WHOLE else p.shape[0]
+                for i in range(0, p.shape[0], rows):
+                    w = torch.randn(p[i:i + rows].shape, generator=generator,
+                                    dtype=torch.float32, device=dev)
+                    p[i:i + rows].copy_(w.mul_(scale))
     return model
 
 

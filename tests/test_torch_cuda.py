@@ -103,6 +103,10 @@ def cuda():
     # trained micro-batch (4 x 448) and the served prefill (8 x 4)
     (4, 448, 448, 12, 12, 64, True, 0, 0, "bfloat16"),
     (8, 4, 4, 12, 12, 64, True, 0, 0, "bfloat16"),
+    # arctic-480b's prefills: 56/8 heads (group 7), d 128, and f32
+    (1, 509, 509, 56, 8, 128, True, 0, 0, "bfloat16"),
+    (1, 64, 64, 56, 8, 128, True, 0, 0, "bfloat16"),
+    (1, 300, 300, 56, 8, 128, True, 0, 0, "float32"),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
                                             window, q_offset, dtype):
@@ -159,6 +163,17 @@ SERVE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
     ("bfloat16", "bfloat16", 25, 5, 64, 0, 2048,
      (1024, 1100, 1200, 1300, 1400, 1500, 1566, 1567), None),
     ("float32", "float32", 25, 5, 64, 0, 1024, SERVE_POS, None),
+    # arctic-480b's decode: 56/8 heads (group 7, 7 query rows padded to
+    # mma's 16 on the tensor-core path), mixed and serve-range positions;
+    # f32 queries over a bf16 and an f32 cache on the CUDA-core path
+    ("bfloat16", "bfloat16", 56, 8, 128, 0, 1024, SERVE_POS, None),
+    ("bfloat16", "bfloat16", 56, 8, 128, 0, 1024,
+     (64, 132, 201, 269, 338, 406, 475, 544), None),
+    ("bfloat16", "bfloat16", 56, 8, 128, 0, 4096, (3001, 5, 299, 4095),
+     None),
+    ("float32", "bfloat16", 56, 8, 128, 0, 1024, SERVE_POS, None),
+    ("float32", "float32", 56, 8, 128, 0, 1024, SERVE_POS, None),
+    ("bfloat16", "bfloat16", 14, 2, 64, 0, 1024, SERVE_POS, None),
 ])
 def test_decode_kernel_matches_plain_on_card(cuda, q_dtype, kv_dtype, hq, kv,
                                              d, window, t, pos, kv_len):
@@ -1193,3 +1208,87 @@ def test_whisper_cross_attention_on_card(cuda, dtype):
                           out["cuda"], out["cpu"]):
         err = ((a - b).abs().max() / b.abs().max()).item()
         assert err <= TOL[dtype], (name, err)
+
+
+# ---------------------------------------------------------------------------
+# the moe family: apply_moe and both smoke engines on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("cf", [0.5, 100.0])
+def test_apply_moe_on_card_matches_cpu(cuda, arch, cf):
+    """One moe layer of the f32 smoke config on (4, 64) tokens: the
+    routing and the dispatch tables equal to the integer (stable sorts,
+    the same drops: capacity 65 of 512 assignments over 4 experts at
+    0.5, none at 100), y and the four aux within 1e-5 of the CPU's."""
+    from repro_torch.models import moe
+    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(
+        cfg, dtype="float32", param_dtype="float32",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    model = init_params(cfg, device="cpu", seed=1)
+    p_cpu = model.blocks[cfg.dense_layer_prefix]["moe"]
+    p_card = init_params(cfg, device="cpu", seed=1).to(cuda).blocks[
+        cfg.dense_layer_prefix]["moe"]
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+    outs = []
+    for p, dev in ((p_cpu, torch.device("cpu")), (p_card, cuda)):
+        xf = x.reshape(-1, cfg.d_model).to(dev)
+        gate, eidx, _ = moe.route_topk(p["router"], xf, cfg.moe)
+        cap = moe._capacity(xf.shape[0], cfg.moe)
+        tables = moe._dispatch_tables(eidx, gate, cfg.moe.num_experts, cap,
+                                      xf.shape[0], cfg.moe.top_k)
+        y, aux = moe.apply_moe(p, x.to(dev), cfg)
+        outs.append((eidx.cpu(), [t.cpu() for t in tables[:2]], y.cpu(),
+                     {k: v.cpu() for k, v in aux.items()}))
+    (e0, t0, y0, a0), (e1, t1, y1, a1) = outs
+    assert torch.equal(e0, e1)
+    for a, b in zip(t0, t1):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
+    for k in moe.AUX_KEYS:
+        torch.testing.assert_close(a1[k], a0[k], rtol=1e-5, atol=1e-6)
+    assert (float(a0["moe_drop_frac"]) > 0) == (cf < 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-236b"])
+def test_moe_serve_engine_on_card_matches_cpu(cuda, arch):
+    """The f32 smoke arctic (flash and decode at its 4/2 heads) and
+    deepseek (MLA, plain) served on the card give the tokens and ledger
+    the CPU gives from the same weights; 4 slots, so decode routes 4
+    tokens against a capacity of 3 and can drop."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              param_dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 9, 16, 7, 30, 12)]
+
+    def serve(device):
+        model = init_params(cfg, device="cpu", seed=0).to(device)
+        sched = TenantScheduler(policy="wfq", charge_prompt=True)
+        eng = ServeEngine(cfg, RunConfig(), model, batch_slots=4, max_seq=64,
+                          scheduler=sched, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(tenant_id=i % 3, prompt=p, max_new_tokens=10,
+                               req_id=i, arrival=0.0))
+        k = 0
+        while sched.pending() or any(s.active for s in eng.slots):
+            k += 1
+            eng.step(now=0.1 * k)
+            assert k < 200
+        return eng, ([(r.req_id, r.generated) for r in eng.completed],
+                     dict(sched.served_tokens), sched.ledger())
+
+    flash0, decode0 = flash_attention.launches, decode_attention.launches
+    eng, on_card = serve(cuda)
+    torch.cuda.synchronize()
+    attn_layers = 0 if cfg.mla is not None else cfg.num_layers
+    assert flash_attention.launches - flash0 == attn_layers * eng.admissions
+    assert decode_attention.launches - decode0 == \
+        attn_layers * eng.decode_steps
+    _, on_cpu = serve(torch.device("cpu"))
+    assert on_card == on_cpu

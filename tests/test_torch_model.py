@@ -258,13 +258,6 @@ def test_bridge_refuses_mismatched_trees(mesh1):
                         device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b"])
-def test_other_families_raise_not_implemented(arch):
-    from repro_torch.models import Model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_smoke_config(arch), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # chameleon-34b: the vlm family (dense schedule, untied embeddings, q/k norms)
 # ---------------------------------------------------------------------------
