@@ -33,6 +33,11 @@ JSON object per line:
               1500 frames at pos 1499 and over 448 slots;
               arctic-480b's 56/8 heads: flash S 64 and 509, decode at
               group 7 over 8 caches of 1024, bf16 and f32 queries;
+              head dim 192: nemotron-4-340b's 96/8 heads (flash S 64 and
+              509 bf16, S 300 f32; decode at group 12 over 8 caches of
+              1024, bf16, and f32 queries over bf16 and f32 caches) and
+              deepseek-v2-236b's MLA prefill at 128/128 with v padded
+              (S 509 bf16, S 300 f32);
 4. serve    — full-width llama3.2-3b (random weights from a seed) behind a
               WFQ ``TenantScheduler`` and a ``RateController``: 3 tenants x
               4 requests, 32 new tokens each, until drained; checks the
@@ -67,16 +72,25 @@ JSON object per line:
    depth (the moe phase): arctic-480b's 2 of 35 layers (128 experts top-2
    beside a dense branch, 56/8 heads: flash once per layer and admission,
    decode at group 7 once per layer and step) and deepseek-v2-236b's
-   dense layer and 7 moe layers (160 experts top-6, 2 shared; MLA in
-   plain torch over a latent cache, no attention kernel), each served,
-   profiled and held against the plain path at bf16 (every attention
-   launch asserted; the end-to-end gap and the routing choices that
-   differ reported beside the model's own bf16 noise floor), its first
-   layers at f32 (1 and 4: identical tokens and routing, logits within
-   1e-4) once the bf16 model is freed, and its smoke config on the card
-   against the CPU (dispatch tables, y and aux, and the engine's tokens
-   and ledger); capacities, drop shares, weight bytes, the step beside
-   the bytes it must read, the latent cache beside a k/v cache reported;
+   dense layer and 7 moe layers (160 experts top-6, 2 shared; MLA's
+   prefill through flash at head dim 192 with v padded from 128, once per
+   layer and admission, its decode in plain torch over a latent cache),
+   each served, profiled and held against the plain path at bf16 (every
+   attention launch asserted; the end-to-end gap and the routing choices
+   that differ reported beside the model's own bf16 noise floor), its
+   first layers at f32 (1 and 4: identical tokens and routing, logits
+   within 1e-4) once the bf16 model is freed, and its smoke config on the
+   card against the CPU (dispatch tables, y and aux, and the engine's
+   tokens and ledger); capacities, drop shares, weight bytes, the step
+   beside the bytes it must read, the latent cache beside a k/v cache
+   reported; and on nemotron-4-340b at full width and 6 of 96 layers
+   (the nemotron phase: 96/8 heads at head dim 192, squared-ReLU MLP,
+   layernorm, untied embeddings, 60.3 GB of bf16 weights; flash once per
+   layer and admission, decode at group 12 once per layer and step, the
+   cache's bytes the schema's; parity at bf16 for every attention launch,
+   asserted, and end to end, reported beside the ± 2^-8 noise floors; its
+   first layer at f32 with an f32 cache, asserted; the step beside the
+   bytes it must read, busy share, prefill of 512, weights reported);
 7. control  — the vectorized control plane's fused tick on the card at
               1k, 10k, 100k and 1M tenants (the fleet-scale control bench's
               counter trace): µs per tick, tenants/s, state bytes; its
@@ -172,10 +186,12 @@ JSON object per line:
               over 8 rings, the SSD scan over 12 chunks of its width); the
               codec on the embedding leaf; whisper-small's flash and
               decode shapes and the trainers' SSD scans; arctic-480b's
-              flash and group-7 decode shapes.
+              flash and group-7 decode shapes; nemotron-4-340b's flash
+              and group-12 decode and deepseek-v2-236b's MLA flash, at
+              head dim 192.
 
-Then the seconds of the vlm, hybrid, encdec, moe, watchdog, train and
-train-families phases and of the whole script,
+Then the seconds of the vlm, hybrid, encdec, moe, nemotron, watchdog,
+train and train-families phases and of the whole script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
@@ -277,6 +293,15 @@ MOE_MODELS = (("arctic-480b", 2, 1), ("deepseek-v2-236b", 8, 4))
 MOE_F32_TOL = 1e-4
 MOE_SMOKE_PROMPTS = (5, 9, 16, 7, 30, 12)   # the smoke engines' requests
 MOE_SMOKE_TOL = 1e-5          # apply_moe on the card vs the CPU, f32
+# deepseek-v2-236b's MLA prefill through flash: 128 heads, each its own kv
+# head, dk 192 (nope 128 + rope 64), v padded from 128 to 192
+MLA_HEADS, MLA_DV = (128, 128), 128
+# nemotron-4-340b at full width (d 18432, 96/8 heads at head dim 192:
+# group 12, d_ff 73728, vocab 256000, untied) and 6 of its 96 layers:
+# 60,323,438,592 bytes of bf16 weights (a layer is 6.9 GB more); its
+# first layer again at f32 (51.6 GB)
+NEMOTRON_LAYERS, NEMOTRON_F32_LAYERS = 6, 1
+NEMOTRON_HEADS, NEMOTRON_D = (96, 8), 192
 
 WATER_TOL_PLAIN = 1e-9
 WATER_TOL_EXACT = 1e-6
@@ -623,8 +648,87 @@ def phase_kernels(torch, device):
         errs["decode_attention"] = max(errs["decode_attention"], e_o)
     errs["decode_attention"] = max(errs["decode_attention"],
                                    hybrid_decode_cases(torch, device, gen))
+    for k, v in nemotron_kernel_cases(torch, device, gen).items():
+        errs[k] = max(errs[k], v)
     for k, v in encdec_kernel_cases(torch, device, gen).items():
         errs[k] = max(errs[k], v)
+    return errs
+
+
+def nemotron_kernel_cases(torch, device, gen):
+    """Head dim 192: nemotron-4-340b's flash at 96/8 heads (S 64 and 509,
+    bf16; S 300, f32) and deepseek-v2-236b's MLA prefill at 128/128 with v
+    zero-padded from 128 (S 509 bf16, S 300 f32), each against its plain
+    version within ``FLASH_TOL``; nemotron's decode at group 12 over 8
+    caches of 1024 at mixed and serve-range positions (bf16 q and cache,
+    twice, bit-identical), and with f32 queries over a bf16 and an f32
+    cache, within ``DECODE_TOL``. Returns the worst |kernel - plain| of
+    each kernel."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    d = NEMOTRON_D
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for s, dt, (hq, kv), dv in (
+            (64, "bfloat16", NEMOTRON_HEADS, d),
+            (509, "bfloat16", NEMOTRON_HEADS, d),
+            (300, "float32", NEMOTRON_HEADS, d),
+            (509, "bfloat16", MLA_HEADS, MLA_DV),
+            (300, "float32", MLA_HEADS, MLA_DV)):
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((1, s, h, d), generator=gen, device=device)
+                   .to(dtype) for h in (hq, kv, kv))
+        v[..., dv:] = 0
+        o = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q, k, v)
+        err = (o.float() - ref.float()).abs().max().item()
+        ok = err <= FLASH_TOL[dt] and bool(torch.isfinite(o).all()) \
+            and not o[..., dv:].any()
+        emit({"phase": "kernels", "kernel": "flash_attention", "B": 1,
+              "S": s, "T": s, "hq": hq, "kv": kv, "d": d, "v_cols": dv,
+              "dtype": dt, "max_abs_err": err, "tol": FLASH_TOL[dt],
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention S={s} heads {hq}/{kv} "
+                                 f"d {d} (v {dv}) {dt}: err {err} > "
+                                 f"{FLASH_TOL[dt]} or padded columns set")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    (hq, kv), b, t = NEMOTRON_HEADS, 8, 1024
+    for q_dt, kv_dt, pos_list in (
+            ("bfloat16", "bfloat16", DECODE_POS),
+            ("bfloat16", "bfloat16", SERVE_DECODE_POS),
+            ("float32", "bfloat16", DECODE_POS),
+            ("float32", "float32", SERVE_DECODE_POS)):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        q = torch.randn((b, hq, d), generator=gen,
+                        device=device).to(getattr(torch, q_dt))
+        kc, vc = (torch.randn((b, t, kv, d), generator=gen, device=device)
+                  .to(getattr(torch, kv_dt)) for _ in range(2))
+        o, m, l = decode_attention(q, kc, vc, pos)
+        again = decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip((o, m, l), again))
+        ro, rm, rl = decode_attention_plain(q, kc, vc, pos)
+        e_o = (o.float() - ro.float()).abs().max().item()
+        e_m = (m - rm).abs().max().item()
+        e_l = ((l - rl).abs() / rl.abs()).max().item()
+        tol = DECODE_TOL[q_dt]
+        ok = e_o <= tol["o"] and e_m <= tol["m"] and e_l <= tol["l"] \
+            and bool(torch.isfinite(o).all()) and same
+        emit({"phase": "kernels", "kernel": "decode_attention", "B": b,
+              "T": t, "hq": hq, "kv": kv, "d": d, "q_dtype": q_dt,
+              "cache_dtype": kv_dt, "pos": list(pos_list),
+              "max_abs_err_o": e_o, "max_abs_err_m": e_m,
+              "max_rel_err_l": e_l, "tol": tol,
+              "repeat_bit_identical": same, "ok": ok})
+        if not ok:
+            raise AssertionError(f"decode_attention group 12, d {d} "
+                                 f"{q_dt}/{kv_dt} pos {pos_list}: o {e_o}, "
+                                 f"m {e_m}, l {e_l} against {tol}, repeat "
+                                 f"identical {same}")
+        errs["decode_attention"] = max(errs["decode_attention"], e_o)
     return errs
 
 
@@ -1198,7 +1302,8 @@ def phase_profile(torch, device, eng, kernel=None, prompt_len: int = 256,
     ``prompt_len`` tokens; a prefill of ``prefill_len``). ``kernel``: the
     prefill's own scan kernel (a name substring), whose share of the
     prefill's device time is reported; its prefill must run no separate
-    ``aten::cumsum`` (the scan returns the in-chunk decays)."""
+    ``aten::cumsum`` (the scan returns the in-chunk decays). Returns the
+    decode and prefill rows."""
     from repro_torch.models import forward_prefill
     from repro_torch.serve import Request
     rng = torch.Generator().manual_seed(SEED + 3)
@@ -1228,6 +1333,7 @@ def phase_profile(torch, device, eng, kernel=None, prompt_len: int = 256,
         raise AssertionError(f"{eng.cfg.name} prefill: "
                              f"{prefill['aten_cumsum_calls']} cumsum calls, "
                              f"{prefill.get('kernel_ms')} ms in {kernel}")
+    return decode, prefill
 
 
 def parity_logits(torch, device, params, max_seq: int, paths, tokens=None,
@@ -1378,20 +1484,23 @@ def phase_parity_vlm(torch, device, eng):
       within ``FLASH_TOL``/``DECODE_TOL`` at bf16;
     * end to end, reported: the logits' gap, beside the model's own bf16
       noise floor (the plain path against itself with every attention
-      output nudged by 2^-8 relative, about one bf16 ulp), all decoding
-      the same tokens."""
+      output nudged by 2^-8 relative, about one bf16 ulp: scaled by 1 +
+      2^-8 and by 1 - 2^-8), all decoding the same tokens."""
     from repro_torch.configs import RunConfig
     kernel, plain = RunConfig(), RunConfig(attention_impl="naive")
     err = {"flash_attention": [], "decode_attention": []}
     with attention_checked(err):
         runs, tokens = parity_logits(torch, device, eng.params, eng.max_seq,
                                      {"kernel": kernel, "plain": plain})
-    with attention_nudged(1 + FLOOR_NUDGE):
-        nudged = parity_logits(torch, device, eng.params, eng.max_seq,
-                               {"plain": plain}, tokens)[0]["plain"]
+    floors = {}
+    for sign in (1, -1):
+        with attention_nudged(1 + sign * FLOOR_NUDGE):
+            nudged = parity_logits(torch, device, eng.params, eng.max_seq,
+                                   {"plain": plain}, tokens)[0]["plain"]
+        floors["+" if sign > 0 else "-"] = logit_gap(nudged,
+                                                     runs["plain"])[0]
     layers = eng.cfg.num_layers
     rel, agree = logit_gap(runs["kernel"], runs["plain"])
-    floor, _ = logit_gap(nudged, runs["plain"])
     checks = {
         "every_layer_checked":
             len(err["flash_attention"]) == layers
@@ -1409,7 +1518,9 @@ def phase_parity_vlm(torch, device, eng):
           "max_rel_logit_err_not_asserted": max(rel),
           "per_step_rel_err": rel, "parity_tol": PARITY_TOL,
           "argmax_agree_share": agree,
-          "bf16_floor_plain_vs_plain_attention_nudged_2^-8": max(floor),
+          "bf16_floor_plain_vs_plain_attention_nudged_2^-8": max(
+              max(f) for f in floors.values()),
+          "bf16_floors_per_step_rel_err": floors,
           "checks": checks, "ok": all(checks.values())})
     if not all(checks.values()):
         raise AssertionError(f"{eng.cfg.name} parity: {checks}, per layer "
@@ -1691,7 +1802,7 @@ def phase_hybrid(torch, device, cfg=None):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
-    from repro_torch.models import build_schedule, cache_schema
+    from repro_torch.models import build_schedule
     cfg = cfg or get_config("hymba-1.5b")
     eng, launches, decode_pos = phase_serve(
         torch, device, cfg, cfg.num_layers,
@@ -1700,11 +1811,7 @@ def phase_hybrid(torch, device, cfg=None):
         {"decode_attention": decode_attention},
         prefill_lens=HYBRID_PREFILL_LENS, max_seq=HYBRID_MAX_SEQ,
         prompt_range=HYBRID_PROMPT_RANGE, fixed_lengths=HYBRID_FIXED_LENGTHS)
-    schema_bytes = sum(
-        math.prod(d.shape) * getattr(torch, d.dtype).itemsize
-        for seg in cache_schema(cfg, eng.B, eng.max_seq,
-                                eng.rcfg.kv_cache_dtype)
-        for d in seg.values())
+    schema_bytes = schema_cache_bytes(torch, eng)
     rings = [seg.count for seg in build_schedule(cfg) if seg.window]
     checks = {"cache_bytes_are_the_schemas": eng._cache_bytes()
               == schema_bytes,
@@ -1930,6 +2037,26 @@ def flips_by_step(flips, n_moe: int):
     return [sum(flips[i:i + n_moe]) for i in range(0, len(flips), n_moe)]
 
 
+def decode_read_bytes(params, b: int):
+    """The weights' bytes, and the bytes a decode step of ``b`` tokens
+    must read: every weight but the input token table, of which it reads
+    ``b`` rows (an untied output table is read whole)."""
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    table = params.embed["tokens"]
+    return weight_bytes, weight_bytes - table.numel() * table.element_size() \
+        + b * table.shape[1] * table.element_size()
+
+
+def schema_cache_bytes(torch, eng) -> int:
+    """The bytes of the cache ``cache_schema`` gives the engine's shape."""
+    from repro_torch.models import cache_schema
+    return sum(math.prod(d.shape) * getattr(torch, d.dtype).itemsize
+               for seg in cache_schema(eng.cfg, eng.B, eng.max_seq,
+                                       eng.rcfg.kv_cache_dtype)
+               for d in seg.values())
+
+
 def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
     """The moe model ``arch`` (``cfg``: its config, depth already cut; at
     full width on the card): serve 3 tenants x 4 requests through
@@ -1937,10 +2064,11 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
     parity at bf16 (``phase_parity_moe``),
     the model's first ``f32_layers`` layers at f32 (``phase_parity_moe_
     f32``) once the bf16 model is freed, and the smoke config on the card
-    against the CPU (``moe_smoke_on_card``). arctic's attention runs
-    through flash (once per layer and admission) and decode at group 7
-    (once per layer and step); deepseek's MLA is plain torch, so neither
-    kernel launches. Checks: 12/12 requests and the ledger (in
+    against the CPU (``moe_smoke_on_card``). Attention runs through flash
+    once per layer and admission (deepseek's MLA prefill at head dim 192,
+    v padded from 128), and arctic's decode at group 7 once per layer and
+    step (deepseek's absorbed MLA decode is plain torch, no kernel).
+    Checks: 12/12 requests and the ledger (in
     ``phase_serve``), the launches, no decode drop (8 tokens top-k against
     a capacity of 8), the cache's bytes the schema's. Reported: the
     capacities, the prefills' drop shares, the weight bytes, the step
@@ -1950,7 +2078,6 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
     from repro_torch.configs import RunConfig
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import cache_schema
     from repro_torch.models.moe import _capacity
     from repro_torch.serve import ServeEngine
     left = torch.cuda.memory_allocated()
@@ -1967,41 +2094,29 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
     with recording_moe(calls):
         eng, launches, _ = phase_serve(
             torch, device, cfg, cfg.num_layers,
-            {} if mla else {"flash_attention": flash_attention},
+            {"flash_attention": flash_attention},
             {} if mla else {"decode_attention": decode_attention},
             row_out=row)
-    if mla:
-        launches = {k: fn.launches for k, fn in kernels.items()}
+    # an MLA model's decode launches, which phase_serve does not count
+    launches = {"decode_attention": decode_attention.launches, **launches}
     prefills = [float(d) for _b, s, d in calls if s > 1]
     prefills = prefills[:eng.admissions * n_moe]
     decode_drops = [float(d) for _b, s, d in calls if s == 1]
     admit_drop = [sum(prefills[i:i + n_moe]) / n_moe
                   for i in range(0, len(prefills), n_moe)]
     params = eng.params
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in params.parameters())
-    table = params.embed["tokens"]
-    # a decode step reads every weight but the token table (B rows of it)
-    read_bytes = weight_bytes - table.numel() * table.element_size() \
-        + eng.B * table.shape[1] * table.element_size()
-    schema_bytes = sum(
-        math.prod(d.shape) * getattr(torch, d.dtype).itemsize
-        for seg in cache_schema(cfg, eng.B, eng.max_seq,
-                                eng.rcfg.kv_cache_dtype)
-        for d in seg.values())
+    weight_bytes, read_bytes = decode_read_bytes(params, eng.B)
+    schema_bytes = schema_cache_bytes(torch, eng)
     checks = {"cache_bytes_are_the_schemas":
               eng._cache_bytes() == schema_bytes,
               "no_decode_drop": len(decode_drops)
               == eng.decode_steps * n_moe and max(decode_drops) == 0.0,
               "prefills_routed": len(prefills) == eng.admissions * n_moe}
-    if mla:
-        checks["no_attention_kernel"] = launches == {
-            "flash_attention": 0, "decode_attention": 0}
-    else:
-        checks["flash_once_per_layer_and_admission"] = \
-            launches["flash_attention"] == cfg.num_layers * eng.admissions
-        checks["decode_once_per_layer_and_step"] = \
-            launches["decode_attention"] == cfg.num_layers * eng.decode_steps
+    checks["flash_once_per_layer_and_admission"] = \
+        launches["flash_attention"] == cfg.num_layers * eng.admissions
+    checks["decode_once_per_layer_and_step"] = \
+        launches["decode_attention"] == (0 if mla else cfg.num_layers) \
+        * eng.decode_steps
     out = {"phase": "moe", "model": cfg.name, "layers": cfg.num_layers,
            "moe_layers": n_moe, "experts": cfg.moe.num_experts,
            "top_k": cfg.moe.top_k, "launches": launches,
@@ -2042,7 +2157,7 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
                       max_seq=1024)
     phase_profile(torch, device, eng)
     phase_parity_moe(torch, device, eng)
-    del eng, params, table
+    del eng, params
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity_moe_f32(torch, device, cfg, f32_layers)
@@ -2058,14 +2173,14 @@ def phase_parity_moe(torch, device, eng):
 
     * per launch, asserted: every flash and decode launch of the kernel run
       against its plain version on the same inputs, within
-      ``FLASH_TOL``/``DECODE_TOL`` at bf16 (none on an MLA model);
+      ``FLASH_TOL``/``DECODE_TOL`` at bf16 (an MLA model's prefill only);
     * end to end, reported: the logits' gap and the top-k choices that
       differ between the two runs (routing is discrete: a bf16 ulp can flip
       a choice, and a capacity drop with it), beside the same two numbers
       for the plain path against itself with every attention output nudged
-      by 1 + 2^-8 and by 1 - 2^-8 (the model's own bf16 noise floor; an
-      MLA model has no attention kernel, so its paths are one
-      computation), each per forward (the prefill, then each decode
+      by 1 + 2^-8 and by 1 - 2^-8 (the model's own bf16 noise floor; on an
+      MLA model the nudge reaches the prefill's attention, the one the
+      kernel computes), each per forward (the prefill, then each decode
       step): a flipped choice for a decode token moves that step's
       logits far more than flips among a prefill's 300 tokens."""
     from repro_torch.configs import RunConfig
@@ -2079,7 +2194,7 @@ def phase_parity_moe(torch, device, eng):
         p_runs, _ = parity_logits(torch, device, eng.params, eng.max_seq,
                                   {"plain": plain}, tokens)
     cfg = eng.cfg
-    n_attn = 0 if cfg.mla is not None else cfg.num_layers
+    n_dec = 0 if cfg.mla is not None else cfg.num_layers
     n_moe = cfg.num_layers - cfg.dense_layer_prefix
     rel, agree = logit_gap(k_runs["kernel"], p_runs["plain"])
     flips, choices = route_flips(routes["kernel"], routes["plain"])
@@ -2097,8 +2212,8 @@ def phase_parity_moe(torch, device, eng):
             "per_step_rel_err": gap, "routing_flips_by_step": flips_by_step(
                 route_flips(nudged, routes["plain"])[0], n_moe)}
     checks = {
-        "every_launch_checked": len(err["flash_attention"]) == n_attn
-        and len(err["decode_attention"]) == 4 * n_attn,
+        "every_launch_checked": len(err["flash_attention"])
+        == cfg.num_layers and len(err["decode_attention"]) == 4 * n_dec,
         "every_moe_layer_routed": len(routes["kernel"]) == 5 * n_moe,
         "flash_per_launch": max(err["flash_attention"], default=0.0)
         <= FLASH_TOL["bfloat16"],
@@ -2133,7 +2248,7 @@ def phase_parity_moe_f32(torch, device, cfg, layers: int):
     tokens), asserted: identical greedy tokens, identical routing at every
     moe layer and step, logits within ``MOE_F32_TOL`` of max |logit|, the
     kernels launched once per layer (flash) and per layer and step
-    (decode), none on an MLA model."""
+    (decode, none on an MLA model)."""
     import dataclasses
     from repro_torch.configs import RunConfig
     from repro_torch.kernels.decode_attention import decode_attention
@@ -2163,9 +2278,9 @@ def phase_parity_moe_f32(torch, device, cfg, layers: int):
     gc.collect()
     rel, agree = logit_gap(k_runs["kernel"], p_runs["plain"])
     flips, choices = route_flips(rk, rp)
-    n_attn = 0 if cfg.mla is not None else layers
-    checks = {"launched": launches == {"flash_attention": n_attn,
-                                       "decode_attention": 4 * n_attn},
+    n_dec = 0 if cfg.mla is not None else layers
+    checks = {"launched": launches == {"flash_attention": layers,
+                                       "decode_attention": 4 * n_dec},
               "tokens_identical": agree == 1.0,
               "routing_identical": sum(flips) == 0
               and len(rk) == 5 * (layers - cfg.dense_layer_prefix),
@@ -2255,6 +2370,81 @@ def moe_smoke_on_card(torch, device, arch: str):
         raise AssertionError(f"{cfg.name} on the card vs the CPU: {checks}")
     del card
     torch.cuda.empty_cache()
+
+
+def phase_nemotron(torch, device, cfg=None):
+    """nemotron-4-340b (``cfg``: its full-width config cut to
+    ``NEMOTRON_LAYERS`` by default): 96/8 heads at head dim 192, group 12,
+    squared-ReLU MLP, layernorm with bias, untied embeddings. Served
+    through ``ServeEngine`` (``phase_serve``: 8 slots of 1024, the serve
+    traffic, a ``RateController``), flash once per layer and admission and
+    decode at group 12 once per layer and step; profiled on a
+    controller-free engine over the same weights (8 prompts admitted at
+    once); parity at bf16 (``phase_parity_vlm``: every attention launch
+    held against its plain version, asserted; the end-to-end gap beside
+    the plain path nudged by 1 + 2^-8 and by 1 - 2^-8, reported); its first
+    ``NEMOTRON_F32_LAYERS`` layers at f32 with an f32 cache once the bf16
+    model is freed (``phase_parity_f32``: identical tokens, logits within
+    ``VLM_F32_TOL``). Checks: the cache's bytes the schema's. Reported: the
+    weight bytes, the step beside the bytes a step must read at 3.35
+    TB/s, the busy share, launches a step, the prefill of 512, tokens/s,
+    peak memory. Returns the serve run's launch counts."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serve import ServeEngine
+    cfg = cfg or dataclasses.replace(get_config("nemotron-4-340b"),
+                                     num_layers=NEMOTRON_LAYERS)
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before "
+                             f"{cfg.name}'s weights")
+    row = {}
+    eng, launches, _ = phase_serve(
+        torch, device, cfg, cfg.num_layers,
+        {"flash_attention": flash_attention},
+        {"decode_attention": decode_attention}, row_out=row)
+    params = eng.params
+    weight_bytes, read_bytes = decode_read_bytes(params, eng.B)
+    schema_bytes = schema_cache_bytes(torch, eng)
+    group = cfg.num_heads // cfg.num_kv_heads
+    checks = {"cache_bytes_are_the_schemas":
+              eng._cache_bytes() == schema_bytes,
+              "head_dim_192_group_12": (cfg.head_dim, group) == (192, 12)}
+    prefill = row[f"prefill_ms_{PROMPT_RANGE[1]}"]
+    floor_ms = read_bytes / PEAK_BYTES_S * 1e3
+    out = {"phase": "nemotron", "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                            cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "group": group, "launches": launches,
+           "admissions": eng.admissions, "decode_steps": eng.decode_steps,
+           "weight_bytes": weight_bytes, "decode_read_bytes": read_bytes,
+           "step_ms_median": row["step_ms_median"], "step_floor_ms": floor_ms,
+           "step_over_floor": row["step_ms_median"] / floor_ms,
+           "prefill_ms_512": prefill,
+           "prefill_tok_s_512": PROMPT_RANGE[1] / prefill * 1e3,
+           "decode_tok_s": row["decode_tok_s"],
+           "max_memory_allocated": row["max_memory_allocated"],
+           "cache_bytes": eng._cache_bytes(), "schema_bytes": schema_bytes,
+           "checks": checks, "ok": all(checks.values())}
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name} serve: {checks}")
+    del eng
+    eng = ServeEngine(cfg, RunConfig(), params, batch_slots=8,
+                      max_seq=1024)
+    decode, _ = phase_profile(torch, device, eng)
+    emit({"phase": "nemotron", "model": cfg.name,
+          "step_busy_share": decode["device_busy_share"],
+          "launches_per_step": decode["kernel_launches"] / 4})
+    phase_parity_vlm(torch, device, eng)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_f32(torch, device, cfg, NEMOTRON_F32_LAYERS)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def control_trace(np, n: int, seed: int = 0):
@@ -4082,6 +4272,69 @@ def arctic_attention_timings(torch, device, smi: str, timer, gen):
     return rows
 
 
+def nemotron_attention_timings(torch, device, smi: str, timer, gen):
+    """Head dim 192: flash at nemotron-4-340b's 96/8 heads and at
+    deepseek-v2-236b's MLA prefill (128/128, v zero-padded from 128, as
+    ``models/attention.py::_mla_prefill`` hands it over) over a 509-token
+    prompt, causal, bf16; decode at nemotron's group 12 over 8 caches of
+    1024 at the serve phase's positions and at mixed ones. Each beside its
+    bound, its plain version, ``scaled_dot_product_attention`` on the same
+    inputs with the backend it dispatches to, and the wrapper's host µs."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, live_mask)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    d, s, rows = NEMOTRON_D, 509, {}
+    for model, (hq, kv), dv in (("nemotron-4-340b", NEMOTRON_HEADS, d),
+                                ("deepseek-v2-236b", MLA_HEADS, MLA_DV)):
+        q, k, v = (torch.randn((1, s, h, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for h in (hq, kv, kv))
+        v[..., dv:] = 0
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes, flops = flash_work(1, s, s, hq, kv, d, 2, True, 0)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "flash_attention",
+               "model": model, "S": s, "hq": hq, "kv": kv, "d": d,
+               "v_cols": dv, "dtype": "bfloat16",
+               "ms": timer.ms(lambda: flash_attention(q, k, v)),
+               "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v)),
+               **library_row(torch, timer, qt, kt, vt, is_causal=True,
+                             enable_gqa=True),
+               "host_us": host_us(torch, lambda: flash_attention(q, k, v)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("flash_attention", model, s)] = row
+    (hq, kv), b, t = NEMOTRON_HEADS, 8, 1024
+    for name, pos_list in (("serve", SERVE_DECODE_POS),
+                           ("mixed", DECODE_POS)):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        q = torch.randn((b, hq, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        kc, vc = (torch.randn((b, t, kv, d), generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(2))
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        nbytes, flops = decode_work(pos_list, t, hq, kv, d, 2, 2)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "decode_attention",
+               "model": "nemotron-4-340b", "B": b, "T": t, "hq": hq,
+               "kv": kv, "d": d, "pos": name, "positions": list(pos_list),
+               "dtype": "bfloat16",
+               "ms": timer.ms(lambda: decode_attention(q, kc, vc, pos)),
+               "plain_ms": timer.ms(
+                   lambda: decode_attention_plain(q, kc, vc, pos)),
+               **library_row(torch, timer, q[:, :, None, :], kt, vt,
+                             attn_mask=live_mask(pos, t)[:, None, None, :],
+                             enable_gqa=True),
+               "host_us": host_us(
+                   torch, lambda: decode_attention(q, kc, vc, pos)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[("decode_attention", "nemotron", name)] = row
+    return rows
+
+
 def encdec_timings(torch, device, smi: str, timer, gen):
     """whisper-small's attention shapes (12/12 heads, d 64) and the SSD
     trainers' scans, each beside its bound, its plain version and, for
@@ -4240,6 +4493,7 @@ def phase_timings(torch, device, smi: str):
     rows.update(hybrid_attention_timings(torch, device, smi, timer, gen))
     rows.update(encdec_timings(torch, device, smi, timer, gen))
     rows.update(arctic_attention_timings(torch, device, smi, timer, gen))
+    rows.update(nemotron_attention_timings(torch, device, smi, timer, gen))
     import numpy as np
     from repro_torch.kernels.waterfill import water_fill, water_fill_plain
     # the fairness and replay phases' 3- and 4-tenant problems (most of
@@ -4442,8 +4696,9 @@ def main() -> int:
     seconds["encdec"] = time.perf_counter() - t_phase
 
     # the moe family at full width and cut depth: arctic-480b (flash and
-    # decode at group 7) and deepseek-v2-236b (MLA, plain torch), each
-    # freed before the next
+    # decode at group 7) and deepseek-v2-236b (MLA: its prefill through
+    # flash at head dim 192, its absorbed decode plain torch), each freed
+    # before the next
     t_phase = time.perf_counter()
     import dataclasses
     for arch, layers, f32_layers in MOE_MODELS:
@@ -4452,6 +4707,13 @@ def main() -> int:
                               f32_layers).items():
             launches[k] += v
     seconds["moe"] = time.perf_counter() - t_phase
+
+    # nemotron-4-340b at full width and cut depth: flash at head dim 192
+    # and decode at group 12
+    t_phase = time.perf_counter()
+    for k, v in phase_nemotron(torch, device).items():
+        launches[k] += v
+    seconds["nemotron"] = time.perf_counter() - t_phase
 
     # the control path's two entry points: the fused tick at fleet scale
     # and the replay harness; their water-fill launches add up

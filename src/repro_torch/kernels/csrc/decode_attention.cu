@@ -28,17 +28,20 @@
 //   position of [pos - window + 1, min(pos, kv_len - 1)] exits at once,
 //   before any load.
 // * Many bytes in flight, little work per byte. decode_mma (bf16 q and
-//   cache, D 64 and 128: the serving path) walks its run's live chunks
-//   through a 3-stage cp.async ring of (k, v) chunks in shared memory (32
-//   KB a chunk at D 128), two blocks an SM. Each warp owns 16 positions of
-//   a chunk and computes their scores for all G heads at once on the
-//   tensor cores, mma.sync m16n8k16 with the G query rows padded to 16 (q
-//   in registers, k by ldmatrix from a swizzled tile): no shuffle chain per
-//   position, one max and one sum over 4 lanes per chunk. p goes back in as
-//   the A operand of the PV product as a bf16 pair, hi = bf16(p) and
-//   lo = bf16(p - hi), so p keeps ~16 bits, as the plain version's f32 p.
-//   The warps keep their own online softmax and are merged once, at the end
-//   of the run.
+//   cache, D 64, 128 and 192: the serving path) walks its run's live
+//   chunks through a cp.async ring of (k, v) chunks in shared memory (32
+//   KB a chunk at D 128), two blocks an SM: 3 stages, but 2 at D 192 (48
+//   KB a chunk; 3 would leave one block an SM, see MMA_STAGES_192). Each
+//   warp owns 16 positions of a chunk and computes their scores for all G
+//   heads at once on the tensor cores, mma.sync m16n8k16 with the G query
+//   rows padded to 16 (q in registers, k by ldmatrix from a swizzled tile):
+//   no shuffle chain per position, one max and one sum over 4 lanes per
+//   chunk. A thread keeps the online softmax of row lane / 4 and, where G
+//   passes 8 (nemotron-4-340b's 96/8 heads: group 12), of row lane / 4 + 8
+//   too, the accumulator's other half. p goes back in as the A operand of
+//   the PV product as a bf16 pair, hi = bf16(p) and lo = bf16(p - hi), so
+//   p keeps ~16 bits, as the plain version's f32 p. The warps keep their
+//   own online softmax and are merged once, at the end of the run.
 // * decode_simt (f32 queries, and bf16 at D 16 and 32) does the same per
 //   chunk on the CUDA cores: a thread owns one position and half of D for
 //   its dot products, then one warp max and one warp sum per head.
@@ -48,6 +51,8 @@
 //   partials by log-sum-exp (fixed order: repeats are bit-identical),
 //   writes (o, m, l) and sets the counter back to 0 for the next launch. A
 //   sequence whose live positions fit one run skips the scratch.
+#include <type_traits>
+
 #include "nk_common.cuh"
 
 namespace {
@@ -57,7 +62,18 @@ using nk::smem_u32;
 
 constexpr int CHUNK = 64;   // cache positions per chunk
 constexpr int NT = 128;     // threads per block
-constexpr int MMA_ST = 3;   // stages of decode_mma's (k, v) ring
+// stages of decode_mma's (k, v) ring: 3, two blocks an SM. At D 192 a
+// chunk is 48 KB: 2 stages (98,304 bytes) keep two blocks an SM. At
+// 96/8 heads, B 8, T 1024 on an H100 80GB HBM3 at 700 W
+// (tools/attention_ab.py --shapes d192, in turns) they took 0.0273 /
+// 0.0399 / 0.0252 ms at mixed / full / serve-range positions, against
+// 0.0281 / 0.0466 / 0.0230 ms with 3 stages (147,456 bytes, one block an
+// SM): faster where the sequences are long
+constexpr int MMA_STAGES_192 = 2;
+template <int D>
+constexpr int mma_stages() {
+  return D == 192 ? MMA_STAGES_192 : 3;
+}
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -172,7 +188,7 @@ __device__ void finish(const float* res_o, const float* res_m,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16 q and cache, D 64 and 128)
+// Tensor-core kernel (bf16 q and cache, D 64, 128 and 192)
 // ---------------------------------------------------------------------------
 
 // element offset of 16-byte chunk `chunk` of row `row` in a swizzled
@@ -184,8 +200,9 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 
 template <int D, int G>
 struct MmaShape {
+  static constexpr int ST = mma_stages<D>();
   static constexpr int STAGE = CHUNK * D;   // bf16 elements of k (or v)
-  static constexpr int SMEM = MMA_ST * 2 * STAGE * 2;   // the ring
+  static constexpr int SMEM = ST * 2 * STAGE * 2;   // the ring
   // after the ring drains it holds the warps' (o, m, l) and the block's
   static constexpr int TAIL_FLOATS = 5 * (G * D + 2 * G);
   static_assert(TAIL_FLOATS * 4 <= SMEM, "the tail must fit the ring");
@@ -201,10 +218,12 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
            int* __restrict__ counter, int T_len, int HQ, int KV, int window,
            int kv_len, int cps, float scale_log2) {
   using Sh = MmaShape<D, G>;
+  constexpr int MMA_ST = Sh::ST;
   constexpr int NCH = D / 8;        // 16-byte pieces per row
   constexpr int KSTEPS = D / 16;
   constexpr int NT_O = D / 8;       // 8-wide output column groups
-  static_assert(G <= 8, "the G query rows are padded to mma's 16");
+  constexpr bool HI = G > 8;        // rows g + 8 carry heads too
+  static_assert(G <= 16, "the G query rows are padded to mma's 16");
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t hrow0 = (size_t)b * HQ + (size_t)kvh * G;  // first q head
@@ -241,7 +260,7 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
   }
 
   // q as the A operand: rows g < G of 16 (this thread's rows lane/4 and
-  // lane/4 + 8; the second is always padding)
+  // lane/4 + 8; the second is padding unless G > 8)
   const int g = lane / 4, t4 = lane % 4;
   uint32_t qf[KSTEPS][4];
 #pragma unroll
@@ -250,6 +269,12 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
     qf[ks][0] = g < G ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
     qf[ks][2] = g < G ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
     qf[ks][1] = qf[ks][3] = 0u;
+    if constexpr (HI) {
+      const __nv_bfloat16* qh = qr + 8 * D;   // row g + 8
+      qf[ks][1] = g + 8 < G ? *reinterpret_cast<const uint32_t*>(qh) : 0u;
+      qf[ks][3] =
+          g + 8 < G ? *reinterpret_cast<const uint32_t*>(qh + 8) : 0u;
+    }
   }
   float oacc[NT_O][4];
 #pragma unroll
@@ -257,6 +282,7 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
   float m2 = nk::NEG_INF, l_r = 0.f;   // row g, log2 domain
+  float m2h = nk::NEG_INF, l_rh = 0.f; // row g + 8 (used where G > 8)
   const int wrow = warp * 16;          // this warp's positions in a chunk
 
   for (int i = 0; i < nc; ++i) {
@@ -280,44 +306,72 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
       nk::mma_bf16(sacc[0], qf[ks], b0, b1);
       nk::mma_bf16(sacc[1], qf[ks], b2, b3);
     }
-    // row g's online softmax over its 4 positions here, 4 lanes a row
-    float s[4], mx = m2;
+    // a row's online softmax over its 4 positions here, 4 lanes a row:
+    // row g from the fragments' first half (e 0), row g + 8 from their
+    // second (e 2); p in place of the scores, the rescale returned
     bool live[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int t = c0 + wrow + (u / 2) * 8 + 2 * t4 + (u & 1);
       live[u] = t >= lv.first && t <= lv.last;
-      s[u] = live[u] ? sacc[u / 2][u & 1] * scale_log2 : nk::NEG_INF;
-      mx = fmaxf(mx, s[u]);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float corr = exp2f(m2 - mx);
-    m2 = mx;
-    float p[4], psum = 0.f;
+    auto softmax = [&](auto half, float& m_run, float& l_run,
+                       float (&p)[4]) {
+      constexpr int e = decltype(half)::value;
+      float mx = m_run;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      p[u] = live[u] ? exp2f(s[u] - mx) : 0.f;
-      psum += p[u];
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_r = l_r * corr + psum;
+      for (int u = 0; u < 4; ++u) {
+        p[u] = live[u] ? sacc[u / 2][e + (u & 1)] * scale_log2 : nk::NEG_INF;
+        mx = fmaxf(mx, p[u]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = exp2f(m_run - mx);
+      m_run = mx;
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        p[u] = live[u] ? exp2f(p[u] - mx) : 0.f;
+        psum += p[u];
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_run = l_run * corr + psum;
+      return corr;
+    };
+    float p[4], ph[4];
+    const float corr = softmax(std::integral_constant<int, 0>(), m2, l_r, p);
 #pragma unroll
     for (int j = 0; j < NT_O; ++j) {
       oacc[j][0] *= corr;
       oacc[j][1] *= corr;
     }
+    if constexpr (HI) {
+      const float corr_h =
+          softmax(std::integral_constant<int, 2>(), m2h, l_rh, ph);
+#pragma unroll
+      for (int j = 0; j < NT_O; ++j) {
+        oacc[j][2] *= corr_h;
+        oacc[j][3] *= corr_h;
+      }
+    }
     // acc += p v with p as a bf16 pair (hi + lo): the score fragments are
-    // the A operand as they stand (rows g + 8 are padding, zero)
+    // the A operand as they stand (rows g + 8 are padding, zero, unless
+    // G > 8)
     uint32_t a_hi[4], a_lo[4];
+    auto hi_lo = [](float x0, float x1, uint32_t& hi_out, uint32_t& lo_out) {
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      hi_out = *reinterpret_cast<const uint32_t*>(&hi);
+      lo_out = nk::pack_bf16(x0 - hf.x, x1 - hf.y);
+    };
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2 * j], p[2 * j + 1]);
-      const float2 hf = __bfloat1622float2(hi);
-      a_hi[2 * j] = *reinterpret_cast<const uint32_t*>(&hi);
-      a_lo[2 * j] = nk::pack_bf16(p[2 * j] - hf.x, p[2 * j + 1] - hf.y);
-      a_hi[2 * j + 1] = a_lo[2 * j + 1] = 0u;
+      hi_lo(p[2 * j], p[2 * j + 1], a_hi[2 * j], a_lo[2 * j]);
+      if constexpr (HI)
+        hi_lo(ph[2 * j], ph[2 * j + 1], a_hi[2 * j + 1], a_lo[2 * j + 1]);
+      else
+        a_hi[2 * j + 1] = a_lo[2 * j + 1] = 0u;
     }
 #pragma unroll
     for (int dp = 0; dp < NT_O / 2; ++dp) {
@@ -348,6 +402,20 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
     if (t4 == 0) {
       mine[G * D + g] = m2;
       mine[G * D + G + g] = l_r;
+    }
+  }
+  if constexpr (HI) {
+    const int gh = g + 8;
+    if (gh < G) {
+#pragma unroll
+      for (int j = 0; j < NT_O; ++j) {
+        mine[gh * D + 8 * j + 2 * t4] = oacc[j][2];
+        mine[gh * D + 8 * j + 2 * t4 + 1] = oacc[j][3];
+      }
+      if (t4 == 0) {
+        mine[G * D + gh] = m2h;
+        mine[G * D + G + gh] = l_rh;
+      }
     }
   }
   __syncthreads();
@@ -390,6 +458,8 @@ struct SimtShape {
   static constexpr int NPH = D / 2 / EP;            // 16-byte pieces per half
   static constexpr int PAIRS = D / 2;               // PV column pairs
   static constexpr int PGROUPS = NT / PAIRS;        // position groups in PV
+  // at D 192 one group of 96 pairs: threads 96-127 sit the PV product out
+  static constexpr bool ALL_IN_PV = NT % PAIRS == 0;
   // shared memory: k and v chunks, then f32 q, half scores, p, PV sums,
   // the chunk's (m, l), the run's (o, m, l), rescale weights
   static constexpr int KV_BYTES = 2 * CHUNK * ROW_BYTES;
@@ -553,23 +623,25 @@ decode_simt(const QT* __restrict__ q, const KT* __restrict__ k,
     // run's state is rescaled to the new max meanwhile
     {
       const int pi = tid % PAIRS, grp = tid / PAIRS;
-      float acc[G][2];
+      if (Sh::ALL_IN_PV || grp < PGROUPS) {
+        float acc[G][2];
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
+        for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
 #pragma unroll 4
-      for (int r = grp; r < CHUNK; r += PGROUPS) {
-        const float2 vv = load_pair(vs + r * D + 2 * pi);
+        for (int r = grp; r < CHUNK; r += PGROUPS) {
+          const float2 vv = load_pair(vs + r * D + 2 * pi);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float pg = p_s[g * CHUNK + r];
+            acc[g][0] = fmaf(pg, vv.x, acc[g][0]);
+            acc[g][1] = fmaf(pg, vv.y, acc[g][1]);
+          }
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const float pg = p_s[g * CHUNK + r];
-          acc[g][0] = fmaf(pg, vv.x, acc[g][0]);
-          acc[g][1] = fmaf(pg, vv.y, acc[g][1]);
+          red_s[(grp * G + g) * D + 2 * pi] = acc[g][0];
+          red_s[(grp * G + g) * D + 2 * pi + 1] = acc[g][1];
         }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        red_s[(grp * G + g) * D + 2 * pi] = acc[g][0];
-        red_s[(grp * G + g) * D + 2 * pi + 1] = acc[g][1];
       }
       if (tid < G) {
         const float m_new = fmaxf(res_m[tid], chunk_s[tid]);
@@ -685,6 +757,10 @@ int dispatch_d(int D, int G, const Args& a) {
     NK_D(32)
     NK_D(64)
     NK_D(128)
+    // head dim 192 only at the group a config serves it with
+    // (nemotron-4-340b's 96/8 heads)
+    case 192:
+      return G == 12 ? launch<QT, KT, 192, 12>(a) : NK_ERR_ARGS;
     default:
       return NK_ERR_ARGS;
   }

@@ -19,19 +19,21 @@
 // first tile's latency dominate. Two kernels behind one entry point, chosen
 // by dtype and head dim:
 //
-// * flash_fwd_wgmma (bf16, D in {64, 128}: the serving path). Built from
-//   what Hopper adds. A block is one consumer warpgroup that owns 64 q rows
-//   and one producer warp. The producer loads the q tile once and feeds
-//   two rings in shared memory by TMA, k tiles and v tiles of 64 rows (2
-//   stages each at D 128, 3 at D 64), each stage with a "full" mbarrier
+// * flash_fwd_wgmma (bf16, D in {64, 128, 192}: the serving path). Built
+//   from what Hopper adds. A block is one consumer warpgroup that owns 64 q
+//   rows and one producer warp. The producer loads the q tile once and
+//   feeds two rings in shared memory by TMA, k tiles and v tiles of 64 rows
+//   (2 stages each at D 128, 3 at D 64, see below for D 192), each stage
+//   with a "full" mbarrier
 //   (TMA bytes landed) and an "empty" one (every consumer thread is done);
 //   the consumers issue no load. S = Q K^T runs as wgmma.m64n64k16 with Q
 //   and K read from shared memory (K-major, 128-byte swizzle, the layout
 //   TMA writes); p goes from the f32 accumulator back into registers as
 //   bf16 and is the A operand of the PV wgmma (m64n{D}k16), whose B operand
 //   V is read from shared memory MN-major (the instruction's transpose
-//   flag). A D 128 row is two 64-wide swizzle atoms, so every tile is two
-//   TMA boxes and the descriptors step between them. Per kv tile the
+//   flag). A D 128 row is two 64-wide swizzle atoms and a D 192 row three,
+//   so every tile is that many TMA boxes and the descriptors step between
+//   them. Per kv tile the
 //   warpgroup issues this tile's Q K^T and the previous tile's PV back to
 //   back, then runs this tile's softmax on the CUDA cores while the PV is
 //   still on the tensor cores. Nothing branches while a wgmma is in
@@ -50,9 +52,20 @@
 //   per instantiation and device. Two consumer warpgroups sharing each
 //   k/v tile (128 q rows a block) measured slower at S 509 and 1024 on
 //   the H100 and were dropped.
+//   D 192 (nemotron-4-340b's heads; DeepSeek-V2's MLA prefill, dk 128 +
+//   64 and v zero-padded from 128) takes 24 KB a tile and a 96-float PV
+//   accumulator (wgmma m64n192k16). It runs 2 k stages and 1 v stage
+//   (KST_192/VST_192: 99,328 bytes, two blocks an SM; the launch bounds
+//   then cap registers at 168 and ptxas spills 124 bytes). On an H100
+//   80GB HBM3 at 700 W (tools/attention_ab.py --shapes d192, in turns)
+//   that took 0.0517 ms at 96/8 heads and 0.0810 ms at MLA's 128/128,
+//   S 509, against 0.0594 / 0.1043 ms with 2 v stages (123,904 bytes, one
+//   block an SM) and 0.0634 / 0.1128 ms with these stages and launch
+//   bounds of one block (registers uncapped: one block an SM too).
 // * flash_fwd_simt (f32, and bf16 at head dims 16 and 32): f32 FMAs on the
 //   CUDA cores out of shared memory, a 4x4 score block and a 4x(D/8) output
-//   block per thread. It is the tight f32 check of the same algorithm.
+//   block per thread (4x24 at D 192). It is the tight f32 check of the same
+//   algorithm.
 //
 // bf16 inputs: scores are scaled into the log2 domain, p is rounded to bf16
 // before the PV product, as the TPU kernel's p.astype(v.dtype), and l sums
@@ -81,11 +94,12 @@ using nk::wg_commit;
 using nk::wg_fence;
 using nk::wg_wait;
 using nk::wgmma_rs_n128;
+using nk::wgmma_rs_n192;
 using nk::wgmma_rs_n64;
 using nk::wgmma_ss_n64;
 
 // ---------------------------------------------------------------------------
-// wgmma + TMA kernel (bf16, D 64 and 128)
+// wgmma + TMA kernel (bf16, D 64, 128 and 192)
 // ---------------------------------------------------------------------------
 
 constexpr int WG_BM = 64;    // q rows per block: one consumer warpgroup
@@ -99,10 +113,14 @@ struct WgShape {
   static constexpr int TILE_BYTES = NB * BOX_BYTES;   // q, k or v tile
   // q, the k ring, the v ring; + slack to align to 1024 bytes
   static constexpr int SMEM = 1024 + (1 + KST + VST) * TILE_BYTES;
+  // two blocks an SM where two fit the SM's 233,472 bytes (each block
+  // also holds its barriers and the 1 KB the system reserves), else one
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 2048) <= 233472 ? 2 : 1;
 };
 
 template <int D, int KST, int VST>
-__global__ void __launch_bounds__(WG_THREADS, 2)
+__global__ void __launch_bounds__(WG_THREADS,
+                                  (WgShape<D, KST, VST>::MIN_BLOCKS))
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
@@ -218,7 +236,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wg_commit();
   };
   // O = O * corr + P V of tile `it`: V (16 kv rows per k-step, 2048 bytes)
-  // is MN-major, its two 64-wide atoms BOX_BYTES apart
+  // is MN-major, its 64-wide atoms BOX_BYTES apart
   auto issue_pv = [&](int it) {
 #pragma unroll
     for (int j = 0; j < NT_O; ++j) {
@@ -234,7 +252,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < WG_BN / 16; ++kk) {
       const uint64_t dv = sw128_desc(v_smem + s * TB + kk * 2048, BOX_BYTES);
-      if constexpr (D == 128)
+      if constexpr (D == 192)
+        wgmma_rs_n192(oacc, pf[kk], dv, 1);
+      else if constexpr (D == 128)
         wgmma_rs_n128(oacc, pf[kk], dv, 1);
       else
         wgmma_rs_n64(oacc, pf[kk], dv, 1);
@@ -578,6 +598,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// the rings at D 192, two blocks an SM (timed in the header)
+constexpr int KST_192 = 2, VST_192 = 1;
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
@@ -601,6 +623,11 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
         return launch_wgmma<128, 2, 2>(NK_ARGS, device, stream);
       else
         return launch_simt<T, 128>(NK_ARGS, stream);
+    case 192:
+      if constexpr (sizeof(T) == 2)
+        return launch_wgmma<192, KST_192, VST_192>(NK_ARGS, device, stream);
+      else
+        return launch_simt<T, 192>(NK_ARGS, stream);
     default:
       return NK_ERR_ARGS;
   }

@@ -30,8 +30,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e30
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
+# (head dim, group HQ // KV) pairs the kernel is built for: groups 1-8 at
+# every head dim up to 128, and head dim 192 at nemotron-4-340b's group 12
+SHAPES = frozenset([(d, g) for d in (16, 32, 64, 128) for g in range(1, 9)]
+                   + [(192, 12)])
 # (q dtype, cache dtype) pairs the kernel is built for
 DTYPE_PAIRS = {
     (torch.bfloat16, torch.bfloat16): (build.DT_BF16, build.DT_BF16),
@@ -131,10 +133,10 @@ def _check(q, k, v, pos, kv_len: int, window: int) -> None:
             or tuple(pos.shape) != (b,):
         raise ValueError(f"q {tuple(q.shape)}, caches {tuple(k.shape)} and "
                          f"pos {tuple(pos.shape)} do not match")
-    if d not in HEAD_DIMS or hq // k.shape[2] not in GROUPS:
+    if (d, hq // k.shape[2]) not in SHAPES:
         raise ValueError(f"head dim {d} / group {hq // k.shape[2]} not "
-                         f"supported; kernel takes D in {HEAD_DIMS}, "
-                         f"HQ/KV in {GROUPS}")
+                         f"supported; the kernel is built for (D, HQ/KV) "
+                         f"in {sorted(SHAPES)}")
     for x in (q, k, v, pos):
         if not x.is_contiguous():
             raise ValueError("q, caches and pos must be contiguous")

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = {torch.float32: build.DT_F32, torch.bfloat16: build.DT_BF16}
 
 

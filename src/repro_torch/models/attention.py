@@ -42,12 +42,14 @@ general definitions.
 DeepSeek-V2's multi-head latent attention (``mla_attention``) caches one
 latent row per position, ``lat = concat(c_kv, k_pe)``: the rms-normed
 down-projection (``kv_lora_rank``) and the key's rope channel
-(``qk_rope_head_dim``), shared by all heads. It runs plain PyTorch on
-every device, as the reference runs plain ``jnp``: its prefill attends
-with dk = nope + rope (192 at full width) and dv = ``v_head_dim`` (128),
-outside the one head dim for q, k and v that the flash kernel computes,
-so it goes through ``blockwise_attention``; its decode is the absorbed
-form against the latent cache, with no k/v to hand the decode kernel.
+(``qk_rope_head_dim``), shared by all heads. Its prefill attends with dk =
+nope + rope (192 at full width) and dv = ``v_head_dim`` (128) where the
+reference runs ``blockwise_attention``; the flash kernel takes one head
+dim for q, k and v, so ``_mla_prefill`` zero-pads v (and, below a head dim
+the kernel is built for, q and k) and cuts the output back to dv. Its
+decode is the absorbed form against the latent cache in plain PyTorch, as
+the reference runs plain ``jnp``: there is no k/v to hand the decode
+kernel.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (
     decode_attention as decode_kernel, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_plain)
+    HEAD_DIMS, flash_attention, flash_attention_plain)
 from repro_torch.models.layers import (apply_norm, apply_rope, matmul,
                                        norm_schema, rope_tables)
 from repro_torch.models.schema import ParamDesc
@@ -222,19 +224,21 @@ class FlashAttentionFn(torch.autograd.Function):
     port. k and v are expanded over each group's query heads by a
     broadcast, whose backward is a plain sum over the group (an index with
     repeats would accumulate with atomics on the card, and in no fixed
-    order on the CPU)."""
+    order on the CPU). ``scale``: the softmax scale, 1/sqrt(head dim) when
+    None."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_block: int,
-                kv_block: int):
+                kv_block: int, scale=None):
         ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, q_block, kv_block)
-        return flash_attention(q, k, v, causal=causal, window=window)
+        ctx.opts = (causal, window, q_block, kv_block, scale)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        causal, window, q_block, kv_block = ctx.opts
+        causal, window, q_block, kv_block, scale = ctx.opts
         b, t, kv, d = k.shape
         hq = q.shape[2]
 
@@ -247,9 +251,9 @@ class FlashAttentionFn(torch.autograd.Function):
             o = blockwise_attention(
                 q, expand(k), expand(v), kv_map=torch.arange(
                     hq, device=q.device), causal=causal, window=window,
-                q_block=q_block, kv_block=kv_block)
+                q_block=q_block, kv_block=kv_block, softmax_scale=scale)
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +468,32 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
 # ---------------------------------------------------------------------------
 
 
+def _mla_prefill(q, k, v, scale: float, rcfg):
+    """MLA's prefill attention, q and k (B, S, H, dk), v (B, S, H, dv),
+    through the flash kernel with each head its own kv head (group 1),
+    causal, at ``scale``: the three are zero-padded to the smallest head
+    dim the kernel is built for that holds dk and dv (192 = dk at full
+    width, so only v pads there; 32 for the smoke config's 24 and 16), and
+    the output is cut back to dv. A zero column of q and k adds nothing to
+    a score and a zero column of v gives a zero output column, so this is
+    the attention the reference's ``blockwise_attention`` computes. The
+    same three-way choice as ``gqa_attention``: the plain version under
+    ``attention_impl == "naive"``, ``FlashAttentionFn`` under grad (the pad
+    is differentiable), the kernel otherwise."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    hd = next((d for d in HEAD_DIMS if d >= max(dk, dv)), max(dk, dv))
+    pad = torch.nn.functional.pad
+    q, k, v = pad(q, (0, hd - dk)), pad(k, (0, hd - dk)), pad(v, (0, hd - dv))
+    if rcfg.attention_impl == "naive":
+        o = flash_attention_plain(q, k, v, causal=True, scale=scale)
+    elif torch.is_grad_enabled():
+        o = FlashAttentionFn.apply(q, k, v, True, 0, rcfg.attn_q_block,
+                                   rcfg.attn_kv_block, scale)
+    else:
+        o = flash_attention(q, k, v, causal=True, scale=scale)
+    return o[..., :dv]
+
+
 def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
                   cache: Optional[Dict] = None, decode_pos=None,
                   return_cache=False):
@@ -472,9 +502,9 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
     Prefill and training: ``positions`` (S,); k and v are made explicit
     from the latent (k = concat(c_kv w_uk, k_pe) with k_pe roped on the
     rope dims and broadcast over heads, v = c_kv w_uv) and attend through
-    ``blockwise_attention`` (causal, each head its own kv head, scale
-    1/sqrt(nope + rope)). Returns out (B, S, d) [and {"lat": (B, S, r +
-    rope)} in x's dtype when ``return_cache``].
+    the flash kernel (``_mla_prefill``: causal, each head its own kv head,
+    scale 1/sqrt(nope + rope)). Returns out (B, S, d) [and {"lat": (B, S,
+    r + rope)} in x's dtype when ``return_cache``].
 
     Decode: ``cache`` {"lat": (B, n, r + rope)}, ``decode_pos`` (B,)
     int32, x (B, 1, d). The new latent row is written in place at
@@ -486,7 +516,6 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
     nope, rope_d, r = mla.qk_nope_head_dim, mla.qk_rope_head_dim, \
         mla.kv_lora_rank
     scale = 1.0 / math.sqrt(nope + rope_d)
-    h = p["wq"].shape[1]
     q = _heads(x, p["wq"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     dkv = matmul(x, p["w_dkv"])
@@ -502,11 +531,7 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
         v = _heads(c_kv, p["w_uv"])
         k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], rope_d)], -1)
         qq = torch.cat([q_nope, q_rope], -1)
-        o = blockwise_attention(
-            qq, k, v, kv_map=torch.arange(h, device=x.device), causal=True,
-            q_block=rcfg.attn_q_block, kv_block=rcfg.attn_kv_block,
-            softmax_scale=scale)
-        out = _out(o, p["wo"])
+        out = _out(_mla_prefill(qq, k, v, scale, rcfg), p["wo"])
         if return_cache:
             return out, {"lat": torch.cat([c_kv, k_pe[:, :, 0]], -1)}
         return out

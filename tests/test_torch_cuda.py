@@ -107,6 +107,19 @@ def cuda():
     (1, 509, 509, 56, 8, 128, True, 0, 0, "bfloat16"),
     (1, 64, 64, 56, 8, 128, True, 0, 0, "bfloat16"),
     (1, 300, 300, 56, 8, 128, True, 0, 0, "float32"),
+    # head dim 192 (three 64-wide atoms a row, wgmma m64n192k16):
+    # nemotron-4-340b's 96/8 heads and DeepSeek-V2's MLA prefill at
+    # 128/128, ragged S, causal and not, a later chunk, and f32 (SIMT)
+    (1, 509, 509, 96, 8, 192, True, 0, 0, "bfloat16"),
+    (1, 64, 64, 96, 8, 192, True, 0, 0, "bfloat16"),
+    (1, 1, 1, 96, 8, 192, True, 0, 0, "bfloat16"),
+    (2, 130, 130, 96, 8, 192, False, 0, 0, "bfloat16"),
+    (2, 65, 130, 96, 8, 192, True, 0, 65, "bfloat16"),
+    (1, 509, 509, 128, 128, 192, True, 0, 0, "bfloat16"),
+    (1, 77, 77, 128, 128, 192, False, 0, 0, "bfloat16"),
+    (1, 300, 300, 96, 8, 192, True, 0, 0, "float32"),
+    (1, 64, 64, 96, 8, 192, False, 0, 0, "float32"),
+    (1, 300, 300, 128, 128, 192, True, 0, 0, "float32"),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
                                             window, q_offset, dtype):
@@ -174,6 +187,21 @@ SERVE_POS = (0, 1, 17, 255, 511, 700, 1022, 1023)
     ("float32", "bfloat16", 56, 8, 128, 0, 1024, SERVE_POS, None),
     ("float32", "float32", 56, 8, 128, 0, 1024, SERVE_POS, None),
     ("bfloat16", "bfloat16", 14, 2, 64, 0, 1024, SERVE_POS, None),
+    # nemotron-4-340b's decode: 96/8 heads (group 12: rows 8-11 of mma's
+    # 16 carry heads too), head dim 192, 2 stages of 48 KB chunks; pos 0
+    # and T - 1, one sequence split into 16 runs, a 4096-slot cache; f32
+    # queries over a bf16 and an f32 cache on the CUDA-core path
+    ("bfloat16", "bfloat16", 96, 8, 192, 0, 1024, SERVE_POS, None),
+    ("bfloat16", "bfloat16", 96, 8, 192, 0, 1024,
+     (64, 132, 201, 269, 338, 406, 475, 544), None),
+    ("bfloat16", "bfloat16", 96, 8, 192, 0, 1024, (1023,), None),
+    ("bfloat16", "bfloat16", 96, 8, 192, 0, 1024, (0,), None),
+    ("bfloat16", "bfloat16", 96, 8, 192, 0, 4096, (3001, 5, 299, 4095),
+     None),
+    ("bfloat16", "bfloat16", 24, 2, 192, 0, 1024, SERVE_POS, 600),
+    ("float32", "bfloat16", 96, 8, 192, 0, 1024, SERVE_POS, None),
+    ("float32", "float32", 96, 8, 192, 0, 1024, SERVE_POS, None),
+    ("float32", "float32", 24, 2, 192, 0, 1024, (1023,), None),
 ])
 def test_decode_kernel_matches_plain_on_card(cuda, q_dtype, kv_dtype, hq, kv,
                                              d, window, t, pos, kv_len):
@@ -218,6 +246,91 @@ def test_decode_kernel_repeats_are_bit_identical(cuda, q_dtype, d, b):
         torch.cuda.synchronize()
         for x, y in zip(first, again):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,b", [
+    ("bfloat16", "bfloat16", 8), ("bfloat16", "bfloat16", 1),
+    ("float32", "bfloat16", 8), ("float32", "float32", 8)])
+def test_decode_group_12_repeats_are_bit_identical(cuda, q_dtype, kv_dtype,
+                                                   b):
+    """nemotron-4-340b's decode shape (96/8 heads, head dim 192) on both
+    paths: repeats give the same (o, m, l) to the bit, B 1 over 16 runs
+    and B 8 over 4."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    t = 1024
+    q = torch.randn((b, 96, 192), generator=g, device=cuda).to(
+        getattr(torch, q_dtype))
+    k, v = (torch.randn((b, t, 8, 192), generator=g, device=cuda).to(
+        getattr(torch, kv_dtype)) for _ in range(2))
+    pos = torch.randint(0, t, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    pos[0] = t - 1
+    first = decode_attention(q, k, v, pos)
+    for _ in range(3):
+        again = decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_refuse_shapes_outside_their_tables(cuda):
+    """On the card the wrappers raise a ValueError that names the shape:
+    decode at head dim 192 is built for group 12 alone and group 12 for
+    head dim 192 alone; flash takes head dims 16-192 of its table, not
+    96. Nothing launches."""
+    def decode(hq, kv, d):
+        q = torch.zeros((2, hq, d), dtype=torch.bfloat16, device=cuda)
+        cache = torch.zeros((2, 64, kv, d), dtype=torch.bfloat16,
+                            device=cuda)
+        pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+        return decode_attention(q, cache, cache.clone(), pos)
+
+    before = (flash_attention.launches, decode_attention.launches)
+    for hq, kv, d in ((64, 8, 192), (24, 2, 128), (12, 1, 64)):
+        with pytest.raises(ValueError, match=f"head dim {d} / group "
+                                             f"{hq // kv}"):
+            decode(hq, kv, d)
+    x = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_attention(x, x, x)
+    assert (flash_attention.launches, decode_attention.launches) == before
+    decode(96, 8, 192)
+    assert decode_attention.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["smoke", "full"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mla_prefill_kernel_matches_plain_on_card(cuda, which, dtype):
+    """``mla_attention``'s prefill through the flash kernel (q, k and v
+    padded to one head dim, the output cut back) against the same call
+    on the plain path (``attention_impl="naive"``), from the same
+    weights: the smoke config's head dims (dk 24, dv 16: padded to 32)
+    and the full ones (dk 192, dv 128: v padded), 4 heads, B 2 x 200
+    tokens; one flash launch, the output within ``TOL``."""
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b"),
+                              dtype=dtype, param_dtype=dtype)
+    if which == "full":    # configs attach their MLA dims by name
+        cfg = dataclasses.replace(cfg, name="deepseek-v2-236b", d_model=256)
+    model = init_params(cfg, device=cuda, seed=4)
+    p = model.blocks[0]["attn"]
+    x = torch.randn((2, 200, cfg.d_model), generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda).to(getattr(torch, dtype))
+    pos = torch.arange(200, device=cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        o = attention.mla_attention(p, x, cfg, RunConfig(), positions=pos)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = attention.mla_attention(
+            p, x, cfg, RunConfig(attention_impl="naive"), positions=pos)
+    assert flash_attention.launches == before + 1
+    rel = ((o.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert rel <= TOL[dtype], rel
 
 
 @pytest.mark.cuda
@@ -1258,9 +1371,10 @@ def test_apply_moe_on_card_matches_cpu(cuda, arch, cf):
 @pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-236b"])
 def test_moe_serve_engine_on_card_matches_cpu(cuda, arch):
     """The f32 smoke arctic (flash and decode at its 4/2 heads) and
-    deepseek (MLA, plain) served on the card give the tokens and ledger
-    the CPU gives from the same weights; 4 slots, so decode routes 4
-    tokens against a capacity of 3 and can drop."""
+    deepseek (MLA: its prefill through flash, padded to head dim 32; its
+    decode plain) served on the card give the tokens and ledger the CPU
+    gives from the same weights; 4 slots, so decode routes 4 tokens
+    against a capacity of 3 and can drop."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                               param_dtype="float32")
     gen = torch.Generator().manual_seed(3)
@@ -1286,9 +1400,10 @@ def test_moe_serve_engine_on_card_matches_cpu(cuda, arch):
     flash0, decode0 = flash_attention.launches, decode_attention.launches
     eng, on_card = serve(cuda)
     torch.cuda.synchronize()
-    attn_layers = 0 if cfg.mla is not None else cfg.num_layers
-    assert flash_attention.launches - flash0 == attn_layers * eng.admissions
+    decode_layers = 0 if cfg.mla is not None else cfg.num_layers
+    assert flash_attention.launches - flash0 == \
+        cfg.num_layers * eng.admissions
     assert decode_attention.launches - decode0 == \
-        attn_layers * eng.decode_steps
+        decode_layers * eng.decode_steps
     _, on_cpu = serve(torch.device("cpu"))
     assert on_card == on_cpu

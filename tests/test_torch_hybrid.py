@@ -343,8 +343,8 @@ def test_ring_kernel_call_computes_the_references_kv_pos_decode(group):
 
 def test_decode_wrapper_takes_group_5_and_refuses_7_12_and_d192():
     """The kernel's argument check (run before every launch): groups 1-8
-    at D 64 (group 7 is arctic-480b's 56/8 heads), not group 12, nor head
-    dim 192."""
+    at D 64 (group 7 is arctic-480b's 56/8 heads), not group 12 there, nor
+    head dim 192 at group 5 (D 192 is built for group 12 alone)."""
     def check(group, d=64):
         q = torch.zeros(2, 5 * group if group != 12 else 24, d)
         kvh = q.shape[1] // group
@@ -352,7 +352,7 @@ def test_decode_wrapper_takes_group_5_and_refuses_7_12_and_d192():
         pos = torch.zeros(2, dtype=torch.int32)
         tdk._check(q.to(torch.bfloat16), cache, cache.clone(), pos, 64, 0)
 
-    assert 5 in tdk.GROUPS
+    assert (64, 5) in tdk.SHAPES and (192, 5) not in tdk.SHAPES
     for group in (1, 2, 3, 4, 5, 6, 7, 8):
         check(group)
     with pytest.raises(ValueError, match="group"):

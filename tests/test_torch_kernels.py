@@ -66,6 +66,9 @@ def _np(x):
     ((1, 2, 200, 128), True, 64, "float32"),
     ((2, 2, 128, 64), False, 0, "float32"),
     ((1, 3, 160, 64), True, 32, "bfloat16"),
+    # head dim 192: nemotron-4-340b's, and DeepSeek-V2's MLA prefill
+    ((1, 2, 96, 192), True, 0, "float32"),
+    ((1, 2, 80, 192), True, 0, "bfloat16"),
 ])
 def test_flash_plain_matches_pallas_and_ref(shape, causal, window, dtype):
     q, k, v = (_rand(i, *shape) for i in range(3))
@@ -158,6 +161,43 @@ def test_decode_plain_matches_pallas_and_ref(t, kv_block):
                                        atol=1e-5)
             np.testing.assert_allclose(_np(l), _np(want_l), rtol=1e-4,
                                        atol=1e-4)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,pos", [
+    ("float32", "float32", (0, 37, 99)),
+    ("float32", "bfloat16", (99, 1, 50)),
+    ("bfloat16", "bfloat16", (0, 64, 99)),
+])
+def test_decode_plain_at_group_12_d192_matches_pallas_and_ref(
+        q_dtype, kv_dtype, pos):
+    """nemotron-4-340b's decode shape: 24 query heads over 2 kv heads
+    (group 12) at head dim 192. The plain version reads the grouped cache;
+    the Pallas kernel (interpret mode) and ``ref.decode_attention_ref``
+    take it expanded over each group's query heads. o within ``TOL`` of
+    the working type (f32 2e-4 when q is f32), m within 1e-5 and l within
+    1e-4 (both f32)."""
+    b, hq, kv, t, d = 3, 24, 2, 100, 192
+    q = _rand(33, b, hq, d)
+    k, v = _rand(34, b, t, kv, d), _rand(35, b, t, kv, d)
+    (jq, tq) = _both(q, q_dtype)
+    (jk, tk), (jv, tv) = _both(k, kv_dtype), _both(v, kv_dtype)
+    pos = np.array(pos, np.int32)
+    tpos = torch.from_numpy(pos)
+    o, m, l = decode_attention_plain(tq, tk, tv, tpos)
+    assert o.dtype == tq.dtype and o.shape == (b, hq, d)
+    jk, jv = (jnp.repeat(x.astype(jq.dtype), hq // kv, axis=2)
+              for x in (jk, jv))
+    tol = TOL[q_dtype]
+    for impl in ("pallas", "ref"):
+        wo, wm, wl = jops.decode_step_attention(jq, jk, jv, jnp.asarray(pos),
+                                                impl=impl, kv_block=64)
+        np.testing.assert_allclose(_np(o), _np(wo), rtol=tol, atol=tol,
+                                   err_msg=impl)
+        np.testing.assert_allclose(_np(m), _np(wm), rtol=1e-5, atol=1e-5,
+                                   err_msg=impl)
+        np.testing.assert_allclose(_np(l), _np(wl), rtol=1e-4, atol=1e-4,
+                                   err_msg=impl)
+    assert torch.equal(decode_attention(tq, tk, tv, tpos)[0], o)
 
 
 def test_decode_lse_combine_across_shards():

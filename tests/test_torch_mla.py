@@ -11,7 +11,10 @@ port) and attends in the absorbed form. Tolerances: f32 within 1e-5 of the
 largest magnitude (output and latent), bf16 within 2e-2 (the reference
 compiled with XLA's excess precision off, so both round where the source
 casts); the decode cache's rows other than the written one stay bit for
-bit, the written one within the same bounds.
+bit, the written one within the same bounds. The prefill's attention
+(``_mla_prefill``: q, k and v zero-padded to one head dim the flash kernel
+takes, the output cut back) holds against the reference's
+``blockwise_attention``, output and dq/dk/dv, within the same bounds.
 """
 import dataclasses
 import functools
@@ -188,3 +191,100 @@ def test_latent_cache_bytes_are_the_schema():
     caches = init_cache(small, 4, 64, device="cpu")
     assert sum(t.numel() * t.element_size() for seg in caches
                for t in seg.values()) == 3 * 4 * 64 * 40 * 2
+
+
+# ---------------------------------------------------------------------------
+# the prefill's attention through the flash kernel (``_mla_prefill``)
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv(which, dtype, seed):
+    """q, k (B 2, S 24, H, dk) and v (B, S, H, dv) at a config's MLA head
+    dims (smoke: dk 24, dv 16; wide: dk 192, dv 128), numpy from a seed."""
+    _, tcfg = _cfgs(which, dtype)
+    mla, h = tcfg.mla, tcfg.num_heads
+    dk = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((2, 24, h, dk)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((2, 24, h, mla.v_head_dim)).astype(np.float32)
+    return [np.array(jnp.asarray(a, getattr(jnp, dtype))) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["smoke", "wide"])
+def test_mla_padded_prefill_matches_reference_attention(which, dtype,
+                                                         mesh1):
+    """``_mla_prefill`` (q, k and v zero-padded to a head dim the flash
+    kernel takes, the output cut back to dv) against the reference's
+    ``blockwise_attention`` with each head its own kv head at scale
+    1/sqrt(dk), the attention the reference's MLA prefill runs: the
+    output without grad (the kernel's wrapper: its plain version on the
+    CPU), and under grad (``FlashAttentionFn``) the output and dq/dk/dv
+    against ``jax.vjp`` of the reference, for one cotangent drawn from a
+    seed. Within ``TOL`` of the largest magnitude (f32 1e-5: summation
+    order; bf16 2e-2)."""
+    q, k, v = _mla_qkv(which, dtype, seed=5)
+    dk, dv, h = q.shape[-1], v.shape[-1], q.shape[2]
+    scale = 1.0 / np.sqrt(dk)
+    jdt = getattr(jnp, dtype)
+
+    def ref(qq, kk, vv):
+        return jattn.blockwise_attention(
+            qq, kk, vv, kv_map=jnp.arange(h), causal=True, q_block=8,
+            kv_block=8, softmax_scale=scale)
+
+    jo, vjp = jax.vjp(ref, *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    do = np.random.default_rng(6).standard_normal(jo.shape).astype(
+        np.float32)
+    jgrads = vjp(jnp.asarray(do, jdt))
+    rcfg = RunConfig(attn_q_block=8, attn_kv_block=8)
+    with torch.no_grad():
+        to = tattn._mla_prefill(*(to_torch(a) for a in (q, k, v)), scale,
+                                rcfg)
+    assert tuple(to.shape) == (2, 24, h, dv) and to.dtype == getattr(
+        torch, dtype)
+    assert _gap(to, jo) <= TOL[dtype]
+    tq, tk, tv = (to_torch(a).requires_grad_() for a in (q, k, v))
+    og = tattn._mla_prefill(tq, tk, tv, scale, rcfg)
+    assert og.grad_fn is not None
+    og.backward(to_torch(np.array(jnp.asarray(do, jdt))))
+    assert _gap(og, jo) <= TOL[dtype]
+    for name, got, want in zip(("dq", "dk", "dv"), (tq, tk, tv), jgrads):
+        assert tuple(got.grad.shape) == tuple(want.shape), name
+        assert _gap(got.grad, want) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("which,want_d", [("smoke", 32), ("wide", 192)])
+def test_mla_prefill_hands_the_kernel_one_head_dim(which, want_d,
+                                                   monkeypatch):
+    """The three-way choice and the padding: without grad the kernel's
+    wrapper gets q, k and v at one head dim the kernel is built for (192
+    at full width: only v pads, from 128; 32 for the smoke config's 24
+    and 16), with the padded columns zero and the scale 1/sqrt(dk); under
+    grad ``FlashAttentionFn`` runs it; under ``attention_impl="naive"`` the
+    plain version does and the wrapper is not called."""
+    calls = []
+    real = tattn.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention", recorded)
+    q, k, v = (to_torch(a) for a in _mla_qkv(which, "float32", seed=7))
+    dk, dv = q.shape[-1], v.shape[-1]
+    with torch.no_grad():
+        tattn._mla_prefill(q, k, v, 1.0 / np.sqrt(dk), RunConfig())
+    (pq, pk, pv, kw), = calls
+    assert {x.shape[-1] for x in (pq, pk, pv)} == {want_d}
+    assert kw == {"causal": True, "scale": 1.0 / np.sqrt(dk)}
+    assert not pq[..., dk:].any() and not pk[..., dk:].any()
+    assert not pv[..., dv:].any() and torch.equal(pv[..., :dv], v)
+    tattn._mla_prefill(q.requires_grad_(), k, v, 1.0 / np.sqrt(dk),
+                       RunConfig())
+    assert len(calls) == 2                # FlashAttentionFn's forward
+    with torch.no_grad():
+        tattn._mla_prefill(q, k, v, 1.0 / np.sqrt(dk),
+                           RunConfig(attention_impl="naive"))
+    assert len(calls) == 2
