@@ -390,6 +390,19 @@ FAMILY_F32_TOL = 1e-4         # loss and grads, f32, 2 layers
 FAMILY_FT_ARCH = "mamba2-370m"   # the one whose recovery is checked
 FLOOR_NUDGE = 2 ** -8         # relative, about one bf16 ulp: noise floors
 
+# the distribution phase: the model axis's per-rank kernel work. The cp
+# decode at chameleon-34b's decode_32k shape (the reference's motivating
+# case) and at llama3.2-3b's heads, its cache cut into tp contiguous
+# chunks; positions at 0, at chunk - 1 and chunk of every tp's chunks and
+# at the last slot, then between them; with a window of 4,096 too
+CP_B, CP_T = 8, 32768
+CP_TP = (2, 4, 8, 16)
+CP_WINDOW = 4096
+CP_POS_EDGES = (0, 2047, 2048, 4095, 4096, 8191, 8192, 32767)
+CP_POS_MID = (16383, 16384, 1, 100, 5000, 12345, 20000, 30000)
+CP_TOL = {"bfloat16": 4.2e-3, "float32": 1e-5}   # of max |o|
+TP_FLASH_S = 509              # llama3.2-3b's prefill at each rank's heads
+TP_BYTES_AXIS = 16            # per-rank weight bytes at model = 16
 FAIR_CAPACITY = 1_000_000.0
 FAIR_DT = 0.05
 FAIR_T_RUN = 12.0
@@ -1098,14 +1111,16 @@ def make_requests(cfg, request_cls, prompt_range=PROMPT_RANGE,
 def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
                 decode_kernels, prefill_lens=(PROMPT_RANGE[1],), *,
                 max_seq: int = 1024, prompt_range=PROMPT_RANGE,
-                fixed_lengths=(), row_out=None):
+                fixed_lengths=(), row_out=None, shd=None, phase="serve"):
     """Serve 3 tenants x 4 requests until drained, prompts drawn from
     ``prompt_range`` (``make_requests``) into 8 slots of ``max_seq``.
     ``prefill_kernels`` and ``decode_kernels`` map a kernel's name to its
     wrapper: each must have launched once per layer per admission
     (prefill) or per decode step. Returns the engine, the launch counts of
     this run and the positions each decode step ran at (its active
-    slots'); ``row_out``, a dict, receives the emitted row."""
+    slots'); ``row_out``, a dict, receives the emitted row. ``shd``: a
+    ``ShardingCtx`` the weights and the engine are made with (the
+    distribution phase's); ``phase`` tags the row."""
     from repro_torch.configs import RunConfig
     from repro_torch.control import RateController
     from repro_torch.models import forward_prefill, init_params
@@ -1118,7 +1133,7 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
     memory = {"allocated_before_init": mem()}
     torch.cuda.reset_peak_memory_stats()   # the init peak is this model's
     params = init_params(cfg, device=device, generator=torch.Generator(
-        device=device).manual_seed(SEED))
+        device=device).manual_seed(SEED), shd=shd)
     torch.cuda.synchronize()
     memory["weight_bytes"] = sum(p.numel() * p.element_size()
                                  for p in params.parameters())
@@ -1128,7 +1143,7 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
     ctrl.attach_scheduler(sched)             # still ticks and pushes rates
     eng = ServeEngine(cfg, RunConfig(), params, batch_slots=8,
                       max_seq=max_seq, scheduler=sched, controller=ctrl,
-                      control_every=4)
+                      control_every=4, shd=shd)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     memory["cache_bytes"] = eng._cache_bytes()
@@ -1211,7 +1226,7 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
         prefill_ms[f"prefill_ms_{n}"] = statistics.median(times) * 1e3
     dec_tokens = sum(n for _, n in decode_only)
     dec_s = sum(t for t, _ in decode_only)
-    out = {"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
+    out = {"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "params": cfg.num_params(),
            "requests": len(reqs), "completed": len(done),
            "admissions": eng.admissions, "decode_steps": eng.decode_steps,
@@ -4144,6 +4159,443 @@ def phase_fairness(torch, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the distribution phase: the model axis
+# ---------------------------------------------------------------------------
+
+
+def cp_empty_rows(pos_list, window: int, lo: int, hi: int):
+    """(sequence) indices with no live position in cache slots [lo, hi)."""
+    out = []
+    for b, p in enumerate(pos_list):
+        first = max(0, p - window + 1) if window else 0
+        if p < lo or first >= hi:
+            out.append(b)
+    return out
+
+
+def cp_decode_cases(torch, device, gen):
+    """(a) The context-parallel decode's per-rank work at full width: the
+    cache of ``CP_B`` sequences of ``CP_T`` positions cut into ``tp``
+    contiguous chunks, each its own tensor, the decode kernel launched once
+    per chunk at the chunk's local positions (negative before it), the
+    chunks combined by ``stacked_lse_combine`` (the arithmetic the sharded
+    path runs over ``model``), held against one launch over the whole cache
+    and against the plain version; every (chunk, sequence) with no live
+    position must come back as the empty row (o 0, m NEG_INF, l 0).
+    Returns, by (query heads, tp), the launches these checks made at that
+    shape and the largest error against the plain version: absolute, and
+    relative to max |o|."""
+    from repro_torch.kernels.decode_attention import (
+        NEG_INF, decode_attention, decode_attention_plain)
+    from repro_torch.models.attention import stacked_lse_combine
+    checks, d = {}, 128
+    for hq, kv in (VLM_HEADS, LLAMA_HEADS):
+        q = torch.randn((CP_B, hq, d), generator=gen, device=device)
+        kc, vc = (torch.randn((CP_B, CP_T, kv, d), generator=gen,
+                              device=device).to(torch.bfloat16)
+                  for _ in range(2))
+        for pos_list, window, dt in (
+                (CP_POS_EDGES, 0, "bfloat16"), (CP_POS_MID, 0, "bfloat16"),
+                (CP_POS_EDGES, CP_WINDOW, "bfloat16"),
+                (CP_POS_MID, CP_WINDOW, "bfloat16"),
+                (CP_POS_EDGES, 0, "float32")):
+            qx = q.to(getattr(torch, dt))
+            pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+            full = decode_attention(qx, kc, vc, pos, window=window)[0]
+            plain = decode_attention_plain(qx, kc, vc, pos,
+                                           window=window)[0]
+            for tp in CP_TP:
+                chunk = CP_T // tp
+                parts, empty_ok, n_empty = [], True, 0
+                before = decode_attention.launches
+                for r in range(tp):
+                    ks = kc[:, r * chunk:(r + 1) * chunk].contiguous()
+                    vs = vc[:, r * chunk:(r + 1) * chunk].contiguous()
+                    o, m, l = decode_attention(qx, ks, vs, pos - r * chunk,
+                                               window=window)
+                    parts.append((o, m, l))
+                    for b in cp_empty_rows(pos_list, window, r * chunk,
+                                           (r + 1) * chunk):
+                        n_empty += 1
+                        empty_ok = empty_ok and not bool(o[b].any()) \
+                            and bool((m[b] == NEG_INF).all()) \
+                            and not bool(l[b].any())
+                    del ks, vs
+                n_launched = decode_attention.launches - before
+                o = stacked_lse_combine(
+                    *(torch.stack(x) for x in zip(*parts))).to(qx.dtype)
+                torch.cuda.synchronize()
+                e_full, e_plain = rel_err(o, full), rel_err(o, plain)
+                e_abs = (o.float() - plain.float()).abs().max().item()
+                tol = CP_TOL[dt]
+                ok = e_full <= tol and e_plain <= tol and empty_ok \
+                    and bool(torch.isfinite(o).all())
+                emit({"phase": "distribution", "case": "cp_decode",
+                      "kernel": "decode_attention", "B": CP_B, "T": CP_T,
+                      "tp": tp, "chunk": chunk, "hq": hq, "kv": kv, "d": d,
+                      "q_dtype": dt, "cache_dtype": "bfloat16",
+                      "window": window, "pos": list(pos_list),
+                      "launches": n_launched, "empty_rows": n_empty,
+                      "empty_rows_exact": empty_ok,
+                      "rel_err_vs_full_launch": e_full,
+                      "rel_err_vs_plain": e_plain, "abs_err_vs_plain": e_abs,
+                      "tol": tol, "ok": ok})
+                if not ok:
+                    raise AssertionError(
+                        f"cp decode {hq}/{kv} tp {tp} {dt} window {window} "
+                        f"pos {pos_list}: {e_full} / {e_plain} > {tol}, "
+                        f"empty rows exact {empty_ok}")
+                c = checks.setdefault((hq, tp), {
+                    "launches": 0, "max_abs_err": 0.0, "max_rel_err": 0.0})
+                c["launches"] += n_launched
+                c["max_abs_err"] = max(c["max_abs_err"], e_abs)
+                c["max_rel_err"] = max(c["max_rel_err"], e_plain)
+                del parts, o
+        del kc, vc
+        torch.cuda.empty_cache()
+    return checks
+
+
+def tp_flash_cases(torch, device, gen):
+    """(b) Flash at each rank's shapes of full-width llama3.2-3b's prefill
+    (S ``TP_FLASH_S``, d 128): the rank's query heads and the kv heads
+    ``models.attention._local_kv`` gives them (tp 2/4/8: 12/4, 6/2, 3/1
+    heads; tp 16: 2 of 32 padded heads, a slice of one kv head at group 2,
+    or two gathered kv heads at group 1, or padded heads), each held
+    against its plain version and, on the real heads, against one launch
+    over all 24 heads. Returns, by tp, the launches these checks made at
+    that tp and the largest absolute error against the plain version."""
+    from repro_torch.distribution.sharding import padded_heads
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models.attention import _local_kv
+    hq, kv = LLAMA_HEADS
+    d, s, dt = 128, TP_FLASH_S, "bfloat16"
+    q = torch.randn((1, s, hq, d), generator=gen,
+                    device=device).to(torch.bfloat16)
+    k, v = (torch.randn((1, s, kv, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    full = flash_attention(q, k, v)
+    checks = {}
+    for tp in CP_TP:
+        hp = padded_heads(hq, {"model": tp})
+        n = hp // tp
+        qp = torch.cat([q, torch.randn((1, s, hp - hq, d), generator=gen,
+                                       device=device).to(q.dtype)], dim=2)
+        ranks = (0, tp - 1) if tp < 16 else (0, 1, 11, 12, 15)
+        for r in ranks:
+            ql = qp[:, :, r * n:(r + 1) * n].contiguous()
+            kl, vl = _local_kv(k, v, hq, hp, r * n, n)
+            before = flash_attention.launches
+            o = flash_attention(ql, kl, vl)
+            n_launched = flash_attention.launches - before
+            torch.cuda.synchronize()
+            e_plain = (o.float() - flash_attention_plain(ql, kl, vl).float()
+                       ).abs().max().item()
+            real = max(0, min(n, hq - r * n))
+            e_full = (o[:, :, :real].float() - full[:, :, r * n:r * n + real]
+                      .float()).abs().max().item() if real else 0.0
+            ok = e_plain <= FLASH_TOL[dt] and e_full <= FLASH_TOL[dt] \
+                and bool(torch.isfinite(o).all())
+            emit({"phase": "distribution", "case": "tp_flash",
+                  "kernel": "flash_attention", "S": s, "tp": tp, "rank": r,
+                  "heads": n, "real_heads": real, "kv_heads": kl.shape[2],
+                  "group": n // kl.shape[2], "d": d, "dtype": dt,
+                  "max_abs_err": e_plain, "max_abs_err_vs_all_heads": e_full,
+                  "tol": FLASH_TOL[dt], "ok": ok})
+            if not ok:
+                raise AssertionError(f"flash at tp {tp} rank {r}: {e_plain}, "
+                                     f"{e_full} > {FLASH_TOL[dt]}")
+            c = checks.setdefault(tp, {"launches": 0, "max_abs_err": 0.0})
+            c["launches"] += n_launched
+            c["max_abs_err"] = max(c["max_abs_err"], e_plain)
+    return checks
+
+
+def cp_timings(torch, device, smi: str, timer):
+    """One cp shard's decode launch (every position live: the busiest
+    chunk) beside the whole cache's launch, the plain version on the
+    shard, ``scaled_dot_product_attention`` on the shard, and the shard's
+    bound (its k/v read once); at chameleon-34b's heads for every tp and
+    llama3.2-3b's at tp 16. Returns the rows by (heads, tp)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, live_mask)
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    rows, d = {}, 128
+    for (hq, kv), tps in ((VLM_HEADS, CP_TP), (LLAMA_HEADS, (16,))):
+        q = torch.randn((CP_B, hq, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        kc, vc = (torch.randn((CP_B, CP_T, kv, d), generator=gen,
+                              device=device).to(torch.bfloat16)
+                  for _ in range(2))
+        pos = torch.full((CP_B,), CP_T - 1, dtype=torch.int32, device=device)
+        full_ms = timer.ms(lambda: decode_attention(q, kc, vc, pos))
+        for tp in tps:
+            chunk = CP_T // tp
+            ks, vs = (x[:, :chunk].contiguous() for x in (kc, vc))
+            lp = torch.full((CP_B,), chunk - 1, dtype=torch.int32,
+                            device=device)
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (ks, vs))
+            mask = live_mask(lp, chunk)[:, None, None, :]
+            nbytes, flops = decode_work([chunk - 1] * CP_B, chunk, hq, kv, d,
+                                        2, 2)
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            row = {"phase": "timings", "kernel": "decode_attention",
+                   "case": "cp shard", "tp": tp, "B": CP_B, "T": CP_T,
+                   "chunk": chunk, "hq": hq, "kv": kv, "d": d,
+                   "dtype": "bfloat16",
+                   "ms": timer.ms(lambda: decode_attention(q, ks, vs, lp)),
+                   "full_cache_ms": full_ms,
+                   "plain_ms": timer.ms(
+                       lambda: decode_attention_plain(q, ks, vs, lp)),
+                   **library_row(torch, timer, q[:, :, None, :], kt, vt,
+                                 attn_mask=mask, enable_gqa=True),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "flops": flops, "gpu": smi}
+            emit(row)
+            rows[(hq, tp)] = row
+            del ks, vs, kt, vt
+        del kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_flash_timings(torch, device, smi: str, timer):
+    """Flash at one rank's shapes of llama3.2-3b's prefill of
+    ``TP_FLASH_S`` tokens for each tp (rank 0; rank 1 at tp 16, whose two
+    heads read two gathered kv heads), beside the plain version,
+    ``scaled_dot_product_attention`` and the bound."""
+    from repro_torch.distribution.sharding import padded_heads
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models.attention import _local_kv
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    hq, kv = LLAMA_HEADS
+    d, s = 128, TP_FLASH_S
+    rows = {}
+    for tp in CP_TP:
+        hp = padded_heads(hq, {"model": tp})
+        n, r = hp // tp, 1 if tp == 16 else 0
+        q = torch.randn((1, s, n, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        k, v = (torch.randn((1, s, kv, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+        kl, vl = _local_kv(k, v, hq, hp, r * n, n)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kl, vl))
+        nbytes, flops = flash_work(1, s, s, n, kl.shape[2], d, 2, True, 0)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = {"phase": "timings", "kernel": "flash_attention",
+               "case": "TP rank", "tp": tp, "rank": r, "S": s, "hq": n,
+               "kv": kl.shape[2], "d": d, "dtype": "bfloat16",
+               "ms": timer.ms(lambda: flash_attention(q, kl, vl)),
+               "plain_ms": timer.ms(
+                   lambda: flash_attention_plain(q, kl, vl)),
+               **library_row(torch, timer, qt, kt, vt, is_causal=True,
+                             enable_gqa=True),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "gpu": smi}
+        emit(row)
+        rows[tp] = row
+    return rows
+
+
+def per_rank_bytes():
+    """(d) Each rank's weight bytes at ``model = TP_BYTES_AXIS`` for
+    llama3.2-3b (24 -> 32 padded query heads) and chameleon-34b, reckoned
+    from the schema's meta tensors and ``param_shardings``' placements on
+    the serving layout (model-sharded, replicated over data), beside the
+    one-device bytes; and each rank's k/v cache bytes at decode_32k's
+    8 x 32,768 positions. No device work: the layout's arithmetic."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import dtype_of
+    from repro_torch.distribution.sharding import (
+        ShardingCtx, local_shape, padded_heads, param_shardings)
+    from repro_torch.models.model import cache_schema, model_schema
+    from repro_torch.models.schema import abstract_params, walk
+    mesh = {"data": 1, "model": TP_BYTES_AXIS}
+    shd = ShardingCtx(mesh)
+    out = {}
+
+    def leaves(schema):
+        for tree in [schema["embed"], schema["final_norm"]] \
+                + schema["layers"]:
+            for _path, desc in walk(tree):
+                yield desc
+
+    for arch in ("llama3.2-3b", "chameleon-34b"):
+        cfg = get_config(arch)
+        schema = model_schema(cfg, mesh)
+        metas = abstract_params(schema)
+        assert metas["layers"][0]["attn"]["wq"].device.type == "meta"
+        total = rank = split = 0
+        for desc in leaves(schema):
+            elem = dtype_of(desc.dtype).itemsize
+            placements = param_shardings(desc, mesh, shd.weight_rules)
+            split += any(isinstance(p, Shard) for p in placements)
+            spec = shd.weight_spec(desc.shape, desc.dims)
+            total += math.prod(desc.shape) * elem
+            rank += math.prod(local_shape(desc.shape, spec, mesh)) * elem
+        one = sum(math.prod(dd.shape) * dtype_of(dd.dtype).itemsize
+                  for dd in leaves(model_schema(cfg)))
+        cache = rank_cache = 0
+        for seg in cache_schema(cfg, CP_B, CP_T):
+            for dd in seg.values():
+                elem = dtype_of(dd.dtype).itemsize
+                cache += math.prod(dd.shape) * elem
+                rank_cache += math.prod(local_shape(
+                    dd.shape, shd.spec(dd.shape, dd.dims), mesh)) * elem
+        row = {"phase": "distribution", "case": "per_rank_bytes",
+               "model": arch, "model_axis": TP_BYTES_AXIS,
+               "heads": cfg.num_heads,
+               "padded_heads": padded_heads(cfg.num_heads, mesh),
+               "one_device_weight_bytes": one, "padded_weight_bytes": total,
+               "rank_weight_bytes": rank, "sharded_leaves": split,
+               "cache_bytes_decode_32k": cache,
+               "rank_cache_bytes_decode_32k": rank_cache,
+               "reckoned": True}
+        emit(row)
+        out[arch] = row
+    return out
+
+
+@contextlib.contextmanager
+def plain_calls(counts: dict):
+    """Count calls of the attention cores' plain versions as the model
+    calls them: a sharded serve that fell back to one would show here."""
+    from repro_torch.models import attention as attn
+    flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
+
+    def flash_counted(*args, **kw):
+        counts["flash_attention_plain"] += 1
+        return flash_p(*args, **kw)
+
+    def decode_counted(*args, **kw):
+        counts["decode_attention_plain"] += 1
+        return dec_p(*args, **kw)
+
+    attn.flash_attention_plain = flash_counted
+    attn.decode_attention_plain = decode_counted
+    try:
+        yield counts
+    finally:
+        attn.flash_attention_plain, attn.decode_attention_plain = \
+            flash_p, dec_p
+
+
+def collective_host_us(torch, device, shd, core):
+    """Where the sharded path's collectives spend host time at world 1: µs
+    a call, calls back to back (``host_us``), of a decode step's psum
+    payload (8 x 1 x d_model bf16) through ``ShardingCtx.psum`` (nk_psum ->
+    CoreEngine.dispatch -> XlaNsm -> NCCL), through ``dist.all_reduce``
+    alone, and of ``CoreEngine.dispatch``'s bookkeeping with a no-op NSM
+    verb (``shm_move``), and of the q gather through
+    ``ShardingCtx.all_gather``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import use_engine
+    x = torch.randn((8, 1, 3072), device=device).to(torch.bfloat16)
+    q = torch.randn((8, 1, 24, 128), device=device).to(torch.bfloat16)
+    group = shd.axes.group(("model",))
+    with use_engine(core):
+        row = {"phase": "distribution", "case": "collective_host_us",
+               "psum_nk": host_us(torch, lambda: shd.psum(x, "model")),
+               "all_reduce": host_us(
+                   torch, lambda: dist.all_reduce(x, group=group)),
+               "dispatch_only": host_us(torch, lambda: core.dispatch(
+                   "shm_move", x, ("model",))),
+               "all_gather_nk": host_us(
+                   torch, lambda: shd.all_gather(q, "model", 2))}
+    emit(row)
+    return row
+
+
+def phase_distribution(torch, device, cfg, want_tokens, *,
+                       profile: bool = False):
+    """The model axis on the card: (a) ``cp_decode_cases``, (b)
+    ``tp_flash_cases``, (c) full-width ``cfg`` served through the sharded
+    path with ``ShardingCtx(make_host_mesh(1, 1))`` on an NCCL world of one
+    (two ranks cannot share one card under NCCL, so the cross-rank
+    arithmetic is held on gloo worlds on the CPU): the serve
+    phase's 12 requests, tokens identical to ``want_tokens`` (the
+    unsharded engine's on the same weights), the scheduler's ledger, the
+    CoreEngine's ledger of the serving collectives, flash once per layer
+    and admission and decode once per layer and step, no plain attention
+    call; (d) ``per_rank_bytes``. ``profile``: also profile the sharded
+    engine's decode steps and prefill (``phase_profile``) and time the
+    collectives' host cost (``collective_host_us``). Returns (the main
+    path's launches in (c), the checks of (a) and (b) by kernel: launches
+    and errors at the per-rank shapes, which no main path runs)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_engine, use_engine
+    from repro_torch.distribution import ShardingCtx
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import make_host_mesh
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    checks = {"decode_attention": cp_decode_cases(torch, device, gen),
+              "flash_attention": tp_flash_cases(torch, device, gen)}
+    torch.cuda.empty_cache()
+    t_kernels = time.perf_counter() - t0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        shd = ShardingCtx(make_host_mesh(1, 1, device=device.type))
+        core = make_engine(shd.axes, "xla")
+        plain = {"flash_attention_plain": 0, "decode_attention_plain": 0}
+        row = {}
+        with use_engine(core), plain_calls(plain):
+            eng, launches, _ = phase_serve(
+                torch, device, cfg, cfg.num_layers,
+                {"flash_attention": flash_attention},
+                {"decode_attention": decode_attention}, prefill_lens=(),
+                shd=shd, phase="distribution", row_out=row)
+        got = {r.req_id: list(r.generated) for r in eng.completed}
+        same = got == want_tokens
+        table = core.ledger_table()
+        psums = sum(ops for _t, verb, axes, ops, _b in table
+                    if verb == "psum" and axes == ("model",))
+        layers = cfg.num_layers
+        want_psums = (eng.admissions + eng.decode_steps) * (1 + 2 * layers)
+        ok = same and psums == want_psums and not any(plain.values()) \
+            and eng.params.shd is shd
+        emit({"phase": "distribution", "case": "sharded_serve",
+              "model": cfg.name, "mesh": dict(shd.axis_sizes),
+              "backend": "nccl", "tokens_equal_unsharded": same,
+              "admissions": eng.admissions, "decode_steps": eng.decode_steps,
+              "launches": launches,
+              "flash_per_admission": launches["flash_attention"]
+              / max(eng.admissions, 1),
+              "decode_per_step": launches["decode_attention"]
+              / max(eng.decode_steps, 1),
+              "plain_calls": plain,
+              "ledger": [list(r[:3]) + [r[3], r[4]] for r in table],
+              "model_psums": psums, "model_psums_expected": want_psums,
+              "step_ms_median": row.get("step_ms_median"),
+              "run_s": row.get("run_s"), "ok": ok})
+        if not ok:
+            raise AssertionError(f"sharded serve: tokens equal {same}, "
+                                 f"psums {psums} of {want_psums}, plain "
+                                 f"calls {plain}")
+        if profile:
+            with use_engine(core):
+                phase_profile(torch, device, eng)
+            collective_host_us(torch, device, shd, core)
+        del eng
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    per_rank_bytes()
+    emit({"phase": "distribution", "kernel_cases_s": t_kernels,
+          "seconds": time.perf_counter() - t0})
+    return launches, checks
+
+
 def hybrid_attention_timings(torch, device, smi: str, timer, gen):
     """hymba-1.5b's attention shapes (25/5 heads, d 64, bf16): flash over a
     1536-token prompt with the 1024-token window and without (a global
@@ -4494,6 +4946,10 @@ def phase_timings(torch, device, smi: str):
     rows.update(encdec_timings(torch, device, smi, timer, gen))
     rows.update(arctic_attention_timings(torch, device, smi, timer, gen))
     rows.update(nemotron_attention_timings(torch, device, smi, timer, gen))
+    rows.update({("cp shard",) + k: v for k, v in
+                 cp_timings(torch, device, smi, timer).items()})
+    rows.update({("TP rank", k): v for k, v in
+                 tp_flash_timings(torch, device, smi, timer).items()})
     import numpy as np
     from repro_torch.kernels.waterfill import water_fill, water_fill_plain
     # the fairness and replay phases' 3- and 4-tenant problems (most of
@@ -4637,10 +5093,21 @@ def main() -> int:
         torch, device, cfg, cfg.num_layers,
         {"flash_attention": flash_attention},
         {"decode_attention": decode_attention})
+    served_tokens = {r.req_id: list(r.generated) for r in eng.completed}
     phase_profile(torch, device, eng)
     phase_parity(torch, device, eng)
     del eng
     torch.cuda.empty_cache()
+
+    # the model axis: the cp decode's and the TP ranks' kernel work at full
+    # width, then the same llama3.2-3b served through the sharded path
+    seconds = {}
+    t_phase = time.perf_counter()
+    dist_launches, dist_checks = phase_distribution(torch, device, cfg,
+                                                    served_tokens)
+    for k, v in dist_launches.items():
+        launches[k] += v
+    seconds["distribution"] = time.perf_counter() - t_phase
 
     # the ssm family: full-width mamba2-370m, its prefill through the SSD
     # scan kernel, its decode an O(1) state update in plain torch
@@ -4658,7 +5125,6 @@ def main() -> int:
     # the vlm family: full-width chameleon-34b at full depth, 64 GiB of
     # bf16 weights, through both attention kernels; then its first layers
     # at f32 once the bf16 model is freed
-    seconds = {}
     t_phase = time.perf_counter()
     vlm_cfg = get_config("chameleon-34b")
     left = torch.cuda.memory_allocated()
@@ -4794,6 +5260,30 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the same two kernels at the model axis's per-rank shapes at tp 16:
+    # no main path runs them there (the sharded serve is a world of one),
+    # so their main-path launches are 0 and the distribution phase's
+    # checks at those shapes stand beside them as check_launches
+    for name, row, check, base, replaces in (
+            ("flash_attention (TP rank, tp 16)", rows[("TP rank", 16)],
+             dist_checks["flash_attention"][16], "flash_attention",
+             "src/repro/kernels/flash_attention.py:87"),
+            ("decode_attention (cp shard, tp 16)",
+             rows[("cp shard",) + VLM_HEADS[:1] + (16,)],
+             dist_checks["decode_attention"][(VLM_HEADS[0], 16)],
+             "decode_attention",
+             "src/repro/kernels/decode_attention.py:64")):
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{base}.cu",
+            "replaces": replaces, "launches": 0,
+            "check_launches": check["launches"],
+            "max_abs_err": check["max_abs_err"],
+            **({"max_rel_err": check["max_rel_err"]}
+               if "max_rel_err" in check else {}),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     seconds["script"] = time.perf_counter() - t_script
     emit({"phase": "seconds", **seconds})
     emit({"kernels": summary})

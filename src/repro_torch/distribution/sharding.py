@@ -1,0 +1,442 @@
+"""Logical-axis sharding rules with divisibility-aware fallback, on a DeviceMesh.
+
+The counterpart of ``repro/distribution/sharding.py``. Every parameter,
+cache and activation dimension is named with a *logical* axis ("batch",
+"heads", "ffn", ...). ``spec_for`` maps logical axes to mesh axes by
+priority, dropping any candidate whose mesh size does not divide the
+actual dimension (the head counts 12/24/25/56 against a 16-way model
+axis); models never name mesh axes. The rule tables and their resolution
+are plain Python and need only the mesh's axis sizes: a ``DeviceMesh``, a
+``core/nsm.py::MeshAxes`` or an ``{axis: size}`` dict.
+
+A spec is the port's own: a tuple with one entry per leading dimension,
+each ``None`` (replicated), a mesh axis, or a tuple of mesh axes used
+together, trailing ``None``s trimmed. It compares equal to
+``tuple(jax_spec)`` of the reference's ``PartitionSpec``.
+
+The layout half maps a spec onto DTensor placements: ``placements_for``
+gives one ``Shard(dim)`` or ``Replicate()`` per mesh dim. A tensor dim
+sharded over two mesh axes (``("pod", "data")``) is split by DTensor in
+mesh-dim order, which is XLA's order only when the tuple is in mesh
+order: every tuple of the rule tables is (asserted below), and
+``placements_for`` refuses any other by name. ``shard_slices`` gives the
+same blocks as plain slices, which is how the port materializes a rank's
+shard of a weight or a cache without building the whole tensor.
+
+``ShardingCtx`` is threaded through the port's sharded forward. Besides
+the reference's ``spec``/``constrain``/``constrain_act``/``axis_sizes``/
+``tp``, it carries the ``MeshAxes`` whose process groups the forward's
+collectives use, and sends them through the ``nk_*`` verbs and the
+installed ``CoreEngine`` (its own native engine when none is installed),
+so the operator's routing table sees the serving traffic. Weights on the
+serving path are laid out by the context's rules with ``pod`` and ``data``
+stripped (``weight_spec``): model-sharded and replicated over the batch
+axes, the layout of the reference's ``TP_RULES``; caches and activations
+keep the full rules, so the batch splits over ``data``.
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.launch.mesh import POD_AXES, axis_sizes as _axis_sizes
+
+# logical axis -> ordered candidates; each candidate is a mesh axis or a
+# tuple of mesh axes (used together). First candidate that (a) exists in the
+# mesh and (b) divides the dim size wins; otherwise the dim is replicated.
+LOGICAL_RULES: Dict[str, Tuple] = {
+    "batch": (("pod", "data"), "data"),
+    "embed": ("data",),           # FSDP: parameter rows sharded over data
+    "embed_tp": ("model",),       # output-proj rows: TP contraction dim
+    "heads": ("model",),
+    "kv_heads": (),               # replicated (kv < tp in most assigned archs)
+    "head_dim": (),
+    "ffn": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "expert_group": ("data",),    # MoE dispatch group dim (GShard 2D layout)
+    "expert_cap": ("data",),      # MoE (E, C, D) capacity dim
+    "expert_ff": (),
+    "seq": (),
+    "seq_sp": ("model",),         # Megatron-SP activation sharding
+    "kv_seq": ("model",),         # context-parallel decode cache
+    "ssm_heads": ("model",),
+    "ssm_state": (),
+    "conv": (),
+    "layers": (),                 # stacked-layer leading dim
+    "stage": ("pod",),            # pipeline stages
+    "none": (),
+}
+
+# Pure-FSDP variant: the whole mesh acts as one data/param-sharding axis.
+FSDP_RULES: Dict[str, Tuple] = dict(
+    LOGICAL_RULES,
+    batch=(("pod", "data", "model"), ("data", "model"), "data"),
+    embed=(("data", "model"), "data"),
+    heads=(), ffn=(), vocab=(), experts=(), ssm_heads=(),
+    seq_sp=(),
+)
+
+# Serving/TP variant: weights live model-sharded and are never gathered;
+# they replicate over 'data'.
+TP_RULES: Dict[str, Tuple] = dict(
+    LOGICAL_RULES,
+    embed=(),
+)
+
+RULE_VARIANTS = {"2d": LOGICAL_RULES, "fsdp": FSDP_RULES, "tp": TP_RULES}
+
+
+def _in_mesh_order(cand: Tuple[str, ...]) -> bool:
+    at = [POD_AXES.index(a) for a in cand]
+    return at == sorted(at)
+
+
+# DTensor splits a dim sharded over several mesh dims in mesh-dim order;
+# XLA splits it in the tuple's order. They agree because every tuple is in
+# mesh order.
+assert all(_in_mesh_order(c) for rules in RULE_VARIANTS.values()
+           for cands in rules.values() for c in cands
+           if isinstance(c, tuple))
+
+
+def make_rules(variant: str) -> Dict[str, Tuple]:
+    return RULE_VARIANTS[variant]
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    return _axis_sizes(mesh)
+
+
+def strip_axes_from_rules(axes: Tuple[str, ...],
+                          rules: Optional[Dict[str, Tuple]] = None
+                          ) -> Dict[str, Tuple]:
+    """Rules with the given mesh axes removed (e.g. the serving weights'
+    layout, replicated over the batch axes)."""
+    rules = dict(rules or LOGICAL_RULES)
+    out: Dict[str, Tuple] = {}
+    for k, cands in rules.items():
+        new = []
+        for c in cands:
+            if isinstance(c, tuple):
+                c = tuple(a for a in c if a not in axes)
+                if len(c) == 1:
+                    c = c[0]
+                if not c:
+                    continue
+            elif c in axes:
+                continue
+            new.append(c)
+        out[k] = tuple(new)
+    return out
+
+
+def _candidate_size(cand, sizes: Dict[str, int]) -> Optional[int]:
+    if isinstance(cand, tuple):
+        n = 1
+        for a in cand:
+            if a not in sizes:
+                return None
+            n *= sizes[a]
+        return n
+    return sizes.get(cand)
+
+
+def resolve_dim(logical: Optional[str], dim_size: int, sizes: Dict[str, int],
+                rules: Optional[Dict[str, Tuple]] = None):
+    """Mesh axis (or axes tuple) for one dimension, or None (replicate)."""
+    if logical is None or logical == "none":
+        return None
+    rules = rules or LOGICAL_RULES
+    if logical not in rules:
+        raise KeyError(f"unknown logical axis {logical!r}")
+    for cand in rules[logical]:
+        n = _candidate_size(cand, sizes)
+        if n is None or n == 0:
+            continue
+        if dim_size % n == 0:
+            return cand
+    return None
+
+
+def _flat(cand) -> Tuple[str, ...]:
+    if cand is None:
+        return ()
+    return cand if isinstance(cand, tuple) else (cand,)
+
+
+def spec_for(shape: Sequence[int], dims: Sequence[Optional[str]], mesh,
+             rules: Optional[Dict[str, Tuple]] = None) -> Tuple:
+    assert len(shape) == len(dims), (shape, dims)
+    sizes = mesh_axis_sizes(mesh)
+    used: set = set()
+    entries = []
+    for size, logical in zip(shape, dims):
+        cand = resolve_dim(logical, size, sizes, rules)
+        flat = _flat(cand)
+        # a mesh axis may appear at most once per spec
+        if any(a in used for a in flat):
+            cand, flat = None, ()
+        used.update(flat)
+        entries.append(cand)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+# ---------------------------------------------------------------------------
+# Layout: DTensor placements and plain slices of a spec
+# ---------------------------------------------------------------------------
+
+
+def placements_for(spec: Tuple, mesh) -> Tuple:
+    """One DTensor placement per mesh dim: ``Shard(d)`` where tensor dim
+    ``d``'s spec entry names that mesh axis, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh_axis_sizes(mesh))
+    out = [Replicate() for _ in names]
+    for d, cand in enumerate(spec):
+        flat = _flat(cand)
+        at = [names.index(a) if a in names else -1 for a in flat]
+        if -1 in at:
+            raise ValueError(f"spec {spec} names an axis outside the mesh "
+                             f"{names}")
+        if at != sorted(at):
+            raise ValueError(f"spec entry {cand} is not in mesh order "
+                             f"{names}: DTensor would split dim {d} in "
+                             f"another order than XLA")
+        for i in at:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def sharding_for(shape, dims, mesh, rules=None) -> Tuple:
+    return placements_for(spec_for(shape, dims, mesh, rules), mesh)
+
+
+def _tree_map(fn, tree):
+    from repro_torch.models.schema import ParamDesc
+    if isinstance(tree, ParamDesc):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return type(tree)(_tree_map(fn, v) for v in tree)
+
+
+def param_shardings(schema, mesh, rules=None):
+    """The schema's tree with every ``ParamDesc`` replaced by its DTensor
+    placements on ``mesh``."""
+    return _tree_map(lambda d: sharding_for(d.shape, d.dims, mesh, rules),
+                     schema)
+
+
+def _block(cand, sizes: Dict[str, int], coord: Dict[str, int]):
+    """(index, count) of this rank's block of a dim sharded over ``cand``:
+    row-major over the candidate's axes, as DTensor and XLA split it."""
+    idx, n = 0, 1
+    for a in _flat(cand):
+        idx = idx * sizes[a] + coord[a]
+        n *= sizes[a]
+    return idx, n
+
+
+def local_shape(shape: Sequence[int], spec: Tuple, mesh) -> Tuple[int, ...]:
+    sizes = mesh_axis_sizes(mesh)
+    out = list(shape)
+    for d, cand in enumerate(spec):
+        out[d] //= _candidate_size(cand, sizes) if cand else 1
+    return tuple(out)
+
+
+def shard_slices(shape: Sequence[int], spec: Tuple, mesh,
+                 coord: Dict[str, int]) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of ``shape`` laid out by ``spec``, as
+    one slice per dim; ``coord`` is the rank's index on each mesh axis."""
+    sizes = mesh_axis_sizes(mesh)
+    out = [slice(0, n) for n in shape]
+    for d, cand in enumerate(spec):
+        if cand:
+            idx, n = _block(cand, sizes, coord)
+            w = shape[d] // n
+            out[d] = slice(idx * w, (idx + 1) * w)
+    return tuple(out)
+
+
+def constrain(x, dims, mesh, rules=None):
+    """``with_sharding_constraint`` by logical dims: ``redistribute`` a
+    DTensor to the placements the rules give; a plain tensor (the port's
+    explicit per-rank shards) is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, sharding_for(
+        tuple(x.shape), dims, x.device_mesh, rules))
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def padded_heads(num_heads: int, mesh) -> int:
+    """Q-heads padded up to the model-axis multiple (the inert-head scheme:
+    the head mask zeroes the padded heads in both directions, see
+    ``models/attention.py``)."""
+    tp = mesh_axis_sizes(mesh).get("model", 1)
+    if num_heads % tp == 0:
+        return num_heads
+    return pad_to_multiple(num_heads, tp)
+
+
+# ---------------------------------------------------------------------------
+# The context threaded through the sharded forward
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ShardingCtx:
+    """Resolves logical dims on ``mesh`` and runs the forward's collectives.
+
+    ``mesh``: a ``DeviceMesh`` (its groups are built here, on every rank,
+    in one order: group creation is collective), a ``MeshAxes`` already
+    built from one, an ``{axis: size}`` dict (rule math only, no
+    collectives), or None (one device)."""
+
+    mesh: object
+    rules: Optional[Dict[str, Tuple]] = None
+    seq_parallel: bool = False
+    axes: object = field(default=None, init=False, repr=False)
+    _native: object = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        from repro_torch.core.nsm import MeshAxes
+        if self.mesh is None or isinstance(self.mesh, dict):
+            return
+        self.axes = self.mesh if isinstance(self.mesh, MeshAxes) \
+            else MeshAxes(self.mesh)
+        from repro_torch.core.engine import make_engine
+        self._native = make_engine(self.axes, "xla")
+
+    # -- the reference's surface -------------------------------------------
+    def spec(self, shape, dims) -> Tuple:
+        return spec_for(shape, dims, self.mesh, self.rules)
+
+    def constrain(self, x, dims):
+        if self.mesh is None:
+            return x
+        return constrain(x, dims, self.mesh, self.rules)
+
+    def constrain_act(self, x, with_seq_dim=1):
+        """Standard activation constraint (batch[, seq-SP])."""
+        dims: list = [None] * x.ndim
+        dims[0] = "batch"
+        if self.seq_parallel and x.ndim > with_seq_dim:
+            dims[with_seq_dim] = "seq_sp"
+        return self.constrain(x, dims)
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        return {} if self.mesh is None else mesh_axis_sizes(self.mesh)
+
+    @property
+    def tp(self) -> int:
+        return self.axis_sizes.get("model", 1)
+
+    # -- layout of the port's per-rank shards ------------------------------
+    @property
+    def size(self) -> int:
+        """Ranks in the mesh."""
+        return math.prod(self.axis_sizes.values()) if self.axis_sizes else 1
+
+    @property
+    def weight_rules(self) -> Dict[str, Tuple]:
+        return strip_axes_from_rules(("pod", "data"), self.rules)
+
+    def weight_spec(self, shape, dims) -> Tuple:
+        """A weight's layout on the serving path: model-sharded, replicated
+        over the batch axes."""
+        return spec_for(shape, dims, self.mesh, self.weight_rules)
+
+    def coord(self) -> Dict[str, int]:
+        if self.axes is None:
+            raise ValueError("this ShardingCtx has axis sizes only; a rank's "
+                             "coordinates need a DeviceMesh or MeshAxes")
+        return {a: self.axes.index(a) for a in self.axes}
+
+    def index(self, axis: str) -> int:
+        return self.axes.index(axis) if axis in self.axis_sizes else 0
+
+    def slices(self, shape, spec) -> Tuple[slice, ...]:
+        return shard_slices(shape, spec, self.mesh, self.coord())
+
+    def split(self, logical: str, size: int):
+        """The mesh axis (or axes) a dim of ``size`` named ``logical`` is
+        sharded over by the context's rules, or None."""
+        if self.mesh is None:
+            return None
+        return resolve_dim(logical, size, self.axis_sizes, self.rules)
+
+    def block(self, cand, size: int) -> slice:
+        """This rank's range of a dim of ``size`` sharded over ``cand``."""
+        if not cand:
+            return slice(0, size)
+        idx, n = _block(cand, self.axis_sizes, self.coord())
+        return slice(idx * (size // n), (idx + 1) * (size // n))
+
+    # -- the wire: nk_* verbs through the installed (or own) engine --------
+    def _wire(self):
+        from repro_torch.core.collectives import current_engine, use_engine
+        return use_engine(current_engine() or self._native)
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``lax.psum`` through ``nk_psum``. A bf16 tensor is summed in f32
+        and rounded once, as the reference's partitioned all-reduce does:
+        a bf16 sum rounds after every rank's term."""
+        from repro_torch.core.collectives import nk_psum
+        with self._wire():
+            if x.dtype == torch.bfloat16:
+                return nk_psum(x.float(), _flat(axes),
+                               serving=True).to(x.dtype)
+            return nk_psum(x, _flat(axes), serving=True)
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        from repro_torch.core.collectives import nk_all_gather
+        with self._wire():
+            return nk_all_gather(x, _flat(axes), axis=dim, tiled=True)
+
+    def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        from repro_torch.core.collectives import nk_ppermute
+        with self._wire():
+            return nk_ppermute(x, axis, perm=perm)
+
+    def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``lax.pmax``: not an ``nk_*`` verb, a MAX all-reduce on the
+        axis's group."""
+        import torch.distributed as dist
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                        group=self.axes.group((axis,)))
+        return out
+
+    def agreed_now(self, now: Optional[float]) -> float:
+        """One clock for every rank's host decisions: ``now``, or the
+        first rank's monotonic time, broadcast over the mesh."""
+        if now is not None or self.size == 1:
+            return time.monotonic() if now is None else now
+        import torch.distributed as dist
+        t = torch.tensor([time.monotonic()], dtype=torch.float64,
+                         device=_group_device(self))
+        group = self.axes.group(tuple(self.axes))
+        dist.broadcast(t, group=group,
+                       src=dist.get_global_rank(group, 0))
+        return float(t.item())
+
+
+def _group_device(ctx: ShardingCtx) -> torch.device:
+    mesh = ctx.axes.mesh
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

@@ -1,6 +1,7 @@
 from repro_torch.models.model import (
-    Model, Segment, build_schedule, cache_schema, encode, forward_decode,
-    forward_prefill, forward_train, init_cache, input_specs, model_schema,
+    Model, Segment, build_schedule, cache_schema, check_sharded, encode,
+    forward_decode, forward_prefill, forward_train, gather_logits, greedy,
+    init_cache, input_specs, model_schema,
 )
 from repro_torch.models.params import (
     Slot, cache_from_jax, init_params, opt_slots, params_from_jax,
@@ -8,9 +9,9 @@ from repro_torch.models.params import (
 )
 
 __all__ = [
-    "Model", "Segment", "build_schedule", "cache_schema", "encode",
-    "forward_decode", "forward_prefill", "forward_train", "init_cache",
-    "input_specs", "model_schema",
+    "Model", "Segment", "build_schedule", "cache_schema", "check_sharded",
+    "encode", "forward_decode", "forward_prefill", "forward_train",
+    "gather_logits", "greedy", "init_cache", "input_specs", "model_schema",
     "Slot", "cache_from_jax", "init_params", "opt_slots", "params_from_jax",
     "train_state_from_jax", "train_state_to_numpy",
 ]

@@ -34,10 +34,27 @@ whisper's decoder layers add a cross-attention over the encoder output
 prefill and in training; at decode the decode kernel reads the cached
 encoder k/v (``ck``/``cv``) at ``pos = T - 1`` and writes nothing.
 
-On one device the query heads are never padded (the reference's
-``padded_heads`` returns ``h``), so the head mask is all ones and is not
-applied on the path; ``head_mask``/``q_to_kv_map`` keep the reference's
-general definitions.
+On a mesh whose model axis does not divide the query heads, the schemas
+pad them up to its multiple (``padded_heads``), as the reference does: the
+padded heads' weights are drawn like the real ones, the head mask zeroes
+their output before the out-projection (which zeroes their gradients too),
+and ``q_to_kv_map`` sends them to the last kv head. On one device ``hp ==
+h`` and the mask is not applied.
+
+**The sharded path** (a ``ShardingCtx`` on a mesh: the dense family; the
+other families refuse a mesh, ``models/model.py::check_sharded``) splits
+the work explicitly on each rank's shards. Each rank projects its ``heads``
+slice of ``wq`` with the whole ``wk``/``wv`` (kv heads have no mesh
+candidate, so they are replicated), runs flash at prefill on its local
+query heads (``_local_kv`` gives the kernel the kv heads they read, as a
+contiguous grouped slice where the local heads cover whole groups or one
+group, else gathered per head at group 1), applies the mask, and sums the
+row-parallel ``wo`` products over ``model`` (``nk_psum``). Decode gathers
+q over ``model`` and runs ``decode_attention_cp``: with the cache's
+sequence dim sharded over ``model`` (``kv_seq``), each rank launches the
+decode kernel on its contiguous chunk at its local positions and the
+shards combine their ``(o, m, l)`` by log-sum-exp (``lse_combine``); only
+the rank whose chunk holds ``pos`` writes the new row.
 
 DeepSeek-V2's multi-head latent attention (``mla_attention``) caches one
 latent row per position, ``lat = concat(c_kv, k_pe)``: the rms-normed
@@ -59,6 +76,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution.sharding import padded_heads
 from repro_torch.kernels.decode_attention import (
     decode_attention as decode_kernel, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
@@ -70,13 +88,19 @@ from repro_torch.models.schema import ParamDesc
 NEG_INF = -2.0e30
 
 
-def attn_schema(cfg: ModelConfig) -> Dict:
+def attn_schema(cfg: ModelConfig, mesh=None) -> Dict:
+    """GQA weights, the query heads padded to the mesh's model axis."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hp = padded_heads(h, mesh) if mesh is not None else h
+    pd = cfg.param_dtype
     s = {
-        "wq": ParamDesc((d, h, hd), cfg.param_dtype),
-        "wk": ParamDesc((d, kv, hd), cfg.param_dtype),
-        "wv": ParamDesc((d, kv, hd), cfg.param_dtype),
-        "wo": ParamDesc((h, hd, d), cfg.param_dtype, fan_in=h * hd),
+        "wq": ParamDesc((d, hp, hd), pd, dims=("embed", "heads", "head_dim")),
+        "wk": ParamDesc((d, kv, hd), pd,
+                        dims=("embed", "kv_heads", "head_dim")),
+        "wv": ParamDesc((d, kv, hd), pd,
+                        dims=("embed", "kv_heads", "head_dim")),
+        "wo": ParamDesc((hp, hd, d), pd, fan_in=h * hd,
+                        dims=("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:
         s["q_norm"] = norm_schema(hd, "rmsnorm", cfg.param_dtype)
@@ -84,17 +108,21 @@ def attn_schema(cfg: ModelConfig) -> Dict:
     return s
 
 
-def mla_schema(cfg: ModelConfig) -> Dict:
+def mla_schema(cfg: ModelConfig, mesh=None) -> Dict:
     mla, d, h, pd = cfg.mla, cfg.d_model, cfg.num_heads, cfg.param_dtype
+    hp = padded_heads(h, mesh) if mesh is not None else h
     nope, rope, r = mla.qk_nope_head_dim, mla.qk_rope_head_dim, \
         mla.kv_lora_rank
+    heads = (None, "heads", "head_dim")
     return {
-        "wq": ParamDesc((d, h, nope + rope), pd),
-        "w_dkv": ParamDesc((d, r + rope), pd),
-        "w_uk": ParamDesc((r, h, nope), pd),
-        "w_uv": ParamDesc((r, h, mla.v_head_dim), pd),
-        "wo": ParamDesc((h, mla.v_head_dim, d), pd,
-                        fan_in=h * mla.v_head_dim),
+        "wq": ParamDesc((d, hp, nope + rope), pd,
+                        dims=("embed", "heads", "head_dim")),
+        "w_dkv": ParamDesc((d, r + rope), pd, dims=("embed", None)),
+        "w_uk": ParamDesc((r, hp, nope), pd, dims=heads),
+        "w_uv": ParamDesc((r, hp, mla.v_head_dim), pd, dims=heads),
+        "wo": ParamDesc((hp, mla.v_head_dim, d), pd,
+                        fan_in=h * mla.v_head_dim,
+                        dims=("heads", "head_dim", "embed")),
         "kv_norm": norm_schema(r, "rmsnorm", pd),
     }
 
@@ -368,10 +396,91 @@ def _cross_decode(p, q, cache: Dict, naive: bool):
     return _out(o[:, None], p["wo"])
 
 
+# ---------------------------------------------------------------------------
+# The sharded path: context-parallel decode and tensor-parallel heads
+# ---------------------------------------------------------------------------
+
+
+def lse_combine(o, m, l, reduce_max, reduce_sum):
+    """Partial softmaxes combined by log-sum-exp, in f32.
+
+    ``o`` (..., H, D) is each shard's normalized output, ``m`` and ``l``
+    (..., H) its running max and exp-sum (the decode kernel's outputs).
+    ``reduce_max``/``reduce_sum`` take a tensor to its max and sum over
+    the shards: a ``pmax`` and ``psum`` over ``model`` on the sharded path,
+    reductions over a leading stack dim in ``stacked_lse_combine``. A shard
+    with no live position (``m = NEG_INF``, ``l = 0``) weighs nothing."""
+    m_all = reduce_max(m)
+    w = torch.exp(m - m_all) * l
+    num = reduce_sum(o.float() * w[..., None])
+    return num / reduce_sum(w).clamp_min(1e-30)[..., None]
+
+
+def stacked_lse_combine(o, m, l):
+    """``lse_combine`` over shards stacked on dim 0: o (n, ..., H, D), m
+    and l (n, ..., H) -> (..., H, D) f32."""
+    return lse_combine(o, m, l, lambda t: t.amax(0, keepdim=True),
+                       lambda t: t.sum(0))
+
+
+def decode_attention_cp(q, k_c, v_c, pos, *, window, n_real_heads, shd,
+                        chunked: bool, scale=None, naive: bool = False):
+    """Context-parallel flash-decode over the model axis (the reference's
+    ``decode_attention_cp``).
+
+    q (B, 1, HP, hd), the whole (padded) heads on every rank; ``pos`` (B,)
+    int32 global positions, each already written into the cache. With
+    ``chunked`` each rank's ``k_c``/``v_c`` (B, S/tp, KV, hd) is its
+    contiguous chunk of the sequence: the decode kernel runs on it at
+    ``pos - rank * S/tp`` (negative past the chunk's start, where the
+    kernel gives the empty row) with the window unchanged, and the ranks
+    combine by ``lse_combine`` through one ``pmax`` and two ``psum``s
+    over ``model``. Without it (``tp == 1`` or ``S % tp != 0``) the kernel
+    reads the whole cache once, the reference's one-device fallback. The
+    kernel takes the real heads only (``HQ % KV == 0``; the padded heads'
+    map is not uniform), and the padded heads' output is zero. Returns
+    (B, 1, HP, hd) in q's dtype, the same on every rank of ``model``."""
+    b, _, hp, hd = q.shape
+    decode = decode_attention_plain if naive else decode_kernel
+    qr = q[:, 0, :n_real_heads].contiguous()
+    if not chunked:
+        o, _, _ = decode(qr, k_c, v_c, pos, window=window, scale=scale)
+    else:
+        local = pos - shd.index("model") * k_c.shape[1]
+        o, m, l = decode(qr, k_c, v_c, local.to(torch.int32),
+                         window=window, scale=scale)
+        o = lse_combine(o, m, l, lambda t: shd.pmax(t, "model"),
+                        lambda t: shd.psum(t, "model")).to(q.dtype)
+    if hp > n_real_heads:
+        o = torch.cat([o, o.new_zeros((b, hp - n_real_heads, hd))], dim=1)
+    return o[:, None]
+
+
+def _local_kv(k, v, h: int, hp: int, first: int, n: int):
+    """The kv heads that query heads ``first .. first + n - 1`` read, in a
+    layout the kernels take (``HQ % KV == 0``, head ``i`` reading kv head
+    ``i // (HQ // KV)``): a contiguous slice of kv heads where the local
+    heads are real and cover whole groups (group g) or lie in one group
+    (group n); otherwise each head's kv head gathered (group 1), which
+    also serves the padded heads, whose output the mask zeroes."""
+    kv = k.shape[2]
+    g = max(h // kv, 1)
+    last = first + n - 1
+    if last < h and first % g == 0 and n % g == 0:
+        sl = slice(first // g, (last + 1) // g)
+    elif last < h and first // g == last // g:
+        sl = slice(first // g, first // g + 1)
+    else:
+        kvm = q_to_kv_map(h, hp, kv, k.device)[first:first + n]
+        return k.index_select(2, kvm), v.index_select(2, kvm)
+    return k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+
+
 def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                   window=0, cache: Optional[Dict] = None, decode_pos=None,
                   ring: Optional[RingSlots] = None, return_cache=False,
-                  kv_x=None, cross_decode=False):
+                  kv_x=None, cross_decode=False, shd=None,
+                  max_seq: Optional[int] = None):
     """Unified GQA attention.
 
     Prefill and training: ``positions`` (S,); returns out (B,S,d) [and
@@ -392,9 +501,24 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
     is bf16, q widens (exactly) to f32 for the kernel, which takes one
     dtype, and the output rounds back to q's dtype, as the reference's
     mixed product does (ROADMAP P18). ``cross_decode`` reads the cached
-    encoder k/v (``cache`` {"ck", "cv"}) instead: see ``_cross_decode``."""
+    encoder k/v (``cache`` {"ck", "cv"}) instead: see ``_cross_decode``.
+
+    ``shd``: a ``ShardingCtx`` on a mesh runs the sharded path of the
+    module's docstring (self-attention over a linear cache, no grad; x
+    (B_local, S, d) is the same on every rank of ``model``, and so is the
+    result after the ``psum`` of the row-parallel out-projection; decode
+    needs ``max_seq``, the cache's global length)."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     naive = rcfg.attention_impl == "naive"
+    sharded = shd is not None and shd.mesh is not None
+    if sharded:
+        if torch.is_grad_enabled():
+            raise NotImplementedError("training on a mesh is not ported "
+                                      "yet (ROADMAP: the train side)")
+        tp, rank = shd.tp, shd.index("model")
+        n = p["wq"].shape[1]                   # this rank's query heads
+        hp, first = n * tp, rank * n
+        mask = head_mask(h, hp, x.dtype, x.device)[first:first + n, None]
     q = _heads(x, p["wq"])
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
@@ -405,18 +529,21 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
     vnew = _heads(src, p["wv"])
     if cfg.qk_norm:
         knew = apply_norm(p["k_norm"], knew, "rmsnorm")
-    use_rope = cfg.rope_theta > 0 and kv_x is None
+    prefill = cache is None or decode_pos is None
+    if cfg.rope_theta > 0 and kv_x is None:
+        cos, sin = rope_tables(positions if prefill else decode_pos[:, None],
+                               hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        knew = apply_rope(knew, cos, sin)
 
-    if cache is None or decode_pos is None:
-        # ---- prefill ----
-        if use_rope:
-            cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-            q = apply_rope(q, cos, sin)
-            knew = apply_rope(knew, cos, sin)
+    if prefill:
         q_dtype, kv_out = q.dtype, {"k": knew, "v": vnew}
         if q.dtype != knew.dtype:
             q = q.to(torch.promote_types(q.dtype, knew.dtype))
             knew, vnew = knew.to(q.dtype), vnew.to(q.dtype)
+        if sharded:
+            # the local query heads and the kv heads they read
+            knew, vnew = _local_kv(knew, vnew, h, hp, first, n)
         if naive:
             o = flash_attention_plain(q, knew, vnew, causal=causal,
                                       window=window)
@@ -427,24 +554,41 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                                        rcfg.attn_kv_block)
         else:
             o = flash_attention(q, knew, vnew, causal=causal, window=window)
-        out = _out(o.to(q_dtype), p["wo"])
+        o = o.to(q_dtype)
+        out = shd.psum(_out(o * mask, p["wo"]), "model") if sharded \
+            else _out(o, p["wo"])
         return (out, kv_out) if return_cache else out
 
     # ---- decode ----
     b = x.shape[0]
-    if use_rope:
-        cos, sin = rope_tables(decode_pos[:, None], hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        knew = apply_rope(knew, cos, sin)
     k_c, v_c = cache["k"], cache["v"]
     n_slots = k_c.shape[1]
+    rows = torch.arange(b, device=x.device)
+    if sharded:
+        if max_seq is None:
+            raise ValueError("decode on a mesh needs max_seq, the cache's "
+                             "global length")
+        # the new row goes into the chunk that holds it
+        chunked = shd.split("kv_seq", max_seq) is not None and tp > 1
+        local = decode_pos.long() - (rank * n_slots if chunked else 0)
+        inside = ((local >= 0) & (local < n_slots))[:, None, None]
+        slot = local.clamp(0, n_slots - 1)
+        k_c[rows, slot] = torch.where(inside, knew[:, 0].to(k_c.dtype),
+                                      k_c[rows, slot])
+        v_c[rows, slot] = torch.where(inside, vnew[:, 0].to(v_c.dtype),
+                                      v_c[rows, slot])
+        o = decode_attention_cp(shd.all_gather(q, "model", 2), k_c, v_c,
+                                decode_pos.to(torch.int32), window=window,
+                                n_real_heads=h, shd=shd, chunked=chunked,
+                                naive=naive)
+        o = o[:, :, first:first + n] * mask
+        return shd.psum(_out(o, p["wo"]), "model"), {"k": k_c, "v": v_c}
     if ring is None and is_ring(window, n_slots):
         ring = ring_slots(decode_pos, n_slots, kv_pos=naive)
     # In-place row write. The reference rebuilds the whole cache with a
     # one-hot where (a scatter would make its partitioner all-gather a
     # sequence-sharded cache); on one device the row write saves a full
     # cache copy per layer per step.
-    rows = torch.arange(b, device=x.device)
     slot = decode_pos.long() if ring is None else ring.slot
     k_c[rows, slot] = knew[:, 0].to(k_c.dtype)
     v_c[rows, slot] = vnew[:, 0].to(v_c.dtype)

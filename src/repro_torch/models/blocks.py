@@ -42,16 +42,19 @@ def check_kind(kind: str) -> str:
     return kind
 
 
-def block_schema(cfg: ModelConfig, kind: str) -> Dict:
+def block_schema(cfg: ModelConfig, kind: str, mesh=None) -> Dict:
+    """One layer's weights; ``mesh`` pads the query heads to its model
+    axis (``attention.attn_schema``)."""
     check_kind(kind)
     d, nk, pd = cfg.d_model, cfg.norm, cfg.param_dtype
     if kind == "ssm":
         return {"ln1": norm_schema(d, nk, pd), "ssm": ssm_schema(cfg)}
     s = {"ln1": norm_schema(d, nk, pd),
-         "attn": mla_schema(cfg) if cfg.mla is not None
-         else attn_schema(cfg)}
+         "attn": mla_schema(cfg, mesh) if cfg.mla is not None
+         else attn_schema(cfg, mesh)}
     if kind == "dec":
-        s.update(ln_cross=norm_schema(d, nk, pd), cross=attn_schema(cfg))
+        s.update(ln_cross=norm_schema(d, nk, pd),
+                 cross=attn_schema(cfg, mesh))
     if kind == "hybrid":
         s.update(ssm=ssm_schema(cfg), attn_out_norm=norm_schema(d, nk, pd),
                  ssm_out_norm=norm_schema(d, nk, pd))
@@ -78,18 +81,28 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int, seq: int,
         return {}
     if cfg.mla is not None:
         width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
-        return {"lat": ParamDesc((batch, seq, width), dtype, "zeros")}
+        return {"lat": ParamDesc((batch, seq, width), dtype, "zeros",
+                                 dims=("batch", "kv_seq", None))}
     n = min(seq, window) if window else seq
     shape = (batch, n, cfg.num_kv_heads, cfg.head_dim)
-    s = {"k": ParamDesc(shape, dtype, "zeros"),
-         "v": ParamDesc(shape, dtype, "zeros")}
+    dims = ("batch", "kv_seq", "kv_heads", "head_dim")
+    s = {"k": ParamDesc(shape, dtype, "zeros", dims=dims),
+         "v": ParamDesc(shape, dtype, "zeros", dims=dims)}
     if kind == "dec":
         cross = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
-        s.update(ck=ParamDesc(cross, dtype, "zeros"),
-                 cv=ParamDesc(cross, dtype, "zeros"))
+        dims = ("batch", None, "kv_heads", "head_dim")
+        s.update(ck=ParamDesc(cross, dtype, "zeros", dims=dims),
+                 cv=ParamDesc(cross, dtype, "zeros", dims=dims))
     if kind == "hybrid":
         s.update(ssm_cache_schema(cfg, batch, dtype))
     return s
+
+
+def _sharded(shd, max_seq) -> Dict:
+    """The sharded path's keywords, passed only on a mesh."""
+    if shd is None or shd.mesh is None:
+        return {}
+    return {"shd": shd, "max_seq": max_seq}
 
 
 def _attn(p, h, cfg: ModelConfig, rcfg, **kw):
@@ -107,7 +120,9 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                 positions=None, window: int = 0,
                 cache: Optional[Dict] = None, decode_pos=None,
                 ring: Optional[RingSlots] = None, enc_out=None,
-                mode: str = "prefill") -> Tuple[torch.Tensor, Dict, Dict]:
+                mode: str = "prefill", shd=None,
+                max_seq: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict, Dict]:
     """One layer. ``mode`` is "train" (no cache: returns None for it),
     "prefill" (returns the layer's new cache: k/v or an MLA latent, the
     SSM state and conv tails, or both; a ``dec`` layer's ``ck``/``cv``
@@ -118,7 +133,10 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     output a ``dec`` layer attends to at prefill and in training. Returns
     (x', cache, aux): aux holds a ``moe`` layer's losses and routing
     statistics (``moe.AUX_KEYS``) and is empty for the other kinds; the
-    cache never holds them."""
+    cache never holds them. ``shd``: a ``ShardingCtx`` on a mesh (a
+    ``dense`` layer, whose decode needs ``max_seq``): attention and the
+    MLP run on this rank's shards (``attention.gqa_attention``,
+    ``layers.apply_mlp``)."""
     check_kind(kind)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -136,11 +154,12 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     elif decode:
         a, new_cache = _attn(p["attn"], h, cfg, rcfg, positions=positions,
                              window=window, cache=cache,
-                             decode_pos=decode_pos, ring=ring)
+                             decode_pos=decode_pos, ring=ring,
+                             **_sharded(shd, max_seq))
     else:
         a, new_cache = _attn(p["attn"], h, cfg, rcfg, positions=positions,
                              window=window, causal=kind != "enc",
-                             return_cache=True)
+                             return_cache=True, **_sharded(shd, max_seq))
     if kind == "hybrid":
         s, ssm_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
                                  decode=decode)
@@ -167,4 +186,4 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     if kind == "moe":
         y, aux = apply_moe(p["moe"], h, cfg)
         return x + y, new_cache, aux
-    return x + apply_mlp(p["mlp"], h, cfg.activation), new_cache, {}
+    return x + apply_mlp(p["mlp"], h, cfg.activation, shd), new_cache, {}

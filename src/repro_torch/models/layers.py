@@ -36,9 +36,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def norm_schema(d: int, kind: str, dtype: str):
     if kind == "layernorm":
-        return {"scale": ParamDesc((d,), dtype, "ones"),
-                "bias": ParamDesc((d,), dtype, "zeros")}
-    return {"scale": ParamDesc((d,), dtype, "ones")}
+        return {"scale": ParamDesc((d,), dtype, "ones", dims=("none",)),
+                "bias": ParamDesc((d,), dtype, "zeros", dims=("none",))}
+    return {"scale": ParamDesc((d,), dtype, "ones", dims=("none",))}
 
 
 def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-5):
@@ -60,14 +60,23 @@ def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-5):
 
 
 def mlp_schema(d: int, ff: int, activation: str, dtype: str):
-    s = {"w_in": ParamDesc((d, ff), dtype),
-         "w_out": ParamDesc((ff, d), dtype)}
+    s = {"w_in": ParamDesc((d, ff), dtype, dims=("embed", "ffn")),
+         "w_out": ParamDesc((ff, d), dtype, dims=("ffn", "embed"))}
     if activation == "silu_glu":
-        s["w_gate"] = ParamDesc((d, ff), dtype)
+        s["w_gate"] = ParamDesc((d, ff), dtype, dims=("embed", "ffn"))
     return s
 
 
-def apply_mlp(p, x: torch.Tensor, activation: str):
+def _split(p, key: str, dim: int):
+    """The mesh axis a ``ParamTree`` leaf is sharded over at ``dim``."""
+    spec = p.spec(key) if hasattr(p, "spec") else ()
+    return spec[dim] if len(spec) > dim else None
+
+
+def apply_mlp(p, x: torch.Tensor, activation: str, shd=None):
+    """The MLP; with a ``ShardingCtx`` whose rules shard ``ffn``, the rank
+    holds ``w_in``/``w_gate`` by column and ``w_out`` by row, and the
+    partial products are summed over ``model``."""
     h = matmul(x, p["w_in"])
     if activation == "silu_glu":
         g = matmul(x, p["w_gate"])
@@ -76,7 +85,9 @@ def apply_mlp(p, x: torch.Tensor, activation: str):
         h = torch.square(F.relu(f32(h))).to(x.dtype)
     else:  # gelu (tanh approximation, jax.nn.gelu's default)
         h = F.gelu(f32(h), approximate="tanh").to(x.dtype)
-    return matmul(h, p["w_out"])
+    out = matmul(h, p["w_out"])
+    axis = _split(p, "w_out", 0) if shd is not None else None
+    return shd.psum(out, axis) if axis else out
 
 
 # ---------------------------------------------------------------------------
@@ -125,17 +136,32 @@ def sinusoid_positions(positions: torch.Tensor, d_model: int):
 
 
 def embed_schema(vocab: int, d: int, dtype: str, tie: bool):
-    s = {"tokens": ParamDesc((vocab, d), dtype, init_scale=1.0)}
+    s = {"tokens": ParamDesc((vocab, d), dtype, init_scale=1.0,
+                             dims=("vocab", "embed"))}
     if not tie:
-        s["head"] = ParamDesc((vocab, d), dtype, fan_in=d)
+        s["head"] = ParamDesc((vocab, d), dtype, fan_in=d,
+                              dims=("vocab", "embed"))
     return s
 
 
-def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype):
-    return F.embedding(tokens.long(), p["tokens"]).to(dtype)
+def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype, shd=None):
+    """Token embeddings. With the table vocab-sharded over ``model`` the
+    rank looks up the tokens in its range, zeroes the others and sums over
+    ``model``: one nonzero term per token, so the sum is exact."""
+    axis = _split(p, "tokens", 0) if shd is not None else None
+    if not axis:
+        return F.embedding(tokens.long(), p["tokens"]).to(dtype)
+    n = p["tokens"].shape[0]
+    idx = tokens.long() - shd.index(axis) * n
+    inside = (idx >= 0) & (idx < n)
+    e = F.embedding(idx.clamp(0, n - 1), p["tokens"]) \
+        * inside[..., None].to(p["tokens"].dtype)
+    return shd.psum(e, axis).to(dtype)
 
 
 def lm_logits(p, x: torch.Tensor, softcap: float = 0.0):
+    """Logits over the head's rows: this rank's vocab shard where the head
+    is vocab-sharded (``models.model.greedy`` combines shards' argmax)."""
     w = p.get("head", p["tokens"])
     logits = x @ w.T
     if softcap:

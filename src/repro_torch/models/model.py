@@ -29,6 +29,19 @@ reference's stub too); both add sinusoid positions to their inputs, and
 ``input_specs`` gives a cell's inputs as meta tensors. ``forward_train``
 takes every family; parameters are made frozen, and a trainer turns
 ``requires_grad`` on for its own model (``train.train_loop``).
+
+**On a mesh.** A ``Model`` made with a ``ShardingCtx`` (the dense and vlm
+families; ``check_sharded`` refuses the others by name) holds each rank's
+shard of its weights (``schema.ParamTree``), with the query heads padded
+to the model axis (``model_schema(cfg, mesh)``). ``forward_prefill`` and
+``forward_decode`` then run the reference's function on the same mesh
+with the work split explicitly: the batch rows over ``data`` (each data
+rank takes its rows of the global ``tokens``/``pos``), attention heads,
+the MLP's ``ffn`` and the vocabulary over ``model``, and the k/v cache's
+sequence over ``model`` (``kv_seq``; ``init_cache(..., shd=)`` and the
+prefill give each rank its chunk). Their logits are the rank's vocab
+shard of its rows; ``greedy`` takes them to global token ids and
+``gather_logits`` to the full logits.
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.distribution.sharding import local_shape
 from repro_torch.models.attention import is_ring, ring_slots
 from repro_torch.models.blocks import apply_block, block_cache_schema, \
     block_schema
@@ -99,22 +113,38 @@ def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
     return (Segment("dense", cfg.num_layers),)
 
 
-def model_schema(cfg: ModelConfig) -> Dict:
+def check_sharded(cfg: ModelConfig, shd) -> None:
+    """Raise for a model the sharded path does not serve: on a mesh the
+    port runs the dense family (dense and vlm schedules, GQA over linear
+    caches) only, one device anything."""
+    if shd is None or shd.mesh is None:
+        return
+    if cfg.family not in ("dense", "vlm") or cfg.mla is not None \
+            or cfg.attn_window:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family has no sharded path yet; "
+            f"on a mesh the port serves the dense family only (ROADMAP: "
+            f"the model axis for the other families)")
+
+
+def model_schema(cfg: ModelConfig, mesh=None) -> Dict:
     """Per-layer (unstacked) parameter schema: ``layers`` holds one block
     schema per layer, in schedule order; an encoder model's ``encoder``
     holds its ``layers`` (``encoder_layers`` ``enc`` blocks, the
-    reference's ``encoder.segments[0]``) and its ``final_norm``."""
+    reference's ``encoder.segments[0]``) and its ``final_norm``. ``mesh``
+    pads the query heads to its model axis, as the reference does; with
+    none the shapes are the one-device ones."""
     s = {
         "embed": embed_schema(cfg.vocab_size, cfg.d_model, cfg.param_dtype,
                               cfg.tie_embeddings),
         "final_norm": norm_schema(cfg.d_model, cfg.norm, cfg.param_dtype),
-        "layers": [block_schema(cfg, seg.kind)
+        "layers": [block_schema(cfg, seg.kind, mesh)
                    for seg in build_schedule(cfg)
                    for _ in range(seg.count)],
     }
     if cfg.encoder_layers:
         s["encoder"] = {
-            "layers": [block_schema(cfg, "enc")] * cfg.encoder_layers,
+            "layers": [block_schema(cfg, "enc", mesh)] * cfg.encoder_layers,
             "final_norm": norm_schema(cfg.d_model, cfg.norm,
                                       cfg.param_dtype)}
     return s
@@ -135,19 +165,24 @@ class Model(nn.Module):
     """A model's parameters: ``embed``, an encoder model's ``encoder``,
     ``final_norm`` and one ``ParamTree`` per layer in ``blocks``. Created
     uninitialized on ``device`` (``cuda`` unless ``"cpu"`` is passed);
-    ``models.params`` fills it."""
+    ``models.params`` fills it. With a ``ShardingCtx`` on a mesh
+    (``shd``) each leaf holds this rank's shard of the padded schema."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, shd=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = check_family(cfg)
-        schema = model_schema(cfg)
-        self.embed = ParamTree(schema["embed"], dev)
+        check_sharded(cfg, shd)
+        self.shd = shd if shd is not None and shd.mesh is not None \
+            else None
+        schema = model_schema(cfg, None if self.shd is None
+                              else self.shd.mesh)
+        self.embed = ParamTree(schema["embed"], dev, self.shd)
         if cfg.encoder_layers:
             self.encoder = Encoder(schema["encoder"], dev)
-        self.final_norm = ParamTree(schema["final_norm"], dev)
+        self.final_norm = ParamTree(schema["final_norm"], dev, self.shd)
         self.blocks = nn.ModuleList(
-            [ParamTree(s, dev) for s in schema["layers"]])
+            [ParamTree(s, dev, self.shd) for s in schema["layers"]])
 
     @property
     def device(self) -> torch.device:
@@ -157,21 +192,32 @@ class Model(nn.Module):
 def cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
                  dtype: str = "bfloat16") -> Tuple:
     """One dict of ``ParamDesc`` per segment; each leaf stacked over the
-    segment's layers and in its own dtype (``dtype`` for k/v and conv
-    tails, f32 for an SSM state)."""
+    segment's layers (logical dim "layers") and in its own dtype (``dtype``
+    for k/v and conv tails, f32 for an SSM state)."""
     return tuple(
-        {k: dataclasses.replace(d, shape=(seg.count,) + d.shape)
+        {k: dataclasses.replace(d, shape=(seg.count,) + d.shape,
+                                dims=("layers",) + d.dims)
          for k, d in block_cache_schema(cfg, seg.kind, batch, max_seq,
                                         seg.window, dtype).items()}
         for seg in build_schedule(cfg))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               dtype: str = "bfloat16", device=None) -> Tuple:
-    """A zeroed decode cache for ``batch`` slots of ``max_seq`` tokens."""
+               dtype: str = "bfloat16", device=None, shd=None) -> Tuple:
+    """A zeroed decode cache for ``batch`` slots of ``max_seq`` tokens; with
+    a ``ShardingCtx`` on a mesh, this rank's block of it (its rows over
+    ``data``, its sequence chunk over ``model``)."""
     dev = resolve_device(device)
+    check_sharded(cfg, shd)
+    on_mesh = shd is not None and shd.mesh is not None
+
+    def shape(d):
+        if not on_mesh:
+            return d.shape
+        return local_shape(d.shape, shd.spec(d.shape, d.dims), shd.mesh)
+
     return tuple(
-        {k: torch.zeros(d.shape, dtype=dtype_of(d.dtype), device=dev)
+        {k: torch.zeros(shape(d), dtype=dtype_of(d.dtype), device=dev)
          for k, d in seg.items()}
         for seg in cache_schema(cfg, batch, max_seq, dtype))
 
@@ -234,14 +280,19 @@ def to_ring(kv: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
-                            max_seq: int) -> Dict:
+                            max_seq: int, shd=None) -> Dict:
     """Stack one segment's per-layer prefill caches over its layers: k/v to
     (L, B, max_seq, KV, hd) and an MLA latent to (L, B, max_seq, r +
     rope), zero-padded past the prompt's ``s`` positions (the decode
     layout), or k/v to a ring where the segment ``keeps_ring``
     (``to_ring``); per-sequence leaves (SSM state, conv tails) as they
-    are."""
+    are. On a mesh (``shd``) a rank keeps the chunk of ``max_seq``
+    positions its ``kv_seq`` block covers."""
     ring = keeps_ring(seg, max_seq)
+    lo, n = 0, max_seq
+    if shd is not None:
+        block = shd.block(shd.split("kv_seq", max_seq), max_seq)
+        lo, n = block.start, block.stop - block.start
     out = {}
     for key in layer_caches[0]:
         if key not in SEQ_LEAVES:
@@ -252,9 +303,10 @@ def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
         else:
             first = layer_caches[0][key]
             full = first.new_zeros((len(layer_caches), first.shape[0],
-                                    max_seq) + tuple(first.shape[2:]))
+                                    n) + tuple(first.shape[2:]))
+            held = max(min(s - lo, n), 0)
             for i, c in enumerate(layer_caches):
-                full[i, :, :s] = c[key]
+                full[i, :, :held] = c[key][:, lo:lo + held]
             out[key] = full
     return out
 
@@ -303,7 +355,7 @@ def _embed_in(model: Model, tokens: torch.Tensor, positions: torch.Tensor):
     encoder model's sinusoid positions (``positions`` (S,) at prefill and
     in training, (B, 1) per row at decode), rounded to that dtype."""
     cfg = model.cfg
-    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype))
+    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype), model.shd)
     if cfg.family == "encdec":
         x = x + sinusoid_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -328,6 +380,10 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     model's losses and routing statistics, each the mean over a segment's
     layers summed over segments (0-d f32); empty for other families."""
     check_family(cfg)
+    if model.shd is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training on a mesh is not ported yet (ROADMAP: "
+            f"the train side)")
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_in(model, tokens, positions)
@@ -356,10 +412,14 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
     encoder_seq, d) for an encoder model. Returns (last_logits (B, V),
     caches): k/v (or an MLA latent) and conv tails in the model's dtype,
     k/v and latents zero-padded to ``max_seq`` positions, SSM states in
-    f32, the encoder's k/v ``ck``/``cv`` in the encoder's dtype."""
+    f32, the encoder's k/v ``ck``/``cv`` in the encoder's dtype. On a mesh:
+    this rank's rows of ``tokens``, its vocab shard of their logits and its
+    block of their caches."""
     cfg = model.cfg
+    shd = model.shd
     b, s = tokens.shape
     check_prompt(cfg, s, max_seq)
+    tokens = _rows(shd, tokens)
     positions = torch.arange(s, device=tokens.device)
     x = _embed_in(model, tokens, positions)
     enc_out = _encoded(model, frames, rcfg)
@@ -371,11 +431,11 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
             x, c, _ = apply_block(model.blocks[layer], x, cfg, rcfg,
                                   seg.kind, positions=positions,
                                   window=seg.window, enc_out=enc_out,
-                                  mode="prefill")
+                                  mode="prefill", shd=shd)
             per_layer.append(c)
             layer += 1
         caches_out.append(_finalize_prefill_cache(per_layer, seg, s,
-                                                  max_seq))
+                                                  max_seq, shd))
     x = apply_norm(model.final_norm, x, cfg.norm)
     logits = lm_logits(model.embed, x[:, -1:], cfg.logit_softcap)
     return logits[:, 0], tuple(caches_out)
@@ -383,13 +443,19 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
 
 @torch.no_grad()
 def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
-                   pos: torch.Tensor, rcfg: RunConfig):
+                   pos: torch.Tensor, rcfg: RunConfig, *,
+                   max_seq: Optional[int] = None):
     """One decode step. tokens: (B, 1); pos: (B,) int32 positions of the
     new tokens. Writes the new k/v, SSM states and conv tails into
     ``caches`` in place; returns (logits (B, V), caches). A ring segment's
     slots are computed once for all its layers. An encoder model's
-    ``ck``/``cv`` pass through untouched."""
+    ``ck``/``cv`` pass through untouched. On a mesh ``tokens`` and ``pos``
+    are global, ``caches`` this rank's block (``max_seq``, the caches'
+    global length, says how the sequence is split), and the logits the
+    rank's vocab shard of its rows."""
     cfg = model.cfg
+    shd = model.shd
+    tokens, pos = _rows(shd, tokens), _rows(shd, pos)
     x = _embed_in(model, tokens, pos[:, None])
     layer = 0
     for seg, c_seg in zip(build_schedule(cfg), caches):
@@ -402,11 +468,73 @@ def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
             x, _, _ = apply_block(model.blocks[layer], x, cfg, rcfg,
                                   seg.kind, positions=pos, window=seg.window,
                                   cache=c_l, decode_pos=pos, ring=ring,
-                                  mode="decode")
+                                  mode="decode", shd=shd, max_seq=max_seq)
             layer += 1
     x = apply_norm(model.final_norm, x, cfg.norm)
     logits = lm_logits(model.embed, x, cfg.logit_softcap)
     return logits[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Rows and vocab shards on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _rows(shd, x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global batch (all of them off a mesh, or
+    where the batch does not divide over the batch axes)."""
+    if shd is None:
+        return x
+    return x[shd.block(shd.split("batch", x.shape[0]), x.shape[0])]
+
+
+def _vocab_axis(model: Model):
+    head = "head" if "head" in model.embed else "tokens"
+    spec = model.embed.spec(head)
+    return spec[0] if spec else None
+
+
+def greedy(model: Model, logits: torch.Tensor) -> torch.Tensor:
+    """Greedy token ids (B_local,) int64 of the logits ``forward_prefill``
+    or ``forward_decode`` returned. Off a mesh, ``argmax``. With the
+    vocabulary sharded over ``model`` each rank's (max, first index) pair
+    is gathered and the largest value wins, ties to the lowest global
+    index, as ``jnp.argmax`` breaks them."""
+    axis = None if model.shd is None else _vocab_axis(model)
+    if not axis:
+        return torch.argmax(logits, dim=-1)
+    shd = model.shd
+    n = logits.shape[-1]
+    ix = torch.argmax(logits, dim=-1, keepdim=True)
+    mx = torch.gather(logits, -1, ix).float()
+    mxs = shd.all_gather(mx, axis, -1)
+    ixs = shd.all_gather(ix + shd.index(axis) * n, axis, -1)
+    best = mxs.amax(dim=-1, keepdim=True)
+    big = torch.iinfo(torch.int64).max
+    return torch.where(mxs == best, ixs, big).amin(dim=-1)
+
+
+def gather_logits(model: Model, logits: torch.Tensor,
+                  batch: int) -> torch.Tensor:
+    """The full (batch, V) logits from every rank's block of them (one
+    device: as they are)."""
+    shd = model.shd
+    if shd is None:
+        return logits
+    axis = _vocab_axis(model)
+    if axis:
+        logits = shd.all_gather(logits, axis, -1)
+    return gather_rows(shd, logits, batch)
+
+
+def gather_rows(shd, x: torch.Tensor, batch: int) -> torch.Tensor:
+    """A global batch of ``batch`` rows from each rank's rows (``_rows``'s
+    inverse): an all-gather over the batch axes where the batch is split
+    over them."""
+    if shd is None:
+        return x
+    axis = shd.split("batch", batch)
+    return shd.all_gather(x, axis, 0) if axis else x
 
 
 # ---------------------------------------------------------------------------

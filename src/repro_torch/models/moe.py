@@ -48,12 +48,15 @@ def moe_schema(cfg: ModelConfig) -> Dict:
     m, d, pd = cfg.moe, cfg.d_model, cfg.param_dtype
     e, ff = m.num_experts, m.expert_ff
     s: Dict = {
-        "router": ParamDesc((d, e), "float32"),
-        "w_in": ParamDesc((e, d, ff), pd, fan_in=d),
-        "w_out": ParamDesc((e, ff, d), pd, fan_in=ff),
+        "router": ParamDesc((d, e), "float32", dims=("embed", "experts")),
+        "w_in": ParamDesc((e, d, ff), pd, fan_in=d,
+                          dims=("experts", "embed", None)),
+        "w_out": ParamDesc((e, ff, d), pd, fan_in=ff,
+                           dims=("experts", None, "embed")),
     }
     if cfg.activation == "silu_glu":
-        s["w_gate"] = ParamDesc((e, d, ff), pd, fan_in=d)
+        s["w_gate"] = ParamDesc((e, d, ff), pd, fan_in=d,
+                                dims=("experts", "embed", None))
     if m.num_shared_experts:
         s["shared"] = mlp_schema(
             d, m.num_shared_experts * (m.shared_ff or m.expert_ff),

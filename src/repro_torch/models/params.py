@@ -10,6 +10,13 @@ uses each weight's true fan-in (``ParamDesc.init_fan_in``), so full-width
 activations stay O(1). ``torch.Generator`` cannot reproduce ``jax.random``
 in any case, so parity tests always carry the reference's weights across.
 
+On a mesh (``shd``, a ``ShardingCtx``) the model holds each rank's shard
+of the padded schema. ``init_params`` still draws every leaf whole from the
+generator's stream, in the same slices as on one device, and keeps only the
+rank's block of each slice, so every layout holds the same values; the
+padded heads' weights are drawn like the real ones, as the reference's
+are. ``params_from_jax`` copies the rank's block of each reference leaf.
+
 ``params_from_jax`` is that bridge: it takes the reference's parameter
 pytree with every leaf already a numpy array (``jax.tree.map(np.asarray,
 params)``, done by the caller), splits the per-segment layer stacking into
@@ -36,6 +43,7 @@ gives it back in the reference's stacked layout, bf16 widened to f32
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -56,17 +64,33 @@ INIT_WHOLE = 1 << 30
 INIT_SLICE = 1 << 28
 
 
+def _schema(cfg: ModelConfig, shd) -> Dict:
+    return model_schema(cfg, None if shd is None else shd.mesh)
+
+
+def _block_of(model: Model, name: str, path, shape) -> Tuple[slice, ...]:
+    """The rank's block of a leaf of ``shape`` (all of it off a mesh)."""
+    node = model.get_submodule(name)
+    for key in path[:-1]:
+        node = node[key]
+    spec = node.spec(path[-1])
+    if not spec:
+        return tuple(slice(0, n) for n in shape)
+    return model.shd.slices(shape, spec)
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, *, device=None,
                 generator: Optional[torch.Generator] = None,
-                seed: int = 0) -> Model:
+                seed: int = 0, shd=None) -> Model:
     """A model with random weights, made on ``device`` from ``generator``
-    (default: a new generator on that device seeded with ``seed``)."""
+    (default: a new generator on that device seeded with ``seed``); with a
+    ``ShardingCtx`` on a mesh, this rank's shards of them."""
     dev = resolve_device(device)
-    model = Model(cfg, device=dev)
+    model = Model(cfg, device=dev, shd=shd)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    schema = model_schema(cfg)
+    schema = _schema(cfg, model.shd)
     trees = [(sch, name) for _ref, sch, name in _tops(cfg, schema)]
     trees += [(sch, name) for _ref, sch, names in _stacks(cfg, schema)
               for name in names]
@@ -79,15 +103,26 @@ def init_params(cfg: ModelConfig, *, device=None,
             elif desc.init == "ones":
                 p.fill_(1.0)
             else:
-                scale = desc.init_scale / max(1.0, float(desc.init_fan_in)) \
-                    ** 0.5
-                rows = max(1, INIT_SLICE // p[0].numel()) \
-                    if p.numel() > INIT_WHOLE else p.shape[0]
-                for i in range(0, p.shape[0], rows):
-                    w = torch.randn(p[i:i + rows].shape, generator=generator,
-                                    dtype=torch.float32, device=dev)
-                    p[i:i + rows].copy_(w.mul_(scale))
+                _draw(p, desc, _block_of(model, name, path, desc.shape),
+                      generator, dev)
     return model
+
+
+def _draw(p: torch.Tensor, desc, block: Tuple[slice, ...], generator,
+          dev) -> None:
+    """Draw the leaf ``desc`` whole, in slices of its leading dim, and
+    copy the part of each slice inside ``block`` into ``p``."""
+    scale = desc.init_scale / max(1.0, float(desc.init_fan_in)) ** 0.5
+    n0, row = desc.shape[0], math.prod(desc.shape[1:])
+    rows = max(1, INIT_SLICE // row) if n0 * row > INIT_WHOLE else n0
+    b0 = block[0]
+    for i in range(0, n0, rows):
+        w = torch.randn((min(rows, n0 - i),) + tuple(desc.shape[1:]),
+                        generator=generator, dtype=torch.float32, device=dev)
+        lo, hi = max(i, b0.start), min(i + w.shape[0], b0.stop)
+        if lo < hi:
+            p[lo - b0.start:hi - b0.start].copy_(
+                w[(slice(lo - i, hi - i),) + block[1:]].mul_(scale))
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +132,11 @@ def init_params(cfg: ModelConfig, *, device=None,
 
 def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
     """A numpy array (bf16 included, recognised by dtype name) as a torch
-    tensor, bit for bit."""
+    tensor, bit for bit; a torch tensor passes through (a tree carried to
+    a process that has no bf16 numpy)."""
+    if isinstance(a, torch.Tensor):
+        t = a.contiguous()
+        return t.to(device) if device is not None else t
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:       # torch tensors must own writable memory
         a = a.copy()
@@ -156,22 +195,28 @@ def _stacks(cfg: ModelConfig, schema: Dict):
 
 
 @torch.no_grad()
-def params_from_jax(tree: Dict, cfg: ModelConfig, device=None) -> Model:
+def params_from_jax(tree: Dict, cfg: ModelConfig, device=None,
+                    shd=None) -> Model:
     """The port's model holding the reference's weights. ``tree`` is the
-    reference's parameter pytree with numpy leaves."""
+    reference's parameter pytree with numpy leaves, made on the same mesh
+    (its padded heads) when ``shd`` is a ``ShardingCtx`` on one; the model
+    then holds this rank's block of each leaf."""
     dev = resolve_device(device)
-    model = Model(cfg, device=dev)
-    schema = model_schema(cfg)
+    model = Model(cfg, device=dev, shd=shd)
+    schema = _schema(cfg, model.shd)
     for top, sch, name in _tops(cfg, schema):
-        for path, _desc in walk(sch):
+        for path, desc in walk(sch):
             _assign(leaf(model.get_submodule(name), path),
-                    _get(_at(tree, top), path), ".".join(top + path))
+                    _get(_at(tree, top), path)[
+                        _block_of(model, name, path, desc.shape)],
+                    ".".join(top + path))
     for ref, sch, names in _stacks(cfg, schema):
         stacked = _at(tree, ref)
         for i, name in enumerate(names):
-            for path, _desc in walk(sch):
+            for path, desc in walk(sch):
                 _assign(leaf(model.get_submodule(name), path),
-                        _get(stacked, path)[i],
+                        _get(stacked, path)[i][
+                            _block_of(model, name, path, desc.shape)],
                         f"{ref}[{i}]." + ".".join(path))
     return model
 

@@ -44,19 +44,23 @@ def ssm_schema(cfg: ModelConfig) -> Dict:
     w = s.conv_width
     pd = cfg.param_dtype
     return {
-        "w_x": ParamDesc((d, di), pd),
-        "w_z": ParamDesc((d, di), pd),
-        "w_B": ParamDesc((d, n), pd),
-        "w_C": ParamDesc((d, n), pd),
-        "w_dt": ParamDesc((d, nh), pd),
-        "w_out": ParamDesc((di, d), pd),
+        "w_x": ParamDesc((d, di), pd, dims=("embed", "ffn")),
+        "w_z": ParamDesc((d, di), pd, dims=("embed", "ffn")),
+        "w_B": ParamDesc((d, n), pd, dims=("embed", None)),
+        "w_C": ParamDesc((d, n), pd, dims=("embed", None)),
+        "w_dt": ParamDesc((d, nh), pd, dims=("embed", "ssm_heads")),
+        "w_out": ParamDesc((di, d), pd, dims=("ffn", "embed")),
         # depthwise: each output channel sums W taps
-        "conv_x": ParamDesc((w, di), pd, "small_normal", 0.5, fan_in=w),
-        "conv_B": ParamDesc((w, n), pd, "small_normal", 0.5, fan_in=w),
-        "conv_C": ParamDesc((w, n), pd, "small_normal", 0.5, fan_in=w),
-        "A_log": ParamDesc((nh,), "float32", "zeros"),
-        "D": ParamDesc((nh,), "float32", "ones"),
-        "dt_bias": ParamDesc((nh,), "float32", "zeros"),
+        "conv_x": ParamDesc((w, di), pd, "small_normal", 0.5, fan_in=w,
+                            dims=("conv", "ffn")),
+        "conv_B": ParamDesc((w, n), pd, "small_normal", 0.5, fan_in=w,
+                            dims=("conv", None)),
+        "conv_C": ParamDesc((w, n), pd, "small_normal", 0.5, fan_in=w,
+                            dims=("conv", None)),
+        "A_log": ParamDesc((nh,), "float32", "zeros", dims=("ssm_heads",)),
+        "D": ParamDesc((nh,), "float32", "ones", dims=("ssm_heads",)),
+        "dt_bias": ParamDesc((nh,), "float32", "zeros",
+                             dims=("ssm_heads",)),
         "norm": norm_schema(di, "rmsnorm", pd),
     }
 
@@ -256,8 +260,11 @@ def ssm_cache_schema(cfg: ModelConfig, batch: int, dtype: str) -> Dict:
     w = s.conv_width
     return {
         "state": ParamDesc((batch, nh, s.head_dim, s.state_dim), "float32",
-                           "zeros"),
-        "conv_x": ParamDesc((batch, w - 1, di), dtype, "zeros"),
-        "conv_B": ParamDesc((batch, w - 1, s.state_dim), dtype, "zeros"),
-        "conv_C": ParamDesc((batch, w - 1, s.state_dim), dtype, "zeros"),
+                           "zeros", dims=("batch", "ssm_heads", None, None)),
+        "conv_x": ParamDesc((batch, w - 1, di), dtype, "zeros",
+                            dims=("batch", None, "ffn")),
+        "conv_B": ParamDesc((batch, w - 1, s.state_dim), dtype, "zeros",
+                            dims=("batch", None, None)),
+        "conv_C": ParamDesc((batch, w - 1, s.state_dim), dtype, "zeros",
+                            dims=("batch", None, None)),
     }

@@ -9,6 +9,15 @@ installs the request's cache into a free slot; each step runs one batched
 decode (the decode-attention kernel, or the SSM state update) over all
 slots plus a greedy argmax.
 
+On a mesh (``shd``, a ``ShardingCtx``: the dense family) every rank runs
+its own engine over the same requests: the same scheduler state and one
+clock (``ShardingCtx.agreed_now``) give every rank the same admission
+decisions. A prefill runs on each rank's shards; a slot's cache is
+installed by the data rank that holds the slot's row; each data rank
+decodes its rows, and the sampled tokens are all-gathered over the batch
+axes, so every rank's ``Slot``s agree. The collectives go through the
+``nk_*`` verbs and the installed ``CoreEngine``.
+
 A request carries token ids only, so an encoder model (whisper), whose
 prefill needs frames, is refused at construction (ROADMAP R9: the
 reference's engine takes it and fails at its first prefill); it is served
@@ -27,8 +36,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.fabric import SchedulerServeModule
 from repro_torch.models.model import (
-    Model, cache_nbytes, check_family, check_slot_prompt, forward_decode,
-    forward_prefill, init_cache,
+    Model, cache_nbytes, check_family, check_sharded, check_slot_prompt,
+    forward_decode, forward_prefill, gather_rows, greedy, init_cache,
 )
 from repro_torch.models.params import init_params
 from repro_torch.serve.scheduler import Request, TenantScheduler
@@ -59,15 +68,19 @@ class ServeEngine(SchedulerServeModule):
                  max_seq: int = 256,
                  scheduler: Optional[TenantScheduler] = None,
                  controller=None, control_every: int = 4, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, shd=None):
         """``batch_slots``: concurrent decode slots (the shared resource);
         ``max_seq``: KV-cache length in tokens; ``params``: a ``Model`` to
         share (another engine's weights) or None to initialize fresh ones
         on ``device`` from ``generator``; ``controller``: optional
         management-plane hook ticked every ``control_every`` steps.
         ``device``: ``cuda`` unless ``"cpu"`` is passed (raises without a
-        card)."""
+        card). ``shd``: a ``ShardingCtx`` on a mesh; ``params`` must then
+        be made with it."""
         self.cfg, self.rcfg = check_family(cfg), rcfg
+        check_sharded(cfg, shd)
+        self.shd = shd if shd is not None and shd.mesh is not None \
+            else None
         if cfg.encoder_layers:
             raise ValueError(
                 f"{cfg.name}: ServeEngine cannot serve an encoder model; its "
@@ -86,8 +99,15 @@ class ServeEngine(SchedulerServeModule):
         if params is not None and params.device != self.device:
             raise ValueError(f"params live on {params.device}, engine on "
                              f"{self.device}")
+        if params is not None and params.shd is not self.shd:
+            raise ValueError("params were made for another ShardingCtx "
+                             "than the engine's")
         self.params = params if params is not None else init_params(
-            cfg, device=self.device, generator=generator)
+            cfg, device=self.device, generator=generator, shd=self.shd)
+        # the batch rows this rank holds (all of them off a mesh)
+        self._rows = range(self.B) if self.shd is None else range(
+            self.B)[self.shd.block(self.shd.split("batch", self.B),
+                                   self.B)]
         self.slots = self._make_slots()
         self.caches = None
         self._cache_nbytes = 0
@@ -109,7 +129,7 @@ class ServeEngine(SchedulerServeModule):
         never having suspended."""
         self.caches = init_cache(self.cfg, self.B, self.max_seq,
                                  dtype=self.rcfg.kv_cache_dtype,
-                                 device=self.device)
+                                 device=self.device, shd=self.shd)
         self._cache_nbytes = cache_nbytes(self.caches)
 
     def _cache_bytes(self) -> int:
@@ -152,11 +172,14 @@ class ServeEngine(SchedulerServeModule):
             self.admissions += 1
             # install the single-sequence cache into slot i: the WHOLE slot
             # row, zero padding included — inactive slots decode at pos 0
-            # (ring slot 0 too) and would otherwise leave a stale row 0 behind
-            for big, one in zip(self.caches, caches1):
-                for k in big:
-                    big[k][:, i].copy_(one[k][:, 0])
-            first = int(torch.argmax(last_logits[0]))
+            # (ring slot 0 too) and would otherwise leave a stale row 0
+            # behind. On a mesh, the rank that holds row i installs it.
+            if i in self._rows:
+                row = i - self._rows.start
+                for big, one in zip(self.caches, caches1):
+                    for k in big:
+                        big[k][:, row].copy_(one[k][:, 0])
+            first = int(greedy(self.params, last_logits)[0])
             req.generated.append(first)
             req.admit_time = time.monotonic() if now is None else now
             self.observe_admitted(req)
@@ -181,6 +204,8 @@ class ServeEngine(SchedulerServeModule):
             raise RuntimeError(
                 "engine is suspended (parked); resume() before stepping")
         t0 = time.monotonic()
+        if self.shd is not None:
+            now = self.shd.agreed_now(now)
         self.steps += 1
         # tick before admission (and before the no-work early return): a
         # fully-throttled engine must still get rate updates or it livelocks
@@ -200,8 +225,10 @@ class ServeEngine(SchedulerServeModule):
         logits, self.caches = forward_decode(
             self.params, self.caches,
             torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(pos).to(self.device), self.rcfg)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            torch.from_numpy(pos).to(self.device), self.rcfg,
+            max_seq=self.max_seq)
+        nxt = gather_rows(self.shd, greedy(self.params, logits),
+                          self.B).cpu().numpy()
         for i in active:
             s = self.slots[i]
             s.req.generated.append(int(nxt[i]))

@@ -1407,3 +1407,89 @@ def test_moe_serve_engine_on_card_matches_cpu(cuda, arch):
         decode_layers * eng.decode_steps
     _, on_cpu = serve(torch.device("cpu"))
     assert on_card == on_cpu
+
+
+# ---------------------------------------------------------------------------
+# the model axis: the per-rank kernel work of the sharded dense path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(64, 8), (24, 8)])
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_cp_decode_shards_combine_to_one_launch_on_card(cuda, heads, window,
+                                                        q_dtype):
+    """A cache of 4 x 8,192 positions cut into tp contiguous chunks (each
+    its own tensor): the decode kernel on every chunk at its local
+    positions (negative before the chunk, where it gives the empty row:
+    o 0, m NEG_INF, l 0), combined by ``stacked_lse_combine``, equals one
+    launch over the whole cache and the plain version within 4.2e-3 of
+    max |o| at bf16 and 1e-5 at f32; positions at 0 and at chunk - 1 and
+    chunk of the tp 16 and tp 8 chunks."""
+    from repro_torch.kernels.decode_attention import NEG_INF
+    from repro_torch.models.attention import stacked_lse_combine
+    hq, kv = heads
+    b, t, d = 4, 8192, 128
+    tol = {"bfloat16": 4.2e-3, "float32": 1e-5}[q_dtype]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(
+        getattr(torch, q_dtype))
+    k, v = (torch.randn((b, t, kv, d), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    pos_list = (0, 511, 512, 1024)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=cuda)
+    full = decode_attention(q, k, v, pos, window=window)[0]
+    plain = decode_attention_plain(q, k, v, pos, window=window)[0]
+    for tp in (2, 4, 8, 16):
+        chunk = t // tp
+        parts = []
+        for r in range(tp):
+            o, m, l = decode_attention(
+                q, k[:, r * chunk:(r + 1) * chunk].contiguous(),
+                v[:, r * chunk:(r + 1) * chunk].contiguous(),
+                pos - r * chunk, window=window)
+            for i, p in enumerate(pos_list):
+                first = max(0, p - window + 1) if window else 0
+                if p < r * chunk or first >= (r + 1) * chunk:
+                    assert not o[i].any() and not l[i].any()
+                    assert bool((m[i] == NEG_INF).all())
+            parts.append((o, m, l))
+        got = stacked_lse_combine(
+            *(torch.stack(x) for x in zip(*parts))).to(q.dtype)
+        torch.cuda.synchronize()
+        for want in (full, plain):
+            err = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+            assert err <= tol, (tp, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp,rank", [(2, 0), (2, 1), (4, 3), (8, 5),
+                                     (16, 0), (16, 1), (16, 11), (16, 12)])
+def test_flash_at_tp_rank_shapes_on_card(cuda, tp, rank):
+    """llama3.2-3b's prefill at one rank's query heads (24 heads padded to
+    the model axis) with the kv heads ``_local_kv`` gives them: against
+    the plain version, and on the real heads against one launch over all
+    24 heads, within bf16's 2e-2."""
+    from repro_torch.distribution.sharding import padded_heads
+    from repro_torch.models.attention import _local_kv
+    hq, kv, d, s = 24, 8, 128, 509
+    g = torch.Generator(device=cuda).manual_seed(7)
+    hp = padded_heads(hq, {"model": tp})
+    n = hp // tp
+    q = torch.randn((1, s, hp, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, s, kv, d), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    full = flash_attention(q[:, :, :hq].contiguous(), k, v)
+    ql = q[:, :, rank * n:(rank + 1) * n].contiguous()
+    kl, vl = _local_kv(k, v, hq, hp, rank * n, n)
+    o = flash_attention(ql, kl, vl)
+    torch.cuda.synchronize()
+    assert (o.float() - flash_attention_plain(ql, kl, vl).float()
+            ).abs().max().item() <= TOL["bfloat16"]
+    real = max(0, min(n, hq - rank * n))
+    if real:
+        assert (o[:, :, :real].float() - full[:, :, rank * n:rank * n + real]
+                .float()).abs().max().item() <= TOL["bfloat16"]

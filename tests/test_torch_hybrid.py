@@ -341,7 +341,7 @@ def test_ring_kernel_call_computes_the_references_kv_pos_decode(group):
     assert not is_ring(0, n) and not is_ring(window, 64)
 
 
-def test_decode_wrapper_takes_group_5_and_refuses_7_12_and_d192():
+def test_decode_wrapper_takes_groups_1_to_8_and_refuses_off_table_shapes():
     """The kernel's argument check (run before every launch): groups 1-8
     at D 64 (group 7 is arctic-480b's 56/8 heads), not group 12 there, nor
     head dim 192 at group 5 (D 192 is built for group 12 alone)."""

@@ -57,7 +57,9 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.fabric.checkpoint", "repro_torch.obs.timeseries",
             "repro_torch.obs.slo", "repro_torch.data.pipeline",
             "repro_torch.train.optimizer", "repro_torch.train.train_loop",
-            "repro_torch.train.checkpoint", "repro_torch.train.runner"} <= names
+            "repro_torch.train.checkpoint", "repro_torch.train.runner",
+            "repro_torch.launch.mesh", "repro_torch.distribution.sharding",
+            "repro_torch.distribution.pipeline"} <= names
 
 
 def test_family_training_and_encdec_serving_run_without_jax():
