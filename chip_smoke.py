@@ -315,6 +315,7 @@ CONTROL_N = (1_000, 10_000, 100_000, 1_000_000)
 CONTROL_TICKS = 24            # timed ticks per population, after warm-up
 CONTROL_WARMUP = 3
 # replay phase: tenants and intervals of each scenario
+FABRIC_LAYERS = 8             # replay, cluster and watchdog: 8 of 28
 REPLAY_TENANTS = 4
 REPLAY_INTERVALS = 16
 REPLAY_MAX_SEQ = 16           # a request is 2 prompt + 6 new tokens
@@ -366,6 +367,7 @@ TRAIN_SEQ = 4096
 TRAIN_BATCH = 4
 TRAIN_ACCUM = 4
 TRAIN_TIMED = 3               # timed steps, after one warm-up step
+TRAIN_PROFILE_LAYERS = 7      # the profiled micro-batch's depth (of 28)
 # RunConfig's defaults but for the schedule: with its 100 warm-up steps
 # the first steps' lr (3e-6 to 1.2e-5) moves a bf16 norm scale of 1.0 by
 # less than half an ulp (0.002), so those scales could not move at all
@@ -507,11 +509,14 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_work(b, s, t, hq, kv, d, elem, causal, window):
+def flash_work(b, s, t, hq, kv, d, elem, causal, window, dv=None):
     """Bytes (q read once, o written once, and k and v read once over
     the keys the mask keeps for some query: the first S of T where a
     causal S is below T) and flops (QK^T and PV over the (query, key)
-    pairs the mask keeps)."""
+    pairs the mask keeps). ``dv``: v's and o's head dim where the function
+    needs fewer columns than q and k's ``d`` (MLA: the kernel's zero-padded
+    columns are not the function's work)."""
+    dv = d if dv is None else dv
     pairs, keys = 0, set()
     for i in range(s):
         hi = min(i, t - 1) if causal else t - 1
@@ -519,8 +524,8 @@ def flash_work(b, s, t, hq, kv, d, elem, causal, window):
         pairs += max(hi - lo + 1, 0)
         keys.update((lo, hi + 1))
     kept = max(keys) - min(keys) if keys else 0
-    nbytes = elem * (2 * b * s * hq * d + 2 * b * kept * kv * d)
-    return nbytes, 4.0 * d * pairs * hq * b
+    nbytes = elem * (b * s * hq * (d + dv) + b * kept * kv * (d + dv))
+    return nbytes, 2.0 * (d + dv) * pairs * hq * b
 
 
 def ssd_work(nc, elem, shape=None):
@@ -1807,12 +1812,13 @@ def phase_parity_hybrid(torch, device, eng):
                              f"f32 {max(rel32)}")
 
 
-def phase_hybrid(torch, device, cfg=None):
+def phase_hybrid(torch, device, cfg=None, out=None):
     """hymba-1.5b (``cfg``: its full-width config by default) at full
     depth: serve (flash and the SSD scan once per layer and admission,
     decode once per layer and step; every decode position past the ring's
     wrap; the cache's bytes the schema's), profile, parity. Returns the
-    launch counts of the serve run."""
+    launch counts of the serve run; ``out``, a dict, receives the served
+    tokens by request (``tokens``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1826,6 +1832,8 @@ def phase_hybrid(torch, device, cfg=None):
         {"decode_attention": decode_attention},
         prefill_lens=HYBRID_PREFILL_LENS, max_seq=HYBRID_MAX_SEQ,
         prompt_range=HYBRID_PROMPT_RANGE, fixed_lengths=HYBRID_FIXED_LENGTHS)
+    if out is not None:
+        out["tokens"] = {r.req_id: list(r.generated) for r in eng.completed}
     schema_bytes = schema_cache_bytes(torch, eng)
     rings = [seg.count for seg in build_schedule(cfg) if seg.window]
     checks = {"cache_bytes_are_the_schemas": eng._cache_bytes()
@@ -1865,12 +1873,12 @@ def encdec_serve(torch, model, rcfg, prompts, frames, steps, forced=None):
         logits, caches = forward_decode(
             model, caches, tok[:, None], torch.full(
                 (b,), s + i, dtype=torch.int32, device=prompts.device),
-            rcfg)
+            rcfg, max_seq=ENCDEC_MAX_SEQ)
         out.append(logits.float())
     return out, torch.stack(fed, 1), caches
 
 
-def phase_encdec(torch, device, cfg=None):
+def phase_encdec(torch, device, cfg=None, out=None):
     """whisper-small (``cfg``: its full-width config by default) at full
     width and depth, random bf16 weights from a seed, served as the
     reference's entry points serve it: ``ENCDEC_BATCH`` utterances of
@@ -1882,7 +1890,8 @@ def phase_encdec(torch, device, cfg=None):
     schema, finite logits; the kernel path against the plain path at bf16
     (teacher-forced, logits within ``PARITY_TOL`` of max |logit|) and on
     an f32 copy (greedy on both, identical tokens, logits within
-    ``ENCDEC_F32_TOL``). Returns the launch counts of the served run."""
+    ``ENCDEC_F32_TOL``). Returns the launch counts of the served run;
+    ``out``, a dict, receives its prompts, frames and tokens."""
     import dataclasses
 
     from repro_torch.configs import RunConfig, get_config
@@ -1926,6 +1935,9 @@ def phase_encdec(torch, device, cfg=None):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t2
     launches["decode_attention"] = da.decode_attention.launches
+    if out is not None:
+        out.update(prompts=prompts, frames=frames,
+                   tokens=torch.stack(toks, 1))
     schema = {k: math.prod(d.shape) * getattr(torch, d.dtype).itemsize
               for seg in cache_schema(cfg, b, ENCDEC_MAX_SEQ)
               for k, d in seg.items()}
@@ -2005,8 +2017,8 @@ def recording_routes(out: list):
     from repro_torch.models import moe
     real = moe.route_topk
 
-    def recorded(router_w, x, m):
-        gate, eidx, aux = real(router_w, x, m)
+    def recorded(*args, **kw):
+        gate, eidx, aux = real(*args, **kw)
         out.append(eidx.cpu())
         return gate, eidx, aux
 
@@ -2024,8 +2036,8 @@ def recording_moe(out: list):
     from repro_torch.models import blocks
     real = blocks.apply_moe
 
-    def recorded(p, x, cfg):
-        y, aux = real(p, x, cfg)
+    def recorded(p, x, cfg, *args, **kw):
+        y, aux = real(p, x, cfg, *args, **kw)
         out.append((x.shape[0], x.shape[1], aux["moe_drop_frac"]))
         return y, aux
 
@@ -2072,7 +2084,7 @@ def schema_cache_bytes(torch, eng) -> int:
                for d in seg.values())
 
 
-def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
+def phase_moe(torch, device, arch: str, cfg, f32_layers: int, out=None):
     """The moe model ``arch`` (``cfg``: its config, depth already cut; at
     full width on the card): serve 3 tenants x 4 requests through
     ``ServeEngine`` (8 slots of 1024, WFQ, a ``RateController``), profile,
@@ -2089,7 +2101,7 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
     capacities, the prefills' drop shares, the weight bytes, the step
     beside the bytes a step must read at 3.35 TB/s, the latent cache
     beside a k/v cache of as many heads. Returns the serve run's launch
-    counts."""
+    counts; ``out``, a dict, receives its tokens by request."""
     from repro_torch.configs import RunConfig
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2114,6 +2126,8 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int):
             row_out=row)
     # an MLA model's decode launches, which phase_serve does not count
     launches = {"decode_attention": decode_attention.launches, **launches}
+    if out is not None:
+        out["tokens"] = {r.req_id: list(r.generated) for r in eng.completed}
     prefills = [float(d) for _b, s, d in calls if s > 1]
     prefills = prefills[:eng.admissions * n_moe]
     decode_drops = [float(d) for _b, s, d in calls if s == 1]
@@ -3700,18 +3714,25 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
             m["grad_norm"]) for m in runner.metrics_log)
         t_prof = time.perf_counter()
         # the profiled window is one micro-batch's forward and backward, a
-        # quarter of a step's (the step adds AdamW): a whole step is ~1.7M
-        # trace events, which the profiler takes minutes to parse
-        params = list(model.parameters())
+        # quarter of a step's (the step adds AdamW), of the model's first
+        # TRAIN_PROFILE_LAYERS layers: every layer does the same work, and
+        # a whole step is ~1.7M trace events, which the profiler takes
+        # minutes to parse
+        pcfg = dataclasses.replace(cfg, num_layers=min(
+            cfg.num_layers, TRAIN_PROFILE_LAYERS))
+        pmodel = init_params(pcfg, device=device, seed=SEED)
+        params = [p.requires_grad_(True) for p in pmodel.parameters()]
 
         def micro_batch():
-            loss, _ = loss_fn(model, micro, cfg, rcfg)
+            loss, _ = loss_fn(pmodel, micro, pcfg, rcfg)
             torch.autograd.grad(loss, params)
 
         prof = _profile(torch, micro_batch, top=10, ranges=(
             "autograd::engine::evaluate_function: FlashAttentionFnBackward",
         ))
         prof["seconds"] = time.perf_counter() - t_prof
+        prof["layers"] = pcfg.num_layers
+        del pmodel, params
         row = {"phase": "train", "check": "runner", "model": cfg.name,
                "layers": cfg.num_layers, "seq": TRAIN_SEQ,
                "global_batch": TRAIN_BATCH, "grad_accum": TRAIN_ACCUM,
@@ -4403,7 +4424,9 @@ def tp_flash_timings(torch, device, smi: str, timer):
 
 def per_rank_bytes():
     """(d) Each rank's weight bytes at ``model = TP_BYTES_AXIS`` for
-    llama3.2-3b (24 -> 32 padded query heads) and chameleon-34b, reckoned
+    llama3.2-3b (24 -> 32 padded query heads), chameleon-34b, arctic-480b
+    (56 -> 64 heads, 8 of 128 experts a rank) and deepseek-v2-236b (128
+    heads, 10 of 160 experts a rank), reckoned
     from the schema's meta tensors and ``param_shardings``' placements on
     the serving layout (model-sharded, replicated over data), beside the
     one-device bytes; and each rank's k/v cache bytes at decode_32k's
@@ -4426,7 +4449,8 @@ def per_rank_bytes():
             for _path, desc in walk(tree):
                 yield desc
 
-    for arch in ("llama3.2-3b", "chameleon-34b"):
+    for arch in ("llama3.2-3b", "chameleon-34b", "arctic-480b",
+                 "deepseek-v2-236b"):
         cfg = get_config(arch)
         schema = model_schema(cfg, mesh)
         metas = abstract_params(schema)
@@ -4462,28 +4486,485 @@ def per_rank_bytes():
     return out
 
 
+# (b) of the distribution phase: each rank's kernel work at the other
+# families' full-width shapes, for every tp of CP_TP
+RANK_TOL = 2e-2               # of max |o| (|y|, |state|) at bf16
+RANK_FLASH = (                # name, (hq, kv), d, B, S, causal, window
+    ("arctic", ARCTIC_HEADS, 128, 1, TP_FLASH_S, True, 0),
+    ("hymba window", HYBRID_HEADS, HYBRID_D, 1, 1536, True, HYBRID_WINDOW),
+    ("whisper encoder", (12, 12), 64, ENCDEC_BATCH, 1500, False, 0))
+RANK_MLA = (128, 192, 128, TP_FLASH_S)   # heads, dk, dv, S (deepseek)
+RANK_SSD = (("mamba2", (SSD_Q, SSD_H, SSD_P, SSD_N), 2),
+            ("hymba", HYBRID_SSD, HYBRID_SSD_CHUNKS))
+RANK_DECODE = (               # name, (hq, kv), d, T, positions, ring
+    ("hymba ring", HYBRID_HEADS, HYBRID_D, HYBRID_WINDOW, RING_DECODE_POS,
+     True),
+    ("whisper self", (12, 12), 64, ENCDEC_MAX_SEQ, ENCDEC_DECODE_POS,
+     False))
+RANK_TIMED_TP = (2, 16)
+SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu"
+           for k in ("flash_attention", "decode_attention")}
+SOURCES["ssd_chunk_scan"] = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
+            "decode_attention": "src/repro/kernels/decode_attention.py:64",
+            "ssd_chunk_scan": "src/repro/kernels/ssd_scan.py:47"}
+
+
+def rank_heads(hq: int, tp: int):
+    """(padded heads, heads a rank, the ranks checked) of ``hq`` query
+    heads at ``tp``: the first, the second, the middle and the last."""
+    from repro_torch.distribution.sharding import padded_heads
+    hp = padded_heads(hq, {"model": tp})
+    return hp, hp // tp, sorted({0, min(1, tp - 1), tp // 2, tp - 1})
+
+
+def _held(c: dict, n_launched: int, err: float, rel: float) -> None:
+    c["launches"] += n_launched
+    c["max_abs_err"] = max(c["max_abs_err"], err)
+    c["max_rel_err"] = max(c["max_rel_err"], rel)
+
+
+def _checked(checks, kernel, name, tp, n, err, rel, row):
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"{kernel} {name} at tp {tp}: {rel} > "
+                             f"{RANK_TOL} of max |o|")
+    _held(checks.setdefault((kernel, name, tp), {
+        "launches": 0, "max_abs_err": 0.0, "max_rel_err": 0.0}),
+        n, err, rel)
+
+
+def family_rank_cases(torch, device, gen):
+    """(b) Each TP rank's kernel work at the other families' full-width
+    shapes for every tp of ``CP_TP``, each launch held against its plain
+    version within ``RANK_TOL`` of max |o| at bf16:
+
+    * flash on the rank's query heads and the kv heads ``_local_kv`` gives
+      them: arctic's 56/8 (group 7; at 16, 64 padded heads, 4 a rank),
+      hymba's windowed 25/5, whisper's encoder 12/12 over B 8 x 1,500
+      frames (not causal); deepseek's MLA prefill on 128 / tp heads at dk
+      192 with v padded from 128 (``_mla_prefill``'s layout);
+    * the SSD scan on a rank's heads: mamba2's 32 / tp, hymba's 50 / 2 at
+      tp 2 and all 50 past it (its heads stay whole where the width
+      splits: ``models/ssm.py::_inner_split``);
+    * decode on a rank's chunk: hymba's ring of 1,024 slots at the ring's
+      last live slot minus the chunk's offset, no window, and whisper's
+      self cache of 448 at its positions, each combined over the chunks by
+      ``stacked_lse_combine`` and held against one launch too.
+
+    Returns the checks by (kernel, case, tp): launches, the largest
+    absolute error and the largest relative to max |o|."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
+        ssd_chunk_scan_plain
+    from repro_torch.models.attention import _local_kv, ring_slots, \
+        stacked_lse_combine
+    bf = torch.bfloat16
+    checks = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf)
+
+    def errs(o, want):
+        err = (o.float() - want.float()).abs().max().item()
+        return err, err / max(want.float().abs().max().item(), 1e-30)
+
+    for name, (hq, kv), d, b, s, causal, window in RANK_FLASH:
+        q, k, v = randn(b, s, hq, d), randn(b, s, kv, d), randn(b, s, kv, d)
+        for tp in CP_TP:
+            hp, n, ranks = rank_heads(hq, tp)
+            qp = torch.cat([q, randn(b, s, hp - hq, d)], 2) if hp > hq \
+                else q
+            for r in ranks:
+                ql = qp[:, :, r * n:(r + 1) * n].contiguous()
+                kl, vl = _local_kv(k, v, hq, hp, r * n, n)
+                before = flash_attention.launches
+                o = flash_attention(ql, kl, vl, causal=causal, window=window)
+                k_n = flash_attention.launches - before
+                err, rel = errs(o, flash_attention_plain(
+                    ql, kl, vl, causal=causal, window=window))
+                _checked(checks, "flash_attention", name, tp, k_n, err, rel,
+                         {"phase": "distribution", "case": "rank_flash",
+                          "model": name, "tp": tp, "rank": r, "B": b,
+                          "S": s, "heads": n, "kv_heads": kl.shape[2],
+                          "d": d, "causal": causal, "window": window,
+                          "max_abs_err": err, "rel_err": rel,
+                          "tol": RANK_TOL, "ok": rel <= RANK_TOL})
+        del q, k, v
+    h, dk, dv, s = RANK_MLA
+    for tp in CP_TP:
+        n = h // tp
+        q, k = randn(1, s, n, dk), randn(1, s, n, dk)
+        v = torch.nn.functional.pad(randn(1, s, n, dv), (0, dk - dv))
+        before = flash_attention.launches
+        o = flash_attention(q, k, v, causal=True, scale=dk ** -0.5)
+        k_n = flash_attention.launches - before
+        err, rel = errs(o[..., :dv], flash_attention_plain(
+            q, k, v, causal=True, scale=dk ** -0.5)[..., :dv])
+        _checked(checks, "flash_attention", "deepseek mla", tp, k_n, err,
+                 rel, {"phase": "distribution", "case": "rank_flash",
+                       "model": "deepseek mla", "tp": tp, "S": s,
+                       "heads": n, "dk": dk, "dv": dv, "max_abs_err": err,
+                       "rel_err": rel, "tol": RANK_TOL,
+                       "ok": rel <= RANK_TOL})
+    for name, shape, nc in RANK_SSD:
+        q_, h_, p_, n_ = shape
+        for tp in CP_TP:
+            heads = h_ // tp if h_ % tp == 0 else h_
+            xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, "bfloat16",
+                                       shape=(q_, heads, p_, n_))
+            before = ssd_chunk_scan.launches
+            y, st, _dec, _sd = ssd_chunk_scan(
+                xdt, dA, B, C, out_dtype=torch.float32, state_decay=True)
+            k_n = ssd_chunk_scan.launches - before
+            ry, rst, _rd, _rsd = ssd_chunk_scan_plain(
+                xdt, dA, B, C, out_dtype=torch.float32, state_decay=True)
+            (ey, ry_), (es, rs_) = errs(y, ry), errs(st, rst)
+            _checked(checks, "ssd_chunk_scan", name, tp, k_n, max(ey, es),
+                     max(ry_, rs_),
+                     {"phase": "distribution", "case": "rank_ssd",
+                      "model": name, "tp": tp, "chunks": nc, "Q": q_,
+                      "heads": heads, "P": p_, "N": n_, "max_abs_err_y": ey,
+                      "max_abs_err_state": es, "rel_err": max(ry_, rs_),
+                      "tol": RANK_TOL, "ok": max(ry_, rs_) <= RANK_TOL})
+    for name, (hq, kv), d, t, pos_list, ring in RANK_DECODE:
+        b = len(pos_list)
+        q, kc, vc = randn(b, hq, d), randn(b, t, kv, d), randn(b, t, kv, d)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        at = ring_slots(pos, t).pos_eff if ring else pos
+        full = decode_attention(q, kc, vc, at)[0]
+        plain = decode_attention_plain(q, kc, vc, at)[0]
+        for tp in CP_TP:
+            c = t // tp
+            before = decode_attention.launches
+            parts = [decode_attention(
+                q, kc[:, r * c:(r + 1) * c].contiguous(),
+                vc[:, r * c:(r + 1) * c].contiguous(), at - r * c)
+                for r in range(tp)]
+            k_n = decode_attention.launches - before
+            o = stacked_lse_combine(
+                *(torch.stack(x) for x in zip(*parts))).to(bf)
+            err, rel = errs(o, plain)
+            rel_full = errs(o, full)[1]
+            _checked(checks, "decode_attention", name, tp, k_n, err,
+                     max(rel, rel_full),
+                     {"phase": "distribution", "case": "rank_decode",
+                      "model": name, "tp": tp, "B": b, "T": t, "chunk": c,
+                      "hq": hq, "kv": kv, "d": d, "ring": ring,
+                      "pos": list(pos_list), "launches": k_n,
+                      "max_abs_err": err, "rel_err_vs_plain": rel,
+                      "rel_err_vs_full_launch": rel_full, "tol": RANK_TOL,
+                      "ok": max(rel, rel_full) <= RANK_TOL})
+        del q, kc, vc
+    torch.cuda.synchronize()
+    return checks
+
+
+def family_rank_timings(torch, device, smi: str, timer):
+    """One rank's launch at ``RANK_TIMED_TP`` for each shape of
+    ``family_rank_cases`` (rank 0; its busiest decode chunk: every
+    position live), beside the plain version, the bound and, for
+    attention, ``scaled_dot_product_attention`` on the same inputs (the
+    SSD scan has no library call). Returns the rows by (kernel, case,
+    tp)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, live_mask)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
+        ssd_chunk_scan_plain
+    from repro_torch.models.attention import _local_kv
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    bf = torch.bfloat16
+    rows = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf)
+
+    def keep(kernel, name, tp, row):
+        row.update({"phase": "timings", "kernel": kernel,
+                    "case": f"{name} rank", "tp": tp, "gpu": smi})
+        emit(row)
+        rows[(kernel, name, tp)] = row
+
+    for name, (hq, kv), d, b, s, causal, window in RANK_FLASH:
+        for tp in RANK_TIMED_TP:
+            hp, n, _ = rank_heads(hq, tp)
+            q, k, v = randn(b, s, n, d), randn(b, s, kv, d), randn(b, s, kv,
+                                                                   d)
+            kl, vl = _local_kv(k, v, hq, hp, 0, n)
+            kw = {"causal": causal, "window": window}
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kl, vl))
+            lib = {"is_causal": True} if causal and not window else {}
+            if window:
+                i = torch.arange(s, device=device)
+                lib = {"attn_mask": (i[:, None] >= i[None, :])
+                       & (i[:, None] - i[None, :] < window)}
+            nbytes, flops = flash_work(b, s, s, n, kl.shape[2], d, 2,
+                                       causal, window)
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            keep("flash_attention", name, tp, {
+                "B": b, "S": s, "hq": n, "kv": kl.shape[2], "d": d,
+                "window": window, "causal": causal,
+                "ms": timer.ms(lambda: flash_attention(q, kl, vl, **kw)),
+                "plain_ms": timer.ms(
+                    lambda: flash_attention_plain(q, kl, vl, **kw)),
+                **library_row(torch, timer, qt, kt, vt, enable_gqa=True,
+                              **lib),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": flops})
+            del q, k, v, kl, vl, qt, kt, vt
+    h, dk, dv, s = RANK_MLA
+    for tp in RANK_TIMED_TP:
+        n = h // tp
+        q, k = randn(1, s, n, dk), randn(1, s, n, dk)
+        v = torch.nn.functional.pad(randn(1, s, n, dv), (0, dk - dv))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes, flops = flash_work(1, s, s, n, n, dk, 2, True, 0, dv)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        sc = dk ** -0.5
+        keep("flash_attention", "deepseek mla", tp, {
+            "S": s, "hq": n, "kv": n, "dk": dk, "dv": dv,
+            "ms": timer.ms(lambda: flash_attention(q, k, v, scale=sc)),
+            "plain_ms": timer.ms(
+                lambda: flash_attention_plain(q, k, v, scale=sc)),
+            **library_row(torch, timer, qt, kt, vt, is_causal=True,
+                          scale=sc),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops})
+    for name, shape, nc in RANK_SSD:
+        q_, h_, p_, n_ = shape
+        for tp in RANK_TIMED_TP:
+            heads = h_ // tp if h_ % tp == 0 else h_
+            xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, "bfloat16",
+                                       shape=(q_, heads, p_, n_))
+            nbytes, flops = ssd_work(nc, 2, (q_, heads, p_, n_))
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            kw = {"out_dtype": torch.float32, "state_decay": True}
+            keep("ssd_chunk_scan", name, tp, {
+                "chunks": nc, "Q": q_, "H": heads, "P": p_, "N": n_,
+                "ms": timer.ms(lambda: ssd_chunk_scan(xdt, dA, B, C, **kw)),
+                "plain_ms": timer.ms(
+                    lambda: ssd_chunk_scan_plain(xdt, dA, B, C, **kw)),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": nbytes, "flops": flops})
+    for name, (hq, kv), d, t, pos_list, _ring in RANK_DECODE:
+        b = len(pos_list)
+        for tp in RANK_TIMED_TP:
+            c = t // tp
+            q, kc, vc = randn(b, hq, d), randn(b, c, kv, d), randn(b, c, kv,
+                                                                   d)
+            lp = torch.full((b,), c - 1, dtype=torch.int32, device=device)
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+            mask = live_mask(lp, c)[:, None, None, :]
+            nbytes, flops = decode_work([c - 1] * b, c, hq, kv, d, 2, 2)
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            keep("decode_attention", name, tp, {
+                "B": b, "T": t, "chunk": c, "hq": hq, "kv": kv, "d": d,
+                "ms": timer.ms(lambda: decode_attention(q, kc, vc, lp)),
+                "plain_ms": timer.ms(
+                    lambda: decode_attention_plain(q, kc, vc, lp)),
+                **library_row(torch, timer, q[:, :, None, :], kt, vt,
+                              attn_mask=mask, enable_gqa=True),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": flops})
+    return rows
+
+
+# psums over ``model`` one layer of each kind makes a forward on a mesh
+# whose model axis divides every sharded dim (a world of one): attention's
+# row-parallel out-projection and the MLP's (``dense``); the SSM path's
+# gated-norm sum of squares and its out-projection (``ssm``); attention,
+# the SSM path and the MLP (``hybrid``); attention, the cross attention
+# and the MLP (``dec``); attention and the MLP (an encoder's ``enc``)
+LAYER_PSUMS = {"dense": 2, "dense_prefix": 2, "ssm": 2, "hybrid": 4,
+               "dec": 3, "enc": 2}
+
+
+def model_psums(cfg, prefill: bool) -> int:
+    """The psums over ``model`` of one sharded forward of ``cfg`` at a
+    world of one, reckoned from its layers: the vocab-sharded embedding's
+    one, each layer's (``LAYER_PSUMS``; a ``moe`` layer: attention's, the
+    experts' f32 combine and each of its shared or dense MLPs), and at a
+    prefill the encoder's layers. The cp decode's LSE combine adds none at
+    a world of one: the cache is one chunk."""
+    from repro_torch.models import build_schedule
+    moe = cfg.moe
+    per = dict(LAYER_PSUMS)
+    if moe is not None:
+        per["moe"] = 2 + bool(moe.num_shared_experts) + moe.parallel_dense
+    n = 1 + sum(per[seg.kind] * seg.count for seg in build_schedule(cfg))
+    if prefill:
+        n += per["enc"] * cfg.encoder_layers
+    return n
+
+
 @contextlib.contextmanager
 def plain_calls(counts: dict):
-    """Count calls of the attention cores' plain versions as the model
-    calls them: a sharded serve that fell back to one would show here."""
+    """Count calls of the attention cores' and the SSD scan's plain
+    versions as the model calls them: a sharded serve that fell back to
+    one would show here."""
     from repro_torch.models import attention as attn
-    flash_p, dec_p = attn.flash_attention_plain, attn.decode_attention_plain
+    from repro_torch.models import ssm
+    real = {"flash_attention_plain": (attn, attn.flash_attention_plain),
+            "decode_attention_plain": (attn, attn.decode_attention_plain),
+            "ssd_chunk_scan_plain": (ssm, ssm.ssd_chunk_scan_plain)}
 
-    def flash_counted(*args, **kw):
-        counts["flash_attention_plain"] += 1
-        return flash_p(*args, **kw)
+    def counted(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
 
-    def decode_counted(*args, **kw):
-        counts["decode_attention_plain"] += 1
-        return dec_p(*args, **kw)
-
-    attn.flash_attention_plain = flash_counted
-    attn.decode_attention_plain = decode_counted
+    for name, (mod, fn) in real.items():
+        counts.setdefault(name, 0)
+        setattr(mod, name, counted(name, fn))
     try:
         yield counts
     finally:
-        attn.flash_attention_plain, attn.decode_attention_plain = \
-            flash_p, dec_p
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def world_of_one(torch, device):
+    """The sharded path's world on one card: a process group of one rank
+    over a ``HashStore`` (NCCL on the card, gloo on the CPU: two ranks
+    cannot share a card under NCCL), ``ShardingCtx(make_host_mesh(1,
+    1))`` and a CoreEngine installed for the serving collectives. Yields
+    (the context, the engine)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_engine, use_engine
+    from repro_torch.distribution import ShardingCtx
+    from repro_torch.launch import make_host_mesh
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        shd = ShardingCtx(make_host_mesh(1, 1, device=device.type))
+        core = make_engine(shd.axes, "xla")
+        with use_engine(core):
+            yield shd, core
+    finally:
+        dist.destroy_process_group()
+
+
+def ledger_psums(core) -> int:
+    return sum(ops for _t, verb, axes, ops, _b in core.ledger_table()
+               if verb == "psum" and axes == ("model",))
+
+
+def sharded_serve(torch, device, cfg, want_tokens, prefill_kernels,
+                  decode_kernels, *, profile=False, profile_kw=None,
+                  **serve_kw):
+    """(a)/(c) of the distribution phase: ``cfg`` at full width served
+    through the sharded path at a world of one (``world_of_one``), the
+    serve phase's 12 requests from the same seeded weights (every layout
+    draws the same values): tokens identical to ``want_tokens`` (the
+    unsharded engine's), the scheduler's ledger and each kernel once per
+    layer and admission or step (``phase_serve``), the CoreEngine's psums
+    over ``model`` equal to ``model_psums``' reckoning for the run's
+    admissions and steps, no plain attention or SSD call on the card.
+    ``profile``: also profile the sharded engine (``phase_profile``, with
+    ``profile_kw``) and time the collectives' host cost. Returns the run's
+    launches."""
+    plain = {}
+    row = {}
+    with world_of_one(torch, device) as (shd, core), plain_calls(plain):
+        eng, launches, _ = phase_serve(
+            torch, device, cfg, cfg.num_layers, prefill_kernels,
+            decode_kernels, prefill_lens=(), shd=shd, phase="distribution",
+            row_out=row, **serve_kw)
+        got = {r.req_id: list(r.generated) for r in eng.completed}
+        same = got == want_tokens
+        table = core.ledger_table()
+        psums = ledger_psums(core)
+        want_psums = eng.admissions * model_psums(cfg, prefill=True) \
+            + eng.decode_steps * model_psums(cfg, prefill=False)
+        no_plain = device.type != "cuda" or not any(plain.values())
+        ok = same and psums == want_psums and no_plain \
+            and eng.params.shd is shd
+        emit({"phase": "distribution", "case": "sharded_serve",
+              "model": cfg.name, "layers": cfg.num_layers,
+              "mesh": dict(shd.axis_sizes), "backend": "nccl"
+              if device.type == "cuda" else "gloo",
+              "tokens_equal_unsharded": same,
+              "admissions": eng.admissions, "decode_steps": eng.decode_steps,
+              "launches": launches, "plain_calls": plain,
+              "ledger": [list(r[:3]) + [r[3], r[4]] for r in table],
+              "model_psums": psums, "model_psums_expected": want_psums,
+              "psums_a_prefill": model_psums(cfg, prefill=True),
+              "psums_a_step": model_psums(cfg, prefill=False),
+              "step_ms_median": row.get("step_ms_median"),
+              "run_s": row.get("run_s"), "ok": ok})
+        if not ok:
+            raise AssertionError(f"{cfg.name} sharded serve: tokens equal "
+                                 f"{same}, psums {psums} of {want_psums}, "
+                                 f"plain calls {plain}")
+        if profile:
+            # on an engine over the same weights with no rate controller,
+            # whose buckets would hold back the profile's 8 prompts
+            from repro_torch.configs import RunConfig
+            from repro_torch.serve import ServeEngine
+            phase_profile(torch, device, ServeEngine(
+                cfg, RunConfig(), eng.params, batch_slots=eng.B,
+                max_seq=eng.max_seq, shd=shd), **(profile_kw or {}))
+            collective_host_us(torch, device, shd, core)
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_encdec(torch, device, cfg, prompts, frames, want_tokens):
+    """(a) of the distribution phase for whisper (served through
+    ``forward_prefill(..., frames=)`` and ``forward_decode``, ROADMAP R9):
+    the model from the encdec phase's seed through the sharded path at a
+    world of one, its prompts and frames, ``ENCDEC_NEW`` greedy steps:
+    tokens identical to ``want_tokens`` (the unsharded run's), flash once
+    per encoder layer, decoder layer and cross attention, decode twice a
+    decoder layer and step, psums as ``model_psums`` reckons them, no
+    plain call. Returns the launches."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+    plain = {}
+    with world_of_one(torch, device) as (shd, core), plain_calls(plain):
+        model = init_params(cfg, device=device, seed=SEED, shd=shd)
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        t0 = time.perf_counter()
+        _out, toks, _c = encdec_serve(torch, model, RunConfig(), prompts,
+                                      frames, ENCDEC_NEW)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "decode_attention": da.decode_attention.launches}
+        want = {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
+                "decode_attention": 2 * cfg.num_layers * ENCDEC_NEW}
+        psums = ledger_psums(core)
+        want_psums = model_psums(cfg, prefill=True) \
+            + ENCDEC_NEW * model_psums(cfg, prefill=False)
+        same = torch.equal(toks, want_tokens)
+        no_plain = device.type != "cuda" or not any(plain.values())
+        ok = same and launches == want and psums == want_psums and no_plain
+        emit({"phase": "distribution", "case": "sharded_encdec",
+              "model": cfg.name, "mesh": dict(shd.axis_sizes),
+              "tokens_equal_unsharded": same, "launches": launches,
+              "launches_want": want, "plain_calls": plain,
+              "model_psums": psums, "model_psums_expected": want_psums,
+              "run_s": run_s, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{cfg.name} sharded: tokens equal {same}, "
+                                 f"launches {launches} of {want}, psums "
+                                 f"{psums} of {want_psums}, plain {plain}")
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def collective_host_us(torch, device, shd, core):
@@ -4516,84 +4997,35 @@ def collective_host_us(torch, device, shd, core):
 def phase_distribution(torch, device, cfg, want_tokens, *,
                        profile: bool = False):
     """The model axis on the card: (a) ``cp_decode_cases``, (b)
-    ``tp_flash_cases``, (c) full-width ``cfg`` served through the sharded
-    path with ``ShardingCtx(make_host_mesh(1, 1))`` on an NCCL world of one
-    (two ranks cannot share one card under NCCL, so the cross-rank
-    arithmetic is held on gloo worlds on the CPU): the serve
-    phase's 12 requests, tokens identical to ``want_tokens`` (the
-    unsharded engine's on the same weights), the scheduler's ledger, the
-    CoreEngine's ledger of the serving collectives, flash once per layer
-    and admission and decode once per layer and step, no plain attention
-    call; (d) ``per_rank_bytes``. ``profile``: also profile the sharded
-    engine's decode steps and prefill (``phase_profile``) and time the
-    collectives' host cost (``collective_host_us``). Returns (the main
-    path's launches in (c), the checks of (a) and (b) by kernel: launches
-    and errors at the per-rank shapes, which no main path runs)."""
-    import torch.distributed as dist
-
-    from repro_torch.core import make_engine, use_engine
-    from repro_torch.distribution import ShardingCtx
+    ``tp_flash_cases`` and ``family_rank_cases`` (each rank's kernel work
+    at the other families' shapes), (c) full-width ``cfg`` served through
+    the sharded path at a world of one (``sharded_serve``: two ranks
+    cannot share one card under NCCL, so the cross-rank arithmetic is held
+    on gloo worlds on the CPU), tokens identical to ``want_tokens`` (the
+    unsharded engine's on the same weights); (d) ``per_rank_bytes``.
+    ``profile``: also profile the sharded engine and time the collectives'
+    host cost. The other families' sharded serves run after their own
+    phases (``main``). Returns (the main path's launches in (c), the
+    checks of (a) and (b) by kernel: launches and errors at the per-rank
+    shapes, which no main path runs, and those of ``family_rank_cases``
+    by (kernel, case, tp))."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch import make_host_mesh
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
     checks = {"decode_attention": cp_decode_cases(torch, device, gen),
               "flash_attention": tp_flash_cases(torch, device, gen)}
+    family = family_rank_cases(torch, device, gen)
     torch.cuda.empty_cache()
     t_kernels = time.perf_counter() - t0
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    try:
-        shd = ShardingCtx(make_host_mesh(1, 1, device=device.type))
-        core = make_engine(shd.axes, "xla")
-        plain = {"flash_attention_plain": 0, "decode_attention_plain": 0}
-        row = {}
-        with use_engine(core), plain_calls(plain):
-            eng, launches, _ = phase_serve(
-                torch, device, cfg, cfg.num_layers,
-                {"flash_attention": flash_attention},
-                {"decode_attention": decode_attention}, prefill_lens=(),
-                shd=shd, phase="distribution", row_out=row)
-        got = {r.req_id: list(r.generated) for r in eng.completed}
-        same = got == want_tokens
-        table = core.ledger_table()
-        psums = sum(ops for _t, verb, axes, ops, _b in table
-                    if verb == "psum" and axes == ("model",))
-        layers = cfg.num_layers
-        want_psums = (eng.admissions + eng.decode_steps) * (1 + 2 * layers)
-        ok = same and psums == want_psums and not any(plain.values()) \
-            and eng.params.shd is shd
-        emit({"phase": "distribution", "case": "sharded_serve",
-              "model": cfg.name, "mesh": dict(shd.axis_sizes),
-              "backend": "nccl", "tokens_equal_unsharded": same,
-              "admissions": eng.admissions, "decode_steps": eng.decode_steps,
-              "launches": launches,
-              "flash_per_admission": launches["flash_attention"]
-              / max(eng.admissions, 1),
-              "decode_per_step": launches["decode_attention"]
-              / max(eng.decode_steps, 1),
-              "plain_calls": plain,
-              "ledger": [list(r[:3]) + [r[3], r[4]] for r in table],
-              "model_psums": psums, "model_psums_expected": want_psums,
-              "step_ms_median": row.get("step_ms_median"),
-              "run_s": row.get("run_s"), "ok": ok})
-        if not ok:
-            raise AssertionError(f"sharded serve: tokens equal {same}, "
-                                 f"psums {psums} of {want_psums}, plain "
-                                 f"calls {plain}")
-        if profile:
-            with use_engine(core):
-                phase_profile(torch, device, eng)
-            collective_host_us(torch, device, shd, core)
-        del eng
-    finally:
-        dist.destroy_process_group()
-    torch.cuda.empty_cache()
+    launches = sharded_serve(torch, device, cfg, want_tokens,
+                             {"flash_attention": flash_attention},
+                             {"decode_attention": decode_attention},
+                             profile=profile)
     per_rank_bytes()
     emit({"phase": "distribution", "kernel_cases_s": t_kernels,
           "seconds": time.perf_counter() - t0})
-    return launches, checks
+    return launches, checks, family
 
 
 def hybrid_attention_timings(torch, device, smi: str, timer, gen):
@@ -4743,7 +5175,7 @@ def nemotron_attention_timings(torch, device, smi: str, timer, gen):
                    .to(torch.bfloat16) for h in (hq, kv, kv))
         v[..., dv:] = 0
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        nbytes, flops = flash_work(1, s, s, hq, kv, d, 2, True, 0)
+        nbytes, flops = flash_work(1, s, s, hq, kv, d, 2, True, 0, dv)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         row = {"phase": "timings", "kernel": "flash_attention",
                "model": model, "S": s, "hq": hq, "kv": kv, "d": d,
@@ -5103,8 +5535,8 @@ def main() -> int:
     # width, then the same llama3.2-3b served through the sharded path
     seconds = {}
     t_phase = time.perf_counter()
-    dist_launches, dist_checks = phase_distribution(torch, device, cfg,
-                                                    served_tokens)
+    dist_launches, dist_checks, family_checks = phase_distribution(
+        torch, device, cfg, served_tokens)
     for k, v in dist_launches.items():
         launches[k] += v
     seconds["distribution"] = time.perf_counter() - t_phase
@@ -5117,10 +5549,19 @@ def main() -> int:
         {"ssd_chunk_scan": ssd_chunk_scan}, {},
         prefill_lens=SSM_PREFILL_LENS)
     launches.update(ssm_launches)
+    ssm_tokens = {r.req_id: list(r.generated) for r in eng.completed}
     phase_profile(torch, device, eng, kernel="ssd_")
     phase_parity_ssm(torch, device, eng)
     del eng
     torch.cuda.empty_cache()
+    # ... and through the sharded path at a world of one: the SSD scan on
+    # the rank's heads, the gated norm's sum of squares over model
+    t_phase = time.perf_counter()
+    for k, v in sharded_serve(torch, device, ssm_cfg, ssm_tokens,
+                              {"ssd_chunk_scan": ssd_chunk_scan},
+                              {}).items():
+        launches[k] += v
+    seconds["sharded_ssm"] = time.perf_counter() - t_phase
 
     # the vlm family: full-width chameleon-34b at full depth, 64 GiB of
     # bf16 weights, through both attention kernels; then its first layers
@@ -5149,16 +5590,36 @@ def main() -> int:
     # prefill through flash and the SSD scan, its decode through the decode
     # kernel over rings in the 29 windowed layers
     t_phase = time.perf_counter()
-    for k, v in phase_hybrid(torch, device).items():
+    hybrid = {}
+    for k, v in phase_hybrid(torch, device, out=hybrid).items():
         launches[k] += v
     seconds["hybrid"] = time.perf_counter() - t_phase
+    # ... and sharded at a world of one: the rings a chunk a rank, the
+    # decode kernel on the chunk at the ring's last live slot
+    t_phase = time.perf_counter()
+    hy_cfg = get_config("hymba-1.5b")
+    for k, v in sharded_serve(
+            torch, device, hy_cfg, hybrid["tokens"],
+            {"flash_attention": flash_attention,
+             "ssd_chunk_scan": ssd_chunk_scan},
+            {"decode_attention": decode_attention}, max_seq=HYBRID_MAX_SEQ,
+            prompt_range=HYBRID_PROMPT_RANGE,
+            fixed_lengths=HYBRID_FIXED_LENGTHS).items():
+        launches[k] += v
+    seconds["sharded_hybrid"] = time.perf_counter() - t_phase
 
     # the encdec family: full-width whisper-small, its encoder, decoder and
     # cross-attention through flash, its self and cross decode through the
     # decode kernel
     t_phase = time.perf_counter()
-    for k, v in phase_encdec(torch, device).items():
+    encdec = {}
+    for k, v in phase_encdec(torch, device, out=encdec).items():
         launches[k] += v
+    for k, v in sharded_encdec(torch, device, get_config("whisper-small"),
+                               encdec["prompts"], encdec["frames"],
+                               encdec["tokens"]).items():
+        launches[k] += v
+    del encdec
     seconds["encdec"] = time.perf_counter() - t_phase
 
     # the moe family at full width and cut depth: arctic-480b (flash and
@@ -5169,8 +5630,19 @@ def main() -> int:
     import dataclasses
     for arch, layers, f32_layers in MOE_MODELS:
         moe_cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-        for k, v in phase_moe(torch, device, arch, moe_cfg,
-                              f32_layers).items():
+        served = {}
+        for k, v in phase_moe(torch, device, arch, moe_cfg, f32_layers,
+                              out=served).items():
+            launches[k] += v
+        # ... and sharded at a world of one, drawn again from the seed once
+        # the unsharded weights are freed (two copies do not fit): experts
+        # over model, the f32 combine summed, MLA's latent decode
+        mla = moe_cfg.mla is not None
+        for k, v in sharded_serve(
+                torch, device, moe_cfg, served["tokens"],
+                {"flash_attention": flash_attention},
+                {} if mla else {"decode_attention": decode_attention}
+                ).items():
             launches[k] += v
     seconds["moe"] = time.perf_counter() - t_phase
 
@@ -5185,16 +5657,20 @@ def main() -> int:
     # and the replay harness; their water-fill launches add up
     control_launches, _rows = phase_control(torch, device, smi)
     from repro_torch.models.params import init_params
-    model = init_params(cfg, device=device, generator=torch.Generator(
+    # the fabric phases serve full-width llama3.2-3b cut to FABRIC_LAYERS
+    # of its 28 layers: their claims run on a virtual clock, and each
+    # layer adds the same host-bound work to every step
+    fab_cfg = dataclasses.replace(cfg, num_layers=FABRIC_LAYERS)
+    model = init_params(fab_cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(SEED + 4))
-    replay_launches = phase_replay(torch, device, cfg, model)
+    replay_launches = phase_replay(torch, device, fab_cfg, model)
     launches["water_fill"] = control_launches + replay_launches
     # the cluster half: 3 engines over the same model
-    for k, v in phase_cluster(torch, device, cfg, model).items():
+    for k, v in phase_cluster(torch, device, fab_cfg, model).items():
         launches[k] += v
     # claim (k): the fabric watchdog over the same model
     t_phase = time.perf_counter()
-    for k, v in phase_watchdog(torch, device, cfg, model).items():
+    for k, v in phase_watchdog(torch, device, fab_cfg, model).items():
         launches[k] += v
     seconds["watchdog"] = time.perf_counter() - t_phase
     del model
@@ -5281,6 +5757,29 @@ def main() -> int:
             "max_abs_err": check["max_abs_err"],
             **({"max_rel_err": check["max_rel_err"]}
                if "max_rel_err" in check else {}),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    # each rank's kernel work at the other families' shapes at tp 16, held
+    # in the distribution phase (check_launches), timed in the timings
+    # phase; no main path runs them (the sharded serves are worlds of one)
+    fam_rows = family_rank_timings(torch, device, smi, Timer(torch, device))
+    for kernel, case in (("flash_attention", "arctic"),
+                         ("flash_attention", "deepseek mla"),
+                         ("flash_attention", "hymba window"),
+                         ("flash_attention", "whisper encoder"),
+                         ("ssd_chunk_scan", "mamba2"),
+                         ("ssd_chunk_scan", "hymba"),
+                         ("decode_attention", "hymba ring"),
+                         ("decode_attention", "whisper self")):
+        row = fam_rows[(kernel, case, 16)]
+        check = family_checks[(kernel, case, 16)]
+        summary.append({
+            "name": f"{kernel} ({case} rank, tp 16)", "route": "cuda",
+            "source": SOURCES[kernel], "replaces": REPLACES[kernel],
+            "launches": 0, "check_launches": check["launches"],
+            "max_abs_err": check["max_abs_err"],
+            "max_rel_err": check["max_rel_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

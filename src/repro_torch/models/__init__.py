@@ -1,5 +1,5 @@
 from repro_torch.models.model import (
-    Model, Segment, build_schedule, cache_schema, check_sharded, encode,
+    Model, Segment, build_schedule, cache_schema, encode,
     forward_decode, forward_prefill, forward_train, gather_logits, greedy,
     init_cache, input_specs, model_schema,
 )
@@ -9,7 +9,7 @@ from repro_torch.models.params import (
 )
 
 __all__ = [
-    "Model", "Segment", "build_schedule", "cache_schema", "check_sharded",
+    "Model", "Segment", "build_schedule", "cache_schema",
     "encode", "forward_decode", "forward_prefill", "forward_train",
     "gather_logits", "greedy", "init_cache", "input_specs", "model_schema",
     "Slot", "cache_from_jax", "init_params", "opt_slots", "params_from_jax",

@@ -41,9 +41,8 @@ their output before the out-projection (which zeroes their gradients too),
 and ``q_to_kv_map`` sends them to the last kv head. On one device ``hp ==
 h`` and the mask is not applied.
 
-**The sharded path** (a ``ShardingCtx`` on a mesh: the dense family; the
-other families refuse a mesh, ``models/model.py::check_sharded``) splits
-the work explicitly on each rank's shards. Each rank projects its ``heads``
+**The sharded path** (a ``ShardingCtx`` on a mesh) splits the work
+explicitly on each rank's shards. Each rank projects its ``heads``
 slice of ``wq`` with the whole ``wk``/``wv`` (kv heads have no mesh
 candidate, so they are replicated), runs flash at prefill on its local
 query heads (``_local_kv`` gives the kernel the kv heads they read, as a
@@ -54,7 +53,12 @@ q over ``model`` and runs ``decode_attention_cp``: with the cache's
 sequence dim sharded over ``model`` (``kv_seq``), each rank launches the
 decode kernel on its contiguous chunk at its local positions and the
 shards combine their ``(o, m, l)`` by log-sum-exp (``lse_combine``); only
-the rank whose chunk holds ``pos`` writes the new row.
+the rank whose chunk holds ``pos`` writes the new row. A windowed layer's
+ring is split the same way, a contiguous chunk of its slots a rank, and
+read at the ring's last live slot with no window. Whisper's cross
+attention reads the replicated encoder k/v through the rank's heads'
+``_local_kv``. MLA's sharded path is ``mla_attention``'s (its latent
+decode gathers the absorbed queries, ``_mla_decode_chunk``).
 
 DeepSeek-V2's multi-head latent attention (``mla_attention``) caches one
 latent row per position, ``lat = concat(c_kv, k_pe)``: the rms-normed
@@ -339,10 +343,13 @@ class RingSlots(NamedTuple):
     ``slot`` (B,) int64, where the new row goes; ``pos_eff`` (B,) int32,
     the last live slot, which the kernel reads as a linear cache's
     position; ``kv_pos`` (B, n_slots), the absolute position each slot
-    holds, for the plain path (None unless asked for)."""
+    holds, for the plain path (None unless asked for); ``n``, the ring's
+    slots (on a mesh, all of them: each rank holds a contiguous chunk of
+    them where the model axis divides them)."""
     slot: torch.Tensor
     pos_eff: torch.Tensor
     kv_pos: Optional[torch.Tensor]
+    n: int = 0
 
 
 def is_ring(window: int, n_slots: int) -> bool:
@@ -360,7 +367,7 @@ def ring_slots(pos: torch.Tensor, n_slots: int, *,
         j = torch.arange(n_slots, device=pos.device)[None, :]
         held = p[:, None] - torch.remainder(p[:, None] - j, n_slots)
     return RingSlots(torch.remainder(p, n_slots),
-                     pos.clamp(max=n_slots - 1), held)
+                     pos.clamp(max=n_slots - 1), held, n_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -380,20 +387,25 @@ def _out(o, w):
     return matmul(o.reshape(*o.shape[:-2], h * hd), w.reshape(h * hd, d))
 
 
-def _cross_decode(p, q, cache: Dict, naive: bool):
+def _cross_decode(q, cache: Dict, naive: bool, local=None):
     """Cross-attention decode (whisper's decoder): every row reads the
     whole encoder cache ``ck``/``cv`` (B, T, KV, hd) at ``pos = T - 1``
     and writes nothing, as the reference does. The cache meets q in q's
     dtype (the reference's ``cache.astype(x.dtype)``); the kernel widens
-    a bf16 cache for an f32 q itself."""
+    a bf16 cache for an f32 q itself. ``local`` (h, hp, first, n): on a
+    mesh q holds the rank's query heads ``first .. first + n - 1`` of
+    ``hp``, which read their kv heads of the replicated cache
+    (``_local_kv``); the caller masks and sums the output."""
     ck, cv = cache["ck"], cache["cv"]
     if q.dtype == torch.bfloat16 and ck.dtype != q.dtype:
         ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+    if local is not None:
+        ck, cv = _local_kv(ck, cv, *local)
     at = torch.full((q.shape[0],), ck.shape[1] - 1, dtype=torch.int32,
                     device=q.device)
     decode = decode_attention_plain if naive else decode_kernel
     o, _, _ = decode(q[:, 0].contiguous(), ck, cv, at)
-    return _out(o[:, None], p["wo"])
+    return o[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +516,8 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
     encoder k/v (``cache`` {"ck", "cv"}) instead: see ``_cross_decode``.
 
     ``shd``: a ``ShardingCtx`` on a mesh runs the sharded path of the
-    module's docstring (self-attention over a linear cache, no grad; x
+    module's docstring (no grad; a linear cache, a ring or the cross
+    caches; x
     (B_local, S, d) is the same on every rank of ``model``, and so is the
     result after the ``psum`` of the row-parallel out-projection; decode
     needs ``max_seq``, the cache's global length)."""
@@ -523,7 +536,10 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
     if cross_decode:
-        return _cross_decode(p, q, cache, naive)
+        if sharded:
+            o = _cross_decode(q, cache, naive, (h, hp, first, n))
+            return shd.psum(_out(o * mask, p["wo"]), "model")
+        return _out(_cross_decode(q, cache, naive), p["wo"])
     src = x if kv_x is None else kv_x
     knew = _heads(src, p["wk"])
     vnew = _heads(src, p["wv"])
@@ -568,9 +584,18 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
         if max_seq is None:
             raise ValueError("decode on a mesh needs max_seq, the cache's "
                              "global length")
-        # the new row goes into the chunk that holds it
-        chunked = shd.split("kv_seq", max_seq) is not None and tp > 1
-        local = decode_pos.long() - (rank * n_slots if chunked else 0)
+        # a ring (the caller's slots over all of its ``n`` slots) is read
+        # as a linear cache at its last live slot with no window; each
+        # rank holds a contiguous chunk of the ring or of the sequence
+        # where the model axis divides it, and the new row goes into the
+        # chunk that holds it
+        if ring is not None:
+            n_all, slot, at, win = ring.n, ring.slot, ring.pos_eff, 0
+        else:
+            n_all, slot, at, win = max_seq, decode_pos.long(), \
+                decode_pos.to(torch.int32), window
+        chunked = n_slots < n_all
+        local = slot - (rank * n_slots if chunked else 0)
         inside = ((local >= 0) & (local < n_slots))[:, None, None]
         slot = local.clamp(0, n_slots - 1)
         k_c[rows, slot] = torch.where(inside, knew[:, 0].to(k_c.dtype),
@@ -578,9 +603,8 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
         v_c[rows, slot] = torch.where(inside, vnew[:, 0].to(v_c.dtype),
                                       v_c[rows, slot])
         o = decode_attention_cp(shd.all_gather(q, "model", 2), k_c, v_c,
-                                decode_pos.to(torch.int32), window=window,
-                                n_real_heads=h, shd=shd, chunked=chunked,
-                                naive=naive)
+                                at, window=win, n_real_heads=h, shd=shd,
+                                chunked=chunked, naive=naive)
         o = o[:, :, first:first + n] * mask
         return shd.psum(_out(o, p["wo"]), "model"), {"k": k_c, "v": v_c}
     if ring is None and is_ring(window, n_slots):
@@ -638,9 +662,35 @@ def _mla_prefill(q, k, v, scale: float, rcfg):
     return o[..., :dv]
 
 
+def _mla_decode_chunk(q_lat, q_rope, lat, decode_pos, r: int, scale: float,
+                      dtype, off: int = 0):
+    """The absorbed decode of q's heads over the latent cache ``lat``
+    holding positions ``off ..`` (all of it off a mesh, a rank's chunk on
+    one): the latent and rope scores in f32, masked to ``t <= pos``, the
+    softmax normalized over the chunk, p rounded to ``dtype`` before the
+    latent PV product, which is kept in f32. Returns (o_lat (B, H, r) f32,
+    m, l), the chunk's running max and exp-sum for ``lse_combine``; a
+    chunk with no live position has l 0 and weighs nothing."""
+    latx = lat.to(dtype)
+    c_c, pe_c = latx[..., :r], latx[..., r:]
+    s_lat = torch.einsum("bhr,btr->bht", q_lat.float(), c_c.float())
+    s_pe = torch.einsum("bhk,btk->bht", q_rope.float(), pe_c.float())
+    sres = (s_lat + s_pe) * scale
+    t = off + torch.arange(lat.shape[1], device=lat.device)
+    valid = (t[None, :] <= decode_pos.long()[:, None])[:, None, :]
+    sres = torch.where(valid, sres, NEG_INF)
+    m = sres.amax(dim=-1)
+    pexp = torch.where(valid, torch.exp(sres - m[..., None]), 0.0)
+    l = pexp.sum(dim=-1)
+    pr = pexp / l.clamp_min(1e-30)[..., None]
+    o_lat = torch.einsum("bht,btr->bhr", pr.to(dtype).float(), c_c.float())
+    return o_lat, m, l
+
+
 def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
                   cache: Optional[Dict] = None, decode_pos=None,
-                  return_cache=False):
+                  return_cache=False, shd=None,
+                  max_seq: Optional[int] = None):
     """Multi-head latent attention.
 
     Prefill and training: ``positions`` (S,); k and v are made explicit
@@ -655,11 +705,32 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
     ``decode_pos``; the scores are q_nope absorbed through w_uk against
     the latent plus q_rope against the rope channel, f32, masked to
     ``t <= pos``; p is rounded to x's dtype before the latent PV product,
-    which w_uv takes back to heads. Returns (out, cache)."""
+    which w_uv takes back to heads. Returns (out, cache).
+
+    ``shd``: a ``ShardingCtx`` on a mesh (no grad), with ``wq``, ``w_uk``,
+    ``w_uv`` and ``wo`` the rank's (padded) heads and ``w_dkv`` whole. The
+    prefill runs flash on the rank's heads and sums ``wo``'s products over
+    ``model``. Decode needs ``max_seq``, the latent's global length: where
+    the model axis splits the latent's sequence each rank holds a
+    contiguous chunk, the rank owning ``decode_pos`` writes the new row,
+    the absorbed queries of all heads are gathered (B x H x (r + rope),
+    never the cache) and scored against the rank's chunk, and the chunks
+    combine by log-sum-exp (``_mla_decode_chunk``, ``lse_combine``); each rank then takes its
+    heads' latent output through ``w_uv`` and ``wo``. With the latent
+    whole on every rank, the rank decodes its heads against all of it."""
     mla = cfg.mla
     nope, rope_d, r = mla.qk_nope_head_dim, mla.qk_rope_head_dim, \
         mla.kv_lora_rank
     scale = 1.0 / math.sqrt(nope + rope_d)
+    sharded = shd is not None and shd.mesh is not None
+    if sharded:
+        if torch.is_grad_enabled():
+            raise NotImplementedError("training on a mesh is not ported "
+                                      "yet (ROADMAP: the train side)")
+        n = p["wq"].shape[1]                   # this rank's query heads
+        first = shd.index("model") * n
+        mask = head_mask(cfg.num_heads, n * shd.tp, x.dtype,
+                         x.device)[first:first + n, None]
     q = _heads(x, p["wq"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     dkv = matmul(x, p["w_dkv"])
@@ -675,7 +746,9 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
         v = _heads(c_kv, p["w_uv"])
         k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], rope_d)], -1)
         qq = torch.cat([q_nope, q_rope], -1)
-        out = _out(_mla_prefill(qq, k, v, scale, rcfg), p["wo"])
+        o = _mla_prefill(qq, k, v, scale, rcfg)
+        out = shd.psum(_out(o * mask, p["wo"]), "model") if sharded \
+            else _out(o, p["wo"])
         if return_cache:
             return out, {"lat": torch.cat([c_kv, k_pe[:, :, 0]], -1)}
         return out
@@ -686,20 +759,35 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
     q_rope = apply_rope(q_rope, cos, sin)
     k_pe = apply_rope(k_pe_new[:, :, None, :], cos, sin)[:, 0, 0]
     lat = cache["lat"]
-    # in-place row write, as gqa_attention writes k/v (the reference
-    # rebuilds the cache with a one-hot where)
-    lat[torch.arange(b, device=x.device), decode_pos.long()] = torch.cat(
-        [c_kv[:, 0], k_pe], -1).to(lat.dtype)
-    latx = lat.to(x.dtype)
-    c_c, pe_c = latx[..., :r], latx[..., r:]
+    rows = torch.arange(b, device=x.device)
+    new_row = torch.cat([c_kv[:, 0], k_pe], -1).to(lat.dtype)
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"])
-    s_lat = torch.einsum("bhr,btr->bht", q_lat.float(), c_c.float())
-    s_pe = torch.einsum("bhk,btk->bht", q_rope[:, 0].float(), pe_c.float())
-    sres = (s_lat + s_pe) * scale
-    valid = torch.arange(lat.shape[1], device=x.device)[None, :] \
-        <= decode_pos.long()[:, None]
-    sres = torch.where(valid[:, None, :], sres, NEG_INF)
-    pr = torch.softmax(sres, dim=-1)
-    o_lat = torch.einsum("bht,btr->bhr", pr.to(x.dtype), c_c)
-    o = torch.einsum("bhr,rhk->bhk", o_lat, p["w_uv"])
-    return _out(o[:, None], p["wo"]), {"lat": lat}
+    if sharded:
+        if max_seq is None:
+            raise ValueError("decode on a mesh needs max_seq, the latent "
+                             "cache's global length")
+        n_slots = lat.shape[1]
+        off = shd.index("model") * n_slots if n_slots < max_seq else 0
+        local = decode_pos.long() - off
+        inside = ((local >= 0) & (local < n_slots))[:, None]
+        slot = local.clamp(0, n_slots - 1)
+        lat[rows, slot] = torch.where(inside, new_row, lat[rows, slot])
+    else:
+        # in-place row write, as gqa_attention writes k/v (the reference
+        # rebuilds the cache with a one-hot where)
+        lat[rows, decode_pos.long()] = new_row
+    if sharded and n_slots < max_seq:
+        # every head against the rank's chunk, combined over ``model``
+        qq = shd.all_gather(torch.cat([q_lat, q_rope[:, 0]], -1), "model", 1)
+        o_lat = lse_combine(*_mla_decode_chunk(
+            qq[..., :r], qq[..., r:], lat, decode_pos, r, scale, x.dtype,
+            off), lambda t: shd.pmax(t, "model"),
+            lambda t: shd.psum(t, "model"))[:, first:first + n]
+    else:
+        o_lat = _mla_decode_chunk(q_lat, q_rope[:, 0], lat, decode_pos, r,
+                                  scale, x.dtype)[0]
+    # the latent product rounded once, after the chunks' combine
+    o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["w_uv"])[:, None]
+    if sharded:
+        return shd.psum(_out(o * mask, p["wo"]), "model"), {"lat": lat}
+    return _out(o, p["wo"]), {"lat": lat}

@@ -27,7 +27,7 @@ from repro_torch.models.attention import RingSlots, attn_schema, \
     gqa_attention, mla_attention, mla_schema
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_schema, \
     norm_schema
-from repro_torch.models.moe import apply_moe, moe_schema
+from repro_torch.models.moe import Groups, apply_moe, moe_schema
 from repro_torch.models.schema import ParamDesc
 from repro_torch.models.ssm import ssm_block, ssm_cache_schema, ssm_schema
 
@@ -121,7 +121,8 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                 cache: Optional[Dict] = None, decode_pos=None,
                 ring: Optional[RingSlots] = None, enc_out=None,
                 mode: str = "prefill", shd=None,
-                max_seq: Optional[int] = None
+                max_seq: Optional[int] = None,
+                groups: Groups = Groups()
                 ) -> Tuple[torch.Tensor, Dict, Dict]:
     """One layer. ``mode`` is "train" (no cache: returns None for it),
     "prefill" (returns the layer's new cache: k/v or an MLA latent, the
@@ -133,36 +134,41 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     output a ``dec`` layer attends to at prefill and in training. Returns
     (x', cache, aux): aux holds a ``moe`` layer's losses and routing
     statistics (``moe.AUX_KEYS``) and is empty for the other kinds; the
-    cache never holds them. ``shd``: a ``ShardingCtx`` on a mesh (a
-    ``dense`` layer, whose decode needs ``max_seq``): attention and the
-    MLP run on this rank's shards (``attention.gqa_attention``,
-    ``layers.apply_mlp``)."""
+    cache never holds them. ``groups``: a ``moe`` layer's share of the
+    reference's dispatch groups (``moe.dispatch_groups``).
+
+    ``shd``: a ``ShardingCtx`` on a mesh (no grad; decode needs
+    ``max_seq``): every kind runs on this rank's shards, attention and
+    MLA (``attention.gqa_attention``, ``mla_attention``), the cross
+    attention, the SSM path (``ssm.ssm_block``), the MLP
+    (``layers.apply_mlp``) and the experts (``moe.apply_moe``); an
+    ``enc`` layer (run in "train" mode) too."""
     check_kind(kind)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     train = mode == "train"
+    on_mesh = _sharded(shd, max_seq)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         y, new_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
-                                 decode=mode == "decode")
+                                 decode=mode == "decode", shd=shd)
         return x + y, None if train else new_cache, {}
     decode = mode == "decode"
     if train:
         a = _attn(p["attn"], h, cfg, rcfg, positions=positions,
-                  window=window, causal=kind != "enc")
+                  window=window, causal=kind != "enc", **on_mesh)
         new_cache = None
     elif decode:
         a, new_cache = _attn(p["attn"], h, cfg, rcfg, positions=positions,
                              window=window, cache=cache,
-                             decode_pos=decode_pos, ring=ring,
-                             **_sharded(shd, max_seq))
+                             decode_pos=decode_pos, ring=ring, **on_mesh)
     else:
         a, new_cache = _attn(p["attn"], h, cfg, rcfg, positions=positions,
                              window=window, causal=kind != "enc",
-                             return_cache=True, **_sharded(shd, max_seq))
+                             return_cache=True, **on_mesh)
     if kind == "hybrid":
         s, ssm_cache = ssm_block(p["ssm"], h, cfg, rcfg, cache=cache,
-                                 decode=decode)
+                                 decode=decode, shd=shd)
         a = 0.5 * (apply_norm(p["attn_out_norm"], a, cfg.norm)
                    + apply_norm(p["ssm_out_norm"], s, cfg.norm))
         if not train:
@@ -172,18 +178,18 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
         h = apply_norm(p["ln_cross"], x, cfg.norm)
         if decode:
             c = gqa_attention(p["cross"], h, cfg, rcfg, positions=positions,
-                              cache=cache, cross_decode=True)
+                              cache=cache, cross_decode=True, **on_mesh)
         elif train:
             c = gqa_attention(p["cross"], h, cfg, rcfg, positions=positions,
-                              kv_x=enc_out)
+                              kv_x=enc_out, **on_mesh)
         else:
             c, cc = gqa_attention(p["cross"], h, cfg, rcfg,
                                   positions=positions, kv_x=enc_out,
-                                  return_cache=True)
+                                  return_cache=True, **on_mesh)
             new_cache.update(ck=cc["k"], cv=cc["v"])
         x = x + c
     h = apply_norm(p["ln2"], x, cfg.norm)
     if kind == "moe":
-        y, aux = apply_moe(p["moe"], h, cfg)
+        y, aux = apply_moe(p["moe"], h, cfg, shd, groups)
         return x + y, new_cache, aux
     return x + apply_mlp(p["mlp"], h, cfg.activation, shd), new_cache, {}

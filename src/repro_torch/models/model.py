@@ -30,16 +30,18 @@ reference's stub too); both add sinusoid positions to their inputs, and
 takes every family; parameters are made frozen, and a trainer turns
 ``requires_grad`` on for its own model (``train.train_loop``).
 
-**On a mesh.** A ``Model`` made with a ``ShardingCtx`` (the dense and vlm
-families; ``check_sharded`` refuses the others by name) holds each rank's
-shard of its weights (``schema.ParamTree``), with the query heads padded
-to the model axis (``model_schema(cfg, mesh)``). ``forward_prefill`` and
-``forward_decode`` then run the reference's function on the same mesh
-with the work split explicitly: the batch rows over ``data`` (each data
-rank takes its rows of the global ``tokens``/``pos``), attention heads,
-the MLP's ``ffn`` and the vocabulary over ``model``, and the k/v cache's
-sequence over ``model`` (``kv_seq``; ``init_cache(..., shd=)`` and the
-prefill give each rank its chunk). Their logits are the rank's vocab
+**On a mesh.** A ``Model`` made with a ``ShardingCtx`` (every family)
+holds each rank's shard of its weights (``schema.ParamTree``; an encoder's
+too), with the query heads padded to the model axis (``model_schema(cfg,
+mesh)``). ``forward_prefill`` and ``forward_decode`` then run the
+reference's function on the same mesh with the work split explicitly: the
+batch rows over ``data`` (each data rank takes its rows of the global
+``tokens``/``pos``, and an encoder's ``frames``), attention heads, the
+MLP's and the SSM path's ``ffn``, the SSM heads, the experts and the
+vocabulary over ``model``, and the k/v or latent cache's sequence (a
+ring's slots) over ``model`` (``kv_seq``; ``init_cache(..., shd=)`` and
+the prefill give each rank its chunk). A MoE layer routes and truncates
+the reference's dispatch groups (``moe.dispatch_groups``). Their logits are the rank's vocab
 shard of its rows; ``greedy`` takes them to global token ids and
 ``gather_logits`` to the full logits.
 """
@@ -61,6 +63,7 @@ from repro_torch.models.blocks import apply_block, block_cache_schema, \
     block_schema
 from repro_torch.models.layers import apply_norm, embed_schema, \
     embed_tokens, lm_logits, norm_schema, sinusoid_positions
+from repro_torch.models.moe import dispatch_groups
 from repro_torch.models.schema import ParamTree
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -113,20 +116,6 @@ def build_schedule(cfg: ModelConfig) -> Tuple[Segment, ...]:
     return (Segment("dense", cfg.num_layers),)
 
 
-def check_sharded(cfg: ModelConfig, shd) -> None:
-    """Raise for a model the sharded path does not serve: on a mesh the
-    port runs the dense family (dense and vlm schedules, GQA over linear
-    caches) only, one device anything."""
-    if shd is None or shd.mesh is None:
-        return
-    if cfg.family not in ("dense", "vlm") or cfg.mla is not None \
-            or cfg.attn_window:
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family} family has no sharded path yet; "
-            f"on a mesh the port serves the dense family only (ROADMAP: "
-            f"the model axis for the other families)")
-
-
 def model_schema(cfg: ModelConfig, mesh=None) -> Dict:
     """Per-layer (unstacked) parameter schema: ``layers`` holds one block
     schema per layer, in schedule order; an encoder model's ``encoder``
@@ -152,13 +141,14 @@ def model_schema(cfg: ModelConfig, mesh=None) -> Dict:
 
 class Encoder(nn.Module):
     """An encoder's parameters: one ``ParamTree`` per ``enc`` layer in
-    ``blocks`` and its ``final_norm``."""
+    ``blocks`` and its ``final_norm``, each leaf this rank's shard on a
+    mesh (``shd``)."""
 
-    def __init__(self, schema: Dict, device: torch.device):
+    def __init__(self, schema: Dict, device: torch.device, shd=None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            [ParamTree(s, device) for s in schema["layers"]])
-        self.final_norm = ParamTree(schema["final_norm"], device)
+            [ParamTree(s, device, shd) for s in schema["layers"]])
+        self.final_norm = ParamTree(schema["final_norm"], device, shd)
 
 
 class Model(nn.Module):
@@ -172,14 +162,13 @@ class Model(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = check_family(cfg)
-        check_sharded(cfg, shd)
         self.shd = shd if shd is not None and shd.mesh is not None \
             else None
         schema = model_schema(cfg, None if self.shd is None
                               else self.shd.mesh)
         self.embed = ParamTree(schema["embed"], dev, self.shd)
         if cfg.encoder_layers:
-            self.encoder = Encoder(schema["encoder"], dev)
+            self.encoder = Encoder(schema["encoder"], dev, self.shd)
         self.final_norm = ParamTree(schema["final_norm"], dev, self.shd)
         self.blocks = nn.ModuleList(
             [ParamTree(s, dev, self.shd) for s in schema["layers"]])
@@ -208,7 +197,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     a ``ShardingCtx`` on a mesh, this rank's block of it (its rows over
     ``data``, its sequence chunk over ``model``)."""
     dev = resolve_device(device)
-    check_sharded(cfg, shd)
     on_mesh = shd is not None and shd.mesh is not None
 
     def shape(d):
@@ -298,8 +286,12 @@ def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
         if key not in SEQ_LEAVES:
             out[key] = torch.stack([c[key] for c in layer_caches])
         elif ring:
-            out[key] = torch.stack([to_ring(c[key], seg.window)
-                                    for c in layer_caches])
+            rings = [to_ring(c[key], seg.window) for c in layer_caches]
+            if shd is not None:
+                w = rings[0].shape[1]
+                rings = [r[:, shd.block(shd.split("kv_seq", w), w)]
+                         for r in rings]
+            out[key] = torch.stack(rings)
         else:
             first = layer_caches[0][key]
             full = first.new_zeros((len(layer_caches), first.shape[0],
@@ -311,11 +303,31 @@ def _finalize_prefill_cache(layer_caches: List[Dict], seg: Segment, s: int,
     return out
 
 
-def _train_layer(block, x, cfg, rcfg, seg: Segment, positions, enc_out):
-    """One layer in training: (x', aux)."""
+def _ring_len(shd, seg: Segment, n_slots: int,
+              max_seq: Optional[int]) -> int:
+    """The slots of a segment's ring, or 0 for a linear cache, from a
+    rank's ``n_slots`` cache rows. On a mesh a ring holds the window
+    (``keeps_ring``; a prompt shorter than the window is refused there),
+    split over ``model`` where the model axis divides it."""
+    if shd is None:
+        return n_slots if is_ring(seg.window, n_slots) else 0
+    if max_seq is None or not keeps_ring(seg, max_seq):
+        return 0
+    w = seg.window
+    want = shd.block(shd.split("kv_seq", w), w)
+    if n_slots != want.stop - want.start:
+        raise ValueError(f"a ring of {n_slots} rows a rank; on this mesh a "
+                         f"ring of the window {w} holds "
+                         f"{want.stop - want.start}")
+    return w
+
+
+def _train_layer(block, x, cfg, rcfg, seg: Segment, positions, enc_out,
+                 shd=None):
+    """One layer in training (or an encoder layer): (x', aux)."""
     x, _, aux = apply_block(block, x, cfg, rcfg, seg.kind,
                             positions=positions, window=seg.window,
-                            enc_out=enc_out, mode="train")
+                            enc_out=enc_out, mode="train", shd=shd)
     return x, aux
 
 
@@ -338,7 +350,9 @@ def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
     (each under ``rcfg.remat`` when autograd records), the encoder's final
     norm. As in the reference the encoder computes in the frames' dtype:
     f32 frames (the data pipeline's) run it in f32 against bf16 weights,
-    bf16 ones (``input_specs``'s, serving) in bf16."""
+    bf16 ones (``input_specs``'s, serving) in bf16. On a mesh ``frames``
+    are the rank's rows and each layer runs on the rank's heads and MLP
+    shards."""
     cfg = model.cfg
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames + sinusoid_positions(pos, cfg.d_model)[None].to(frames.dtype)
@@ -346,7 +360,7 @@ def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
         else _train_layer
     seg = Segment("enc", cfg.encoder_layers)
     for block in model.encoder.blocks:
-        x = layer_fn(block, x, cfg, rcfg, seg, pos, None)[0]
+        x = layer_fn(block, x, cfg, rcfg, seg, pos, None, model.shd)[0]
     return apply_norm(model.encoder.final_norm, x, cfg.norm)
 
 
@@ -368,7 +382,7 @@ def _encoded(model: Model, frames, rcfg: RunConfig):
     if frames is None:
         raise ValueError(f"{cfg.name}: an encoder model needs frames "
                          f"(B, {cfg.encoder_seq}, {cfg.d_model})")
-    return encode(model, frames, rcfg)
+    return encode(model, _rows(model.shd, frames), rcfg)
 
 
 def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
@@ -418,8 +432,10 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
     cfg = model.cfg
     shd = model.shd
     b, s = tokens.shape
-    check_prompt(cfg, s, max_seq)
+    # on a mesh a ring holds the whole window (``_ring_len``)
+    (check_prompt if shd is None else check_slot_prompt)(cfg, s, max_seq)
     tokens = _rows(shd, tokens)
+    groups = dispatch_groups(shd, b, s, tokens.shape[0])
     positions = torch.arange(s, device=tokens.device)
     x = _embed_in(model, tokens, positions)
     enc_out = _encoded(model, frames, rcfg)
@@ -431,7 +447,7 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
             x, c, _ = apply_block(model.blocks[layer], x, cfg, rcfg,
                                   seg.kind, positions=positions,
                                   window=seg.window, enc_out=enc_out,
-                                  mode="prefill", shd=shd)
+                                  mode="prefill", shd=shd, groups=groups)
             per_layer.append(c)
             layer += 1
         caches_out.append(_finalize_prefill_cache(per_layer, seg, s,
@@ -455,20 +471,25 @@ def forward_decode(model: Model, caches: Tuple, tokens: torch.Tensor,
     rank's vocab shard of its rows."""
     cfg = model.cfg
     shd = model.shd
+    b = tokens.shape[0]
     tokens, pos = _rows(shd, tokens), _rows(shd, pos)
+    groups = dispatch_groups(shd, b, 1, tokens.shape[0])
     x = _embed_in(model, tokens, pos[:, None])
     layer = 0
     for seg, c_seg in zip(build_schedule(cfg), caches):
         ring = None
-        if "k" in c_seg and is_ring(seg.window, c_seg["k"].shape[2]):
-            ring = ring_slots(pos, c_seg["k"].shape[2],
+        n_ring = _ring_len(shd, seg, c_seg["k"].shape[2], max_seq) \
+            if "k" in c_seg else 0
+        if n_ring:
+            ring = ring_slots(pos, n_ring,
                               kv_pos=rcfg.attention_impl == "naive")
         for i in range(seg.count):
             c_l = {k: v[i] for k, v in c_seg.items()}
             x, _, _ = apply_block(model.blocks[layer], x, cfg, rcfg,
                                   seg.kind, positions=pos, window=seg.window,
                                   cache=c_l, decode_pos=pos, ring=ring,
-                                  mode="decode", shd=shd, max_seq=max_seq)
+                                  mode="decode", shd=shd, max_seq=max_seq,
+                                  groups=groups)
             layer += 1
     x = apply_norm(model.final_norm, x, cfg.norm)
     logits = lm_logits(model.embed, x, cfg.logit_softcap)

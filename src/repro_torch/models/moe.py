@@ -17,8 +17,9 @@ the router's z-loss; ``moe_max_frac`` and ``moe_drop_frac`` report the
 busiest expert's share and the share of assignments dropped.
 
 The reference splits the tokens into G groups, one per device of its data
-axis, each routed and truncated alone; on one device G is 1 and the
-group axis is left out. The rounding points are the reference's: the
+axis, each routed and truncated alone; on one device G is 1. On a mesh
+the port keeps the reference's groups (``dispatch_groups``) and splits
+the experts over the model axis (expert parallelism: ``apply_moe``). The rounding points are the reference's: the
 router and its logits are f32, the expert products run in the parameter
 dtype, the gate's activation is computed in f32 and rounded to the
 activation dtype before the product with ``h``, and the combine sums the
@@ -32,13 +33,13 @@ no Pallas kernel here.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_mlp, f32, mlp_schema
+from repro_torch.models.layers import _split, apply_mlp, f32, mlp_schema
 from repro_torch.models.schema import ParamDesc
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_max_frac", "moe_drop_frac")
@@ -71,11 +72,16 @@ def _capacity(tokens: int, m) -> int:
     return max(8, min(c, tokens)) if tokens >= 8 else max(1, min(c, tokens))
 
 
-def route_topk(router_w, x_flat, m) -> Tuple[torch.Tensor, torch.Tensor,
-                                             Dict]:
+def route_topk(router_w, x_flat, m, shd=None, axis=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """x_flat (T, d) -> (gate weights (T, k) f32, expert ids (T, k) int64,
-    aux: ``moe_lb_loss``, ``moe_z_loss``, ``moe_max_frac``)."""
+    aux: ``moe_lb_loss``, ``moe_z_loss``, ``moe_max_frac``). With the
+    router's expert columns split over ``axis`` (``shd`` a
+    ``ShardingCtx``) the rank's f32 logits are gathered over it first, so
+    every rank routes over all experts."""
     logits = f32(x_flat) @ f32(router_w)
+    if axis:
+        logits = shd.all_gather(logits, axis, -1)
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = top[:, :m.top_k], idx[:, :m.top_k]
@@ -126,31 +132,122 @@ def _expert_act(h, g, activation: str, dtype):
     return F.gelu(f32(h), approximate="tanh").to(dtype)
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
-                                                               Dict]:
-    """x (B, S, d) -> (y (B, S, d) in x's dtype, aux with ``AUX_KEYS``)."""
+class Groups(NamedTuple):
+    """A rank's share of the reference's dispatch groups
+    (``dispatch_groups``): ``local`` whole groups among the rank's tokens,
+    each routed and truncated alone; or, where one group spans several
+    ranks' rows, the batch axes its rows are gathered over (``gather``),
+    the group's rows in the gathered batch (``rows``) and the rank's rows
+    among the group's (``mine``)."""
+    local: int = 1
+    gather: object = None
+    rows: slice = slice(None)
+    mine: slice = slice(None)
+
+
+def dispatch_groups(shd, batch: int, seq: int, rows: int) -> Groups:
+    """The rank's share of the reference's dispatch groups, for its
+    ``rows`` of a global ``batch`` of ``seq`` tokens. The reference splits
+    the global tokens into ``G = data`` groups (halved until G divides
+    them), each routed and truncated alone: one group a data rank where the
+    rows split over ``data``, all G of them on every rank where they do not
+    (the engine's one-request prefill, whose groups cut the sequence), and
+    a group over several ranks' rows where they split over ``pod`` x
+    ``data`` (a multi-pod mesh): its rows are gathered."""
+    if shd is None or shd.mesh is None:
+        return Groups()
+    g = max(shd.axis_sizes.get("data", 1), 1)
+    while (batch * seq) % g:
+        g //= 2
+    if g * rows % batch == 0:
+        return Groups(g * rows // batch)
+    # rows split finer than the groups: the rank's block i of ``rows`` lies
+    # in group i // span, which holds ``span`` consecutive blocks
+    per = batch * seq // g
+    if batch % g or per % (rows * seq):
+        raise NotImplementedError(
+            f"a dispatch group of {per} tokens does not hold whole rank "
+            f"blocks of {rows} rows")
+    span = per // (rows * seq)
+    axes = shd.split("batch", batch)
+    i = shd.block(axes, batch).start // rows
+    first = i // span * span * rows
+    return Groups(1, axes, slice(first, first + span * rows),
+                  slice(i % span * rows, (i % span + 1) * rows))
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, shd=None,
+              groups: Groups = Groups()) -> Tuple[torch.Tensor, Dict]:
+    """x (B, S, d) -> (y (B, S, d) in x's dtype, aux with ``AUX_KEYS``).
+
+    ``groups``: the reference's dispatch groups among x's tokens
+    (``dispatch_groups``), each routed and truncated alone at capacity
+    ``_capacity(tokens // groups.local)``; the drop share is their mean.
+    A group that spans ranks is routed on its gathered rows, and the rank
+    keeps its own.
+
+    ``shd``: a ``ShardingCtx`` on a mesh, with ``p`` the rank's shards.
+    Where the experts split over the model axis the rank holds E/tp of
+    them (and their router columns): it routes over all experts
+    (``route_topk`` gathers the logits), gathers only its experts' slots,
+    runs the three batched products on them, sums each token's picks that
+    it holds in f32, and the f32 partials are summed over the axis before
+    the one cast; where the axis does not divide the experts every rank
+    holds them all and nothing is summed. The shared and dense branches
+    are ``apply_mlp``'s sharded MLP, on the rank's rows."""
+    m = cfg.moe
+    if groups.gather:
+        xg = shd.all_gather(x, groups.gather, 0)[groups.rows]
+        y, aux = _routed(p, xg, cfg, shd, 1)
+        y = y[groups.mine]
+    else:
+        y, aux = _routed(p, x, cfg, shd, groups.local)
+    if m.num_shared_experts:
+        y = y + apply_mlp(p["shared"], x, cfg.activation, shd)
+    if m.parallel_dense:
+        y = y + apply_mlp(p["dense"], x, cfg.activation, shd)
+    return y, aux
+
+
+def _routed(p, x: torch.Tensor, cfg: ModelConfig, shd, groups: int
+            ) -> Tuple[torch.Tensor, Dict]:
+    """The routed experts' sum over x's tokens in ``groups`` dispatch
+    groups, in x's dtype, and the aux."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     k, e = m.top_k, m.num_experts
-    cap = _capacity(t, m)
+    tg = t // groups
+    cap = _capacity(tg, m)
+    axis = _split(p, "w_in", 0) if shd is not None else None
+    el = p["w_in"].shape[0]               # the experts this rank holds
+    lo = shd.index(axis) * el * cap if axis else 0
     xf = x.reshape(t, d)
-    gate, eidx, aux = route_topk(p["router"], xf, m)
-    table, slot_of, w_flat, drop = _dispatch_tables(eidx, gate, e, cap, t, k)
-    xe = xf[table.clamp(max=t - 1)] * (table < t)[:, None].to(x.dtype)
-    xe = xe.reshape(e, cap, d)
-    h = torch.bmm(xe, p["w_in"])
-    g = torch.bmm(xe, p["w_gate"]) if cfg.activation == "silu_glu" else None
-    h = _expert_act(h, g, cfg.activation, x.dtype)
-    yflat = torch.bmm(h, p["w_out"]).reshape(e * cap, d)
-    picked = yflat[slot_of.clamp(max=e * cap - 1)] \
-        * (slot_of < e * cap)[:, None].to(yflat.dtype)
-    y = torch.sum(f32(picked).reshape(t, k, d) * w_flat.reshape(t, k, 1),
-                  dim=1)
-    y = y.to(x.dtype).reshape(b, s, d)
-    if m.num_shared_experts:
-        y = y + apply_mlp(p["shared"], x, cfg.activation)
-    if m.parallel_dense:
-        y = y + apply_mlp(p["dense"], x, cfg.activation)
-    aux["moe_drop_frac"] = drop
-    return y, aux
+    gate, eidx, aux = route_topk(p["router"], xf, m, shd, axis)
+    parts, drops = [], []
+    for gi in range(groups):
+        rows = slice(gi * tg, (gi + 1) * tg)
+        table, slot_of, w_flat, drop = _dispatch_tables(
+            eidx[rows], gate[rows], e, cap, tg, k)
+        drops.append(drop)
+        table = table[lo:lo + el * cap]
+        xg = xf[rows]
+        xe = xg[table.clamp(max=tg - 1)] * (table < tg)[:, None].to(x.dtype)
+        xe = xe.reshape(el, cap, d)
+        h = torch.bmm(xe, p["w_in"])
+        g = torch.bmm(xe, p["w_gate"]) if cfg.activation == "silu_glu" \
+            else None
+        h = _expert_act(h, g, cfg.activation, x.dtype)
+        yflat = torch.bmm(h, p["w_out"]).reshape(el * cap, d)
+        at = slot_of - lo                 # past el * cap: another rank's
+        held = (at >= 0) & (at < el * cap)   # or dropped
+        picked = yflat[at.clamp(0, el * cap - 1)] \
+            * held[:, None].to(yflat.dtype)
+        parts.append(torch.sum(f32(picked).reshape(tg, k, d)
+                               * w_flat.reshape(tg, k, 1), dim=1))
+    y = parts[0] if groups == 1 else torch.cat(parts)
+    if axis:
+        y = shd.psum(y, axis)
+    aux["moe_drop_frac"] = drops[0] if groups == 1 \
+        else torch.stack(drops).mean()
+    return y.to(x.dtype).reshape(b, s, d), aux

@@ -15,6 +15,13 @@ inter-chunk recurrence and ``y_off`` stay plain torch, as they stay
 tails into the cache in place (the reference returns new arrays); in
 training ``ssm_block`` returns no cache.
 
+On a mesh (``ssm_block(..., shd=)``) the inner width is split over
+``model`` (``ffn``) and so are the heads (``ssm_heads``) where the model
+axis divides them; where it divides the width but not the heads, the rank
+gathers the post-conv x stream and scans every head. The gated RMSNorm
+sums each rank's weighted mean square over the model axis
+(``gated_norm``), and ``w_out``'s partial products are summed once.
+
 Rounding points follow the reference: conv, gate and D-skip products round
 to the activation dtype where it rounds; ``y_diag`` is f32. One exception
 at bf16: the scan keeps the masked decay matrix and the decayed inputs in
@@ -32,7 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import segsum as _segsum  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
     ssd_chunk_scan_plain
-from repro_torch.models.layers import apply_norm, f32, norm_schema
+from repro_torch.models.layers import _split, apply_norm, f32, norm_schema
 from repro_torch.models.schema import ParamDesc
 
 def ssm_schema(cfg: ModelConfig) -> Dict:
@@ -196,18 +203,61 @@ def ssd_decode_step(x_t, dt_t, A, B_t, C_t, state):
 # ---------------------------------------------------------------------------
 
 
+def _inner_split(p, shd):
+    """(inner axis, gather) of a rank's SSM weights on a mesh: the mesh
+    axis ``w_x``'s inner width (``ffn``) is split over, or None, and
+    whether the heads (``ssm_heads``, resolved on their own) stay whole
+    where the inner width splits (hymba's 50 heads against 3,200 channels
+    at model 4, 8 and 16): the rank then gathers the post-conv x stream
+    over the inner axis and scans every head."""
+    if shd is None:
+        return None, False
+    axis = _split(p, "w_x", 1)
+    return axis, bool(axis) and not _split(p, "w_dt", 1)
+
+
+def gated_norm(p, gated: torch.Tensor, di: int, shd=None, axis=None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The gated RMSNorm over the whole inner width ``di``. With the
+    width split over ``axis`` each rank holds its channels of ``gated``
+    and the whole scale: its f32 mean square, weighted by its share of
+    ``di``, is summed over ``axis``, so every rank normalizes by the
+    reference's mean over all channels."""
+    if not axis:
+        return apply_norm(p, gated, "rmsnorm", eps)
+    xf = f32(gated)
+    n = xf.shape[-1]
+    lo = shd.index(axis) * n
+    # the rank's mean square weighted by its share of the width: at one
+    # rank the weight is exactly 1 and the mean is ``apply_norm``'s
+    ms = shd.psum((xf * xf).mean(dim=-1, keepdim=True) * (n / di), axis)
+    y = xf * torch.rsqrt(ms + eps) * f32(p["scale"][lo:lo + n])
+    return y.to(gated.dtype)
+
+
 def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
-              cache: Optional[Dict] = None, decode: bool = False):
+              cache: Optional[Dict] = None, decode: bool = False, shd=None):
     """x: (B,L,D) (prefill, training) or (B,1,D) (decode). Prefill
     returns (y, the layer's cache {"state" f32, "conv_x", "conv_B",
     "conv_C"} in x's dtype), which training drops; decode reads ``cache``
     and writes the new state and conv tails into it in place, returning
-    (y, cache)."""
+    (y, cache).
+
+    ``shd``: a ``ShardingCtx`` on a mesh, with ``p`` the rank's shards:
+    ``w_x``/``w_z``/``conv_x`` by inner channel, ``w_dt``/``A_log``/``D``/
+    ``dt_bias`` by head, ``w_out`` by row; ``w_B``/``w_C``/``conv_B``/
+    ``conv_C`` and the norm's scale whole. The rank scans its heads (all
+    of them where the heads stay whole: ``_inner_split``), normalizes by
+    ``gated_norm`` and sums ``w_out``'s partial products over the inner
+    axis once; its cache holds its heads' state and its channels' x tail."""
     s = cfg.ssm
     d = cfg.d_model
     di = s.d_inner(d)
-    nh = s.num_heads(d)
     hp = s.head_dim
+    axis, gather = _inner_split(p, shd)
+    nh = p["w_dt"].shape[1]               # the heads this rank scans
+    n_in = p["w_x"].shape[1]              # and its inner channels
+    lo = shd.index(axis) * n_in if axis else 0
     A = -torch.exp(f32(p["A_log"]))
 
     z = x @ p["w_z"]
@@ -217,18 +267,30 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
     def silu(t):
         return F.silu(f32(t)).to(x.dtype)
 
+    def heads_in(xs):
+        """The x stream the rank's heads read: its channels, or every
+        channel gathered where the heads stay whole."""
+        return shd.all_gather(xs, axis, -1) if gather else xs
+
+    def own(yflat):
+        """The rank's channels of a whole-width output."""
+        return yflat[..., lo:lo + n_in] if gather else yflat
+
+    def out_proj(gated):
+        out = gated_norm(p["norm"], gated, di, shd, axis) @ p["w_out"]
+        return shd.psum(out, axis) if axis else out
+
     if not decode:
         b, l = x.shape[:2]
         conv = {k: silu(causal_conv(u, p["conv_" + k]))
                 for k, u in streams.items()}
-        xh = conv["x"].reshape(b, l, nh, hp)
+        xh = heads_in(conv["x"]).reshape(b, l, nh, hp)
         xdt = (f32(xh) * dt[..., None]).to(x.dtype)
         y, state = ssd_chunked(xdt, dt * A, conv["B"], conv["C"], s.chunk,
                                naive=rcfg.attention_impl == "naive")
         yD = y + f32(xh) * f32(p["D"])[None, None, :, None]
-        yflat = yD.reshape(b, l, di).to(x.dtype)
-        gated = yflat * silu(z)
-        out = apply_norm(p["norm"], gated, "rmsnorm") @ p["w_out"]
+        yflat = own(yD.reshape(b, l, nh * hp).to(x.dtype))
+        out = out_proj(yflat * silu(z))
         # the pre-conv streams' last W-1 inputs, for streaming decode
         w = s.conv_width
         new_cache = {"state": state}
@@ -243,14 +305,13 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
         y_t, tail = conv_step(u[:, 0], c.to(x.dtype), p["conv_" + k])
         c.copy_(tail)
         conv[k] = silu(y_t)
-    xh = conv["x"].reshape(-1, nh, hp)
+    xh = heads_in(conv["x"]).reshape(-1, nh, hp)
     y, state = ssd_decode_step(xh, dt[:, 0], A, conv["B"], conv["C"],
                                cache["state"])
     cache["state"].copy_(state)
     y = y + xh * f32(p["D"])[None, :, None].to(x.dtype)
-    gated = y.reshape(-1, 1, di) * silu(z)
-    out = apply_norm(p["norm"], gated, "rmsnorm") @ p["w_out"]
-    return out, cache
+    gated = own(y.reshape(-1, 1, nh * hp)) * silu(z)
+    return out_proj(gated), cache
 
 
 def ssm_cache_schema(cfg: ModelConfig, batch: int, dtype: str) -> Dict:

@@ -36,7 +36,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.fabric import SchedulerServeModule
 from repro_torch.models.model import (
-    Model, cache_nbytes, check_family, check_sharded, check_slot_prompt,
+    Model, cache_nbytes, check_family, check_slot_prompt,
     forward_decode, forward_prefill, gather_rows, greedy, init_cache,
 )
 from repro_torch.models.params import init_params
@@ -78,7 +78,6 @@ class ServeEngine(SchedulerServeModule):
         card). ``shd``: a ``ShardingCtx`` on a mesh; ``params`` must then
         be made with it."""
         self.cfg, self.rcfg = check_family(cfg), rcfg
-        check_sharded(cfg, shd)
         self.shd = shd if shd is not None and shd.mesh is not None \
             else None
         if cfg.encoder_layers:

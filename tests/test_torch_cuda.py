@@ -1493,3 +1493,92 @@ def test_flash_at_tp_rank_shapes_on_card(cuda, tp, rank):
     if real:
         assert (o[:, :, :real].float() - full[:, :, rank * n:rank * n + real]
                 .float()).abs().max().item() <= TOL["bfloat16"]
+
+
+# ---------------------------------------------------------------------------
+# the model axis: each rank's kernel work at the other families' shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,h,p,n", [
+    (256, 16, 64, 128), (256, 8, 64, 128), (256, 4, 64, 128),
+    (256, 2, 64, 128),                 # mamba2-370m's 32 heads at tp 2-16
+    (128, 25, 64, 16)])                # hymba-1.5b's 50 heads at tp 2
+def test_ssd_kernel_at_a_ranks_heads_on_card(cuda, q, h, p, n):
+    """The SSD scan on one TP rank's heads at full width (2 chunks,
+    bf16): one launch, within 2e-2 of the largest |y| and |state| of the
+    plain version; the decays within 1e-5."""
+    xdt, dA, B, C = _ssd_case(cuda, 1, 2, q, h, p, n, "bfloat16")
+    before = ssd_chunk_scan.launches
+    y, st, dec, sd = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32,
+                                    state_decay=True)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches == before + 1
+    ry, rst, rdec, rsd = ssd_chunk_scan_plain(
+        xdt, dA, B, C, out_dtype=torch.float32, state_decay=True)
+    assert (y - ry).abs().max() <= 2e-2 * ry.abs().max()
+    assert (st - rst).abs().max() <= 2e-2 * rst.abs().max()
+    torch.testing.assert_close(dec, rdec, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sd, rsd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", (2, 16))
+def test_ring_chunks_combine_to_one_launch_on_card(cuda, tp):
+    """hymba-1.5b's ring of 1,024 slots (8 rows, 25/5 heads, d 64, bf16)
+    cut into ``tp`` contiguous chunks: the decode kernel on each chunk at
+    the ring's last live slot minus the chunk's offset, with no window,
+    combined by ``stacked_lse_combine``, against one launch over the whole
+    ring and the plain version, within 2e-2 of max |o|; one launch a
+    chunk."""
+    from repro_torch.models.attention import ring_slots, \
+        stacked_lse_combine
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    n, hq, kv, d = 1024, 25, 5, 64
+    q = torch.randn((8, hq, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((8, n, kv, d), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    pos = torch.tensor([0, 5, 700, 1023, 1024, 1300, 2047, 5000],
+                       dtype=torch.int32, device=cuda)
+    at = ring_slots(pos, n).pos_eff
+    full = decode_attention(q, k, v, at)[0]
+    plain = decode_attention_plain(q, k, v, at)[0]
+    c = n // tp
+    before = decode_attention.launches
+    parts = [decode_attention(q, k[:, r * c:(r + 1) * c].contiguous(),
+                              v[:, r * c:(r + 1) * c].contiguous(),
+                              at - r * c) for r in range(tp)]
+    assert decode_attention.launches == before + tp
+    o = stacked_lse_combine(*(torch.stack(x) for x in zip(*parts))).to(
+        q.dtype)
+    for want in (full, plain):
+        assert (o.float() - want.float()).abs().max() <= \
+            2e-2 * want.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", (2, 16))
+def test_mla_prefill_at_a_ranks_heads_on_card(cuda, tp):
+    """deepseek-v2-236b's MLA prefill on one TP rank's heads (128 / tp,
+    dk 192, dv 128 padded to 192, group 1, causal, bf16, 1 x 512 tokens):
+    one flash launch within ``TOL`` of the plain version."""
+    from repro_torch.models.attention import _mla_prefill
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    h = 128 // tp
+    q, k = (torch.randn((1, 512, h, 192), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn((1, 512, h, 128), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    scale = 192 ** -0.5
+    before = flash_attention.launches
+    with torch.no_grad():
+        o = _mla_prefill(q, k, v, scale, RunConfig())
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = _mla_prefill(q, k, v, scale,
+                            RunConfig(attention_impl="naive"))
+    assert tuple(o.shape) == (1, 512, h, 128)
+    assert (o.float() - want.float()).abs().max() <= \
+        TOL["bfloat16"] * want.float().abs().max()

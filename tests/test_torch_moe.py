@@ -354,8 +354,8 @@ def test_serve_engine_matches_reference(arch, mesh1, monkeypatch):
     drops = []
     apply_moe = tblocks.apply_moe
 
-    def recorded(p, x, cfg):
-        y, aux = apply_moe(p, x, cfg)
+    def recorded(p, x, cfg, *args):
+        y, aux = apply_moe(p, x, cfg, *args)
         if x.shape[1] == 1:
             drops.append(float(aux["moe_drop_frac"]))
         return y, aux

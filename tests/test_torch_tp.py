@@ -28,40 +28,40 @@ uniform. Checks, each with its tolerance:
 * A ``ServeEngine`` drain (six requests, WFQ, a RateController) of both
   models: the completed requests' tokens identical at f32 to the reference
   engine's on the same mesh, every rank's the same.
-* The other families refuse a mesh by name.
+* The other families' sharded paths are held in
+  ``test_torch_tp_ssm.py``, ``test_torch_tp_moe.py`` and
+  ``test_torch_tp_encdec.py``.
 
 Weights are the reference's ``build_params`` on the mesh, each layer
 weight rescaled to its true fan-in as in ``tests/test_torch_model.py``.
+The harness (the ranks' forward and engine, the reference's, the drain)
+is ``tests/_torch_tp_families.py``'s, shared with the families' files.
 """
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
 import torch
 
+# the ranks run rank_engine and rank_forward by name from this module
+from _torch_tp_families import (  # noqa: F401
+    B, NAMES, SOURCE_ROUNDING, cfg_of, check_drain, jmesh, np32,
+    pair, rank_engine, rank_forward, ref_forward, request_table,
+    world1_serve,
+)
 from _torch_world import World
-from repro_torch.configs import RunConfig, get_smoke_config
+from repro_torch.configs import get_smoke_config
 from repro_torch.distribution.sharding import ShardingCtx
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.models.attention import decode_attention_cp, \
     stacked_lse_combine
-from repro_torch.models.model import (
-    Model, build_schedule, forward_decode, forward_prefill, gather_logits,
-    gather_rows, greedy, model_schema,
-)
-from repro_torch.models.params import params_from_jax
-from repro_torch.models.schema import walk
 
-NAMES = ("data", "model")
 SHAPES = ((1, 2), (2, 2), (1, 8))
 ARCH = "llama3.2-3b"
 VLM = "chameleon-34b"
-# XLA's default lets a chain of elementwise ops skip the bf16 roundings
-# between them; chameleon's bf16 reference is compiled to round where its
-# source casts, as torch does (ROADMAP P15, tests/test_torch_model.py)
-SOURCE_ROUNDING = {"xla_allow_excess_precision": False}
-B, PROMPT, MAX_SEQ, STEPS = 2, 12, 32, 8
+PROMPT, MAX_SEQ = 12, 32
+# six requests, prompts of 3 and 5 tokens, drained at a max_seq of 64
+DRAIN = request_table(5, 6, (3, 5))
 ODD_MAX_SEQ = 36              # 36 % 8 != 0: the cache is not seq-sharded
 CP = dict(B=2, S=32, KV=2, H=4, D=16)
 CP_POS = {"first_shard": ([1, 3], 0), "spread": ([5, 31], 0),
@@ -76,17 +76,6 @@ def world(request):
     procs = list(w.procs)
     w.close()
     assert not any(p.is_alive() for p in procs)
-
-
-def _cfg(dtype, arch=ARCH):
-    cfg = get_smoke_config(arch)
-    if dtype == "float32":
-        cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    return cfg
-
-
-def _np(t):
-    return t.float().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -104,28 +93,6 @@ def _rank_cp(axes, q, k, v, pos, window):
     return o
 
 
-def _rank_forward(axes, tree, dtype, prompt, max_seq, tokens_in, arch=ARCH,
-                  bf16_cache=True):
-    shd = ShardingCtx(axes)
-    model = params_from_jax(tree, _cfg(dtype, arch), device="cpu", shd=shd)
-    rcfg = RunConfig()
-    logits, caches = forward_prefill(model, torch.from_numpy(prompt), rcfg,
-                                     max_seq=max_seq)
-    if bf16_cache:
-        caches = tuple({k: c.to(torch.bfloat16) for k, c in seg.items()}
-                       for seg in caches)
-    outs, toks = [_np(gather_logits(model, logits, B))], []
-    for i in range(STEPS):
-        tok = gather_rows(shd, greedy(model, logits), B).to(torch.int32) \
-            if tokens_in is None else torch.from_numpy(tokens_in[i])
-        toks.append(tok.numpy())
-        pos = torch.full((B,), PROMPT + i, dtype=torch.int32)
-        logits, caches = forward_decode(model, caches, tok[:, None], pos,
-                                        rcfg, max_seq=max_seq)
-        outs.append(_np(gather_logits(model, logits, B)))
-    return outs, np.stack(toks)
-
-
 def _rank_now(axes):
     import time
     time.sleep(0.05 * axes.mesh.get_rank())    # the ranks' clocks differ
@@ -133,51 +100,9 @@ def _rank_now(axes):
     return shd.agreed_now(None), shd.agreed_now(7.5)
 
 
-def _rank_engine(axes, tree, arch=ARCH):
-    from repro_torch.control.controller import RateController
-    from repro_torch.serve import Request, ServeEngine, TenantScheduler
-    shd = ShardingCtx(axes)
-    cfg = _cfg("float32", arch)
-    model = params_from_jax(tree, cfg, device="cpu", shd=shd)
-    sched = TenantScheduler(policy="wfq", charge_prompt=True)
-    ctrl = RateController(200.0, alpha=0.6)
-    ctrl.attach_scheduler(sched)
-    eng = ServeEngine(cfg, RunConfig(), model, batch_slots=4, max_seq=64,
-                      scheduler=sched, controller=ctrl, control_every=4,
-                      device="cpu", shd=shd)
-    return _drain(eng, sched, _requests(Request))
-
-
-def _requests(request_cls):
-    rng = np.random.default_rng(5)
-    return [request_cls(
-        tenant_id=i % 3,
-        prompt=[int(x) for x in rng.integers(1, 256, (3, 5)[i % 2])],
-        max_new_tokens=(6, 9, 12)[i % 3], req_id=i, arrival=0.0)
-        for i in range(6)]
-
-
-def _drain(engine, scheduler, requests):
-    for r in requests:
-        engine.submit(r)
-    k = 0
-    while scheduler.pending() or any(s.active for s in engine.slots):
-        k += 1
-        engine.step(now=0.1 * k)
-        assert k < 200
-    return ([(r.req_id, r.generated) for r in engine.completed],
-            dict(scheduler.served_tokens), engine.decode_steps)
-
-
 # ---------------------------------------------------------------------------
 # the reference's side
 # ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=None)
-def _jmesh(shape):
-    from repro.launch.mesh import make_host_mesh
-    return make_host_mesh(*shape)
 
 
 def _cp_inputs(pos, hp):
@@ -196,71 +121,26 @@ def _ref_cp(shape, q, k, v, pos, window):
     from repro.models.attention import q_to_kv_map
     hp = q.shape[2]
     kv_map = q_to_kv_map(CP["H"], hp, CP["KV"])
-    shd = JCtx(_jmesh(shape))
+    shd = JCtx(jmesh(shape))
     fn = jax.jit(lambda *a: j_cp(*a, kv_map=kv_map, window=window,
                                  n_real_heads=CP["H"], shd=shd))
     return np.asarray(fn(*map(jnp.asarray, (q, k, v, pos))))
 
 
-def _pair(shape, dtype, arch=ARCH):
-    """The reference's config and weights on ``shape``'s mesh (each layer
-    weight rescaled to its true fan-in), and the same tree as torch
-    tensors for the ranks."""
-    import jax
-    from repro.configs import get_smoke_config as j_smoke
-    from repro.models.model import build_params
-    from repro_torch.models.params import to_torch
-    mesh = _jmesh(shape)
-    jcfg = j_smoke(arch)
-    if dtype == "float32":
-        jcfg = dataclasses.replace(jcfg, dtype="float32",
-                                   param_dtype="float32")
-    tcfg = _cfg(dtype, arch)
-    tree = jax.tree.map(np.asarray,
-                        build_params(jcfg, mesh, jax.random.PRNGKey(0)))
-    layers = model_schema(tcfg, dict(zip(NAMES, shape)))["layers"]
-    first = 0
-    for seg, stacked in zip(build_schedule(tcfg), tree["segments"]):
-        for path, desc in walk(layers[first]):
-            if desc.init not in ("normal", "small_normal"):
-                continue
-            node = stacked
-            for key in path[:-1]:
-                node = node[key]
-            a = node[path[-1]]
-            node[path[-1]] = (a.astype(np.float32) * np.sqrt(
-                a.shape[0] / desc.init_fan_in)).astype(a.dtype)
-        first += seg.count
-    return jcfg, tree, jax.tree.map(to_torch, tree)
+def _forward(shape, jcfg, tree, prompt, max_seq, tokens_in=None,
+             compiler_options=None, bf16_cache=True):
+    """The reference's logits and tokens (``ref_forward``)."""
+    return ref_forward(shape, jcfg, tree, prompt, max_seq, tokens_in,
+                       cache_dtype="bfloat16" if bf16_cache else None,
+                       compiler_options=compiler_options)[:2]
 
 
-def _ref_forward(shape, jcfg, tree, prompt, max_seq, tokens_in=None,
-                 compiler_options=None, bf16_cache=True):
-    import jax
-    import jax.numpy as jnp
-    from repro.configs import RunConfig as JRunConfig
-    from repro.distribution.sharding import ShardingCtx as JCtx
-    from repro.models.model import forward_decode as j_decode
-    from repro.models.model import forward_prefill as j_prefill
-    shd = JCtx(_jmesh(shape))
-    rcfg = JRunConfig(attn_q_block=16, attn_kv_block=16)
-    params = jax.tree.map(jnp.asarray, tree)
-    jit = functools.partial(jax.jit, compiler_options=compiler_options)
-    logits, caches = jit(functools.partial(
-        j_prefill, cfg=jcfg, shd=shd, rcfg=rcfg, max_seq=max_seq))(
-        params, jnp.asarray(prompt))
-    if bf16_cache:
-        caches = jax.tree.map(lambda c: c.astype(jnp.bfloat16), caches)
-    dec = jit(functools.partial(j_decode, cfg=jcfg, shd=shd, rcfg=rcfg))
-    outs, toks = [np.asarray(logits, np.float32)], []
-    for i in range(STEPS):
-        tok = np.asarray(jnp.argmax(logits, -1), np.int32) \
-            if tokens_in is None else tokens_in[i]
-        toks.append(tok)
-        logits, caches = dec(params, caches, jnp.asarray(tok)[:, None],
-                             jnp.full((B,), PROMPT + i, jnp.int32))
-        outs.append(np.asarray(logits, np.float32))
-    return outs, np.stack(toks)
+def _ranks(world, arch, dtype, ttree, prompt, max_seq, tokens_in,
+           bf16_cache=True):
+    """Every rank's logits and tokens (``rank_forward``)."""
+    return [r[:2] for r in world.run(
+        rank_forward, arch, dtype, (), ttree, prompt, max_seq, tokens_in,
+        None, "bfloat16" if bf16_cache else None)]
 
 
 def _prompt():
@@ -283,10 +163,10 @@ def test_decode_attention_cp_matches_reference(world, case):
     outs = world.run(_rank_cp, *map(torch.from_numpy, (q, k, v, p)), window)
     for o in outs:
         assert tuple(o.shape) == ref.shape
-        np.testing.assert_allclose(_np(o[:, :, :CP["H"]]),
+        np.testing.assert_allclose(np32(o[:, :, :CP["H"]]),
                                    ref[:, :, :CP["H"]], rtol=1e-5, atol=1e-5)
         assert not o[:, :, CP["H"]:].any()
-    np.testing.assert_array_equal(_np(outs[0]), _np(outs[-1]))
+    np.testing.assert_array_equal(np32(outs[0]), np32(outs[-1]))
 
 
 @pytest.mark.parametrize("tp", (2, 4, 8))
@@ -312,12 +192,12 @@ def test_stacked_combine_matches_reference(tp, case):
 
 def _check_forward_f32(world, arch, bf16_cache=True):
     shape = world.mesh_shape
-    jcfg, tree, ttree = _pair(shape, "float32", arch)
+    jcfg, tree, ttree = pair(shape, arch, "float32")
     prompt = _prompt()
-    j_logits, j_toks = _ref_forward(shape, jcfg, tree, prompt, MAX_SEQ,
-                                    bf16_cache=bf16_cache)
-    for logits, toks in world.run(_rank_forward, ttree, "float32", prompt,
-                                  MAX_SEQ, None, arch, bf16_cache):
+    j_logits, j_toks = _forward(shape, jcfg, tree, prompt, MAX_SEQ,
+                                bf16_cache=bf16_cache)
+    for logits, toks in _ranks(world, arch, "float32", ttree, prompt,
+                               MAX_SEQ, None, bf16_cache):
         np.testing.assert_array_equal(toks, j_toks)      # identical greedy
         for i, (a, b) in enumerate(zip(logits, j_logits)):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
@@ -326,12 +206,12 @@ def _check_forward_f32(world, arch, bf16_cache=True):
 
 def _check_forward_bf16(world, arch, compiler_options=None):
     shape = world.mesh_shape
-    jcfg, tree, ttree = _pair(shape, "bfloat16", arch)
+    jcfg, tree, ttree = pair(shape, arch, "bfloat16")
     prompt = _prompt()
-    j_logits, j_toks = _ref_forward(shape, jcfg, tree, prompt, MAX_SEQ,
-                                    compiler_options=compiler_options)
-    for logits, _toks in world.run(_rank_forward, ttree, "bfloat16", prompt,
-                                   MAX_SEQ, j_toks, arch):
+    j_logits, j_toks = _forward(shape, jcfg, tree, prompt, MAX_SEQ,
+                                compiler_options=compiler_options)
+    for logits, _toks in _ranks(world, arch, "bfloat16", ttree, prompt,
+                                MAX_SEQ, j_toks):
         for i, (a, b) in enumerate(zip(logits, j_logits)):
             rel = np.abs(a - b).max() / np.abs(b).max()
             assert rel <= 2e-2, (i, rel)
@@ -368,23 +248,23 @@ def test_vlm_forward_matches_reference_bf16(world):
     within P2's 2e-2."""
     import jax
     shape = world.mesh_shape
-    jcfg, tree, ttree = _pair(shape, "bfloat16", VLM)
+    jcfg, tree, ttree = pair(shape, VLM, "bfloat16")
     prompt = _prompt()
-    src, toks = _ref_forward(shape, jcfg, tree, prompt, MAX_SEQ,
-                             compiler_options=SOURCE_ROUNDING)
+    src, toks = _forward(shape, jcfg, tree, prompt, MAX_SEQ,
+                         compiler_options=SOURCE_ROUNDING)
     j32 = dataclasses.replace(jcfg, dtype="float32", param_dtype="float32")
-    f32 = _ref_forward(shape, j32, jax.tree.map(
+    f32 = _forward(shape, j32, jax.tree.map(
         lambda a: a.astype(np.float32), tree), prompt, MAX_SEQ, toks)[0]
-    variants = (src, _ref_forward(shape, jcfg, tree, prompt, MAX_SEQ, toks)[0],
-                _ref_forward((1, 1), jcfg, tree, prompt, MAX_SEQ, toks,
-                             compiler_options=SOURCE_ROUNDING)[0])
+    variants = (src, _forward(shape, jcfg, tree, prompt, MAX_SEQ, toks)[0],
+                _forward((1, 1), jcfg, tree, prompt, MAX_SEQ, toks,
+                         compiler_options=SOURCE_ROUNDING)[0])
 
     def gap(a_runs, b_runs):
         return max(np.abs(a - b).max() / np.abs(b).max()
                    for a, b in zip(a_runs, b_runs))
     noise = max(gap(v, f32) for v in variants)
-    for logits, _toks in world.run(_rank_forward, ttree, "bfloat16", prompt,
-                                   MAX_SEQ, toks, VLM):
+    for logits, _toks in _ranks(world, VLM, "bfloat16", ttree, prompt,
+                                MAX_SEQ, toks):
         assert gap(logits[:1], src[:1]) <= 2e-2
         assert gap(logits, f32) <= noise, (gap(logits, f32), noise)
         assert gap(logits, src) <= noise, (gap(logits, src), noise)
@@ -398,37 +278,14 @@ def test_forward_with_unsharded_cache_length_matches_reference(world):
     rank, the reference's one-device fallback; f32 within 1e-4."""
     shape = world.mesh_shape
     assert ODD_MAX_SEQ % shape[1]
-    jcfg, tree, ttree = _pair(shape, "float32")
+    jcfg, tree, ttree = pair(shape, ARCH, "float32")
     prompt = _prompt()
-    j_logits, j_toks = _ref_forward(shape, jcfg, tree, prompt, ODD_MAX_SEQ)
-    for logits, toks in world.run(_rank_forward, ttree, "float32", prompt,
-                                  ODD_MAX_SEQ, None):
+    j_logits, j_toks = _forward(shape, jcfg, tree, prompt, ODD_MAX_SEQ)
+    for logits, toks in _ranks(world, ARCH, "float32", ttree, prompt,
+                               ODD_MAX_SEQ, None):
         np.testing.assert_array_equal(toks, j_toks)
         for a, b in zip(logits, j_logits):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
-
-
-def _check_drain(world, arch):
-    from repro.configs import RunConfig as JRunConfig
-    from repro.control.controller import RateController as JController
-    from repro.serve.engine import ServeEngine as JEngine
-    from repro.serve.scheduler import Request as JRequest
-    from repro.serve.scheduler import TenantScheduler as JScheduler
-    import jax.numpy as jnp
-    import jax
-    shape = world.mesh_shape
-    jcfg, tree, ttree = _pair(shape, "float32", arch)
-    sched = JScheduler(policy="wfq", charge_prompt=True)
-    ctrl = JController(200.0, alpha=0.6)
-    ctrl.attach_scheduler(sched)
-    jeng = JEngine(jcfg, JRunConfig(attn_q_block=16, attn_kv_block=16),
-                   _jmesh(shape), params=jax.tree.map(jnp.asarray, tree),
-                   batch_slots=4, max_seq=64, scheduler=sched,
-                   controller=ctrl, control_every=4)
-    ref = _drain(jeng, sched, _requests(JRequest))
-    outs = world.run(_rank_engine, ttree, arch)
-    for port in outs:
-        assert port == ref
 
 
 def test_engine_drain_matches_reference(world):
@@ -436,12 +293,12 @@ def test_engine_drain_matches_reference(world):
     buckets, a RateController every 4 steps) at f32 on the same mesh:
     identical tokens, completion order, served tokens and decode steps,
     the same on every rank."""
-    _check_drain(world, ARCH)
+    check_drain(world, ARCH, DRAIN, 64)
 
 
 def test_vlm_engine_drain_matches_reference(world):
     """The same drain of chameleon-34b."""
-    _check_drain(world, VLM)
+    check_drain(world, VLM, DRAIN, 64)
 
 
 def test_every_rank_takes_one_clock(world):
@@ -452,17 +309,6 @@ def test_every_rank_takes_one_clock(world):
     assert all(given == 7.5 for _, given in outs)
 
 
-@pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b",
-                                  "whisper-small", "arctic-480b",
-                                  "deepseek-v2-236b"))
-def test_other_families_refuse_a_mesh(arch):
-    """On a mesh the port serves the dense family only: every other family
-    is refused by name, before any weight or group is made."""
-    shd = ShardingCtx({"data": 1, "model": 2})
-    with pytest.raises(ValueError, match="no sharded path"):
-        Model(get_smoke_config(arch), device="cpu", shd=shd)
-
-
 def test_sharded_serve_on_a_world_of_one_equals_the_unsharded_engine():
     """``chip_smoke.py``'s sharded serve, rehearsed on a gloo world of one
     in this process: the smoke llama3.2-3b through ``ServeEngine`` with
@@ -471,36 +317,13 @@ def test_sharded_serve_on_a_world_of_one_equals_the_unsharded_engine():
     same values), and the installed CoreEngine's ledger holds one psum over
     ``model`` for the embedding and two per layer for each prefill and
     decode step."""
-    import torch.distributed as dist
-
-    from repro_torch.core import make_engine, use_engine
-    from repro_torch.launch import make_host_mesh
-    from repro_torch.models.params import init_params
-    from repro_torch.serve import Request, ServeEngine, TenantScheduler
-    cfg = get_smoke_config(ARCH)
-
-    def serve(shd):
-        sched = TenantScheduler(policy="wfq", charge_prompt=True)
-        model = init_params(cfg, device="cpu", seed=4, shd=shd)
-        eng = ServeEngine(cfg, RunConfig(), model, batch_slots=4,
-                          max_seq=64, scheduler=sched, device="cpu", shd=shd)
-        return eng, _drain(eng, sched, _requests(Request))
-
-    _, want = serve(None)
-    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    try:
-        shd = ShardingCtx(make_host_mesh(1, 1, device="cpu"))
-        core = make_engine(shd.axes, "xla")
-        with use_engine(core):
-            eng, got = serve(shd)
-        psums = sum(ops for _t, verb, axes, ops, _b in core.ledger_table()
-                    if verb == "psum" and axes == ("model",))
-    finally:
-        dist.destroy_process_group()
+    import chip_smoke
+    cfg = cfg_of(ARCH, "bfloat16")
+    got, want, psums, expected = world1_serve(cfg, requests=DRAIN)
     assert got == want
-    assert psums == (eng.admissions + eng.decode_steps) * \
-        (1 + 2 * cfg.num_layers)
+    assert psums == expected
+    assert chip_smoke.model_psums(cfg, prefill=True) == \
+        chip_smoke.model_psums(cfg, prefill=False) == 1 + 2 * cfg.num_layers
 
 
 def test_per_rank_bytes_are_reckoned_from_the_layout(capsys):
