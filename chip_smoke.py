@@ -163,7 +163,26 @@ JSON object per line:
               norm asserted, the kernel-fed leaves' grads reported beside
               the model's bf16 noise floor; bf16 at 2 layers: those
               leaves asserted; f32 at 2 layers: every grad), mamba2's
-              recovery at 2 layers bit-identical;
+              recovery at 2 layers bit-identical; then the sharded
+              train phase: llama3.2-3b at full width and 7 of its 28
+              layers on an NCCL world of one (``make_host_mesh(1, 1)``,
+              the ``"2d"`` rules: FSDP gathers over ``data``, TP over
+              ``model``, every collective through the ``nk_*`` verbs):
+              one micro-batch through the sharded path against the
+              unsharded ``forward_train`` from the same seeded weights
+              (loss, grad norm and every wq/wk/wv grad within 2e-2), two
+              ``Runner`` steps on each (step ms sharded against
+              unsharded; on the mesh: every leaf moved, flash launches =
+              layers x micro-batches x 2, the psums, all-gathers and
+              reduce-scatters a step in the CoreEngine's ledger as
+              reckoned, peak bytes), a profiled micro-batch at 1 layer
+              on each path (busy share), a save, ``Runner.remesh``
+              onto a fresh world-1 mesh (the restored state equal to the
+              saved one) and one more step; and flash under autograd at each TP rank's
+              shapes of a 4,096-token sequence (tp 2/4/8/16) against the
+              plain forward and its autograd VJP (o, dq, dk, dv within
+              2e-2), its forward timed beside the bound and SDPA's
+              forward + backward;
 14. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
               scenarios on the port's ``SharedBottleneckSim`` with the
               object controller and the vectorized one on the card (its
@@ -191,7 +210,7 @@ JSON object per line:
               head dim 192.
 
 Then the seconds of the vlm, hybrid, encdec, moe, nemotron, watchdog,
-train and train-families phases and of the whole script,
+train, sharded-train and train-families phases and of the whole script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
@@ -381,6 +400,15 @@ TRAIN_FT_STEPS = 5
 TRAIN_FT_CKPT_EVERY = 3
 TRAIN_FT_FAIL_AT = 4
 TRAIN_MIN_DISK = 16e9         # bytes free where the checkpoints go
+# the sharded train phase: llama3.2-3b at full width and 7 of 28 layers
+# (the train profile's cut), the train phase's batch, 2 Runner steps on
+# each path; a profiled sharded micro-batch at 1 layer; flash under
+# autograd at each TP rank's shapes of a 4,096-token sequence
+SHARDED_TRAIN_LAYERS = 7
+SHARDED_TRAIN_STEPS = 2
+SHARDED_PROFILE_LAYERS = 1
+TRAIN_RANK_S = 4096
+
 # the ssm, hybrid and encdec trainers: (arch, sequence, global batch) at
 # full width and depth, grad_accum TRAIN_ACCUM, FAMILY_STEPS steps each;
 # whisper's 448 tokens come with the pipeline's 1500 f32 frames
@@ -3878,6 +3906,295 @@ def fault_tolerance(torch, device, cfg2, rcfg, feed, seed):
     return row
 
 
+def ledger_ops(core) -> dict:
+    """Ops so far in the CoreEngine's ledger, by verb."""
+    out: dict = {}
+    for _t, verb, _axes, ops, _b in core.ledger_table():
+        out[verb] = out.get(verb, 0) + ops
+    return out
+
+
+def train_collectives(layers: int, accum: int) -> dict:
+    """The collectives of one sharded train step of a dense model with
+    tied embeddings and no q/k norms at a world of one under the ``"2d"``
+    rules, reckoned. Per micro-batch and layer: 7 FSDP leaves gathered
+    twice (forward and remat) and reduce-scattered once; the attention's
+    and the MLP's row-parallel psums forward, the attention's again in the
+    recompute (which stops once the saved tensors are back: the MLP's last
+    sum is not replayed), and 4 backward (x into attention and MLP, wk,
+    wv). Per micro-batch: the embedding gathered for the lookup and the
+    head, their psums (the lookup's, the head's x), the loss's 3 (the
+    vocabulary's exps and picked logits, the tokens' sums over data). Per
+    step: the 2 x layers + 1 norm scales' gradients over data, and the
+    clip norm's 2 groups (leaves split over data and model, over data
+    alone)."""
+    return {"all_gather": accum * (2 + 14 * layers),
+            "reduce_scatter": accum * (2 + 7 * layers),
+            "psum": accum * (5 + 7 * layers) + 2 * layers + 1 + 2}
+
+
+def phase_sharded_train(torch, device, cfg, smi: str):
+    """Training on the model axis at a world of one (``world_of_one``):
+    ``cfg`` at full width and ``SHARDED_TRAIN_LAYERS`` layers under the
+    ``"2d"`` rules, the train phase's batch. The sharded micro-batch
+    against the unsharded one from the same seeded weights, two ``Runner``
+    steps on each (the sharded ones counted: flash launches, the ledger's
+    collectives, every leaf moved), a profiled micro-batch on each path,
+    a checkpoint carried through ``Runner.remesh`` onto a fresh world-1 mesh
+    and one more step; then ``train_rank_cases``. Returns (the sharded
+    steps' flash launches, the rank cases' checks by tp)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models.params import init_params
+    from repro_torch.train import Runner, loss_fn
+    from repro_torch.train.optimizer import global_norm, grad_norm
+    from repro_torch.train.train_loop import _grads, _sync_grads, train_ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before the "
+                             f"sharded train phase")
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_layers=min(cfg.num_layers,
+                                                  SHARDED_TRAIN_LAYERS))
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    feed = for_model(cfg, shape, seed=SEED, device=device)
+    micro = {k: v[:TRAIN_BATCH // TRAIN_ACCUM]
+             for k, v in feed.batch_at(0).items()}
+    rcfg = RunConfig(grad_accum=TRAIN_ACCUM, learning_rate=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP)
+
+    def keep(n):
+        return n.endswith(("attn.wq", "attn.wk", "attn.wv"))
+
+    def timed_steps(runner):
+        out = []
+        for _ in range(SHARDED_TRAIN_STEPS):
+            runner.run(1)
+            out.append(runner.metrics_log[-1]["dt"] * 1e3)
+        return out
+
+    # 1. the unsharded path: one micro-batch, then two Runner steps
+    model = init_params(cfg, device=device, seed=SEED)
+    grads, metrics = _grads(model, micro, cfg, RunConfig())
+    want = {"loss": metrics["loss"].item(),
+            "grad_norm": global_norm(grads.values()).item(),
+            "grads": {n: g for n, g in grads.items() if keep(n)}}
+    del grads
+    with tempfile.TemporaryDirectory() as d:
+        runner = Runner(cfg, rcfg, None, feed, d, device=device)
+        runner.init_state(model=model)
+        plain_ms = timed_steps(runner)
+        del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the sharded path on a world of one
+    row = {"phase": "sharded_train", "model": cfg.name,
+           "layers": cfg.num_layers, "rules": "2d", "world": 1,
+           "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+           "grad_accum": TRAIN_ACCUM}
+    with world_of_one(torch, device) as (serve_shd, core), \
+            tempfile.TemporaryDirectory() as d:
+        shd = train_ctx(serve_shd.axes, rcfg)
+        runner = Runner(cfg, rcfg, shd, feed, d, device=device)
+        runner.init_state(seed=SEED)
+        model = runner.state["params"]
+        grads, metrics = _grads(model, micro, cfg, RunConfig(),
+                                lambda g: _sync_grads(model, g))
+        got = {"loss": metrics["loss"].item(),
+               "grad_norm": grad_norm(model, grads).item()}
+        gaps = {n: rel_err(grads[n], want["grads"][n])
+                for n in want["grads"]}
+        del grads, want["grads"]
+        row.update({
+            "loss_sharded": got["loss"], "loss_unsharded": want["loss"],
+            "loss_gap": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_norm_sharded": got["grad_norm"],
+            "grad_norm_unsharded": want["grad_norm"],
+            "grad_norm_gap": abs(got["grad_norm"] - want["grad_norm"])
+            / abs(want["grad_norm"]),
+            "wq_wk_wv_grads": len(gaps),
+            "wq_wk_wv_worst_gap": max(gaps.values()), "tol": TRAIN_TOL})
+        if len(gaps) != 3 * cfg.num_layers or max(
+                row["loss_gap"], row["grad_norm_gap"],
+                row["wq_wk_wv_worst_gap"]) > TRAIN_TOL:
+            raise AssertionError(f"sharded train parity: {row}")
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        ops0 = ledger_ops(core)
+        runner.run(1)
+        ops1 = ledger_ops(core)
+        runner.run(SHARDED_TRAIN_STEPS - 1)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        launches_want = cfg.num_layers * TRAIN_ACCUM * 2 \
+            * SHARDED_TRAIN_STEPS
+        moved = sum(not torch.equal(p.detach(), b)
+                    for p, b in zip(model.parameters(), before))
+        del before
+        steps_ms = [m["dt"] * 1e3 for m in runner.metrics_log]
+        finite = all(math.isfinite(m["loss"]) and math.isfinite(
+            m["grad_norm"]) for m in runner.metrics_log)
+        row.update({
+            "step_ms_sharded": steps_ms, "step_ms_unsharded": plain_ms,
+            "step_ratio": steps_ms[-1] / plain_ms[-1],
+            "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
+                                  for v in ops1},
+            "ledger_ops_want": train_collectives(cfg.num_layers,
+                                                 TRAIN_ACCUM),
+            "flash_launches": launches,
+            "flash_launches_want": launches_want,
+            "params_moved": moved,
+            "params_total": len(list(model.parameters())),
+            "max_memory_allocated": peak,
+            "losses": [m["loss"] for m in runner.metrics_log]})
+        if launches != launches_want or moved != row["params_total"] \
+                or not finite \
+                or row["ledger_ops_a_step"] != row["ledger_ops_want"]:
+            raise AssertionError(f"sharded train runner: {row}")
+
+        # a profiled micro-batch, cut to SHARDED_PROFILE_LAYERS, on each
+        # path: where the sharded step's extra time goes
+        pcfg = dataclasses.replace(cfg, num_layers=SHARDED_PROFILE_LAYERS)
+        for key, on in (("profile_micro_batch", shd),
+                        ("profile_micro_batch_unsharded", None)):
+            pmodel = init_params(pcfg, device=device, seed=SEED, shd=on)
+            params = [p.requires_grad_(True) for p in pmodel.parameters()]
+
+            def micro_batch():
+                loss, _ = loss_fn(pmodel, micro, pcfg, rcfg)
+                torch.autograd.grad(loss, params)
+
+            t0 = time.perf_counter()
+            prof = _profile(torch, micro_batch, top=6)
+            prof["seconds"] = time.perf_counter() - t0
+            prof["layers"] = pcfg.num_layers
+            row[key] = prof
+            del pmodel, params
+
+        # a checkpoint carried onto a fresh world-1 mesh, then a step
+        t0 = time.perf_counter()
+        runner.ckpt.save(runner.step, runner.state, blocking=True,
+                         shardings=runner.state_sh)
+        saved = [t.clone() for t in _state_tensors(runner)]
+        t_save = time.perf_counter() - t0
+        runner.remesh(make_host_mesh(1, 1, device=device.type))
+        same = len(saved) == len(_state_tensors(runner)) and all(
+            torch.equal(a, b) for a, b in zip(saved, _state_tensors(runner)))
+        del saved
+        out = runner.run(1)
+        row.update({"remesh_restored_equal": same,
+                    "remesh_final_step": out["final_step"],
+                    "remesh_loss": runner.metrics_log[-1]["loss"],
+                    "save_seconds": t_save,
+                    "remesh_seconds": time.perf_counter() - t0 - t_save})
+        if not same or out["final_step"] != SHARDED_TRAIN_STEPS + 1 \
+                or not math.isfinite(row["remesh_loss"]):
+            raise AssertionError(f"sharded train remesh: {row}")
+        del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = train_rank_cases(torch, device, smi, row)
+    row.update({"seconds": time.perf_counter() - t_phase, "gpu": smi})
+    emit(row)
+    return launches, checks
+
+
+def train_rank_cases(torch, device, smi: str, row: dict):
+    """Flash under autograd (``FlashAttentionFn``: the kernel forward, the
+    plain VJP backward) at each TP rank's shapes of llama3.2-3b's
+    ``TRAIN_RANK_S``-token training sequence (tp 2/4/8/16: 12/4, 6/2, 3/1
+    heads, and 2 of 32 padded heads over 2 gathered kv heads), held
+    against the plain forward and its autograd VJP (o, dq, dk, dv within
+    ``TRAIN_TOL`` of max |.|), its forward timed beside the bound, the
+    plain forward and ``scaled_dot_product_attention``'s forward and
+    backward. Puts the rows into ``row["rank_flash"]``; returns the checks
+    by tp."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.distribution.sharding import padded_heads
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models.attention import FlashAttentionFn, _local_kv
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    timer = Timer(torch, device)
+    hq, kv = LLAMA_HEADS
+    d, s = 128, TRAIN_RANK_S
+    checks, rows = {}, []
+    for tp in CP_TP:
+        hp = padded_heads(hq, {"model": tp})
+        n, r = hp // tp, 1 if tp == 16 else 0
+        q = torch.randn((1, s, n, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        k, v = (torch.randn((1, s, kv, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+        kl, vl = _local_kv(k, v, hq, hp, r * n, n)
+        do = torch.randn((1, s, n, d), generator=gen,
+                         device=device).to(torch.bfloat16)
+        ins = [t.detach().requires_grad_() for t in (q, kl, vl)]
+        before = flash_attention.launches
+        o = FlashAttentionFn.apply(*ins, True, 0, 512, 512)
+        launched = flash_attention.launches - before
+        grads = torch.autograd.grad(o, ins, do)
+        ref_in = [t.detach().requires_grad_() for t in (q, kl, vl)]
+        ref_o = flash_attention_plain(*ref_in)
+        ref_g = torch.autograd.grad(ref_o, ref_in, do)
+        errs = {"o": rel_err(o, ref_o)}
+        errs.update({f"d{x}": rel_err(a, b)
+                     for x, a, b in zip("qkv", grads, ref_g)})
+        abs_o = (o.float() - ref_o.float()).abs().max().item()
+        ok = max(errs.values()) <= TRAIN_TOL and launched == 1
+        del ins, o, grads, ref_in, ref_o, ref_g
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, kl, vl))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        backend = sdpa_backend(torch, qt, kt, vt, is_causal=True,
+                               enable_gqa=True)
+        with sdpa_kernel([backend]):
+            sdpa_ms = timer.ms(sdpa_fwd_bwd, reps=5)
+        nbytes, flops = flash_work(1, s, s, n, kl.shape[2], d, 2, True, 0)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        rank_row = {"tp": tp, "rank": r, "S": s, "hq": n,
+                    "kv": kl.shape[2], "d": d, "dtype": "bfloat16",
+                    "max_rel_err": errs, "max_abs_err_o": abs_o,
+                    "tol": TRAIN_TOL, "ok": ok,
+                    "ms": timer.ms(lambda: flash_attention(q, kl, vl)),
+                    "plain_ms": timer.ms(
+                        lambda: flash_attention_plain(q, kl, vl), reps=5),
+                    "library_fwd_bwd_ms": sdpa_ms,
+                    "library": "scaled_dot_product_attention",
+                    "library_backend": backend.name,
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops, "gpu": smi}
+        rows.append(rank_row)
+        checks[tp] = {"launches": launched, "max_abs_err": abs_o,
+                      "max_rel_err": max(errs.values()), "row": rank_row}
+        del q, k, v, kl, vl, do, qt, kt, vt, dot
+        if not ok:
+            raise AssertionError(f"flash under autograd at tp {tp}: "
+                                 f"{rank_row}")
+    row["rank_flash"] = rows
+    torch.cuda.empty_cache()
+    return checks
+
+
 def kernel_fed(name: str) -> bool:
     """The parameters whose gradients come through a kernel's autograd
     wrapper first: the attention and cross-attention projections (flash)
@@ -5695,6 +6012,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     launches["flash_attention"] += phase_train(torch, device, cfg, smi)
     seconds["train"] = time.perf_counter() - t_phase
+    # ... on the model axis at a world of one: FSDP gathers, TP heads
+    # through flash under autograd, the collectives' transposes
+    t_phase = time.perf_counter()
+    sharded_launches, train_rank = phase_sharded_train(torch, device, cfg,
+                                                       smi)
+    launches["flash_attention"] += sharded_launches
+    seconds["sharded_train"] = time.perf_counter() - t_phase
     # ... and the ssm, hybrid and encdec trainers: the SSD scan kernel
     # forward under autograd too
     t_phase = time.perf_counter()
@@ -5760,6 +6084,20 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # flash under autograd at a TP rank's training shape at tp 16: no main
+    # path runs it (the sharded trainer is a world of one); checked and
+    # timed in the sharded train phase
+    check = train_rank[16]
+    row = check["row"]
+    summary.append({
+        "name": "flash_attention (TP train rank, tp 16, S 4096)",
+        "route": "cuda", "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": 0,
+        "check_launches": check["launches"],
+        "max_abs_err": check["max_abs_err"],
+        "max_rel_err": check["max_rel_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_fwd_bwd_ms"]})
     # each rank's kernel work at the other families' shapes at tp 16, held
     # in the distribution phase (check_launches), timed in the timings
     # phase; no main path runs them (the sharded serves are worlds of one)

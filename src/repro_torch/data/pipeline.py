@@ -7,14 +7,15 @@ Zipfian unigrams and shifted-copy spans, which gives a learnable signal.
 ``batch_at`` hands the arrays to the pipeline's device as int32 tokens and
 labels (and f32 ``frames`` for an encoder model).
 
-The reference also places each host's shard straight into the train
-step's input sharding (``shardings``, ``make_array_from_callback``). One
-card has no shards, so the port leaves that out (ROADMAP: distribution).
+On a mesh (``shardings``, the train step's input layout from
+``train.batch_shardings``) ``batch_at`` returns this rank's block of the
+global batch, the block the reference's ``make_array_from_callback``
+gives the rank's device: still a pure function of (seed, step).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -59,16 +60,23 @@ def _batch_np(dcfg: DataConfig, step: int, lo: int, hi: int) -> Dict[str, np.nda
 
 class DataPipeline:
     """Restartable batch source on one device (``cuda`` unless ``"cpu"``
-    is passed)."""
+    is passed). ``shardings``: a ``NamedSharding`` for each input (the
+    ``Runner`` sets it, and ``mesh``, from ``batch_shardings``)."""
 
-    def __init__(self, dcfg: DataConfig, *, device=None):
+    def __init__(self, dcfg: DataConfig, mesh=None,
+                 shardings: Optional[Dict] = None, *, device=None):
         self.dcfg = dcfg
+        self.mesh = mesh
+        self.shardings = shardings
         self.device = resolve_device(device)
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
         d = self.dcfg
         arrs = _batch_np(d, step, 0, d.global_batch)
-        return {k: torch.from_numpy(v).to(self.device)
+        if self.shardings is not None:
+            arrs = {k: v[self.shardings[k].block(v.shape)]
+                    for k, v in arrs.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in arrs.items()}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
@@ -78,10 +86,11 @@ class DataPipeline:
             step += 1
 
 
-def for_model(cfg, shape, *, seed: int = 0, device=None) -> DataPipeline:
+def for_model(cfg, shape, mesh=None, shardings=None, *, seed: int = 0,
+              device=None) -> DataPipeline:
     return DataPipeline(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                    global_batch=shape.global_batch, seed=seed,
                    with_frames=bool(cfg.encoder_layers),
                    encoder_seq=cfg.encoder_seq, d_model=cfg.d_model),
-        device=device)
+        mesh, shardings, device=device)

@@ -28,11 +28,30 @@ the reference's ``spec``/``constrain``/``constrain_act``/``axis_sizes``/
 ``tp``, it carries the ``MeshAxes`` whose process groups the forward's
 collectives use, and sends them through the ``nk_*`` verbs and the
 installed ``CoreEngine`` (its own native engine when none is installed),
-so the operator's routing table sees the serving traffic. Weights on the
-serving path are laid out by the context's rules with ``pod`` and ``data``
-stripped (``weight_spec``): model-sharded and replicated over the batch
-axes, the layout of the reference's ``TP_RULES``; caches and activations
-keep the full rules, so the batch splits over ``data``.
+so the operator's routing table sees the serving traffic; a thread with
+no engine installed (autograd's device thread) uses the one last seen.
+Weights on the serving path are laid out by the context's rules with
+``pod`` and ``data`` stripped (``weight_spec``): model-sharded and
+replicated over the batch axes, the layout of the reference's
+``TP_RULES``; caches and activations keep the full rules, so the batch
+splits over ``data``.
+
+**Training** (``ShardingCtx(..., train=True)``) lays the weights out by
+the run's rules whole (``make_rules(rcfg.rules_variant)``): under ``"2d"``
+a weight's ``embed`` rows over ``data`` (FSDP) and its ``heads``/``ffn``/
+``vocab`` over ``model`` (TP); under ``"fsdp"`` the ``embed`` rows over
+``(data, model)`` and no TP; under ``"tp"`` TP only. The forward gathers a
+layer's FSDP shards just before use (``gathered``, a view of a
+``ParamTree``) and lets them go after. The collectives are autograd
+functions with the Megatron transposes: ``psum`` of row-parallel partial
+sums has the identity as its backward, ``enter`` (a tensor replicated over
+the TP axis entering column-parallel work) the identity forward and a
+``psum`` of the cotangent backward, ``all_gather`` a ``reduce_scatter``.
+The backward's collectives are flagged ``gradient``, the forward's neither
+``serving`` nor ``gradient``. ``NamedSharding`` pairs a spec with the
+mesh: ``state_shardings``/``batch_shardings`` (``train/train_loop.py``)
+return trees of them; ``block`` gives a rank's slices, ``whole`` the
+global tensor from the ranks' blocks.
 """
 from __future__ import annotations
 
@@ -277,6 +296,34 @@ def constrain(x, dims, mesh, rules=None):
         tuple(x.shape), dims, x.device_mesh, rules))
 
 
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``): ``spec`` is the
+    port's tuple, which compares equal to ``tuple(jax_spec)``; ``mesh`` a
+    ``MeshAxes``, a ``DeviceMesh`` or an ``{axis: size}`` dict."""
+
+    mesh: object
+    spec: Tuple = ()
+
+    def block(self, shape) -> Tuple[slice, ...]:
+        """This rank's block of a global tensor of ``shape`` (``mesh`` a
+        ``MeshAxes``)."""
+        coord = {a: self.mesh.index(a) for a in self.mesh}
+        return shard_slices(shape, self.spec, self.mesh, coord)
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The global tensor of which ``t`` is this rank's block: gathered
+        dim by dim over each entry's axes, on every rank of the mesh (a
+        ``MeshAxes``), outside the ``nk_*`` verbs (checkpoint I/O)."""
+        from repro_torch.core.nsm import _all_gather
+        for d, cand in enumerate(self.spec):
+            if cand:
+                axes = _flat(cand)
+                t = _all_gather(t, self.mesh.group(axes),
+                                self.mesh.size(axes), d, True)
+        return t.contiguous()
+
+
 def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
@@ -296,6 +343,118 @@ def padded_heads(num_heads: int, mesh) -> int:
 # ---------------------------------------------------------------------------
 
 
+# logical dims a layer computes sharded (tensor parallelism); a weight's
+# ``embed`` dim is FSDP instead: gathered before use
+TP_DIMS = ("heads", "ffn", "vocab")
+
+
+class _Psum(torch.autograd.Function):
+    """``psum`` of partial sums whose result every rank of the group holds
+    and feeds the same loss (the row-parallel products, the vocab-sharded
+    lookup, the loss's sums): its transpose is the identity (Megatron's
+    g)."""
+
+    @staticmethod
+    def forward(ctx, x, shd, axes):
+        return shd._psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """A tensor replicated over ``axes`` entering work split over them
+    (column-parallel products, kv heads read by each rank's query heads):
+    the identity forward, and a gradient ``psum`` of the cotangent, of
+    which each rank holds only its part (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, shd, axes):
+        ctx.shd, ctx.axes = shd, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shd._psum(g.contiguous(), ctx.axes, gradient=True), \
+            None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather`` (tiled along ``dim``); its transpose is the gradient
+    ``reduce_scatter`` along the same dim."""
+
+    @staticmethod
+    def forward(ctx, x, shd, axes, dim):
+        ctx.shd, ctx.axes, ctx.dim = shd, axes, dim
+        return shd._all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shd.reduce_scatter(g.contiguous(), ctx.axes, ctx.dim), \
+            None, None, None
+
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def split_axes(spec: Tuple) -> set:
+    """Every mesh axis a layout splits some dim over."""
+    return {a for cand in spec for a in _flat(cand)}
+
+
+def fsdp_entry(spec: Tuple, dims: Tuple):
+    """(dim, axes) of a weight's FSDP dim, its ``embed`` dim where the
+    layout splits it, or None."""
+    for d, cand in enumerate(spec):
+        if cand and dims[d] == "embed":
+            return d, cand
+    return None
+
+
+class GatheredTree:
+    """A ``ParamTree`` as a layer's forward reads it in training: each leaf
+    all-gathered over the axes of its FSDP (``embed``) dim on first use,
+    and ``spec(key)`` the layout left, its TP axes. A view made inside a
+    layer's (rematerialized) function holds the gathered weights only
+    while the layer runs, and the recompute gathers them again."""
+
+    def __init__(self, tree, shd: "ShardingCtx"):
+        self._tree, self._shd = tree, shd
+        self._cache: Dict[str, object] = {}
+
+    def _fsdp(self, key: str):
+        return fsdp_entry(self._tree.spec(key), self._tree.dims(key))
+
+    def __getitem__(self, key: str):
+        if key not in self._cache:
+            node = self._tree[key]
+            if isinstance(node, torch.Tensor):
+                fsdp = self._fsdp(key)
+                if fsdp is not None:
+                    node = self._shd.all_gather(node, fsdp[1], fsdp[0])
+            else:
+                node = GatheredTree(node, self._shd)
+            self._cache[key] = node
+        return self._cache[key]
+
+    def spec(self, key: str) -> Tuple:
+        spec = list(self._tree.spec(key))
+        fsdp = self._fsdp(key)
+        if fsdp is not None:
+            spec[fsdp[0]] = None
+        while spec and spec[-1] is None:
+            spec.pop()
+        return tuple(spec)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._tree
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+
 @dataclass
 class ShardingCtx:
     """Resolves logical dims on ``mesh`` and runs the forward's collectives.
@@ -303,13 +462,16 @@ class ShardingCtx:
     ``mesh``: a ``DeviceMesh`` (its groups are built here, on every rank,
     in one order: group creation is collective), a ``MeshAxes`` already
     built from one, an ``{axis: size}`` dict (rule math only, no
-    collectives), or None (one device)."""
+    collectives), or None (one device). ``train``: the training layout
+    (weights by the rules whole, FSDP included) and flags."""
 
     mesh: object
     rules: Optional[Dict[str, Tuple]] = None
     seq_parallel: bool = False
+    train: bool = False
     axes: object = field(default=None, init=False, repr=False)
     _native: object = field(default=None, init=False, repr=False)
+    _installed: object = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         from repro_torch.core.nsm import MeshAxes
@@ -353,12 +515,26 @@ class ShardingCtx:
 
     @property
     def weight_rules(self) -> Dict[str, Tuple]:
+        if self.train:
+            return self.rules or LOGICAL_RULES
         return strip_axes_from_rules(("pod", "data"), self.rules)
 
     def weight_spec(self, shape, dims) -> Tuple:
-        """A weight's layout on the serving path: model-sharded, replicated
-        over the batch axes."""
+        """A weight's layout: on the serving path model-sharded and
+        replicated over the batch axes; in training the rules' whole."""
         return spec_for(shape, dims, self.mesh, self.weight_rules)
+
+    @property
+    def tp_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the rules split a layer's work over (``heads``,
+        ``ffn``, ``vocab``): ``("model",)`` under ``"2d"`` and ``"tp"``,
+        none under ``"fsdp"``, in mesh order."""
+        rules = self.rules or LOGICAL_RULES
+        named = {a for d in TP_DIMS for c in rules[d] for a in _flat(c)}
+        return tuple(a for a in self.axis_sizes if a in named)
+
+    def gathered(self, tree) -> GatheredTree:
+        return GatheredTree(tree, self)
 
     def coord(self) -> Dict[str, int]:
         if self.axes is None:
@@ -389,36 +565,79 @@ class ShardingCtx:
     # -- the wire: nk_* verbs through the installed (or own) engine --------
     def _wire(self):
         from repro_torch.core.collectives import current_engine, use_engine
-        return use_engine(current_engine() or self._native)
+        # the engine installed around this context's collectives; a thread
+        # with none (autograd's device thread runs a backward, and a
+        # remat's recompute, on the card) keeps the last one seen, so the
+        # backward's traffic reaches the same ledger as the forward's
+        engine = current_engine()
+        if engine is not None:
+            self._installed = engine
+        return use_engine(engine or self._installed or self._native)
 
     def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """``lax.psum`` through ``nk_psum``. A bf16 tensor is summed in f32
-        and rounded once, as the reference's partitioned all-reduce does:
-        a bf16 sum rounds after every rank's term."""
+        """``lax.psum`` through ``nk_psum``; under autograd, with the
+        identity as its backward (``_Psum``)."""
+        if _records(x):
+            return _Psum.apply(x, self, axes)
+        return self._psum(x, axes)
+
+    def _psum(self, x: torch.Tensor, axes, gradient: bool = False
+              ) -> torch.Tensor:
+        """A bf16 tensor is summed in f32 and rounded once, as the
+        reference's partitioned all-reduce does: a bf16 sum rounds after
+        every rank's term."""
         from repro_torch.core.collectives import nk_psum
+        flags = dict(gradient=gradient, serving=not (gradient or self.train))
         with self._wire():
             if x.dtype == torch.bfloat16:
-                return nk_psum(x.float(), _flat(axes),
-                               serving=True).to(x.dtype)
-            return nk_psum(x, _flat(axes), serving=True)
+                return nk_psum(x.float(), _flat(axes), **flags).to(x.dtype)
+            return nk_psum(x, _flat(axes), **flags)
+
+    def enter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x``, replicated over ``axes``, entering work split over them:
+        its gradient is summed over them (``_Enter``). The identity when
+        autograd does not record or ``axes`` is empty."""
+        if not axes or not _records(x):
+            return x
+        return _Enter.apply(x, self, axes)
 
     def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """Tiled ``nk_all_gather``; under autograd its backward is the
+        gradient ``reduce_scatter`` (``_AllGather``)."""
+        if _records(x):
+            return _AllGather.apply(x, self, axes, dim)
+        return self._all_gather(x, axes, dim)
+
+    def _all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         from repro_torch.core.collectives import nk_all_gather
         with self._wire():
             return nk_all_gather(x, _flat(axes), axis=dim, tiled=True)
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int,
+                       gradient: bool = True) -> torch.Tensor:
+        """``nk_reduce_scatter`` along ``dim``: the sum over ``axes``, this
+        rank's block of it. bf16 is summed in f32 and rounded once, as
+        ``psum`` does."""
+        from repro_torch.core.collectives import nk_reduce_scatter
+        with self._wire():
+            if x.dtype == torch.bfloat16:
+                return nk_reduce_scatter(x.float(), _flat(axes), axis=dim,
+                                         gradient=gradient).to(x.dtype)
+            return nk_reduce_scatter(x, _flat(axes), axis=dim,
+                                     gradient=gradient)
 
     def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
         from repro_torch.core.collectives import nk_ppermute
         with self._wire():
             return nk_ppermute(x, axis, perm=perm)
 
-    def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """``lax.pmax``: not an ``nk_*`` verb, a MAX all-reduce on the
-        axis's group."""
+    def pmax(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """``lax.pmax`` over one axis or several: not an ``nk_*`` verb, a
+        MAX all-reduce on the axes' group (no gradient)."""
         import torch.distributed as dist
-        out = x.clone(memory_format=torch.contiguous_format)
+        out = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=dist.ReduceOp.MAX,
-                        group=self.axes.group((axis,)))
+                        group=self.axes.group(_flat(axis)))
         return out
 
     def agreed_now(self, now: Optional[float]) -> float:

@@ -488,6 +488,19 @@ def _local_kv(k, v, h: int, hp: int, first: int, n: int):
     return k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
 
 
+def _head_axis(p):
+    """The mesh axis a layer's query heads are split over (from ``wq``'s
+    layout), or None."""
+    spec = p.spec("wq") if hasattr(p, "spec") else ()
+    return spec[1] if len(spec) > 1 else None
+
+
+def _sum_heads(shd, out, axis):
+    """The row-parallel out-projection's partial sums over the heads'
+    axis (none to sum where the heads are whole)."""
+    return shd.psum(out, axis) if axis else out
+
+
 def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                   window=0, cache: Optional[Dict] = None, decode_pos=None,
                   ring: Optional[RingSlots] = None, return_cache=False,
@@ -516,35 +529,53 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
     encoder k/v (``cache`` {"ck", "cv"}) instead: see ``_cross_decode``.
 
     ``shd``: a ``ShardingCtx`` on a mesh runs the sharded path of the
-    module's docstring (no grad; a linear cache, a ring or the cross
-    caches; x
+    module's docstring (a linear cache, a ring or the cross caches; x
     (B_local, S, d) is the same on every rank of ``model``, and so is the
     result after the ``psum`` of the row-parallel out-projection; decode
-    needs ``max_seq``, the cache's global length)."""
+    needs ``max_seq``, the cache's global length). Under autograd
+    (training) the rank's query heads go through ``FlashAttentionFn``; x,
+    ``wk``, ``wv`` and the q/k norms' scales enter the heads' split through
+    ``shd.enter``, so the kv heads' gradient, of which each rank sees only
+    its own query heads' use, is summed over ``model``; the head mask
+    zeroes the padded heads' gradients in both directions."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     naive = rcfg.attention_impl == "naive"
     sharded = shd is not None and shd.mesh is not None
+    wk, wv, q_norm, k_norm = p["wk"], p["wv"], p.get("q_norm"), \
+        p.get("k_norm")
     if sharded:
-        if torch.is_grad_enabled():
-            raise NotImplementedError("training on a mesh is not ported "
-                                      "yet (ROADMAP: the train side)")
-        tp, rank = shd.tp, shd.index("model")
+        # the axis the query heads split over (none under the "fsdp"
+        # rules, whose model axis carries batch rows); under autograd x and
+        # the weights every rank holds whole but reads for its own heads
+        # (wk, wv, the q/k norms) enter the split, so their gradients are
+        # summed over it
+        axis = _head_axis(p)
+        tp = shd.axis_sizes[axis] if axis else 1
+        rank = shd.index(axis) if axis else 0
         n = p["wq"].shape[1]                   # this rank's query heads
         hp, first = n * tp, rank * n
         mask = head_mask(h, hp, x.dtype, x.device)[first:first + n, None]
+        if axis and torch.is_grad_enabled():
+            x = shd.enter(x, axis)
+            if kv_x is not None:
+                kv_x = shd.enter(kv_x, axis)
+            wk, wv = shd.enter(wk, axis), shd.enter(wv, axis)
+            if cfg.qk_norm:
+                q_norm, k_norm = ({"scale": shd.enter(t["scale"], axis)}
+                                  for t in (q_norm, k_norm))
     q = _heads(x, p["wq"])
     if cfg.qk_norm:
-        q = apply_norm(p["q_norm"], q, "rmsnorm")
+        q = apply_norm(q_norm, q, "rmsnorm")
     if cross_decode:
         if sharded:
             o = _cross_decode(q, cache, naive, (h, hp, first, n))
-            return shd.psum(_out(o * mask, p["wo"]), "model")
+            return _sum_heads(shd, _out(o * mask, p["wo"]), axis)
         return _out(_cross_decode(q, cache, naive), p["wo"])
     src = x if kv_x is None else kv_x
-    knew = _heads(src, p["wk"])
-    vnew = _heads(src, p["wv"])
+    knew = _heads(src, wk)
+    vnew = _heads(src, wv)
     if cfg.qk_norm:
-        knew = apply_norm(p["k_norm"], knew, "rmsnorm")
+        knew = apply_norm(k_norm, knew, "rmsnorm")
     prefill = cache is None or decode_pos is None
     if cfg.rope_theta > 0 and kv_x is None:
         cos, sin = rope_tables(positions if prefill else decode_pos[:, None],
@@ -571,7 +602,7 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
         else:
             o = flash_attention(q, knew, vnew, causal=causal, window=window)
         o = o.to(q_dtype)
-        out = shd.psum(_out(o * mask, p["wo"]), "model") if sharded \
+        out = _sum_heads(shd, _out(o * mask, p["wo"]), axis) if sharded \
             else _out(o, p["wo"])
         return (out, kv_out) if return_cache else out
 
@@ -602,11 +633,13 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
                                       k_c[rows, slot])
         v_c[rows, slot] = torch.where(inside, vnew[:, 0].to(v_c.dtype),
                                       v_c[rows, slot])
-        o = decode_attention_cp(shd.all_gather(q, "model", 2), k_c, v_c,
-                                at, window=win, n_real_heads=h, shd=shd,
-                                chunked=chunked, naive=naive)
+        qa = shd.all_gather(q, axis, 2) if axis else q
+        o = decode_attention_cp(qa, k_c, v_c, at, window=win,
+                                n_real_heads=h, shd=shd, chunked=chunked,
+                                naive=naive)
         o = o[:, :, first:first + n] * mask
-        return shd.psum(_out(o, p["wo"]), "model"), {"k": k_c, "v": v_c}
+        return _sum_heads(shd, _out(o, p["wo"]), axis), \
+            {"k": k_c, "v": v_c}
     if ring is None and is_ring(window, n_slots):
         ring = ring_slots(decode_pos, n_slots, kv_pos=naive)
     # In-place row write. The reference rebuilds the whole cache with a
@@ -725,8 +758,8 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
     sharded = shd is not None and shd.mesh is not None
     if sharded:
         if torch.is_grad_enabled():
-            raise NotImplementedError("training on a mesh is not ported "
-                                      "yet (ROADMAP: the train side)")
+            raise NotImplementedError("training MLA on a mesh is not "
+                                      "ported yet (ROADMAP 3c)")
         n = p["wq"].shape[1]                   # this rank's query heads
         first = shd.index("model") * n
         mask = head_mask(cfg.num_heads, n * shd.tp, x.dtype,

@@ -137,12 +137,14 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     cache never holds them. ``groups``: a ``moe`` layer's share of the
     reference's dispatch groups (``moe.dispatch_groups``).
 
-    ``shd``: a ``ShardingCtx`` on a mesh (no grad; decode needs
-    ``max_seq``): every kind runs on this rank's shards, attention and
-    MLA (``attention.gqa_attention``, ``mla_attention``), the cross
+    ``shd``: a ``ShardingCtx`` on a mesh (decode needs ``max_seq``):
+    every kind runs on this rank's shards, attention and MLA
+    (``attention.gqa_attention``, ``mla_attention``), the cross
     attention, the SSM path (``ssm.ssm_block``), the MLP
     (``layers.apply_mlp``) and the experts (``moe.apply_moe``); an
-    ``enc`` layer (run in "train" mode) too."""
+    ``enc`` layer (run in "train" mode) too. Under autograd (training on
+    a mesh, the dense and vlm kinds) ``p`` is the layer as
+    ``ShardingCtx.gathered`` reads it, its FSDP shards gathered."""
     check_kind(kind)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")

@@ -76,7 +76,13 @@ def _split(p, key: str, dim: int):
 def apply_mlp(p, x: torch.Tensor, activation: str, shd=None):
     """The MLP; with a ``ShardingCtx`` whose rules shard ``ffn``, the rank
     holds ``w_in``/``w_gate`` by column and ``w_out`` by row, and the
-    partial products are summed over ``model``."""
+    partial products are summed over ``model``. Under autograd ``x``
+    enters the column-parallel products through ``shd.enter`` (its
+    gradient summed over ``model``) and the sum's backward is the
+    identity."""
+    axis = _split(p, "w_out", 0) if shd is not None else None
+    if axis:
+        x = shd.enter(x, axis)
     h = matmul(x, p["w_in"])
     if activation == "silu_glu":
         g = matmul(x, p["w_gate"])
@@ -86,7 +92,6 @@ def apply_mlp(p, x: torch.Tensor, activation: str, shd=None):
     else:  # gelu (tanh approximation, jax.nn.gelu's default)
         h = F.gelu(f32(h), approximate="tanh").to(x.dtype)
     out = matmul(h, p["w_out"])
-    axis = _split(p, "w_out", 0) if shd is not None else None
     return shd.psum(out, axis) if axis else out
 
 
@@ -147,7 +152,9 @@ def embed_schema(vocab: int, d: int, dtype: str, tie: bool):
 def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype, shd=None):
     """Token embeddings. With the table vocab-sharded over ``model`` the
     rank looks up the tokens in its range, zeroes the others and sums over
-    ``model``: one nonzero term per token, so the sum is exact."""
+    ``model``: one nonzero term per token, so the sum is exact. Under
+    autograd the sum's backward is the identity, so each rank's rows of the
+    table get the gradient of its own tokens."""
     axis = _split(p, "tokens", 0) if shd is not None else None
     if not axis:
         return F.embedding(tokens.long(), p["tokens"]).to(dtype)
@@ -159,10 +166,18 @@ def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype, shd=None):
     return shd.psum(e, axis).to(dtype)
 
 
-def lm_logits(p, x: torch.Tensor, softcap: float = 0.0):
-    """Logits over the head's rows: this rank's vocab shard where the head
-    is vocab-sharded (``models.model.greedy`` combines shards' argmax)."""
-    w = p.get("head", p["tokens"])
+def lm_logits(p, x: torch.Tensor, softcap: float = 0.0, shd=None):
+    """Logits over the head's rows: this rank's vocab columns where the
+    head is vocab-sharded (``models.model.greedy`` combines shards'
+    argmax, ``train.train_loop.loss_fn`` their cross entropy); there ``x``
+    enters through ``shd.enter``, so under autograd its gradient is summed
+    over the vocab's axis. A tied table's gradient sums this use and the
+    lookup's (``embed_tokens``)."""
+    key = "head" if "head" in p else "tokens"
+    w = p[key]
+    axis = _split(p, key, 0) if shd is not None else None
+    if axis:
+        x = shd.enter(x, axis)
     logits = x @ w.T
     if softcap:
         logits = torch.tanh(f32(logits) / softcap) * softcap

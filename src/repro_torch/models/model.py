@@ -43,7 +43,11 @@ ring's slots) over ``model`` (``kv_seq``; ``init_cache(..., shd=)`` and
 the prefill give each rank its chunk). A MoE layer routes and truncates
 the reference's dispatch groups (``moe.dispatch_groups``). Their logits are the rank's vocab
 shard of its rows; ``greedy`` takes them to global token ids and
-``gather_logits`` to the full logits.
+``gather_logits`` to the full logits. ``forward_train`` trains the dense
+and vlm families on a mesh, a model made with a training ``ShardingCtx``
+(``train=True``): each rank holds its block of the run's rules (FSDP and
+TP), and each layer gathers its FSDP shards as it runs; the other
+families refuse by name (``check_mesh_training``).
 """
 from __future__ import annotations
 
@@ -67,6 +71,8 @@ from repro_torch.models.moe import dispatch_groups
 from repro_torch.models.schema import ParamTree
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the families whose training runs on a mesh (ROADMAP 3c: the others)
+MESH_TRAIN_FAMILIES = ("dense", "vlm")
 REMAT = ("full", "dots", "none")
 # cache leaves laid out along the sequence (padded to max_seq, or turned
 # into a ring, at prefill); the others (SSM state, conv tails) are
@@ -324,7 +330,13 @@ def _ring_len(shd, seg: Segment, n_slots: int,
 
 def _train_layer(block, x, cfg, rcfg, seg: Segment, positions, enc_out,
                  shd=None):
-    """One layer in training (or an encoder layer): (x', aux)."""
+    """One layer in training (or an encoder layer): (x', aux). With a
+    training ``ShardingCtx`` the layer reads its weights gathered over
+    their FSDP axes (``shd.gathered``): inside a rematerialized layer the
+    gathered copies live while the layer runs, and its recompute gathers
+    them again."""
+    if shd is not None and shd.train:
+        block = shd.gathered(block)
     x, _, aux = apply_block(block, x, cfg, rcfg, seg.kind,
                             positions=positions, window=seg.window,
                             enc_out=enc_out, mode="train", shd=shd)
@@ -364,12 +376,16 @@ def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
     return apply_norm(model.encoder.final_norm, x, cfg.norm)
 
 
-def _embed_in(model: Model, tokens: torch.Tensor, positions: torch.Tensor):
+def _embed_in(model: Model, tokens: torch.Tensor, positions: torch.Tensor,
+              embed=None):
     """The decoder's input: token embeddings in the model's dtype, plus an
     encoder model's sinusoid positions (``positions`` (S,) at prefill and
-    in training, (B, 1) per row at decode), rounded to that dtype."""
+    in training, (B, 1) per row at decode), rounded to that dtype.
+    ``embed``: the table as the forward reads it (default
+    ``model.embed``)."""
     cfg = model.cfg
-    x = embed_tokens(model.embed, tokens, dtype_of(cfg.dtype), model.shd)
+    x = embed_tokens(model.embed if embed is None else embed, tokens,
+                     dtype_of(cfg.dtype), model.shd)
     if cfg.family == "encdec":
         x = x + sinusoid_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -385,6 +401,21 @@ def _encoded(model: Model, frames, rcfg: RunConfig):
     return encode(model, _rows(model.shd, frames), rcfg)
 
 
+def check_mesh_training(cfg: ModelConfig, rcfg: RunConfig) -> None:
+    """Raise for a training run on a mesh that the port does not have:
+    the families other than ``MESH_TRAIN_FAMILIES`` (MLA included) and
+    Megatron-SP activations (ROADMAP 3c)."""
+    if cfg.family not in MESH_TRAIN_FAMILIES or cfg.mla is not None:
+        what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
+        raise NotImplementedError(
+            f"{cfg.name}: training {what} on a mesh is not ported yet "
+            f"(ROADMAP 3c); the dense and vlm families train on a mesh")
+    if rcfg.seq_parallel_activations:
+        raise NotImplementedError(
+            f"{cfg.name}: seq_parallel_activations (Megatron-SP between "
+            f"blocks) on a mesh is not ported yet (ROADMAP 3c)")
+
+
 def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
                   rcfg: RunConfig):
     """batch: tokens (B, S) int [+ frames (B, encoder_seq, d) for an
@@ -392,15 +423,23 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     with autograd recording: embed, the encoder, every layer (each under
     ``rcfg.remat``), the final norm, the LM head. ``aux``: a ``moe``
     model's losses and routing statistics, each the mean over a segment's
-    layers summed over segments (0-d f32); empty for other families."""
+    layers summed over segments (0-d f32); empty for other families.
+
+    On a mesh (a ``Model`` made with a training ``ShardingCtx``; the dense
+    and vlm families, ``check_mesh_training``) ``batch`` holds this rank's
+    rows, its block of the global batch over the batch axes
+    (``train.batch_shardings``, ``data.DataPipeline(shardings=)``; the
+    same rows on every rank of the TP axis), the layers run on the rank's
+    heads and MLP columns with their FSDP shards gathered, and the logits
+    are the rank's vocab columns of its rows."""
     check_family(cfg)
-    if model.shd is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training on a mesh is not ported yet (ROADMAP: "
-            f"the train side)")
+    shd = model.shd
+    if shd is not None:
+        check_mesh_training(cfg, rcfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed_in(model, tokens, positions)
+    x = _embed_in(model, tokens, positions,
+                  None if shd is None else shd.gathered(model.embed))
     enc_out = _encoded(model, batch.get("frames"), rcfg)
     layer_fn = _remat(_train_layer, rcfg)
     layer = 0
@@ -409,14 +448,17 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
         seg_aux: Dict = {}
         for _ in range(seg.count):
             x, aux = layer_fn(model.blocks[layer], x, cfg, rcfg, seg,
-                              positions, enc_out)
+                              positions, enc_out, shd)
             for k, v in aux.items():
                 seg_aux[k] = seg_aux.get(k, 0.0) + v
             layer += 1
         for k, v in seg_aux.items():
             aux_all[k] = aux_all.get(k, 0.0) + v / seg.count
     x = apply_norm(model.final_norm, x, cfg.norm)
-    return lm_logits(model.embed, x, cfg.logit_softcap), aux_all
+    if shd is None:
+        return lm_logits(model.embed, x, cfg.logit_softcap), aux_all
+    return lm_logits(shd.gathered(model.embed), x, cfg.logit_softcap,
+                     shd), aux_all
 
 
 @torch.no_grad()
@@ -509,7 +551,9 @@ def _rows(shd, x: torch.Tensor) -> torch.Tensor:
     return x[shd.block(shd.split("batch", x.shape[0]), x.shape[0])]
 
 
-def _vocab_axis(model: Model):
+def vocab_axis(model: Model):
+    """The mesh axis the LM head's rows (the vocabulary) split over, or
+    None."""
     head = "head" if "head" in model.embed else "tokens"
     spec = model.embed.spec(head)
     return spec[0] if spec else None
@@ -521,7 +565,7 @@ def greedy(model: Model, logits: torch.Tensor) -> torch.Tensor:
     vocabulary sharded over ``model`` each rank's (max, first index) pair
     is gathered and the largest value wins, ties to the lowest global
     index, as ``jnp.argmax`` breaks them."""
-    axis = None if model.shd is None else _vocab_axis(model)
+    axis = None if model.shd is None else vocab_axis(model)
     if not axis:
         return torch.argmax(logits, dim=-1)
     shd = model.shd
@@ -542,7 +586,7 @@ def gather_logits(model: Model, logits: torch.Tensor,
     shd = model.shd
     if shd is None:
         return logits
-    axis = _vocab_axis(model)
+    axis = vocab_axis(model)
     if axis:
         logits = shd.all_gather(logits, axis, -1)
     return gather_rows(shd, logits, batch)

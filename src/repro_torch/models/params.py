@@ -38,7 +38,10 @@ those layers. ``train_state_from_jax`` carries the reference's state
 (parameters, ``opt.mu``, ``opt.nu`` with factored ``vr``/``vc``,
 ``opt.count``, ``step``) into that layout, and ``train_state_to_numpy``
 gives it back in the reference's stacked layout, bf16 widened to f32
-(numpy has no bf16 without ``ml_dtypes``).
+(numpy has no bf16 without ``ml_dtypes``). On a mesh a slot is laid out
+as its parameter (``slot_spec``; ``nu_specs`` for the Adafactor factors):
+``train_state_from_jax(..., shd=)`` keeps each rank's block, and
+``train_state_to_numpy`` gathers the blocks back.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, build_schedule, model_schema
-from repro_torch.models.schema import leaf, walk
+from repro_torch.models.schema import ParamTree, leaf, walk
 
 
 # leaves up to INIT_WHOLE elements are drawn in one f32 temporary (every
@@ -91,10 +94,7 @@ def init_params(cfg: ModelConfig, *, device=None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     schema = _schema(cfg, model.shd)
-    trees = [(sch, name) for _ref, sch, name in _tops(cfg, schema)]
-    trees += [(sch, name) for _ref, sch, names in _stacks(cfg, schema)
-              for name in names]
-    for sch, name in trees:
+    for sch, name in _trees(cfg, schema):
         tree = model.get_submodule(name)
         for path, desc in walk(sch):
             p = leaf(tree, path)
@@ -145,6 +145,13 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
     else:
         t = torch.from_numpy(a)
     return t.to(device) if device is not None else t
+
+
+def _own(a, device) -> torch.Tensor:
+    """``a`` as a tensor of its own on ``device``: an optimizer moment is
+    updated in place, so it never shares memory with the caller's arrays
+    (the reference's zero moments may be one buffer)."""
+    return to_torch(a).to(device, copy=True)
 
 
 def _assign(param: torch.Tensor, value: np.ndarray, what: str) -> None:
@@ -270,22 +277,95 @@ def opt_slots(cfg: ModelConfig) -> Tuple[Slot, ...]:
     return tuple(out)
 
 
+def _trees(cfg: ModelConfig, schema: Dict):
+    """(schema, the port's module name) of every subtree of leaves: the
+    top-level ones, then each layer's."""
+    return [(sch, name) for _ref, sch, name in _tops(cfg, schema)] + \
+        [(sch, name) for _ref, sch, names in _stacks(cfg, schema)
+         for name in names]
+
+
+def schema_layouts(cfg: ModelConfig, shd) -> Dict[str, Tuple[Tuple, Tuple]]:
+    """``param_layouts`` of the model ``Model(cfg, shd=shd)`` would make,
+    from the schema and the rule math alone (no tensor; ``shd`` may hold
+    an ``{axis: size}`` dict, as at production sizes)."""
+    out = {}
+    for sch, name in _trees(cfg, _schema(cfg, shd)):
+        for path, desc in walk(sch):
+            out[".".join((name,) + path)] = (
+                shd.weight_spec(desc.shape, desc.dims), desc.dims)
+    return out
+
+
+def param_layouts(model: Model) -> Dict[str, Tuple[Tuple, Tuple]]:
+    """(layout, logical dims) of every parameter, by its
+    ``named_parameters`` name; the layout is ``()`` off a mesh."""
+    out = {}
+    for prefix, module in model.named_modules():
+        if not isinstance(module, ParamTree):
+            continue
+        for key in module.keys():
+            if isinstance(module[key], torch.Tensor):
+                name = f"{prefix}.{key}" if prefix else key
+                out[name] = (module.spec(key), module.dims(key))
+    return out
+
+
+def _drop(spec: Tuple, ndim: int, d: int) -> Tuple:
+    full = list(spec) + [None] * (ndim - len(spec))
+    del full[d]
+    while full and full[-1] is None:
+        full.pop()
+    return tuple(full)
+
+
+def nu_specs(spec: Tuple, ndim: int, factored: bool) -> Dict[str, Tuple]:
+    """The layouts of a slot's second moment: its own, or the Adafactor
+    factors' (``vr`` without the last dim, ``vc`` without the one before),
+    each the slot's layout with that dim's entry taken out."""
+    if not factored or ndim < 2:
+        return {"full": spec}
+    return {"vr": _drop(spec, ndim, ndim - 1),
+            "vc": _drop(spec, ndim, ndim - 2)}
+
+
+def slot_spec(slot: Slot, layouts: Dict) -> Tuple:
+    """A slot's layout: its parameter's, or whole for a stacked slot (the
+    1-D per-layer leaves, which no rule splits)."""
+    return () if slot.stacked else layouts[slot.params[0]][0]
+
+
+def _block(model: Model, shape, spec) -> Tuple[slice, ...]:
+    if model.shd is None or not spec:
+        return tuple(slice(0, n) for n in shape)
+    return model.shd.slices(shape, spec)
+
+
 @torch.no_grad()
-def train_state_from_jax(state: Dict, cfg: ModelConfig, device=None) -> Dict:
+def train_state_from_jax(state: Dict, cfg: ModelConfig, device=None,
+                         shd=None) -> Dict:
     """The reference's train state (numpy leaves) as the port's:
     ``{"params": Model, "opt": {"mu": {slot: tensor}, "nu": {slot: {"full"}
-    or {"vr", "vc"}}, "count": int32}, "step": int32}``."""
-    model = params_from_jax(state["params"], cfg, device)
+    or {"vr", "vc"}}, "count": int32}, "step": int32}``. With a training
+    ``ShardingCtx`` on a mesh (``shd``), this rank's block of every
+    parameter, ``mu`` and ``nu`` leaf, laid out as
+    ``train.state_shardings`` gives it."""
+    model = params_from_jax(state["params"], cfg, device, shd)
     dev = model.device
+    layouts = param_layouts(model)
     ref_opt = state["opt"]
     mu, nu = {}, {}
     for slot in opt_slots(cfg):
         def pick(a, _layer=slot.layer):
             return a if _layer is None else a[_layer]
-        mu[slot.name] = to_torch(pick(_at(ref_opt["mu"], slot.ref_path)),
-                                 dev)
-        nu[slot.name] = {k: to_torch(pick(v), dev) for k, v in
-                         _at(ref_opt["nu"], slot.ref_path).items()}
+        spec = slot_spec(slot, layouts)
+        m = pick(_at(ref_opt["mu"], slot.ref_path))
+        mu[slot.name] = _own(m[_block(model, m.shape, spec)], dev)
+        ref_nu = _at(ref_opt["nu"], slot.ref_path)
+        specs = nu_specs(spec, m.ndim, "vr" in ref_nu)
+        nu[slot.name] = {k: _own(pick(v)[_block(
+            model, pick(v).shape, specs[k])], dev)
+            for k, v in ref_nu.items()}
 
     def scalar(v):
         return torch.tensor(int(v), dtype=torch.int32, device=dev)
@@ -296,8 +376,11 @@ def train_state_from_jax(state: Dict, cfg: ModelConfig, device=None) -> Dict:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    """A numpy copy of ``t`` (never a view of a state a step updates in
+    place), bf16 widened to f32."""
+    t = t.detach().to("cpu", torch.float32 if t.dtype == torch.bfloat16
+                      else t.dtype, copy=True)
+    return t.numpy()
 
 
 def _put(tree: Dict, path: Sequence, value) -> None:
@@ -307,11 +390,31 @@ def _put(tree: Dict, path: Sequence, value) -> None:
     tree[path[-1]] = value
 
 
+@torch.no_grad()
 def train_state_to_numpy(state: Dict, cfg: ModelConfig) -> Dict:
     """A port train state in the reference's layout: every segment leaf
-    stacked over its layers, numpy leaves, bf16 widened to f32."""
-    params = dict(state["params"].named_parameters())
+    stacked over its layers, numpy leaves, bf16 widened to f32. On a mesh
+    each leaf is first assembled from the ranks' blocks, a gather every
+    rank takes part in."""
+    model = state["params"]
+    params = dict(model.named_parameters())
     opt = state["opt"]
+    if model.shd is not None:
+        from repro_torch.distribution.sharding import NamedSharding
+        layouts = param_layouts(model)
+
+        def whole(t, spec):
+            return NamedSharding(model.shd.axes, spec).whole(t.detach())
+        params = {n: whole(t, layouts[n][0]) for n, t in params.items()}
+        mu, nu = {}, {}
+        for slot in opt_slots(cfg):
+            spec = slot_spec(slot, layouts)
+            m = opt["mu"][slot.name]
+            mu[slot.name] = whole(m, spec)
+            specs = nu_specs(spec, m.ndim, "vr" in opt["nu"][slot.name])
+            nu[slot.name] = {k: whole(t, specs[k])
+                             for k, t in opt["nu"][slot.name].items()}
+        opt = {"mu": mu, "nu": nu, "count": opt["count"]}
     n_seg = len(build_schedule(cfg))
     out = {k: {"segments": [{} for _ in range(n_seg)]}
            for k in ("params", "mu", "nu")}

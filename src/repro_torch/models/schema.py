@@ -55,15 +55,18 @@ class ParamTree(nn.Module):
     uninitialized (``torch.empty``) and frozen; ``models.params`` fills
     them from a generator or from the reference's weights. With a
     ``ShardingCtx`` each leaf holds this rank's block of the layout
-    ``shd.weight_spec`` gives it, and ``spec(key)`` returns that layout."""
+    ``shd.weight_spec`` gives it (the serving or the training layout), and
+    ``spec(key)`` returns that layout."""
 
     def __init__(self, schema: Dict, device: torch.device, shd=None):
         super().__init__()
         self._keys: List[str] = []
         self._specs: Dict[str, Tuple] = {}
+        self._dims: Dict[str, Tuple] = {}
         for key, desc in schema.items():
             if isinstance(desc, ParamDesc):
                 shape = desc.shape
+                self._dims[key] = desc.dims
                 if shd is not None and shd.mesh is not None:
                     from repro_torch.distribution.sharding import local_shape
                     spec = shd.weight_spec(desc.shape, desc.dims)
@@ -79,6 +82,10 @@ class ParamTree(nn.Module):
     def spec(self, key: str) -> Tuple:
         """The leaf's layout on the mesh (``()``: whole on every rank)."""
         return self._specs.get(key, ())
+
+    def dims(self, key: str) -> Tuple:
+        """The leaf's logical dims."""
+        return self._dims[key]
 
     def __getitem__(self, key: str):
         if key not in self._keys:

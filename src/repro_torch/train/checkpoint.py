@@ -25,9 +25,17 @@ Guarantees, the reference's:
     values.
 
 ``restore`` copies into the given state's tensors in place, so a
-``Model``'s parameters keep their identity. One card has no shardings:
-the reference's resharding restore waits for the distribution slice
-(ROADMAP: distribution).
+``Model``'s parameters keep their identity.
+
+**On a mesh** (``shardings``, the state's ``NamedSharding``s from
+``train.state_shardings``, keyed as the state is) the blobs are global, as
+the reference's are: ``save`` assembles every leaf from the ranks' blocks
+on the step's thread (a gather every rank takes part in), and the mesh's
+first rank writes the same files a one-device save of the same global
+state writes, on the background thread when asked. ``wait`` ends with a
+barrier over the mesh, so every rank then sees the same checkpoints.
+``restore(..., shardings=)`` copies each rank's block of every global blob
+into its leaf, so a checkpoint moves between one card and any mesh.
 """
 from __future__ import annotations
 
@@ -78,6 +86,23 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _sharding_paths(tree, prefix: Tuple[str, ...] = ()) -> Dict:
+    """{leaf path: NamedSharding} of a ``state_shardings`` tree (dicts of
+    ``NamedSharding``s), with the paths ``_leaves`` gives the state's
+    leaves."""
+    if not isinstance(tree, dict):
+        return {".".join(prefix): tree}
+    out = {}
+    for key, sub in tree.items():
+        out.update(_sharding_paths(sub, prefix + (str(key),)))
+    return out
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes: the mesh's first, or the only one."""
+    return mesh is None or all(mesh.index(a) == 0 for a in mesh)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -85,14 +110,28 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None           # the last sharded save's MeshAxes
 
     # ------------------------------------------------------------------
     def save(self, step: int, state, blocking: bool = True,
-             extras: Optional[Dict] = None) -> None:
+             extras: Optional[Dict] = None, shardings=None) -> None:
+        """Snapshot ``state`` now and write it (in the background unless
+        ``blocking``). ``shardings``: on a mesh, the state's layout; every
+        rank calls ``save``."""
         self.wait()
+        leaves = _leaves(state)
+        if shardings is not None:
+            by_path = _sharding_paths(shardings)
+            self._mesh = next(iter(by_path.values())).mesh
+            with torch.no_grad():
+                leaves = [(path, by_path[path].whole(t.detach()))
+                          for path, t in leaves]
+            if not _writes(self._mesh):
+                return
         # the snapshot: a host copy of every leaf, made before returning
         host = [(path, t.detach().to("cpu", copy=True))
-                for path, t in _leaves(state)]
+                for path, t in leaves]
+        del leaves
         if blocking:
             self._write(step, host, extras or {})
         else:
@@ -134,6 +173,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None and len(self._mesh.names) and \
+                self._mesh.size(self._mesh.names) > 1:
+            import torch.distributed as dist
+            dist.barrier(group=self._mesh.group(self._mesh.names))
         if self._error is not None:
             e, self._error = self._error, None
             raise e
@@ -152,10 +195,16 @@ class CheckpointManager:
         return s[-1] if s else None
 
     @torch.no_grad()
-    def restore(self, state, step: Optional[int] = None) -> Tuple[Any, Dict]:
+    def restore(self, state, step: Optional[int] = None,
+                shardings=None) -> Tuple[Any, Dict]:
         """Copy checkpoint ``step`` (default: the latest) into ``state``'s
         tensors in place; returns (state, extras). Each leaf's path, shape
-        and dtype must match the manifest's."""
+        and dtype must match the manifest's. ``shardings``: on a mesh, the
+        state's layout; each leaf takes its rank's block of the blob."""
+        by_path = _sharding_paths(shardings) if shardings is not None \
+            else {}
+        if by_path:
+            self._mesh = next(iter(by_path.values())).mesh
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -170,6 +219,8 @@ class CheckpointManager:
         for (name, t), meta in zip(leaves, manifest["leaves"]):
             src = _from_numpy(np.load(os.path.join(path, meta["file"])),
                               meta["dtype"])
+            if name in by_path:
+                src = src[by_path[name].block(tuple(src.shape))]
             if (name, tuple(src.shape), _dtype_name(t)) != \
                     (meta["path"], tuple(t.shape), meta["dtype"]):
                 raise ValueError(

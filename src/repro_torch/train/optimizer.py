@@ -19,13 +19,15 @@ would keep it in f32).
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.device import dtype_of
-from repro_torch.models.params import Slot, opt_slots
+from repro_torch.distribution.sharding import split_axes
+from repro_torch.models.params import Slot, opt_slots, param_layouts, \
+    slot_spec
 
 
 def cosine_schedule(rcfg: RunConfig):
@@ -85,9 +87,36 @@ def init_opt_state(model, rcfg: RunConfig) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(g.float())) for g in tensors)
+def global_norm(tensors: Iterable[torch.Tensor], shd=None,
+                axes: Optional[Iterable[Tuple[str, ...]]] = None
+                ) -> torch.Tensor:
+    """The 2-norm of all the tensors' elements. On a mesh (``shd``) each
+    tensor is a rank's block of a leaf split over ``axes`` (one tuple a
+    tensor) and replicated over the rest: the local sums of squares of the
+    leaves split alike are ``psum``med over their axes alone, so every
+    element counts once."""
+    if shd is None:
+        sq = sum(torch.sum(torch.square(g.float())) for g in tensors)
+        return torch.sqrt(sq)
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, ax in zip(tensors, axes):
+        groups[ax] = groups.get(ax, 0.0) + torch.sum(torch.square(g.float()))
+    sq = sum(shd._psum(v, ax, gradient=True) if ax else v
+             for ax, v in groups.items())
     return torch.sqrt(sq)
+
+
+def grad_norm(model, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The global norm of ``model``'s gradients by parameter name (on a
+    mesh, of the rank's synced blocks: ``global_norm`` with each
+    parameter's axes)."""
+    if model.shd is None:
+        return global_norm(grads.values())
+    layouts = param_layouts(model)
+    order = tuple(model.shd.axis_sizes)
+    return global_norm(grads.values(), model.shd, [
+        tuple(a for a in order if a in split_axes(layouts[n][0]))
+        for n in grads])
 
 
 def _round(v: float, dtype: torch.dtype) -> float:
@@ -106,7 +135,9 @@ def adamw_update(model, grads: Dict[str, torch.Tensor], opt_state: Dict,
     lr = cosine_schedule(rcfg)(count)
     b1, b2 = rcfg.beta1, rcfg.beta2
     eps = 1e-8
-    gnorm = global_norm(grads.values())
+    shd = model.shd
+    layouts = param_layouts(model) if shd is not None else {}
+    gnorm = grad_norm(model, grads)
     scale = torch.clamp(rcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if rcfg.grad_clip > 0 \
         else torch.ones((), device=gnorm.device)
@@ -123,15 +154,28 @@ def adamw_update(model, grads: Dict[str, torch.Tensor], opt_state: Dict,
     b2c, b2m = _round(b2, cdt), _round(1 - b2, cdt)
     scale_c = scale.to(cdt)
 
-    def nu_update(nu, g2):
+    def mean(t, dim: int, spec: Tuple, at: int, keepdim: bool = False):
+        """``t``'s mean over ``dim``, which is dim ``at`` of a slot laid
+        out by ``spec``: over the whole dim where a mesh splits it."""
+        cand = spec[at] if at < len(spec) else None
+        if not cand:
+            return torch.mean(t, dim=dim, keepdim=keepdim)
+        cand = cand if isinstance(cand, tuple) else (cand,)
+        total = shd._psum(torch.sum(t, dim=dim, keepdim=keepdim), cand,
+                          gradient=True)
+        return total / (t.shape[dim] * shd.axes.size(cand))
+
+    def nu_update(nu, g2, spec):
         if "full" in nu:
             nu_f = nu["full"].to(cdt) * b2c + b2m * g2
             nu["full"].copy_(nu_f)
             return nu_f
         g2f = g2.float()
-        vr = nu["vr"] * b2 + (1 - b2) * torch.mean(g2f, dim=-1)
-        vc = nu["vc"] * b2 + (1 - b2) * torch.mean(g2f, dim=-2)
-        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+        nd = g2f.dim()
+        vr = nu["vr"] * b2 + (1 - b2) * mean(g2f, -1, spec, nd - 1)
+        vc = nu["vc"] * b2 + (1 - b2) * mean(g2f, -2, spec, nd - 2)
+        denom = torch.clamp(mean(vr, -1, spec, nd - 2, keepdim=True),
+                            min=1e-30)
         nu["vr"].copy_(vr)
         nu["vc"].copy_(vc)
         return (vr[..., None] * vc[..., None, :] / denom[..., None]).to(cdt)
@@ -147,7 +191,8 @@ def adamw_update(model, grads: Dict[str, torch.Tensor], opt_state: Dict,
         mu = opt_state["mu"][slot.name]
         g = g.to(cdt) * scale_c
         mu_f = mu.to(cdt) * b1c + b1m * g
-        nu_f = nu_update(opt_state["nu"][slot.name], (g * g).to(cdt))
+        nu_f = nu_update(opt_state["nu"][slot.name], (g * g).to(cdt),
+                         slot_spec(slot, layouts) if shd else ())
         step = (mu_f.float() / c1) / (torch.sqrt(nu_f.float() / c2) + eps)
         if mask[slot.name]:
             step = step + rcfg.weight_decay * p.float()

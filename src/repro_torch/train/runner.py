@@ -12,8 +12,16 @@ failures or checkpoints.
    exercise the recovery path deterministically.
  * **straggler watchdog**: per-step wall times vs a rolling median; steps
    slower than ``straggler_factor``x are logged and counted.
- * **elastic re-mesh** needs the distribution slice: ``Runner.remesh``
-   raises (ROADMAP: distribution).
+ * **elastic re-mesh**: ``Runner.remesh(new_mesh)`` rebuilds the step
+   and the layouts on the new mesh and restores the latest checkpoint
+   resharded onto it (tested 2x2x2 -> 4x2 on the same ranks).
+
+On a mesh (a ``DeviceMesh``, a ``MeshAxes`` or a training
+``ShardingCtx``; every rank of the world runs the same ``Runner``) the
+state holds each rank's shards (``state_shardings``), the pipeline hands
+each rank its rows (``batch_shardings``), and checkpoints hold global
+blobs (``CheckpointManager(..., shardings=)``), as the reference's
+``_build`` places them.
 
 A step ends when its loss is read back to the host (``.item()``), as the
 reference's ``block_until_ready``: the step's wall time is the device's.
@@ -28,7 +36,9 @@ from typing import Callable, Dict, List, Optional
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.train import checkpoint as ckpt_mod
-from repro_torch.train.train_loop import make_train_state, make_train_step
+from repro_torch.train.train_loop import (
+    batch_shardings, make_train_state, make_train_step, state_shardings,
+    train_ctx)
 
 
 @dataclass
@@ -64,9 +74,11 @@ class StragglerWatchdog:
 
 
 class Runner:
-    """Trains ``cfg`` on ``pipeline``'s batches. ``mesh``: the ``MeshAxes``
-    of a ``torch.distributed`` world for the pod sync, or None on one
-    card. The state lives on ``device`` (``cuda`` unless ``"cpu"``)."""
+    """Trains ``cfg`` on ``pipeline``'s batches. ``mesh``: None on one
+    card, or a ``DeviceMesh``/``MeshAxes``/training ``ShardingCtx`` of a
+    ``torch.distributed`` world (sharded state and batch; ``engine``
+    routes the pod sync under ``explicit_pod_sync``). The state lives on
+    ``device`` (``cuda`` unless ``"cpu"``)."""
 
     def __init__(self, cfg: ModelConfig, rcfg: RunConfig, mesh, pipeline,
                  ckpt_dir: str, engine=None,
@@ -83,13 +95,32 @@ class Runner:
         self.delay_injector = delay_injector
         self.recoveries = 0
         self.metrics_log: List[Dict] = []
-        self.step_fn = make_train_step(cfg, rcfg, mesh, engine)
+        self._build()
+
+    def _build(self):
+        """The step, the state's and the batch's layouts and the
+        pipeline's shardings for ``self.mesh`` (the reference's
+        ``_build``)."""
+        self.shd = None if self.mesh is None \
+            else train_ctx(self.mesh, self.rcfg)
+        self.step_fn = make_train_step(self.cfg, self.rcfg, self.shd,
+                                       self.engine)
+        self.state_sh = self.batch_sh = None
+        if self.shd is not None:
+            self.state_sh = state_shardings(self.cfg, self.rcfg, self.shd)
+            self.batch_sh = batch_shardings(
+                self.cfg, self.shd, rcfg=self.rcfg,
+                global_batch=self.pipeline.dcfg.global_batch)
+        self.pipeline.shardings = self.batch_sh
+        self.pipeline.mesh = self.mesh
 
     def init_state(self, seed: int = 0, model=None):
-        """A fresh state: the port's ``init_params`` from ``seed``, or the
-        given ``model`` with zero moments."""
+        """A fresh state: the port's ``init_params`` from ``seed`` (on a
+        mesh, the rank's shards of the same values), or the given
+        ``model`` with zero moments."""
         self.state = make_train_state(self.cfg, self.rcfg, model=model,
-                                      seed=seed, device=self.device)
+                                      seed=seed, device=self.device,
+                                      shd=self.shd)
         self.step = 0
 
     # ------------------------------------------------------------------
@@ -99,16 +130,24 @@ class Runner:
             return False
         if not hasattr(self, "state"):
             self.state = make_train_state(self.cfg, self.rcfg,
-                                          device=self.device, abstract=True)
-        self.ckpt.restore(self.state, latest)
+                                          device=self.device, abstract=True,
+                                          shd=self.shd)
+        self.ckpt.restore(self.state, latest, self.state_sh)
         self.step = latest
         return True
 
     def remesh(self, new_mesh):
-        """Elastic topology change: not on one card yet."""
-        raise NotImplementedError(
-            "Runner.remesh needs the distribution slice (sharded state and "
-            "a resharding restore); ROADMAP §1 item 5")
+        """Elastic topology change: wait for the checkpoint in flight,
+        rebuild the step and the layouts on ``new_mesh``, and restore the
+        latest checkpoint resharded onto it."""
+        self.ckpt.wait()
+        self.mesh = new_mesh
+        self._build()
+        if self.ckpt.latest_step() is None:
+            raise RuntimeError("elastic remesh requires a checkpoint")
+        # the old layout's shards go before the new layout's are made
+        self.__dict__.pop("state", None)
+        self.restore_latest()
 
     # ------------------------------------------------------------------
     def run(self, num_steps: int) -> Dict:
@@ -140,7 +179,8 @@ class Runner:
         self.step += 1
         if self.step % self.rcfg.checkpoint_every == 0:
             self.ckpt.save(self.step, self.state,
-                           blocking=not self.rcfg.async_checkpoint)
+                           blocking=not self.rcfg.async_checkpoint,
+                           shardings=self.state_sh)
 
     def _recover(self, err: Exception) -> bool:
         self.ckpt.wait()
@@ -153,7 +193,7 @@ class Runner:
             self.init_state()
             self.recoveries += 1
             return True
-        self.ckpt.restore(self.state, latest)
+        self.ckpt.restore(self.state, latest, self.state_sh)
         self.step = latest
         self.recoveries += 1
         return True

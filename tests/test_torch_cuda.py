@@ -1582,3 +1582,102 @@ def test_mla_prefill_at_a_ranks_heads_on_card(cuda, tp):
     assert tuple(o.shape) == (1, 512, h, 128)
     assert (o.float() - want.float()).abs().max() <= \
         TOL["bfloat16"] * want.float().abs().max()
+
+
+# ---------------------------------------------------------------------------
+# training on the model axis
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_sharded_train_on_an_nccl_world_of_one(cuda):
+    """``chip_smoke.py``'s sharded train path on the card at llama's smoke
+    config (f32): two ``Runner`` steps on an NCCL world of one
+    (``make_host_mesh(1, 1)``, the ``"2d"`` rules, FSDP gathers and TP
+    collectives through the ``nk_*`` verbs) against the same steps
+    unsharded on the CPU: losses within 1e-5, parameters within 1% of a
+    step (lr) absolute, flash launched per layer, micro-batch and remat."""
+    import importlib.util
+    import pathlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import Runner
+    from repro_torch.train.train_loop import train_ctx
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"),
+                              dtype="float32", param_dtype="float32")
+    rcfg = RunConfig(attn_q_block=16, attn_kv_block=16, grad_accum=2,
+                     warmup_steps=1, learning_rate=1e-2)
+    shape = ShapeConfig("t", 32, 4, "train")
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        r = Runner(cfg, rcfg, None, for_model(cfg, shape, device="cpu"),
+                   d, device="cpu")
+        r.init_state(model=init_params(cfg, device="cpu", seed=5))
+        r.run(2)
+        out["cpu"] = r
+        with cs.world_of_one(torch, torch.device("cuda", 0)) as (shd, _):
+            shd = train_ctx(shd.axes, rcfg)
+            r = Runner(cfg, rcfg, shd, for_model(cfg, shape, device=cuda),
+                       d + "/mesh", device=cuda)
+            # the CPU's generator draws other values than the card's
+            r.init_state(model=init_params(cfg, device="cpu", seed=5,
+                                           shd=shd).to(cuda))
+            before = fa.flash_attention.launches
+            r.run(2)
+            assert fa.flash_attention.launches - before == \
+                2 * cfg.num_layers * rcfg.grad_accum * 2
+            out["cuda"] = r
+    assert not dist.is_initialized()
+    np.testing.assert_allclose(
+        [m["loss"] for m in out["cuda"].metrics_log],
+        [m["loss"] for m in out["cpu"].metrics_log], rtol=1e-5)
+    want = dict(out["cpu"].state["params"].named_parameters())
+    for n, p in out["cuda"].state["params"].named_parameters():
+        err = (p.detach().cpu() - want[n].detach()).abs().max().item()
+        assert err <= 0.01 * rcfg.learning_rate * 2, (n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp,rank", [(2, 0), (4, 3), (8, 5), (16, 1),
+                                     (16, 12)])
+def test_flash_under_autograd_at_tp_train_rank_shapes_on_card(cuda, tp,
+                                                              rank):
+    """``FlashAttentionFn`` (the kernel forward, the plain VJP) at one
+    rank's query heads of llama3.2-3b's 4,096-token training sequence and
+    the kv heads ``_local_kv`` gives them (rank 12 at tp 16: padded heads
+    only): o, dq, dk and dv within bf16's 2e-2 of the plain forward and
+    its autograd VJP."""
+    from repro_torch.distribution.sharding import padded_heads
+    from repro_torch.models.attention import FlashAttentionFn, _local_kv
+    hq, kv, d, s = 24, 8, 128, 4096
+    g = torch.Generator(device=cuda).manual_seed(9)
+    hp = padded_heads(hq, {"model": tp})
+    n = hp // tp
+    q = torch.randn((1, s, n, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, s, kv, d), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    kl, vl = _local_kv(k, v, hq, hp, rank * n, n)
+    do = torch.randn((1, s, n, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    ins = [t.detach().requires_grad_() for t in (q, kl, vl)]
+    before = flash_attention.launches
+    o = FlashAttentionFn.apply(*ins, True, 0, 512, 512)
+    assert flash_attention.launches - before == 1
+    got = (o,) + torch.autograd.grad(o, ins, do)
+    ref_in = [t.detach().requires_grad_() for t in (q, kl, vl)]
+    ref_o = flash_attention_plain(*ref_in)
+    want = (ref_o,) + torch.autograd.grad(ref_o, ref_in, do)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        err = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        assert err <= TOL["bfloat16"], (tp, rank, name, err)

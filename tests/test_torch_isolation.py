@@ -155,6 +155,15 @@ def test_port_watchdog_catalog_equals_the_reference():
     assert tobs.__all__ == jobs.__all__
 
 
+def test_port_train_exports_equal_the_reference():
+    """The train package exports what the reference's does, the mesh's
+    ``state_shardings`` and ``batch_shardings`` included."""
+    import repro.train as jtrain
+    import repro_torch.train as ttrain
+    assert ttrain.__all__ == jtrain.__all__
+    assert all(callable(getattr(ttrain, n)) for n in ttrain.__all__)
+
+
 def test_entry_points_without_a_device_raise_when_no_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")

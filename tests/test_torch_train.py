@@ -409,16 +409,42 @@ def test_flash_attention_fn_grads_match_blockwise_autograd():
 
 
 def test_training_other_families_and_remesh_raise():
-    """``Runner.remesh`` raises until sharded state is ported (every
-    family trains now; the moe family's training is held against the
-    reference in ``tests/test_torch_moe.py``)."""
+    """``Runner.remesh`` with no checkpoint raises ``RuntimeError``, as the
+    reference's does (the remesh itself is held in
+    ``tests/test_torch_train_mesh_runner.py``); on a mesh the families
+    other than dense and vlm, MLA and Megatron-SP activations refuse to
+    train by name (ROADMAP 3c), before any collective, while every family
+    trains on one device (the moe family against the reference in
+    ``tests/test_torch_moe.py``)."""
+    from repro_torch.distribution.sharding import ShardingCtx, make_rules
+    from repro_torch.models import Model
     cfg = get_smoke_config(LLAMA)
     with tempfile.TemporaryDirectory() as d:
         r = Runner(cfg, RunConfig(), None, for_model(
             cfg, ShapeConfig("t", 16, 2, "train"), device="cpu"), d,
             device="cpu")
-        with pytest.raises(NotImplementedError, match="item 5"):
+        r.init_state()
+        with pytest.raises(RuntimeError,
+                           match="elastic remesh requires a checkpoint"):
             r.remesh(None)
+    sizes = {"data": 1, "model": 1}
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+             "labels": torch.zeros((2, 8), dtype=torch.int32)}
+    for arch, what in (("mamba2-370m", "the ssm family"),
+                       ("hymba-1.5b", "the hybrid family"),
+                       ("whisper-small", "the encdec family"),
+                       ("arctic-480b", "the moe family"),
+                       ("deepseek-v2-236b", "MLA")):
+        tcfg = get_smoke_config(arch)
+        shd = ShardingCtx(sizes, rules=make_rules("2d"), train=True)
+        model = Model(tcfg, device="cpu", shd=shd)
+        with pytest.raises(NotImplementedError,
+                           match=f"{tcfg.name}: training {what} on a mesh"):
+            forward_train(model, batch, tcfg, RunConfig())
+    model = Model(cfg, device="cpu", shd=ShardingCtx(sizes, train=True))
+    with pytest.raises(NotImplementedError, match="seq_parallel"):
+        forward_train(model, batch, cfg,
+                      RunConfig(seq_parallel_activations=True))
 
 
 # ---------------------------------------------------------------------------
