@@ -164,7 +164,7 @@ JSON object per line:
               the model's bf16 noise floor; bf16 at 2 layers: those
               leaves asserted; f32 at 2 layers: every grad), mamba2's
               recovery at 2 layers bit-identical; then the sharded
-              train phase: llama3.2-3b at full width and 7 of its 28
+              train phase: llama3.2-3b at full width and 4 of its 28
               layers on an NCCL world of one (``make_host_mesh(1, 1)``,
               the ``"2d"`` rules: FSDP gathers over ``data``, TP over
               ``model``, every collective through the ``nk_*`` verbs):
@@ -182,7 +182,22 @@ JSON object per line:
               shapes of a 4,096-token sequence (tp 2/4/8/16) against the
               plain forward and its autograd VJP (o, dq, dk, dv within
               2e-2), its forward timed beside the bound and SDPA's
-              forward + backward;
+              forward + backward; then the families' sharded train
+              phase: full-width mamba2-370m at 8 of 48 layers, hymba-1.5b
+              at 4 of 32 (its global layer 0 and a windowed segment) and
+              whisper-small at 2 + 2 of 12 + 12, each on an NCCL world of
+              one under ``"2d"`` with the trainers' batches: the sharded
+              micro-batch against the unsharded one (loss, grad norm and
+              every kernel-fed grad within 2e-2), two ``Runner`` steps on
+              each path (step ms; on the mesh: flash and SSD launches,
+              every leaf moved, the ledger's collectives a step as
+              ``train_collectives`` reckons them, peak bytes), a
+              profiled 1-layer sharded micro-batch; and each TP train
+              rank's ``SsdScanFn`` (mamba2's 32 / tp heads, hymba's 25 at
+              tp 2 and 50 past it) and f32 flash at whisper's encoder rank
+              heads under autograd against the plain forward and its VJP
+              (within 2e-2), the forward timed beside its bound (flash:
+              SDPA's forward + backward too);
 14. fairness — ``bench_fairness.py``'s convergence, isolation and backfill
               scenarios on the port's ``SharedBottleneckSim`` with the
               object controller and the vectorized one on the card (its
@@ -210,7 +225,8 @@ JSON object per line:
               head dim 192.
 
 Then the seconds of the vlm, hybrid, encdec, moe, nemotron, watchdog,
-train, sharded-train and train-families phases and of the whole script,
+train, sharded-train, train-families and sharded-train-families phases
+and of the whole script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
@@ -386,7 +402,7 @@ TRAIN_SEQ = 4096
 TRAIN_BATCH = 4
 TRAIN_ACCUM = 4
 TRAIN_TIMED = 3               # timed steps, after one warm-up step
-TRAIN_PROFILE_LAYERS = 7      # the profiled micro-batch's depth (of 28)
+TRAIN_PROFILE_LAYERS = 4      # the profiled micro-batch's depth (of 28)
 # RunConfig's defaults but for the schedule: with its 100 warm-up steps
 # the first steps' lr (3e-6 to 1.2e-5) moves a bf16 norm scale of 1.0 by
 # less than half an ulp (0.002), so those scales could not move at all
@@ -400,11 +416,11 @@ TRAIN_FT_STEPS = 5
 TRAIN_FT_CKPT_EVERY = 3
 TRAIN_FT_FAIL_AT = 4
 TRAIN_MIN_DISK = 16e9         # bytes free where the checkpoints go
-# the sharded train phase: llama3.2-3b at full width and 7 of 28 layers
+# the sharded train phase: llama3.2-3b at full width and 4 of 28 layers
 # (the train profile's cut), the train phase's batch, 2 Runner steps on
 # each path; a profiled sharded micro-batch at 1 layer; flash under
 # autograd at each TP rank's shapes of a 4,096-token sequence
-SHARDED_TRAIN_LAYERS = 7
+SHARDED_TRAIN_LAYERS = 4
 SHARDED_TRAIN_STEPS = 2
 SHARDED_PROFILE_LAYERS = 1
 TRAIN_RANK_S = 4096
@@ -419,6 +435,20 @@ FAMILY_STEPS = 2
 FAMILY_F32_TOL = 1e-4         # loss and grads, f32, 2 layers
 FAMILY_FT_ARCH = "mamba2-370m"   # the one whose recovery is checked
 FLOOR_NUDGE = 2 ** -8         # relative, about one bf16 ulp: noise floors
+# the sharded train phase of the ssm, hybrid and encdec families: (arch,
+# decoder layers, encoder layers, sequence, global batch) at full width
+# and cut depth (hymba keeps its global layer 0 and a windowed segment),
+# "2d" at a world of one, the trainers' batches, SHARDED_TRAIN_STEPS
+# Runner steps on each path, as the sharded train phase; a profiled sharded micro-batch at 1 layer
+# (whisper 1 + 1). Then each TP train rank's SsdScanFn (mamba2's 32 / tp
+# heads, hymba's 25 at tp 2 and 50 whole past it) and f32 flash at
+# whisper's encoder rank heads (12 / tp, padded at 8 and 16)
+SHARDED_FAMILIES = (("mamba2-370m", 8, 0, TRAIN_SEQ, TRAIN_BATCH),
+                    ("hymba-1.5b", 4, 0, TRAIN_SEQ, TRAIN_BATCH),
+                    ("whisper-small", 2, 2, ENCDEC_MAX_SEQ, 16))
+TRAIN_RANK_SSD = (("mamba2", (SSD_Q, SSD_H, SSD_P, SSD_N), TRAIN_SEQ // SSD_Q),
+                  ("hymba", HYBRID_SSD, TRAIN_SEQ // HYBRID_SSD[0]))
+TRAIN_RANK_ENC = (4, ENCDEC_FRAMES, ENCDEC_HEADS[0], ENCDEC_D)  # B, S, H, d
 
 # the distribution phase: the model axis's per-rank kernel work. The cp
 # decode at chameleon-34b's decode_32k shape (the reference's motivating
@@ -3914,23 +3944,13 @@ def ledger_ops(core) -> dict:
     return out
 
 
-def train_collectives(layers: int, accum: int) -> dict:
-    """The collectives of one sharded train step of a dense model with
-    tied embeddings and no q/k norms at a world of one under the ``"2d"``
-    rules, reckoned. Per micro-batch and layer: 7 FSDP leaves gathered
-    twice (forward and remat) and reduce-scattered once; the attention's
-    and the MLP's row-parallel psums forward, the attention's again in the
-    recompute (which stops once the saved tensors are back: the MLP's last
-    sum is not replayed), and 4 backward (x into attention and MLP, wk,
-    wv). Per micro-batch: the embedding gathered for the lookup and the
-    head, their psums (the lookup's, the head's x), the loss's 3 (the
-    vocabulary's exps and picked logits, the tokens' sums over data). Per
-    step: the 2 x layers + 1 norm scales' gradients over data, and the
-    clip norm's 2 groups (leaves split over data and model, over data
-    alone)."""
-    return {"all_gather": accum * (2 + 14 * layers),
-            "reduce_scatter": accum * (2 + 7 * layers),
-            "psum": accum * (5 + 7 * layers) + 2 * layers + 1 + 2}
+def timed_steps(runner, n: int):
+    """``n`` Runner steps, one at a time: each one's ms."""
+    out = []
+    for _ in range(n):
+        runner.run(1)
+        out.append(runner.metrics_log[-1]["dt"] * 1e3)
+    return out
 
 
 def phase_sharded_train(torch, device, cfg, smi: str):
@@ -3973,13 +3993,6 @@ def phase_sharded_train(torch, device, cfg, smi: str):
     def keep(n):
         return n.endswith(("attn.wq", "attn.wk", "attn.wv"))
 
-    def timed_steps(runner):
-        out = []
-        for _ in range(SHARDED_TRAIN_STEPS):
-            runner.run(1)
-            out.append(runner.metrics_log[-1]["dt"] * 1e3)
-        return out
-
     # 1. the unsharded path: one micro-batch, then two Runner steps
     model = init_params(cfg, device=device, seed=SEED)
     grads, metrics = _grads(model, micro, cfg, RunConfig())
@@ -3990,7 +4003,7 @@ def phase_sharded_train(torch, device, cfg, smi: str):
     with tempfile.TemporaryDirectory() as d:
         runner = Runner(cfg, rcfg, None, feed, d, device=device)
         runner.init_state(model=model)
-        plain_ms = timed_steps(runner)
+        plain_ms = timed_steps(runner, SHARDED_TRAIN_STEPS)
         del runner, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4049,8 +4062,7 @@ def phase_sharded_train(torch, device, cfg, smi: str):
             "step_ratio": steps_ms[-1] / plain_ms[-1],
             "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
                                   for v in ops1},
-            "ledger_ops_want": train_collectives(cfg.num_layers,
-                                                 TRAIN_ACCUM),
+            "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM),
             "flash_launches": launches,
             "flash_launches_want": launches_want,
             "params_moved": moved,
@@ -4376,6 +4388,380 @@ def phase_train_families(torch, device, smi: str, cfgs=None):
                                    batch).items():
             total[k] += v
     return total
+
+
+# per layer kind of a sharded train step at a world of one under "2d":
+# (FSDP leaves, psums a micro-batch). A dense layer gathers wq, wk, wv,
+# wo, w_in, w_gate and w_out; its psums: the attention's and the MLP's
+# row-parallel sums forward, the attention's again in the recompute
+# (which stops once the saved tensors are back: the MLP's last sum is
+# not replayed), and backward x's into attention and MLP, wk's and wv's
+# enters. An enc layer is a dense one without the gate; a dec layer adds
+# a cross attention's 4 leaves and 6 psums (its sum forward and in the
+# recompute, its query and k/v inputs' and wk's and wv's enters). An ssm
+# layer gathers w_x, w_z, w_B, w_C, w_dt and w_out; its psums: w_out's
+# sum and the gated norm's forward, the norm's again in the recompute,
+# and backward x's, w_B's, w_C's, conv_B's, conv_C's and the norm
+# scale's enters and the norm sum's transpose. A hybrid layer is an ssm
+# layer, an attention half and an MLP: 4 psums forward, 3 in the
+# recompute, and backward h's one enter (both paths read it), wk's,
+# wv's, the MLP input's and the SSM path's 6
+KIND_OPS = {"dense": (7, 7), "enc": (6, 7), "dec": (10, 13),
+            "ssm": (6, 10), "hybrid": (13, 17)}
+
+
+def train_collectives(cfg, accum: int) -> dict:
+    """The collectives of one sharded train step of a dense, ssm, hybrid
+    or encdec model (tied embeddings, no q/k norms) at a world of one
+    under the ``"2d"`` rules, reckoned from ``KIND_OPS`` (the CPU
+    rehearsals hold it against the ledger). Per micro-batch: the
+    embedding gathered for the lookup and for the head and
+    reduce-scattered after each, its lookup's, the head's and the loss's
+    3 psums (the vocabulary's exps and picked logits, the tokens' sums
+    over data), and each layer's FSDP leaves gathered twice (forward and
+    remat) and reduce-scattered once, and its psums. Per step: the
+    gradients over data of every leaf with no FSDP dim and one clip norm
+    psum for each set of axes the leaves split over."""
+    from repro_torch.distribution import ShardingCtx
+    from repro_torch.distribution.sharding import fsdp_entry, split_axes
+    from repro_torch.models.model import build_schedule
+    from repro_torch.models.params import schema_layouts
+    kinds = [seg.kind for seg in build_schedule(cfg)
+             for _ in range(seg.count)] + ["enc"] * cfg.encoder_layers
+    leaves = sum(KIND_OPS[k][0] for k in kinds)
+    psums = sum(KIND_OPS[k][1] for k in kinds)
+    layouts = schema_layouts(cfg, ShardingCtx({"data": 1, "model": 1},
+                                              train=True))
+    synced = sum(fsdp_entry(spec, dims) is None
+                 for spec, dims in layouts.values())
+    groups = {tuple(sorted(split_axes(spec)))
+              for spec, _dims in layouts.values()} - {()}
+    return {"all_gather": accum * (2 + 2 * leaves),
+            "reduce_scatter": accum * (2 + leaves),
+            "psum": accum * (5 + psums) + synced + len(groups)}
+
+
+def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
+                           batch: int, cut: str):
+    """One trainer of the ssm, hybrid or encdec family at full width and
+    cut depth on the model axis at a world of one (``world_of_one``,
+    ``"2d"``): the sharded micro-batch against the unsharded one from the
+    same seeded weights (loss, grad norm and every kernel-fed leaf's
+    gradient within ``TRAIN_TOL``), ``SHARDED_TRAIN_STEPS`` Runner steps
+    on each path (the sharded ones counted: flash and SSD launches, every
+    leaf moved, the ledger's collectives a step against
+    ``train_collectives``), a profiled 1-layer sharded micro-batch.
+    ``cut``: the depth's cut, for the row. Returns (the sharded steps'
+    launches, the row)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.params import init_params
+    from repro_torch.train import Runner, loss_fn
+    from repro_torch.train.optimizer import global_norm, grad_norm
+    from repro_torch.train.train_loop import _grads, _sync_grads, train_ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before the "
+                             f"sharded {cfg.name} trainer")
+    t0 = time.perf_counter()
+    shape = ShapeConfig("train", seq, batch, "train")
+    feed = for_model(cfg, shape, seed=SEED, device=device)
+    micro = {k: v[:batch // TRAIN_ACCUM] for k, v in feed.batch_at(0).items()}
+    rcfg = RunConfig(grad_accum=TRAIN_ACCUM, learning_rate=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP)
+
+    # 1. the unsharded path: one micro-batch, then the Runner's steps
+    model = init_params(cfg, device=device, seed=SEED)
+    grads, metrics = _grads(model, micro, cfg, RunConfig())
+    want = {"loss": metrics["loss"].item(),
+            "grad_norm": global_norm(grads.values()).item(),
+            "grads": {n: g for n, g in grads.items() if kernel_fed(n)}}
+    del grads
+    with tempfile.TemporaryDirectory() as d:
+        runner = Runner(cfg, rcfg, None, feed, d, device=device)
+        runner.init_state(model=model)
+        plain_ms = timed_steps(runner, SHARDED_TRAIN_STEPS)
+        del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the sharded path on a world of one
+    row = {"phase": "sharded_train_families", "model": cfg.name,
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "cut": cut, "rules": "2d", "world": 1, "seq": seq,
+           "global_batch": batch,
+           "grad_accum": TRAIN_ACCUM}
+    with world_of_one(torch, device) as (serve_shd, core), \
+            tempfile.TemporaryDirectory() as d:
+        shd = train_ctx(serve_shd.axes, rcfg)
+        runner = Runner(cfg, rcfg, shd, feed, d, device=device)
+        runner.init_state(seed=SEED)
+        model = runner.state["params"]
+        grads, metrics = _grads(model, micro, cfg, RunConfig(),
+                                lambda g: _sync_grads(model, g))
+        got = {"loss": metrics["loss"].item(),
+               "grad_norm": grad_norm(model, grads).item()}
+        gaps = {n: rel_err(grads[n], want["grads"][n])
+                for n in want["grads"]}
+        del grads, want["grads"]
+        row.update({
+            "loss_sharded": got["loss"], "loss_unsharded": want["loss"],
+            "loss_gap": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_norm_sharded": got["grad_norm"],
+            "grad_norm_unsharded": want["grad_norm"],
+            "grad_norm_gap": abs(got["grad_norm"] - want["grad_norm"])
+            / abs(want["grad_norm"]),
+            "kernel_fed_grads": len(gaps),
+            "kernel_fed_worst_gap": max(gaps.values()),
+            "worst_leaves": sorted(gaps, key=gaps.get)[-3:],
+            "tol": TRAIN_TOL})
+        if not gaps or max(row["loss_gap"], row["grad_norm_gap"],
+                           row["kernel_fed_worst_gap"]) > TRAIN_TOL:
+            raise AssertionError(f"sharded {cfg.name} train parity: {row}")
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
+        ops0 = ledger_ops(core)
+        runner.run(1)
+        ops1 = ledger_ops(core)
+        runner.run(SHARDED_TRAIN_STEPS - 1)
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "ssd_chunk_scan": ss.ssd_chunk_scan.launches}
+        peak = torch.cuda.max_memory_allocated()
+        still = [n for n, p, b in zip(names, model.parameters(), before)
+                 if torch.equal(p.detach(), b)]
+        del before
+        launches_want = {k: v * TRAIN_ACCUM * 2 * SHARDED_TRAIN_STEPS
+                         for k, v in per_forward(cfg).items()}
+        log = runner.metrics_log
+        finite = all(math.isfinite(m["loss"]) and math.isfinite(
+            m["grad_norm"]) for m in log)
+        row.update({
+            "step_ms_sharded": [m["dt"] * 1e3 for m in log],
+            "step_ms_unsharded": plain_ms,
+            "step_ratio": log[-1]["dt"] * 1e3 / plain_ms[-1],
+            "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
+                                  for v in ops1},
+            "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM),
+            "launches": launches, "launches_want": launches_want,
+            "params_moved": len(names) - len(still),
+            "params_total": len(names), "params_not_moved": still[:10],
+            "max_memory_allocated": peak,
+            "losses": [m["loss"] for m in log]})
+        if launches != launches_want or still or not finite \
+                or row["ledger_ops_a_step"] != row["ledger_ops_want"]:
+            raise AssertionError(f"sharded {cfg.name} train runner: {row}")
+        del runner, model
+
+        # a profiled sharded micro-batch at 1 layer (whisper 1 + 1)
+        pcfg = dataclasses.replace(
+            cfg, num_layers=SHARDED_PROFILE_LAYERS,
+            encoder_layers=min(cfg.encoder_layers, SHARDED_PROFILE_LAYERS))
+        pmodel = init_params(pcfg, device=device, seed=SEED, shd=shd)
+        params = [p.requires_grad_(True) for p in pmodel.parameters()]
+
+        def micro_batch():
+            loss, _ = loss_fn(pmodel, micro, pcfg, rcfg)
+            torch.autograd.grad(loss, params)
+
+        t1 = time.perf_counter()
+        prof = _profile(torch, micro_batch, top=6)
+        prof["seconds"] = time.perf_counter() - t1
+        prof["layers"] = pcfg.num_layers
+        prof["encoder_layers"] = pcfg.encoder_layers
+        row["profile_micro_batch"] = prof
+        del pmodel, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row.update({"seconds": time.perf_counter() - t0, "gpu": smi})
+    emit(row)
+    return launches, row
+
+
+def phase_sharded_train_families(torch, device, smi: str, cfgs=None):
+    """The ssm, hybrid and encdec families trained on the model axis at a
+    world of one (``SHARDED_FAMILIES``; ``cfgs``: their configs by name,
+    the full-width ones cut to the table's depth by default), each freed
+    before the next, then ``family_train_rank_cases``. Returns (their
+    launches summed, the rank cases' checks)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    total = {"flash_attention": 0, "ssd_chunk_scan": 0}
+    for arch, layers, enc, seq, batch in SHARDED_FAMILIES:
+        full = get_config(arch)
+        cfg = (cfgs or {}).get(arch) or dataclasses.replace(
+            full, num_layers=layers, encoder_layers=enc)
+        cut = f"{layers} of {full.num_layers} layers" + (
+            f", {enc} of {full.encoder_layers} encoder layers" if enc
+            else "")
+        launches, _row = sharded_family_trainer(torch, device, cfg, smi,
+                                                seq, batch, cut)
+        for k, v in launches.items():
+            total[k] += v
+    rows = {"phase": "sharded_train_families", "case": "rank_kernels",
+            "gpu": smi}
+    checks = family_train_rank_cases(torch, device, smi, rows)
+    emit(rows)
+    return total, checks
+
+
+def family_train_rank_cases(torch, device, smi: str, row: dict):
+    """Each TP train rank's kernel work of the ssm, hybrid and encdec
+    families under autograd, held against the plain forward and its
+    autograd VJP within ``TRAIN_TOL`` of max |.|, the forward timed beside
+    its bound and the plain forward:
+
+    * ``SsdScanFn`` (the kernel forward, the plain VJP) at mamba2's rank
+      heads of a 4,096-token sequence (nc 16; 32 / tp heads: 16, 8, 4, 2)
+      and hymba's (nc 32; 25 at tp 2, all 50 past it, where its heads
+      stay whole): all four outputs and the four inputs' gradients; no
+      PyTorch call computes the scan, so no library time;
+    * f32 ``FlashAttentionFn`` at whisper's encoder rank heads (B 4, S
+      1,500, 12 heads: 6 and 3 at tp 2 and 4, 2 and 1 of 16 padded at 8
+      and 16, d 64, bidirectional, the kv heads ``_local_kv`` gives them):
+      o, dq, dk, dv; ``scaled_dot_product_attention``'s forward and
+      backward timed beside it.
+
+    Puts the rows into ``row["rank_ssd"]``/``row["rank_flash_f32"]``;
+    returns the checks by (kernel, case, tp)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.distribution.sharding import padded_heads
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
+        ssd_chunk_scan_plain
+    from repro_torch.models.attention import FlashAttentionFn, _local_kv
+    from repro_torch.models.ssm import SsdScanFn
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    timer = Timer(torch, device)
+    checks, ssd_rows, flash_rows = {}, [], []
+
+    def rel(a, b):
+        return rel_err(a, b) if b.abs().max().item() > 0 else \
+            float((a.float() - b.float()).abs().max().item())
+
+    for name, (q_, h_, p_, n_), nc in TRAIN_RANK_SSD:
+        for tp in CP_TP:
+            heads = h_ // tp if h_ % tp == 0 else h_
+            ins = ssd_inputs(torch, gen, device, nc, "bfloat16",
+                             shape=(q_, heads, p_, n_))
+            outs_ref = ssd_chunk_scan_plain(*ins, out_dtype=torch.float32,
+                                            state_decay=True)
+            couts = [torch.randn(o.shape, generator=gen, device=device)
+                     for o in outs_ref]
+            x_in = [t.detach().requires_grad_() for t in ins]
+            before = ssd_chunk_scan.launches
+            outs = SsdScanFn.apply(*x_in)
+            launched = ssd_chunk_scan.launches - before
+            grads = torch.autograd.grad(outs, x_in, couts)
+            r_in = [t.detach().requires_grad_() for t in ins]
+            r_out = ssd_chunk_scan_plain(*r_in, out_dtype=torch.float32,
+                                         state_decay=True)
+            r_grads = torch.autograd.grad(r_out, r_in, couts)
+            errs = {k: rel(a, b) for k, a, b in zip(
+                ("y", "states", "chunk_decay", "state_decay"), outs, r_out)}
+            errs.update({f"d{k}": rel(a, b) for k, a, b in zip(
+                ("xdt", "dA", "B", "C"), grads, r_grads)})
+            abs_y = (outs[0] - r_out[0]).abs().max().item()
+            ok = max(errs.values()) <= TRAIN_TOL and launched == 1
+            del outs, grads, r_out, r_grads, x_in, r_in, couts, outs_ref
+            nbytes, flops = ssd_work(nc, 2, (q_, heads, p_, n_))
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            rank_row = {"case": name, "tp": tp, "chunks": nc, "Q": q_,
+                        "heads": heads, "P": p_, "N": n_,
+                        "max_rel_err": errs, "max_abs_err_y": abs_y,
+                        "tol": TRAIN_TOL, "ok": ok,
+                        "ms": timer.ms(lambda: ssd_chunk_scan(
+                            *ins, out_dtype=torch.float32,
+                            state_decay=True)),
+                        "plain_ms": timer.ms(lambda: ssd_chunk_scan_plain(
+                            *ins, out_dtype=torch.float32,
+                            state_decay=True), reps=5),
+                        "library_ms": None, "bound_ms": b_ms,
+                        "bound_by": b_by, "bytes": nbytes, "flops": flops,
+                        "gpu": smi}
+            ssd_rows.append(rank_row)
+            checks[("ssd_chunk_scan", name, tp)] = {
+                "launches": launched, "max_abs_err": abs_y,
+                "max_rel_err": max(errs.values()), "row": rank_row}
+            del ins
+            if not ok:
+                raise AssertionError(f"SsdScanFn at {name}'s rank heads, "
+                                     f"tp {tp}: {rank_row}")
+    b, s, hq, d = TRAIN_RANK_ENC
+    for tp in CP_TP:
+        hp = padded_heads(hq, {"model": tp})
+        n, r = hp // tp, 0 if hp == hq else tp - 1
+        q = torch.randn((b, s, n, d), generator=gen, device=device)
+        k, v = (torch.randn((b, s, hq, d), generator=gen, device=device)
+                for _ in range(2))
+        kl, vl = _local_kv(k, v, hq, hp, r * n, n)
+        do = torch.randn((b, s, n, d), generator=gen, device=device)
+        ins = [t.detach().requires_grad_() for t in (q, kl, vl)]
+        before = flash_attention.launches
+        o = FlashAttentionFn.apply(*ins, False, 0, 512, 512)
+        launched = flash_attention.launches - before
+        grads = torch.autograd.grad(o, ins, do)
+        ref_in = [t.detach().requires_grad_() for t in (q, kl, vl)]
+        ref_o = flash_attention_plain(*ref_in, causal=False)
+        ref_g = torch.autograd.grad(ref_o, ref_in, do)
+        errs = {"o": rel_err(o, ref_o)}
+        errs.update({f"d{x}": rel_err(a, c)
+                     for x, a, c in zip("qkv", grads, ref_g)})
+        abs_o = (o - ref_o).abs().max().item()
+        ok = max(errs.values()) <= TRAIN_TOL and launched == 1
+        del ins, o, grads, ref_in, ref_o, ref_g
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, kl, vl))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        backend = sdpa_backend(torch, qt, kt, vt, enable_gqa=True)
+        with sdpa_kernel([backend]):
+            sdpa_ms = timer.ms(sdpa_fwd_bwd, reps=5)
+        nbytes, flops = flash_work(b, s, s, n, kl.shape[2], d, 4, False, 0)
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        rank_row = {"case": "whisper encoder", "tp": tp, "rank": r, "B": b,
+                    "S": s, "hq": n, "kv": kl.shape[2], "d": d,
+                    "dtype": "float32", "causal": False,
+                    "max_rel_err": errs, "max_abs_err_o": abs_o,
+                    "tol": TRAIN_TOL, "ok": ok,
+                    "ms": timer.ms(lambda: flash_attention(
+                        q, kl, vl, causal=False)),
+                    "plain_ms": timer.ms(lambda: flash_attention_plain(
+                        q, kl, vl, causal=False), reps=5),
+                    "library_fwd_bwd_ms": sdpa_ms,
+                    "library": "scaled_dot_product_attention",
+                    "library_backend": backend.name,
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops, "gpu": smi}
+        flash_rows.append(rank_row)
+        checks[("flash_attention", "whisper encoder f32", tp)] = {
+            "launches": launched, "max_abs_err": abs_o,
+            "max_rel_err": max(errs.values()), "row": rank_row}
+        del q, k, v, kl, vl, do, qt, kt, vt, dot
+        if not ok:
+            raise AssertionError(f"f32 flash under autograd at whisper's "
+                                 f"encoder rank heads, tp {tp}: {rank_row}")
+    row["rank_ssd"] = ssd_rows
+    row["rank_flash_f32"] = flash_rows
+    torch.cuda.empty_cache()
+    return checks
 
 
 def _state_tensors(runner):
@@ -6025,6 +6411,15 @@ def main() -> int:
     for k, v in phase_train_families(torch, device, smi).items():
         launches[k] += v
     seconds["train_families"] = time.perf_counter() - t_phase
+    # ... and on the model axis at a world of one: the SSD heads and
+    # width under grad, whisper's encoder with its FSDP gathers; each TP
+    # train rank's SsdScanFn and f32 flash
+    t_phase = time.perf_counter()
+    fam_launches, fam_train_rank = phase_sharded_train_families(
+        torch, device, smi)
+    for k, v in fam_launches.items():
+        launches[k] += v
+    seconds["sharded_train_families"] = time.perf_counter() - t_phase
     launches["water_fill"] += phase_fairness(torch, device)
 
     rows = phase_timings(torch, device, smi)
@@ -6098,6 +6493,27 @@ def main() -> int:
         "max_rel_err": check["max_rel_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_fwd_bwd_ms"]})
+    # the ssm, hybrid and encdec families' TP train ranks at tp 16 under
+    # autograd: no main path runs them (the sharded trainers are worlds
+    # of one); checked and timed in their sharded train phase
+    for name, key in (
+            ("ssd_chunk_scan (mamba2 TP train rank, tp 16, S 4096)",
+             ("ssd_chunk_scan", "mamba2", 16)),
+            ("ssd_chunk_scan (hymba TP train rank, tp 16, S 4096)",
+             ("ssd_chunk_scan", "hymba", 16)),
+            ("flash_attention (whisper encoder TP train rank, tp 16, f32)",
+             ("flash_attention", "whisper encoder f32", 16))):
+        check = fam_train_rank[key]
+        row = check["row"]
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[key[0]],
+            "replaces": REPLACES[key[0]], "launches": 0,
+            "check_launches": check["launches"],
+            "max_abs_err": check["max_abs_err"],
+            "max_rel_err": check["max_rel_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_fwd_bwd_ms")})
     # each rank's kernel work at the other families' shapes at tp 16, held
     # in the distribution phase (check_launches), timed in the timings
     # phase; no main path runs them (the sharded serves are worlds of one)

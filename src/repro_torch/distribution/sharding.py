@@ -44,9 +44,11 @@ a weight's ``embed`` rows over ``data`` (FSDP) and its ``heads``/``ffn``/
 layer's FSDP shards just before use (``gathered``, a view of a
 ``ParamTree``) and lets them go after. The collectives are autograd
 functions with the Megatron transposes: ``psum`` of row-parallel partial
-sums has the identity as its backward, ``enter`` (a tensor replicated over
-the TP axis entering column-parallel work) the identity forward and a
-``psum`` of the cotangent backward, ``all_gather`` a ``reduce_scatter``.
+sums has the identity as its backward, ``psum_partial`` (a sum each rank
+uses for its own part only) a gradient ``psum``, ``enter`` (a tensor
+replicated over the TP axis entering column-parallel work, once however
+many consumers share it) the identity forward and a ``psum`` of the
+cotangent backward, ``all_gather`` a ``reduce_scatter``.
 The backward's collectives are flagged ``gradient``, the forward's neither
 ``serving`` nor ``gradient``. ``NamedSharding`` pairs a spec with the
 mesh: ``state_shardings``/``batch_shardings`` (``train/train_loop.py``)
@@ -363,6 +365,23 @@ class _Psum(torch.autograd.Function):
         return g, None, None
 
 
+class _PsumPartial(torch.autograd.Function):
+    """``psum`` of partial sums whose result each rank of the group uses
+    only for its own part (the gated norm's mean square, which scales only
+    the rank's channels): each rank's cotangent is then a partial one, and
+    the transpose is a gradient ``psum`` of it."""
+
+    @staticmethod
+    def forward(ctx, x, shd, axes):
+        ctx.shd, ctx.axes = shd, axes
+        return shd._psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shd._psum(g.contiguous(), ctx.axes, gradient=True), \
+            None, None
+
+
 class _Enter(torch.autograd.Function):
     """A tensor replicated over ``axes`` entering work split over them
     (column-parallel products, kv heads read by each rank's query heads):
@@ -581,6 +600,14 @@ class ShardingCtx:
             return _Psum.apply(x, self, axes)
         return self._psum(x, axes)
 
+    def psum_partial(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``psum`` of partial sums of which each rank then uses the sum
+        for its own part only; under autograd its backward is a gradient
+        ``psum`` (``_PsumPartial``)."""
+        if _records(x):
+            return _PsumPartial.apply(x, self, axes)
+        return self._psum(x, axes)
+
     def _psum(self, x: torch.Tensor, axes, gradient: bool = False
               ) -> torch.Tensor:
         """A bf16 tensor is summed in f32 and rounded once, as the
@@ -596,10 +623,16 @@ class ShardingCtx:
     def enter(self, x: torch.Tensor, axes) -> torch.Tensor:
         """``x``, replicated over ``axes``, entering work split over them:
         its gradient is summed over them (``_Enter``). The identity when
-        autograd does not record or ``axes`` is empty."""
-        if not axes or not _records(x):
+        autograd does not record or ``axes`` is empty, and for a tensor
+        already entered over ``axes``: entering it again would sum its
+        summed gradient once more, so a caller may enter a tensor that
+        several consumers share once for all of them."""
+        if not axes or not _records(x) \
+                or getattr(x, "_entered", None) == _flat(axes):
             return x
-        return _Enter.apply(x, self, axes)
+        out = _Enter.apply(x, self, axes)
+        out._entered = _flat(axes)
+        return out
 
     def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """Tiled ``nk_all_gather``; under autograd its backward is the

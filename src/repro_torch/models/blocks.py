@@ -23,8 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import RingSlots, attn_schema, \
-    gqa_attention, mla_attention, mla_schema
+from repro_torch.models.attention import RingSlots, _head_axis, \
+    attn_schema, gqa_attention, mla_attention, mla_schema
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_schema, \
     norm_schema
 from repro_torch.models.moe import Groups, apply_moe, moe_schema
@@ -143,8 +143,12 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     attention, the SSM path (``ssm.ssm_block``), the MLP
     (``layers.apply_mlp``) and the experts (``moe.apply_moe``); an
     ``enc`` layer (run in "train" mode) too. Under autograd (training on
-    a mesh, the dense and vlm kinds) ``p`` is the layer as
-    ``ShardingCtx.gathered`` reads it, its FSDP shards gathered."""
+    a mesh, every kind but ``moe``) ``p`` is the layer as
+    ``ShardingCtx.gathered`` reads it, its FSDP shards gathered; a
+    ``hybrid`` layer's one pre-norm output ``h``, which both its attention
+    and its SSM path read, enters their split once in the block (the
+    paths' own enters of it are then the identity), so its gradient sums
+    both paths' once."""
     check_kind(kind)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -156,6 +160,11 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
                                  decode=mode == "decode", shd=shd)
         return x + y, None if train else new_cache, {}
     decode = mode == "decode"
+    if kind == "hybrid" and on_mesh:
+        # both paths read h: it enters their split once (under autograd),
+        # and the paths' own enters of it are then the identity, so its
+        # gradient, both paths' partial ones added first, is summed once
+        h = shd.enter(h, _head_axis(p["attn"]))
     if train:
         a = _attn(p["attn"], h, cfg, rcfg, positions=positions,
                   window=window, causal=kind != "enc", **on_mesh)

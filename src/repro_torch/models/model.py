@@ -46,8 +46,10 @@ shard of its rows; ``greedy`` takes them to global token ids and
 ``gather_logits`` to the full logits. ``forward_train`` trains the dense
 and vlm families on a mesh, a model made with a training ``ShardingCtx``
 (``train=True``): each rank holds its block of the run's rules (FSDP and
-TP), and each layer gathers its FSDP shards as it runs; the other
-families refuse by name (``check_mesh_training``).
+TP), and each layer gathers its FSDP shards as it runs. The ssm, hybrid
+and encdec families train there too (an encoder's layers gather theirs
+in ``encode``, its frames the rank's rows of the batch); the moe family
+and MLA refuse by name (``check_mesh_training``).
 """
 from __future__ import annotations
 
@@ -71,8 +73,8 @@ from repro_torch.models.moe import dispatch_groups
 from repro_torch.models.schema import ParamTree
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
-# the families whose training runs on a mesh (ROADMAP 3c: the others)
-MESH_TRAIN_FAMILIES = ("dense", "vlm")
+# the families whose training runs on a mesh (ROADMAP 3c: moe, MLA)
+MESH_TRAIN_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "encdec")
 REMAT = ("full", "dots", "none")
 # cache leaves laid out along the sequence (padded to max_seq, or turned
 # into a ring, at prefill); the others (SSM state, conv tails) are
@@ -392,24 +394,28 @@ def _embed_in(model: Model, tokens: torch.Tensor, positions: torch.Tensor,
 
 
 def _encoded(model: Model, frames, rcfg: RunConfig):
+    """The encoder's output for ``frames``, the rank's rows on a mesh (in
+    training the batch's, which ``batch_shardings`` lays out as
+    ``tokens``)."""
     cfg = model.cfg
     if not cfg.encoder_layers:
         return None
     if frames is None:
         raise ValueError(f"{cfg.name}: an encoder model needs frames "
                          f"(B, {cfg.encoder_seq}, {cfg.d_model})")
-    return encode(model, _rows(model.shd, frames), rcfg)
+    return encode(model, frames, rcfg)
 
 
 def check_mesh_training(cfg: ModelConfig, rcfg: RunConfig) -> None:
     """Raise for a training run on a mesh that the port does not have:
-    the families other than ``MESH_TRAIN_FAMILIES`` (MLA included) and
-    Megatron-SP activations (ROADMAP 3c)."""
+    the moe family (the families other than ``MESH_TRAIN_FAMILIES``),
+    MLA and Megatron-SP activations (ROADMAP 3c)."""
     if cfg.family not in MESH_TRAIN_FAMILIES or cfg.mla is not None:
         what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
         raise NotImplementedError(
             f"{cfg.name}: training {what} on a mesh is not ported yet "
-            f"(ROADMAP 3c); the dense and vlm families train on a mesh")
+            f"(ROADMAP 3c); the {', '.join(MESH_TRAIN_FAMILIES)} families "
+            f"train on a mesh")
     if rcfg.seq_parallel_activations:
         raise NotImplementedError(
             f"{cfg.name}: seq_parallel_activations (Megatron-SP between "
@@ -425,13 +431,14 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     model's losses and routing statistics, each the mean over a segment's
     layers summed over segments (0-d f32); empty for other families.
 
-    On a mesh (a ``Model`` made with a training ``ShardingCtx``; the dense
-    and vlm families, ``check_mesh_training``) ``batch`` holds this rank's
-    rows, its block of the global batch over the batch axes
-    (``train.batch_shardings``, ``data.DataPipeline(shardings=)``; the
-    same rows on every rank of the TP axis), the layers run on the rank's
-    heads and MLP columns with their FSDP shards gathered, and the logits
-    are the rank's vocab columns of its rows."""
+    On a mesh (a ``Model`` made with a training ``ShardingCtx``; every
+    family but moe and MLA, ``check_mesh_training``) ``batch`` holds this
+    rank's rows (``frames`` too), its block of the global batch over the
+    batch axes (``train.batch_shardings``,
+    ``data.DataPipeline(shardings=)``; the same rows on every rank of the
+    TP axis), the layers run on the rank's heads and MLP columns with
+    their FSDP shards gathered, and the logits are the rank's vocab
+    columns of its rows."""
     check_family(cfg)
     shd = model.shd
     if shd is not None:
@@ -480,7 +487,8 @@ def forward_prefill(model: Model, tokens: torch.Tensor, rcfg: RunConfig, *,
     groups = dispatch_groups(shd, b, s, tokens.shape[0])
     positions = torch.arange(s, device=tokens.device)
     x = _embed_in(model, tokens, positions)
-    enc_out = _encoded(model, frames, rcfg)
+    enc_out = _encoded(model, None if frames is None
+                       else _rows(shd, frames), rcfg)
     caches_out = []
     layer = 0
     for seg in build_schedule(cfg):

@@ -330,9 +330,12 @@ def nu_specs(spec: Tuple, ndim: int, factored: bool) -> Dict[str, Tuple]:
 
 
 def slot_spec(slot: Slot, layouts: Dict) -> Tuple:
-    """A slot's layout: its parameter's, or whole for a stacked slot (the
-    1-D per-layer leaves, which no rule splits)."""
-    return () if slot.stacked else layouts[slot.params[0]][0]
+    """A slot's layout: its parameter's, behind a whole layer dim for a
+    stacked slot (the 1-D per-layer leaves: the SSM heads' ``A_log``,
+    ``D`` and ``dt_bias`` split over ``model``, the norm scales whole),
+    as the reference's stacked leaf is laid out."""
+    spec = layouts[slot.params[0]][0]
+    return (None,) + spec if slot.stacked and spec else spec
 
 
 def _block(model: Model, shape, spec) -> Tuple[slice, ...]:

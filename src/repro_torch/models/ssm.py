@@ -21,6 +21,11 @@ axis divides them; where it divides the width but not the heads, the rank
 gathers the post-conv x stream and scans every head. The gated RMSNorm
 sums each rank's weighted mean square over the model axis
 (``gated_norm``), and ``w_out``'s partial products are summed once.
+Training on a mesh runs the same path under autograd: the inputs every
+rank holds whole (x, ``w_B``/``w_C``, their convs, the norm's scale, and
+the heads' parameters where the heads stay whole) enter the split, and
+the norm's sum of squares is a ``psum_partial``, whose backward sums the
+ranks' partial cotangents.
 
 Rounding points follow the reference: conv, gate and D-skip products round
 to the activation dtype where it rounds; ``y_diag`` is f32. One exception
@@ -222,16 +227,23 @@ def gated_norm(p, gated: torch.Tensor, di: int, shd=None, axis=None,
     width split over ``axis`` each rank holds its channels of ``gated``
     and the whole scale: its f32 mean square, weighted by its share of
     ``di``, is summed over ``axis``, so every rank normalizes by the
-    reference's mean over all channels."""
+    reference's mean over all channels. Under autograd the sum's backward
+    is a gradient ``psum`` too (``ShardingCtx.psum_partial``), and the
+    input and scale gradients are the one-device norm's."""
     if not axis:
         return apply_norm(p, gated, "rmsnorm", eps)
     xf = f32(gated)
     n = xf.shape[-1]
     lo = shd.index(axis) * n
     # the rank's mean square weighted by its share of the width: at one
-    # rank the weight is exactly 1 and the mean is ``apply_norm``'s
-    ms = shd.psum((xf * xf).mean(dim=-1, keepdim=True) * (n / di), axis)
-    y = xf * torch.rsqrt(ms + eps) * f32(p["scale"][lo:lo + n])
+    # rank the weight is exactly 1 and the mean is ``apply_norm``'s. Each
+    # rank scales only its channels by the sum, so under autograd its
+    # cotangent is partial and is summed back (``psum_partial``), and the
+    # whole scale, of which it reads its slice, enters the split
+    ms = shd.psum_partial((xf * xf).mean(dim=-1, keepdim=True) * (n / di),
+                          axis)
+    scale = shd.enter(p["scale"], axis)
+    y = xf * torch.rsqrt(ms + eps) * f32(scale[lo:lo + n])
     return y.to(gated.dtype)
 
 
@@ -249,7 +261,11 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
     ``conv_C`` and the norm's scale whole. The rank scans its heads (all
     of them where the heads stay whole: ``_inner_split``), normalizes by
     ``gated_norm`` and sums ``w_out``'s partial products over the inner
-    axis once; its cache holds its heads' state and its channels' x tail."""
+    axis once; its cache holds its heads' state and its channels' x tail.
+    Under autograd (training on a mesh) the inputs it holds whole enter
+    the split (``ShardingCtx.enter``), the x-stream gather's backward is a
+    reduce-scatter and the norm's sum a ``psum_partial``, so every
+    gradient is the one-device one's block."""
     s = cfg.ssm
     d = cfg.d_model
     di = s.d_inner(d)
@@ -258,11 +274,23 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
     nh = p["w_dt"].shape[1]               # the heads this rank scans
     n_in = p["w_x"].shape[1]              # and its inner channels
     lo = shd.index(axis) * n_in if axis else 0
-    A = -torch.exp(f32(p["A_log"]))
+    # under autograd every input the rank holds whole but reads for its
+    # own channels or heads enters the split, so its gradient is summed
+    # over the inner axis: x, the B/C projections and convs, and, where
+    # the heads stay whole, the heads' parameters (the norm's scale
+    # enters in ``gated_norm``); the identity without autograd
+    w = {k: p[k] for k in ("w_z", "w_x", "w_B", "w_C", "w_dt", "dt_bias",
+                           "A_log", "D", "conv_x", "conv_B", "conv_C")}
+    if axis:
+        entering = ("w_B", "w_C", "conv_B", "conv_C") + (
+            ("w_dt", "dt_bias", "A_log", "D") if gather else ())
+        w.update({k: shd.enter(w[k], axis) for k in entering})
+        x = shd.enter(x, axis)
+    A = -torch.exp(f32(w["A_log"]))
 
-    z = x @ p["w_z"]
-    streams = {"x": x @ p["w_x"], "B": x @ p["w_B"], "C": x @ p["w_C"]}
-    dt = F.softplus(f32(x @ p["w_dt"]) + f32(p["dt_bias"]))
+    z = x @ w["w_z"]
+    streams = {"x": x @ w["w_x"], "B": x @ w["w_B"], "C": x @ w["w_C"]}
+    dt = F.softplus(f32(x @ w["w_dt"]) + f32(w["dt_bias"]))
 
     def silu(t):
         return F.silu(f32(t)).to(x.dtype)
@@ -282,19 +310,19 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
 
     if not decode:
         b, l = x.shape[:2]
-        conv = {k: silu(causal_conv(u, p["conv_" + k]))
+        conv = {k: silu(causal_conv(u, w["conv_" + k]))
                 for k, u in streams.items()}
         xh = heads_in(conv["x"]).reshape(b, l, nh, hp)
         xdt = (f32(xh) * dt[..., None]).to(x.dtype)
         y, state = ssd_chunked(xdt, dt * A, conv["B"], conv["C"], s.chunk,
                                naive=rcfg.attention_impl == "naive")
-        yD = y + f32(xh) * f32(p["D"])[None, None, :, None]
+        yD = y + f32(xh) * f32(w["D"])[None, None, :, None]
         yflat = own(yD.reshape(b, l, nh * hp).to(x.dtype))
         out = out_proj(yflat * silu(z))
         # the pre-conv streams' last W-1 inputs, for streaming decode
-        w = s.conv_width
+        tail = s.conv_width - 1
         new_cache = {"state": state}
-        new_cache.update({"conv_" + k: u[:, -(w - 1):]
+        new_cache.update({"conv_" + k: u[:, -tail:]
                           for k, u in streams.items()})
         return out, new_cache
 
@@ -302,14 +330,14 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
     conv = {}
     for k, u in streams.items():
         c = cache["conv_" + k]
-        y_t, tail = conv_step(u[:, 0], c.to(x.dtype), p["conv_" + k])
+        y_t, tail = conv_step(u[:, 0], c.to(x.dtype), w["conv_" + k])
         c.copy_(tail)
         conv[k] = silu(y_t)
     xh = heads_in(conv["x"]).reshape(-1, nh, hp)
     y, state = ssd_decode_step(xh, dt[:, 0], A, conv["B"], conv["C"],
                                cache["state"])
     cache["state"].copy_(state)
-    y = y + xh * f32(p["D"])[None, :, None].to(x.dtype)
+    y = y + xh * f32(w["D"])[None, :, None].to(x.dtype)
     gated = own(y.reshape(-1, 1, nh * hp)) * silu(z)
     return out_proj(gated), cache
 

@@ -374,7 +374,7 @@ def state_shardings(cfg: ModelConfig, rcfg: RunConfig, mesh) -> Dict:
     NamedSharding}, "opt": {"mu": {slot: ...}, "nu": {slot: {"full"} or
     {"vr", "vc"}}, "count": ...}, "step": ...}``. A per-layer slot's spec is
     its parameter's, which is the reference's stacked leaf's without the
-    leading layer entry; a stacked slot's is whole."""
+    leading layer entry; a stacked slot's is the stacked leaf's."""
     check_family(cfg)
     named, rules = _named(mesh, rcfg)
     layouts = schema_layouts(cfg, ShardingCtx(mesh_axis_sizes(named),

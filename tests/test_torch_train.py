@@ -411,13 +411,16 @@ def test_flash_attention_fn_grads_match_blockwise_autograd():
 def test_training_other_families_and_remesh_raise():
     """``Runner.remesh`` with no checkpoint raises ``RuntimeError``, as the
     reference's does (the remesh itself is held in
-    ``tests/test_torch_train_mesh_runner.py``); on a mesh the families
-    other than dense and vlm, MLA and Megatron-SP activations refuse to
-    train by name (ROADMAP 3c), before any collective, while every family
-    trains on one device (the moe family against the reference in
-    ``tests/test_torch_moe.py``)."""
+    ``tests/test_torch_train_mesh_runner.py``); on a mesh the moe family,
+    MLA and Megatron-SP activations refuse to train by name (ROADMAP 3c),
+    before any collective, while every family trains on one device (the
+    moe family against the reference in ``tests/test_torch_moe.py``) and
+    the ssm, hybrid and encdec families build a sharded train step with
+    no refusal (their steps are held against the reference in
+    ``tests/test_torch_train_mesh_{ssm,hybrid,encdec}.py``)."""
     from repro_torch.distribution.sharding import ShardingCtx, make_rules
     from repro_torch.models import Model
+    from repro_torch.models.model import check_mesh_training
     cfg = get_smoke_config(LLAMA)
     with tempfile.TemporaryDirectory() as d:
         r = Runner(cfg, RunConfig(), None, for_model(
@@ -430,10 +433,7 @@ def test_training_other_families_and_remesh_raise():
     sizes = {"data": 1, "model": 1}
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
              "labels": torch.zeros((2, 8), dtype=torch.int32)}
-    for arch, what in (("mamba2-370m", "the ssm family"),
-                       ("hymba-1.5b", "the hybrid family"),
-                       ("whisper-small", "the encdec family"),
-                       ("arctic-480b", "the moe family"),
+    for arch, what in (("arctic-480b", "the moe family"),
                        ("deepseek-v2-236b", "MLA")):
         tcfg = get_smoke_config(arch)
         shd = ShardingCtx(sizes, rules=make_rules("2d"), train=True)
@@ -441,6 +441,14 @@ def test_training_other_families_and_remesh_raise():
         with pytest.raises(NotImplementedError,
                            match=f"{tcfg.name}: training {what} on a mesh"):
             forward_train(model, batch, tcfg, RunConfig())
+    for arch in ("mamba2-370m", "hymba-1.5b", "whisper-small"):
+        tcfg = get_smoke_config(arch)
+        shd = ShardingCtx(sizes, rules=make_rules("2d"), train=True)
+        assert check_mesh_training(tcfg, RunConfig()) is None
+        state = make_train_state(tcfg, RunConfig(), device="cpu",
+                                 abstract=True, shd=shd)
+        assert state["params"].shd is shd
+        assert callable(make_train_step(tcfg, RunConfig(), shd))
     model = Model(cfg, device="cpu", shd=ShardingCtx(sizes, train=True))
     with pytest.raises(NotImplementedError, match="seq_parallel"):
         forward_train(model, batch, cfg,

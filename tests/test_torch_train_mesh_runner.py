@@ -247,6 +247,6 @@ def test_sharded_train_phase_rehearses_on_the_cpu(monkeypatch):
     # the CoreEngine's ledger holds every collective of a step, the
     # backward's and the recompute's too, as ``train_collectives`` reckons
     assert row["ledger_ops_a_step"] == row["ledger_ops_want"] == \
-        cs.train_collectives(cfg.num_layers, cs.TRAIN_ACCUM)
+        cs.train_collectives(cfg, cs.TRAIN_ACCUM)
     assert sorted(checks) == [2, 4, 8, 16]
     assert all(c["launches"] == 1 for c in checks.values())
