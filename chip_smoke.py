@@ -449,6 +449,15 @@ SHARDED_FAMILIES = (("mamba2-370m", 8, 0, TRAIN_SEQ, TRAIN_BATCH),
 TRAIN_RANK_SSD = (("mamba2", (SSD_Q, SSD_H, SSD_P, SSD_N), TRAIN_SEQ // SSD_Q),
                   ("hymba", HYBRID_SSD, TRAIN_SEQ // HYBRID_SSD[0]))
 TRAIN_RANK_ENC = (4, ENCDEC_FRAMES, ENCDEC_HEADS[0], ENCDEC_D)  # B, S, H, d
+# the moe family's sharded train phase: deepseek-v2-236b at full width,
+# its dense prefix layer and one moe layer of 60 (5.5B parameters: ~44 GB
+# of state at bf16 moments and accumulators), one device and a world of
+# one with Megatron-SP; the grads held sharded against unsharded
+SHARDED_MOE_ARCH = "deepseek-v2-236b"
+SHARDED_MOE_LAYERS = 2
+SHARDED_MOE_SEQ = TRAIN_SEQ
+SHARDED_MOE_KEEP = ("moe.router", "moe.w_in", "attn.w_dkv")
+TRAIN_RANK_MLA = (128, 192, 128)      # heads, dk, dv (v zero-padded)
 
 # the distribution phase: the model axis's per-rank kernel work. The cp
 # decode at chameleon-34b's decode_32k shape (the reference's motivating
@@ -3961,8 +3970,12 @@ def phase_sharded_train(torch, device, cfg, smi: str):
     steps on each (the sharded ones counted: flash launches, the ledger's
     collectives, every leaf moved), a profiled micro-batch on each path,
     a checkpoint carried through ``Runner.remesh`` onto a fresh world-1 mesh
-    and one more step; then ``train_rank_cases``. Returns (the sharded
-    steps' flash launches, the rank cases' checks by tp)."""
+    and one more step; then the same with Megatron-SP activations (the
+    sharded micro-batch against the unsharded one, a Runner step: its
+    flash launches and the ledger's collectives against
+    ``train_collectives(..., sp=True)``); then ``train_rank_cases``.
+    Returns (the sharded steps' flash launches, the rank cases' checks by
+    tp)."""
     import dataclasses
     import tempfile
 
@@ -4025,7 +4038,7 @@ def phase_sharded_train(torch, device, cfg, smi: str):
                "grad_norm": grad_norm(model, grads).item()}
         gaps = {n: rel_err(grads[n], want["grads"][n])
                 for n in want["grads"]}
-        del grads, want["grads"]
+        del grads
         row.update({
             "loss_sharded": got["loss"], "loss_unsharded": want["loss"],
             "loss_gap": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
@@ -4115,96 +4128,171 @@ def phase_sharded_train(torch, device, cfg, smi: str):
         del runner, model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 3. Megatron-SP: the residual stream split along the sequence
+    sp_rcfg = dataclasses.replace(rcfg, seq_parallel_activations=True)
+    with world_of_one(torch, device) as (serve_shd, core), \
+            tempfile.TemporaryDirectory() as d:
+        shd = train_ctx(serve_shd.axes, sp_rcfg)
+        runner = Runner(cfg, sp_rcfg, shd, feed, d, device=device)
+        runner.init_state(seed=SEED)
+        model = runner.state["params"]
+        grads, metrics = _grads(
+            model, micro, cfg, dataclasses.replace(sp_rcfg, grad_accum=1),
+            lambda g: _sync_grads(model, g, seq=TRAIN_SEQ))
+        sp = {"rows_axis": shd.sp_of(TRAIN_SEQ),
+              "loss": metrics["loss"].item(),
+              "grad_norm": grad_norm(model, grads).item()}
+        gaps = {n: rel_err(grads[n], want["grads"][n])
+                for n in want["grads"]}
+        del grads, want["grads"]
+        sp.update({
+            "loss_gap": abs(sp["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_norm_gap": abs(sp["grad_norm"] - want["grad_norm"])
+            / abs(want["grad_norm"]),
+            "wq_wk_wv_worst_gap": max(gaps.values())})
+        fa.flash_attention.launches = 0
+        ops0 = ledger_ops(core)
+        runner.run(1)
+        ops1 = ledger_ops(core)
+        sp_launches = fa.flash_attention.launches
+        sp.update({
+            "step_ms": runner.metrics_log[-1]["dt"] * 1e3,
+            "loss_step": runner.metrics_log[-1]["loss"],
+            "flash_launches": sp_launches,
+            "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
+                                  for v in ops1},
+            "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM,
+                                                 sp=True)})
+        row["seq_parallel"] = sp
+        if not sp["rows_axis"] or len(gaps) != 3 * cfg.num_layers \
+                or max(sp["loss_gap"], sp["grad_norm_gap"],
+                       sp["wq_wk_wv_worst_gap"]) > TRAIN_TOL \
+                or sp_launches != cfg.num_layers * TRAIN_ACCUM * 2 \
+                or not math.isfinite(sp["loss_step"]) \
+                or sp["ledger_ops_a_step"] != sp["ledger_ops_want"]:
+            raise AssertionError(f"sharded train with Megatron-SP: {sp}")
+        launches += sp_launches
+        del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
     checks = train_rank_cases(torch, device, smi, row)
     row.update({"seconds": time.perf_counter() - t_phase, "gpu": smi})
     emit(row)
     return launches, checks
 
 
-def train_rank_cases(torch, device, smi: str, row: dict):
-    """Flash under autograd (``FlashAttentionFn``: the kernel forward, the
-    plain VJP backward) at each TP rank's shapes of llama3.2-3b's
-    ``TRAIN_RANK_S``-token training sequence (tp 2/4/8/16: 12/4, 6/2, 3/1
-    heads, and 2 of 32 padded heads over 2 gathered kv heads), held
-    against the plain forward and its autograd VJP (o, dq, dk, dv within
-    ``TRAIN_TOL`` of max |.|), its forward timed beside the bound, the
-    plain forward and ``scaled_dot_product_attention``'s forward and
-    backward. Puts the rows into ``row["rank_flash"]``; returns the checks
-    by tp."""
+def flash_train_rank(torch, device, gen, timer, smi: str, case: str,
+                     tp: int, n: int, kv: int, d: int, rank: int = 0,
+                     dv=None):
+    """``FlashAttentionFn`` (the kernel forward, the plain VJP) at one TP
+    train rank's shape: B 1, ``TRAIN_RANK_S`` tokens, ``n`` query heads
+    over ``kv`` kv heads of dim ``d``, bf16, causal; ``dv``: v's head dim,
+    zero-padded to ``d`` as ``models/attention.py::_mla_prefill`` pads it
+    (the output cut back, so the cotangent of its padded columns is 0;
+    the softmax scale 1/sqrt(d)). Held against the plain forward and its
+    autograd VJP (o, dq, dk, dv within ``TRAIN_TOL`` of max |.|), its
+    forward timed
+    beside its bound (the function's own columns) and the plain forward,
+    ``scaled_dot_product_attention``'s forward and backward on the same
+    inputs timed beside it. Returns the check: launches, the largest
+    errors and the row."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
 
-    from repro_torch.distribution.sharding import padded_heads
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
-    from repro_torch.models.attention import FlashAttentionFn, _local_kv
+    from repro_torch.models.attention import FlashAttentionFn
+    bf, s = torch.bfloat16, TRAIN_RANK_S
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf)
+
+    q, k, v = randn(1, s, n, d), randn(1, s, kv, d), randn(1, s, kv, d)
+    do = randn(1, s, n, d)
+    if dv is not None:
+        v = F.pad(v[..., :dv], (0, d - dv))
+        do = F.pad(do[..., :dv], (0, d - dv))
+    scale = d ** -0.5
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    o = FlashAttentionFn.apply(*ins, True, 0, 512, 512, scale)
+    launched = flash_attention.launches - before
+    grads = torch.autograd.grad(o, ins, do)
+    ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref_o = flash_attention_plain(*ref_in, scale=scale)
+    ref_g = torch.autograd.grad(ref_o, ref_in, do)
+    errs = {"o": rel_err(o, ref_o)}
+    errs.update({f"d{x}": rel_err(a, b)
+                 for x, a, b in zip("qkv", grads, ref_g)})
+    abs_o = (o.float() - ref_o.float()).abs().max().item()
+    ok = max(errs.values()) <= TRAIN_TOL and launched == 1
+    del ins, o, grads, ref_in, ref_o, ref_g
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True, scale=scale)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    backend = sdpa_backend(torch, qt, kt, vt, is_causal=True,
+                           enable_gqa=True, scale=scale)
+    with sdpa_kernel([backend]):
+        sdpa_ms = timer.ms(sdpa_fwd_bwd, reps=5)
+    nbytes, flops = flash_work(1, s, s, n, kv, d, 2, True, 0, dv=dv)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    row = {"case": case, "tp": tp, "rank": rank, "S": s, "hq": n,
+           "kv": kv, "d": d, "dv": dv or d, "dtype": "bfloat16",
+           "max_rel_err": errs, "max_abs_err_o": abs_o, "tol": TRAIN_TOL,
+           "ok": ok,
+           "ms": timer.ms(lambda: flash_attention(q, k, v, scale=scale)),
+           "plain_ms": timer.ms(lambda: flash_attention_plain(
+               q, k, v, scale=scale), reps=5),
+           "library_fwd_bwd_ms": sdpa_ms,
+           "library": "scaled_dot_product_attention",
+           "library_backend": backend.name, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "flops": flops, "gpu": smi}
+    del q, k, v, do, qt, kt, vt, dot
+    if not ok:
+        raise AssertionError(f"flash under autograd at {case}'s rank heads, "
+                             f"tp {tp}: {row}")
+    return {"launches": launched, "max_abs_err": abs_o,
+            "max_rel_err": max(errs.values()), "row": row}
+
+
+def train_rank_cases(torch, device, smi: str, row: dict):
+    """Flash under autograd (``flash_train_rank``) at each TP rank's
+    shapes of llama3.2-3b's ``TRAIN_RANK_S``-token training sequence (tp
+    2/4/8/16: 12/4, 6/2, 3/1 heads, and 2 of 32 padded heads over 2
+    gathered kv heads). Puts the rows into ``row["rank_flash"]``; returns
+    the checks by tp."""
+    from repro_torch.distribution.sharding import padded_heads
     gen = torch.Generator(device=device).manual_seed(SEED + 30)
     timer = Timer(torch, device)
     hq, kv = LLAMA_HEADS
-    d, s = 128, TRAIN_RANK_S
-    checks, rows = {}, []
+    checks = {}
     for tp in CP_TP:
         hp = padded_heads(hq, {"model": tp})
         n, r = hp // tp, 1 if tp == 16 else 0
-        q = torch.randn((1, s, n, d), generator=gen,
-                        device=device).to(torch.bfloat16)
-        k, v = (torch.randn((1, s, kv, d), generator=gen,
-                            device=device).to(torch.bfloat16)
-                for _ in range(2))
-        kl, vl = _local_kv(k, v, hq, hp, r * n, n)
-        do = torch.randn((1, s, n, d), generator=gen,
-                         device=device).to(torch.bfloat16)
-        ins = [t.detach().requires_grad_() for t in (q, kl, vl)]
-        before = flash_attention.launches
-        o = FlashAttentionFn.apply(*ins, True, 0, 512, 512)
-        launched = flash_attention.launches - before
-        grads = torch.autograd.grad(o, ins, do)
-        ref_in = [t.detach().requires_grad_() for t in (q, kl, vl)]
-        ref_o = flash_attention_plain(*ref_in)
-        ref_g = torch.autograd.grad(ref_o, ref_in, do)
-        errs = {"o": rel_err(o, ref_o)}
-        errs.update({f"d{x}": rel_err(a, b)
-                     for x, a, b in zip("qkv", grads, ref_g)})
-        abs_o = (o.float() - ref_o.float()).abs().max().item()
-        ok = max(errs.values()) <= TRAIN_TOL and launched == 1
-        del ins, o, grads, ref_in, ref_o, ref_g
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, kl, vl))
-        dot = do.transpose(1, 2).contiguous()
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True)
-            torch.autograd.grad(o, (qt, kt, vt), dot)
-
-        backend = sdpa_backend(torch, qt, kt, vt, is_causal=True,
-                               enable_gqa=True)
-        with sdpa_kernel([backend]):
-            sdpa_ms = timer.ms(sdpa_fwd_bwd, reps=5)
-        nbytes, flops = flash_work(1, s, s, n, kl.shape[2], d, 2, True, 0)
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
-        rank_row = {"tp": tp, "rank": r, "S": s, "hq": n,
-                    "kv": kl.shape[2], "d": d, "dtype": "bfloat16",
-                    "max_rel_err": errs, "max_abs_err_o": abs_o,
-                    "tol": TRAIN_TOL, "ok": ok,
-                    "ms": timer.ms(lambda: flash_attention(q, kl, vl)),
-                    "plain_ms": timer.ms(
-                        lambda: flash_attention_plain(q, kl, vl), reps=5),
-                    "library_fwd_bwd_ms": sdpa_ms,
-                    "library": "scaled_dot_product_attention",
-                    "library_backend": backend.name,
-                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                    "flops": flops, "gpu": smi}
-        rows.append(rank_row)
-        checks[tp] = {"launches": launched, "max_abs_err": abs_o,
-                      "max_rel_err": max(errs.values()), "row": rank_row}
-        del q, k, v, kl, vl, do, qt, kt, vt, dot
-        if not ok:
-            raise AssertionError(f"flash under autograd at tp {tp}: "
-                                 f"{rank_row}")
-    row["rank_flash"] = rows
+        checks[tp] = flash_train_rank(
+            torch, device, gen, timer, smi, "llama3.2-3b", tp, n,
+            _local_kv_heads(hq, kv, hp, r * n, n), 128, r)
+    row["rank_flash"] = [c["row"] for c in checks.values()]
     torch.cuda.empty_cache()
     return checks
+
+
+def _local_kv_heads(hq: int, kv: int, hp: int, first: int, n: int) -> int:
+    """The kv heads ``models/attention.py::_local_kv`` gives a rank's
+    ``n`` query heads from ``first`` (of ``hp`` padded over ``hq`` real
+    ones reading ``kv``)."""
+    import torch
+
+    from repro_torch.models.attention import _local_kv
+    z = torch.zeros((1, 1, kv, 1))
+    return _local_kv(z, z, hq, hp, first, n)[0].shape[2]
 
 
 def kernel_fed(name: str) -> bool:
@@ -4390,55 +4478,96 @@ def phase_train_families(torch, device, smi: str, cfgs=None):
     return total
 
 
-# per layer kind of a sharded train step at a world of one under "2d":
-# (FSDP leaves, psums a micro-batch). A dense layer gathers wq, wk, wv,
-# wo, w_in, w_gate and w_out; its psums: the attention's and the MLP's
-# row-parallel sums forward, the attention's again in the recompute
-# (which stops once the saved tensors are back: the MLP's last sum is
-# not replayed), and backward x's into attention and MLP, wk's and wv's
-# enters. An enc layer is a dense one without the gate; a dec layer adds
-# a cross attention's 4 leaves and 6 psums (its sum forward and in the
-# recompute, its query and k/v inputs' and wk's and wv's enters). An ssm
-# layer gathers w_x, w_z, w_B, w_C, w_dt and w_out; its psums: w_out's
-# sum and the gated norm's forward, the norm's again in the recompute,
-# and backward x's, w_B's, w_C's, conv_B's, conv_C's and the norm
-# scale's enters and the norm sum's transpose. A hybrid layer is an ssm
-# layer, an attention half and an MLP: 4 psums forward, 3 in the
-# recompute, and backward h's one enter (both paths read it), wk's,
-# wv's, the MLP input's and the SSM path's 6
-KIND_OPS = {"dense": (7, 7), "enc": (6, 7), "dec": (10, 13),
-            "ssm": (6, 10), "hybrid": (13, 17)}
+# per layer kind of a sharded train step at a world of one under "2d",
+# beyond each FSDP leaf's two gathers (forward and remat) and one
+# reduce-scatter: (all-gathers, reduce-scatters, psums) a micro-batch. A
+# dense layer's psums: the attention's and the MLP's row-parallel sums
+# forward, the attention's again in the recompute (which stops once the
+# saved tensors are back: the MLP's last sum is not replayed), and
+# backward x's into attention and MLP, wk's and wv's enters (MLA's w_dkv
+# and kv_norm enter as they do: a dense_prefix layer is a dense one). An
+# enc layer is a dense one; a dec layer adds a cross attention's 6 psums
+# (its sum forward and in the recompute, its query and k/v inputs' and
+# wk's and wv's enters). An ssm layer's psums: w_out's sum and the gated
+# norm's forward, the norm's again in the recompute, and backward x's,
+# w_B's, w_C's, conv_B's, conv_C's and the norm scale's enters and the
+# norm sum's transpose. A hybrid layer is an ssm layer, an attention half
+# and an MLP: 4 psums forward, 3 in the recompute, and backward h's one
+# enter (both paths read it), wk's, wv's, the MLP input's and the SSM
+# path's 6. A moe layer gathers the router's logits forward and in the
+# recompute (their transpose one reduce-scatter); its psums: the
+# attention half's 5, the routed and the dense (shared) branch's sums and
+# the global aux's forward, the aux's and the routed sum's again in the
+# recompute, and x's one enter backward
+KIND_OPS = {"dense": (0, 0, 7), "dense_prefix": (0, 0, 7),
+            "enc": (0, 0, 7), "dec": (0, 0, 13), "ssm": (0, 0, 10),
+            "hybrid": (0, 0, 17), "moe": (2, 1, 11)}
+# the same under Megatron-SP, where every sum a block's output makes is a
+# reduce-scatter of the rows, every enter of its input a gather of them,
+# and no weight enters (the step sums them): a dense layer gathers its
+# rows for the attention and the MLP forward and in the recompute, and
+# their transposes gather the outputs' cotangents (6); it reduce-scatters
+# the two outputs forward, the attention's again in the recompute, and
+# the two gathers' cotangents (5). A moe layer adds to the attention half
+# the experts' row gather and the logits' gather forward and in the
+# recompute and the three branches' outputs' transposes (9); the
+# attention's output forward and in the recompute, the routed and dense
+# branch's forward, the routed one's in the recompute, and the logits'
+# and the two row gathers' transposes (8); the global aux's psum forward
+# and in the recompute (2)
+KIND_OPS_SP = {"dense": (6, 5, 0), "dense_prefix": (6, 5, 0),
+               "moe": (9, 8, 2)}
 
 
-def train_collectives(cfg, accum: int) -> dict:
-    """The collectives of one sharded train step of a dense, ssm, hybrid
-    or encdec model (tied embeddings, no q/k norms) at a world of one
-    under the ``"2d"`` rules, reckoned from ``KIND_OPS`` (the CPU
-    rehearsals hold it against the ledger). Per micro-batch: the
-    embedding gathered for the lookup and for the head and
-    reduce-scattered after each, its lookup's, the head's and the loss's
-    3 psums (the vocabulary's exps and picked logits, the tokens' sums
-    over data), and each layer's FSDP leaves gathered twice (forward and
-    remat) and reduce-scattered once, and its psums. Per step: the
-    gradients over data of every leaf with no FSDP dim and one clip norm
-    psum for each set of axes the leaves split over."""
+def train_collectives(cfg, accum: int, sp: bool = False,
+                      factored: bool = False) -> dict:
+    """The collectives of one sharded train step of a dense, moe, ssm,
+    hybrid or encdec model (no q/k norms) at a world of one under the
+    ``"2d"`` rules (``sp``: with Megatron-SP), reckoned from ``KIND_OPS``
+    (``KIND_OPS_SP``) and the schema's layouts (the CPU rehearsals hold it
+    against the ledger). Per micro-batch: the embedding (its table, and
+    an untied head) gathered for the lookup and for the head and
+    reduce-scattered after each, the lookup's and the head's sums (under
+    SP the lookup's reduce-scatter, the head's row gather and their
+    transposes instead) and the loss's 3 psums (the vocabulary's exps and
+    picked logits, the tokens' sums over data), and each layer's FSDP
+    leaves gathered twice (forward and remat) and reduce-scattered once,
+    and its ops. Per step: the gradient sum of every leaf ``sum_axes``
+    sums, one clip norm psum for each set of axes the leaves split over,
+    and with ``factored`` (Adafactor's second moment) a psum for each of
+    its three means (the rows', the columns' and the rows' mean's) over a
+    dim that a mesh axis splits."""
     from repro_torch.distribution import ShardingCtx
     from repro_torch.distribution.sharding import fsdp_entry, split_axes
+    from repro_torch.models.params import opt_slots, schema_layouts, \
+        slot_spec
+    from repro_torch.train.train_loop import sum_axes
+    shd = ShardingCtx({"data": 1, "model": 1}, train=True)
+    layouts = schema_layouts(cfg, shd)
+    leaves = sum(fsdp_entry(spec, dims) is not None
+                 for n, (spec, dims) in layouts.items()
+                 if n.startswith(("blocks.", "encoder.blocks.")))
     from repro_torch.models.model import build_schedule
-    from repro_torch.models.params import schema_layouts
     kinds = [seg.kind for seg in build_schedule(cfg)
              for _ in range(seg.count)] + ["enc"] * cfg.encoder_layers
-    leaves = sum(KIND_OPS[k][0] for k in kinds)
-    psums = sum(KIND_OPS[k][1] for k in kinds)
-    layouts = schema_layouts(cfg, ShardingCtx({"data": 1, "model": 1},
-                                              train=True))
-    synced = sum(fsdp_entry(spec, dims) is None
+    ops = KIND_OPS_SP if sp else KIND_OPS
+    gathers, scatters, psums = (sum(ops[k][i] for k in kinds)
+                                for i in range(3))
+    synced = sum(bool(sum_axes(shd, spec, dims, "model" if sp else None))
                  for spec, dims in layouts.values())
     groups = {tuple(sorted(split_axes(spec)))
               for spec, _dims in layouts.values()} - {()}
-    return {"all_gather": accum * (2 + 2 * leaves),
-            "reduce_scatter": accum * (2 + leaves),
-            "psum": accum * (5 + psums) + synced + len(groups)}
+    means = 0
+    for slot in opt_slots(cfg) if factored else ():
+        nd = len(layouts[slot.params[0]][1]) + slot.stacked
+        spec = list(slot_spec(slot, layouts)) + [None] * nd
+        if nd >= 2:
+            means += bool(spec[nd - 1]) + 2 * bool(spec[nd - 2])
+    base = (4, 4, 3) if sp else (2, 2, 5)
+    return {"all_gather": accum * (base[0] + 2 * leaves + gathers),
+            "reduce_scatter": accum * (base[1] + leaves + scatters),
+            "psum": accum * (base[2] + psums) + synced + len(groups)
+            + means}
 
 
 def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
@@ -4613,6 +4742,232 @@ def phase_sharded_train_families(torch, device, smi: str, cfgs=None):
     checks = family_train_rank_cases(torch, device, smi, rows)
     emit(rows)
     return total, checks
+
+
+def phase_sharded_train_moe(torch, device, smi: str, cfg=None):
+    """The moe family trained at full width: ``SHARDED_MOE_ARCH``
+    (deepseek-v2-236b: 160 experts of 1,536, 2 shared, top-6, MLA) cut to
+    ``SHARDED_MOE_LAYERS`` (its dense prefix layer and one moe layer),
+    the train phase's batch at ``SHARDED_MOE_SEQ`` tokens, under the
+    reference's ``run_config_for`` settings of its train shape (bf16
+    moments, factored nu, bf16 accumulation; ``grad_accum``
+    ``TRAIN_ACCUM``). First on one device: a micro-batch, then
+    ``SHARDED_TRAIN_STEPS`` Runner steps (flash launches, every leaf
+    moved, ``moe_lb_loss`` finite); then on the model axis at a world of
+    one (``world_of_one``) under ``"2d"`` with Megatron-SP: the sharded
+    micro-batch against the unsharded one (loss, grad norm, and the
+    router's, the experts' ``w_in`` and ``w_dkv``'s grads within
+    ``TRAIN_TOL``), the Runner's steps as above plus the ledger's
+    collectives a step against ``train_collectives``, a profiled sharded
+    micro-batch; then ``moe_train_rank_cases``. ``cfg``: the config to
+    train (default the cut full-width one). Returns (both paths' Runner
+    launches, the rank cases' checks)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.params import init_params
+    from repro_torch.train import Runner, loss_fn
+    from repro_torch.train.optimizer import global_norm, grad_norm
+    from repro_torch.train.train_loop import _grads, _sync_grads, train_ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left >= 1 << 30:
+        raise AssertionError(f"{left} bytes still allocated before the "
+                             f"sharded moe train phase")
+    t0 = time.perf_counter()
+    full = get_config(SHARDED_MOE_ARCH)
+    cfg = cfg or dataclasses.replace(full, num_layers=SHARDED_MOE_LAYERS)
+    seq = SHARDED_MOE_SEQ
+    shape = ShapeConfig("train_4k", seq, TRAIN_BATCH, "train")
+    feed = for_model(cfg, shape, seed=SEED, device=device)
+    rows = TRAIN_BATCH // TRAIN_ACCUM     # a micro-batch's, the world's
+    micro = {k: v[:rows] for k, v in feed.batch_at(0).items()}
+    rcfg = RunConfig(grad_accum=TRAIN_ACCUM, learning_rate=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP, rules_variant="2d",
+                     seq_parallel_activations=True,
+                     moment_dtype="bfloat16", factored_nu=True,
+                     grad_accum_dtype="bfloat16")
+    micro_rcfg = dataclasses.replace(rcfg, grad_accum=1)
+    launches_want = (cfg.num_layers * TRAIN_ACCUM * 2
+                     * SHARDED_TRAIN_STEPS)
+    row = {"phase": "sharded_train_moe", "model": cfg.name,
+           "layers": cfg.num_layers,
+           "cut": f"{cfg.num_layers} of {full.num_layers} layers "
+                  f"({cfg.dense_layer_prefix} dense prefix)",
+           "seq": seq, "global_batch": TRAIN_BATCH,
+           "grad_accum": TRAIN_ACCUM, "moment_dtype": "bfloat16",
+           "factored_nu": True, "grad_accum_dtype": "bfloat16",
+           "flash_launches_want": launches_want}
+
+    def keep(n):
+        return n.endswith(SHARDED_MOE_KEEP)
+
+    def runner_steps(runner, core=None):
+        """The Runner's steps, counted: (flash launches, the leaves not
+        moved, the ledger's ops of the first step, peak bytes)."""
+        model = runner.state["params"]
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        ops0 = ledger_ops(core) if core is not None else {}
+        runner.run(1)
+        ops1 = ledger_ops(core) if core is not None else {}
+        runner.run(SHARDED_TRAIN_STEPS - 1)
+        launched = fa.flash_attention.launches
+        still = [n for n, p, b in zip(names, model.parameters(), before)
+                 if torch.equal(p.detach(), b)]
+        return launched, still, {v: ops1.get(v, 0) - ops0.get(v, 0)
+                                 for v in ops1}, \
+            torch.cuda.max_memory_allocated()
+
+    def log_ok(log):
+        return all(math.isfinite(m["loss"]) and math.isfinite(
+            m["grad_norm"]) and math.isfinite(m["moe_lb_loss"])
+            for m in log)
+
+    # 1. one device: a micro-batch, then the Runner's steps
+    row["memory_allocated_before"] = torch.cuda.memory_allocated()
+    model = init_params(cfg, device=device, seed=SEED)
+    row["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    grads, metrics = _grads(model, micro, cfg, micro_rcfg)
+    want = {"loss": metrics["loss"].item(),
+            "grad_norm": global_norm(grads.values()).item(),
+            "moe_lb_loss": metrics["moe_lb_loss"].item(),
+            # kept on the host: the card needs the room for the Runner
+            "grads": {n: g.cpu() for n, g in grads.items() if keep(n)}}
+    del grads
+    with tempfile.TemporaryDirectory() as d:
+        runner = Runner(cfg, rcfg, None, feed, d, device=device)
+        runner.init_state(model=model)
+        launched, still, _ops, peak = runner_steps(runner)
+        log = runner.metrics_log
+        row.update({"step_ms_unsharded": [m["dt"] * 1e3 for m in log],
+                    "flash_launches_unsharded": launched,
+                    "params_not_moved_unsharded": still[:10],
+                    "max_memory_allocated_unsharded": peak,
+                    "losses_unsharded": [m["loss"] for m in log],
+                    "moe_lb_loss_unsharded": [m["moe_lb_loss"]
+                                              for m in log]})
+        if launched != launches_want or still or not log_ok(log):
+            raise AssertionError(f"moe train (one device): {row}")
+        launches = launched
+        del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the model axis at a world of one, "2d" with Megatron-SP
+    with world_of_one(torch, device) as (serve_shd, core), \
+            tempfile.TemporaryDirectory() as d:
+        shd = train_ctx(serve_shd.axes, rcfg)
+        runner = Runner(cfg, rcfg, shd, feed, d, device=device)
+        runner.init_state(seed=SEED)
+        model = runner.state["params"]
+        grads, metrics = _grads(model, micro, cfg, micro_rcfg,
+                                lambda g: _sync_grads(model, g, seq=seq),
+                                global_batch=rows)
+        got = {"loss": metrics["loss"].item(),
+               "grad_norm": grad_norm(model, grads).item()}
+        gaps = {n: rel_err(grads[n], want["grads"][n].to(device))
+                for n in want["grads"]}
+        del grads, want["grads"]
+        row.update({
+            "sp_rows_axis": shd.sp_of(seq),
+            "loss_sharded": got["loss"], "loss_unsharded": want["loss"],
+            "loss_gap": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_norm_sharded": got["grad_norm"],
+            "grad_norm_unsharded": want["grad_norm"],
+            "grad_norm_gap": abs(got["grad_norm"] - want["grad_norm"])
+            / abs(want["grad_norm"]),
+            "moe_lb_loss_micro": [metrics["moe_lb_loss"].item(),
+                                  want["moe_lb_loss"]],
+            "compared_grads": len(gaps),
+            "compared_worst_gap": max(gaps.values()),
+            "worst_leaves": sorted(gaps, key=gaps.get)[-3:],
+            "tol": TRAIN_TOL})
+        if len(gaps) != 3 * cfg.num_layers - 2 * cfg.dense_layer_prefix \
+                or not shd.sp_of(seq) \
+                or max(row["loss_gap"], row["grad_norm_gap"],
+                       row["compared_worst_gap"]) > TRAIN_TOL:
+            raise AssertionError(f"sharded moe train parity: {row}")
+        launched, still, ops, peak = runner_steps(runner, core)
+        log = runner.metrics_log
+        row.update({
+            "step_ms_sharded": [m["dt"] * 1e3 for m in log],
+            "step_ratio": log[-1]["dt"] * 1e3
+            / row["step_ms_unsharded"][-1],
+            "ledger_ops_a_step": ops,
+            "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM, sp=True,
+                                                 factored=True),
+            "flash_launches_sharded": launched,
+            "params_not_moved_sharded": still[:10],
+            "params_total": len(list(model.parameters())),
+            "max_memory_allocated": peak,
+            "losses_sharded": [m["loss"] for m in log],
+            "moe_lb_loss_sharded": [m["moe_lb_loss"] for m in log]})
+        if launched != launches_want or still or not log_ok(log) \
+                or ops != row["ledger_ops_want"]:
+            raise AssertionError(f"moe train (sharded): {row}")
+        launches += launched
+        del runner, model
+
+        # a profiled sharded micro-batch at the phase's depth
+        pmodel = init_params(cfg, device=device, seed=SEED, shd=shd)
+        params = [p.requires_grad_(True) for p in pmodel.parameters()]
+
+        def micro_batch():
+            loss, _ = loss_fn(pmodel, micro, cfg, micro_rcfg, rows)
+            torch.autograd.grad(loss, params)
+
+        t1 = time.perf_counter()
+        prof = _profile(torch, micro_batch, top=6)
+        prof["seconds"] = time.perf_counter() - t1
+        prof["layers"] = cfg.num_layers
+        row["profile_micro_batch"] = prof
+        del pmodel, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = moe_train_rank_cases(torch, device, smi, row)
+    row.update({"seconds": time.perf_counter() - t0, "gpu": smi})
+    emit(row)
+    return launches, checks
+
+
+def moe_train_rank_cases(torch, device, smi: str, row: dict):
+    """``flash_train_rank`` at each TP train rank's shapes of the moe
+    family's full-width attention over ``TRAIN_RANK_S`` tokens:
+    deepseek-v2-236b's MLA prefill at tp 1 (all 128 heads, the shape the
+    phase's own path launches) and 2/4/8/16 (64, 32, 16, 8 a rank), each
+    its own kv head, dk 192 with v zero-padded from 128; arctic-480b's
+    56/8 at tp 2/4/8/16 (28/4, 14/2, 7/1, and 4 of 64 padded heads at
+    16). Puts the rows into ``row["rank_flash"]``; returns the checks by
+    (case, tp)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    timer = Timer(torch, device)
+    h, dk, dv = TRAIN_RANK_MLA
+    hq, kv = ARCTIC_HEADS
+    checks = {}
+    for tp in (1,) + CP_TP:
+        n = h // tp
+        checks[("deepseek mla", tp)] = flash_train_rank(
+            torch, device, gen, timer, smi, "deepseek mla", tp, n, n, dk,
+            dv=dv)
+        if tp == 1:
+            continue
+        hp, n, ranks = rank_heads(hq, tp)
+        r = ranks[-1]
+        checks[("arctic", tp)] = flash_train_rank(
+            torch, device, gen, timer, smi, "arctic", tp, n,
+            _local_kv_heads(hq, kv, hp, r * n, n), 128, r)
+    row["rank_flash"] = [c["row"] for c in checks.values()]
+    torch.cuda.empty_cache()
+    return checks
 
 
 def family_train_rank_cases(torch, device, smi: str, row: dict):
@@ -6420,6 +6775,15 @@ def main() -> int:
     for k, v in fam_launches.items():
         launches[k] += v
     seconds["sharded_train_families"] = time.perf_counter() - t_phase
+    # ... and the moe family: deepseek-v2-236b's dense prefix layer and one
+    # moe layer at full width, on one device and on the model axis with
+    # Megatron-SP (bf16 moments, factored nu, bf16 accumulation); each TP
+    # train rank's flash at MLA's and arctic's heads
+    t_phase = time.perf_counter()
+    moe_launches, moe_train_rank = phase_sharded_train_moe(torch, device,
+                                                           smi)
+    launches["flash_attention"] += moe_launches
+    seconds["sharded_train_moe"] = time.perf_counter() - t_phase
     launches["water_fill"] += phase_fairness(torch, device)
 
     rows = phase_timings(torch, device, smi)
@@ -6493,6 +6857,40 @@ def main() -> int:
         "max_rel_err": check["max_rel_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_fwd_bwd_ms"]})
+    # MLA's flash under autograd at the moe train phase's own shape (tp 1:
+    # all 128 heads, dk 192, v padded from 128): its launches are that
+    # path's; checked and timed in the phase
+    check = moe_train_rank[("deepseek mla", 1)]
+    row = check["row"]
+    summary.append({
+        "name": "flash_attention (deepseek MLA train, tp 1, S 4096)",
+        "route": "cuda", "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": moe_launches,
+        "check_launches": check["launches"],
+        "max_abs_err": check["max_abs_err"],
+        "max_rel_err": check["max_rel_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_fwd_bwd_ms"]})
+    # the moe family's TP train ranks at tp 16 under autograd: MLA's and
+    # arctic's heads; no main path runs them (the sharded trainer is a
+    # world of one); checked and timed in the sharded moe train phase
+    for name, key in (
+            ("flash_attention (deepseek MLA TP train rank, tp 16, S 4096)",
+             ("deepseek mla", 16)),
+            ("flash_attention (arctic TP train rank, tp 16, S 4096)",
+             ("arctic", 16))):
+        check = moe_train_rank[key]
+        row = check["row"]
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"], "launches": 0,
+            "check_launches": check["launches"],
+            "max_abs_err": check["max_abs_err"],
+            "max_rel_err": check["max_rel_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_fwd_bwd_ms"]})
     # the ssm, hybrid and encdec families' TP train ranks at tp 16 under
     # autograd: no main path runs them (the sharded trainers are worlds
     # of one); checked and timed in their sharded train phase

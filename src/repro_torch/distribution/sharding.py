@@ -50,13 +50,22 @@ replicated over the TP axis entering column-parallel work, once however
 many consumers share it) the identity forward and a ``psum`` of the
 cotangent backward, ``all_gather`` a ``reduce_scatter``.
 The backward's collectives are flagged ``gradient``, the forward's neither
-``serving`` nor ``gradient``. ``NamedSharding`` pairs a spec with the
+``serving`` nor ``gradient``. Megatron-SP (``seq_parallel``, the rules'
+``seq_sp``) splits a training forward's residual stream along the
+sequence over the TP axis (``for_seq`` makes the forward's copy with
+``sp`` set): a block gathers the rows it splits its work over
+(``rows_in``, whose transpose is a reduce-scatter) and reduce-scatters
+its row-parallel sums back to them (``rows_out``, ``_ReduceScatter``,
+whose transpose is an all-gather). ``shared`` divides the gradient of a
+value every rank computes alike where such a transpose sums it (the MoE
+aux losses). ``NamedSharding`` pairs a spec with the
 mesh: ``state_shardings``/``batch_shardings`` (``train/train_loop.py``)
 return trees of them; ``block`` gives a rank's slices, ``whole`` the
 global tensor from the ranks' blocks.
 """
 from __future__ import annotations
 
+import copy
 import math
 import time
 from dataclasses import dataclass, field
@@ -414,6 +423,39 @@ class _AllGather(torch.autograd.Function):
             None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """``reduce_scatter`` of partial sums along ``dim`` (Megatron-SP's
+    row-parallel output, each rank keeping its rows); its transpose is
+    the ``all_gather`` along the same dim."""
+
+    @staticmethod
+    def forward(ctx, x, shd, axes, dim):
+        ctx.shd, ctx.axes, ctx.dim = shd, axes, dim
+        return shd.reduce_scatter(x, axes, dim, gradient=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shd._all_gather(g.contiguous(), ctx.axes, ctx.dim), \
+            None, None, None
+
+
+class _Shared(torch.autograd.Function):
+    """A value every rank of a group computes alike and feeds a consumer
+    every rank computes alike (the MoE aux losses), upstream of a gather
+    or an enter whose transpose sums the ranks' cotangents: the identity
+    forward, the cotangent divided by the group's size backward, so the
+    sum gives it back once."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 def _records(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -489,6 +531,9 @@ class ShardingCtx:
     seq_parallel: bool = False
     train: bool = False
     axes: object = field(default=None, init=False, repr=False)
+    # the axis a training forward's residual stream splits its rows over
+    # (Megatron-SP), set on the forward's own copy (``for_seq``)
+    sp: object = field(default=None, init=False, repr=False)
     _native: object = field(default=None, init=False, repr=False)
     _installed: object = field(default=None, init=False, repr=False)
 
@@ -517,6 +562,13 @@ class ShardingCtx:
         if self.seq_parallel and x.ndim > with_seq_dim:
             dims[with_seq_dim] = "seq_sp"
         return self.constrain(x, dims)
+
+    @property
+    def loss_axes(self) -> Tuple[str, ...]:
+        """The axes a training loss sums over: every mesh axis but the TP
+        axes, whose ranks share one loss."""
+        tp = self.tp_axes
+        return tuple(a for a in self.axis_sizes if a not in tp)
 
     @property
     def axis_sizes(self) -> Dict[str, int]:
@@ -554,6 +606,90 @@ class ShardingCtx:
 
     def gathered(self, tree) -> GatheredTree:
         return GatheredTree(tree, self)
+
+    # -- Megatron-SP: the residual stream's rows split over the TP axis ----
+    def for_seq(self, seq: int) -> "ShardingCtx":
+        """The context a training forward over ``seq`` tokens runs in:
+        with ``seq_parallel`` and the rules' ``seq_sp`` dividing ``seq``,
+        a copy whose ``sp`` names the axis the residual stream's rows
+        split over between blocks (the reference's ``constrain_act``);
+        else this context (where ``seq_sp`` does not divide the sequence
+        the reference's constraint leaves it whole too)."""
+        axis = self.split("seq_sp", seq) \
+            if self.seq_parallel and self.train else None
+        if not axis:
+            return self
+        out = copy.copy(self)
+        out.sp = axis
+        return out
+
+    def sp_of(self, seq: int):
+        """The axis a training forward over ``seq`` tokens splits its
+        rows over (``for_seq``), or None."""
+        return self.for_seq(seq).sp
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Under SP, the rank's rows of the residual stream (dim 1)
+        all-gathered over ``sp`` and marked entered over it, so a later
+        ``enter`` or ``gather_rows`` of the result is the identity; its
+        transpose reduce-scatters the cotangent. Else ``x``."""
+        if not self.sp or getattr(x, "_entered", None) == _flat(self.sp):
+            return x
+        out = self.all_gather(x, self.sp, 1)
+        out._entered = _flat(self.sp)
+        return out
+
+    def rows_in(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """``x`` entering work split over ``axis`` (heads, MLP columns,
+        the vocabulary): under SP its rows gathered where the work is
+        split (``gather_rows``), the rank's own rows where it is not;
+        else ``enter``."""
+        if self.sp:
+            return self.gather_rows(x) if axis else x
+        return self.enter(x, axis)
+
+    def rows_out(self, y: torch.Tensor, axis, x_in: torch.Tensor
+                 ) -> torch.Tensor:
+        """The output ``y`` of work on ``x_in`` (``rows_in``'s result):
+        partial sums over ``axis`` ``psum``med, or, under SP with
+        ``x_in``'s rows gathered, reduce-scattered along the sequence so
+        each rank keeps its rows (the transpose an all-gather); an output
+        over gathered rows with nothing to sum keeps the rank's rows."""
+        if self.sp and getattr(x_in, "_entered", None) == _flat(self.sp):
+            return self.scatter_rows(y) if axis else self.own_rows(y)
+        return self.psum(y, axis) if axis else y
+
+    def scatter_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial sums over ``sp`` of every row (dim 1), reduce-scattered
+        so the rank keeps the sum of its rows; under autograd the
+        transpose is an all-gather (``_ReduceScatter``)."""
+        if _records(y):
+            return _ReduceScatter.apply(y, self, self.sp, 1)
+        return self.reduce_scatter(y, self.sp, 1, gradient=False)
+
+    def own_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``y``'s rows (dim 1) over ``sp``."""
+        return y[:, self.block(self.sp, y.shape[1])]
+
+    def enter_weight(self, w: torch.Tensor, axis) -> torch.Tensor:
+        """A weight every rank of ``axis`` holds whole and reads for its
+        part of work split over it (kv heads, q/k norms, MLA's
+        down-projection): ``enter``ed, so its gradient is summed over
+        ``axis``; under SP as it is, the step summing every leaf the SP
+        axis does not split over that axis after the backward
+        (``train_loop.sum_axes``)."""
+        return w if self.sp else self.enter(w, axis)
+
+    def shared(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x``, which every rank of ``axes`` computes alike for a
+        consumer every rank computes alike, where a gather's or an
+        enter's transpose then sums the ranks' cotangents: its cotangent
+        divided by the ranks' count (``_Shared``), so the sum counts it
+        once. The identity off autograd or with no axes."""
+        if not axes or not _records(x):
+            return x
+        return _Shared.apply(
+            x, math.prod(self.axis_sizes[a] for a in _flat(axes)))
 
     def coord(self) -> Dict[str, int]:
         if self.axes is None:

@@ -537,7 +537,12 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
     ``wk``, ``wv`` and the q/k norms' scales enter the heads' split through
     ``shd.enter``, so the kv heads' gradient, of which each rank sees only
     its own query heads' use, is summed over ``model``; the head mask
-    zeroes the padded heads' gradients in both directions."""
+    zeroes the padded heads' gradients in both directions. Under
+    Megatron-SP (``shd.sp``) x holds the rank's rows of the sequence: they
+    are gathered for the heads' split and the out-projection's partial
+    sums reduce-scattered back to them (``rows_in``/``rows_out``), and the
+    weights are not entered (``enter_weight``: the step sums their
+    gradients over the axis)."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     naive = rcfg.attention_impl == "naive"
     sharded = shd is not None and shd.mesh is not None
@@ -556,13 +561,14 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
         hp, first = n * tp, rank * n
         mask = head_mask(h, hp, x.dtype, x.device)[first:first + n, None]
         if axis and torch.is_grad_enabled():
-            x = shd.enter(x, axis)
+            x = shd.rows_in(x, axis)
             if kv_x is not None:
                 kv_x = shd.enter(kv_x, axis)
-            wk, wv = shd.enter(wk, axis), shd.enter(wv, axis)
+            wk, wv = shd.enter_weight(wk, axis), shd.enter_weight(wv, axis)
             if cfg.qk_norm:
-                q_norm, k_norm = ({"scale": shd.enter(t["scale"], axis)}
-                                  for t in (q_norm, k_norm))
+                q_norm, k_norm = (
+                    {"scale": shd.enter_weight(t["scale"], axis)}
+                    for t in (q_norm, k_norm))
     q = _heads(x, p["wq"])
     if cfg.qk_norm:
         q = apply_norm(q_norm, q, "rmsnorm")
@@ -602,7 +608,7 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
         else:
             o = flash_attention(q, knew, vnew, causal=causal, window=window)
         o = o.to(q_dtype)
-        out = _sum_heads(shd, _out(o * mask, p["wo"]), axis) if sharded \
+        out = shd.rows_out(_out(o * mask, p["wo"]), axis, x) if sharded \
             else _out(o, p["wo"])
         return (out, kv_out) if return_cache else out
 
@@ -740,11 +746,16 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
     ``t <= pos``; p is rounded to x's dtype before the latent PV product,
     which w_uv takes back to heads. Returns (out, cache).
 
-    ``shd``: a ``ShardingCtx`` on a mesh (no grad), with ``wq``, ``w_uk``,
-    ``w_uv`` and ``wo`` the rank's (padded) heads and ``w_dkv`` whole. The
-    prefill runs flash on the rank's heads and sums ``wo``'s products over
-    ``model``. Decode needs ``max_seq``, the latent's global length: where
-    the model axis splits the latent's sequence each rank holds a
+    ``shd``: a ``ShardingCtx`` on a mesh, with ``wq``, ``w_uk``, ``w_uv``
+    and ``wo`` the rank's (padded) heads and ``w_dkv`` whole. The prefill
+    (and training) runs flash on the rank's heads and sums ``wo``'s
+    products over the heads' axis. Under autograd x, ``w_dkv`` and
+    ``kv_norm``, which every rank holds whole but reads for its own heads
+    only, enter the split, so their gradients are summed over it (under
+    Megatron-SP x's rows are gathered instead and the two weights summed
+    by the step, as ``gqa_attention`` does). Decode needs ``max_seq``,
+    the latent's global length: where the model axis splits the latent's
+    sequence each rank holds a
     contiguous chunk, the rank owning ``decode_pos`` writes the new row,
     the absorbed queries of all heads are gathered (B x H x (r + rope),
     never the cache) and scored against the rank's chunk, and the chunks
@@ -756,18 +767,26 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
         mla.kv_lora_rank
     scale = 1.0 / math.sqrt(nope + rope_d)
     sharded = shd is not None and shd.mesh is not None
+    w_dkv, kv_norm = p["w_dkv"], p["kv_norm"]
     if sharded:
-        if torch.is_grad_enabled():
-            raise NotImplementedError("training MLA on a mesh is not "
-                                      "ported yet (ROADMAP 3c)")
+        # the axis the query heads split over (none under the "fsdp"
+        # rules); under autograd x and the weights every rank holds whole
+        # but reads for its own heads only (w_dkv, kv_norm) enter the
+        # split, so their gradients are summed over it
+        axis = _head_axis(p)
+        tp = shd.axis_sizes[axis] if axis else 1
         n = p["wq"].shape[1]                   # this rank's query heads
-        first = shd.index("model") * n
-        mask = head_mask(cfg.num_heads, n * shd.tp, x.dtype,
+        first = (shd.index(axis) if axis else 0) * n
+        mask = head_mask(cfg.num_heads, n * tp, x.dtype,
                          x.device)[first:first + n, None]
+        if axis and torch.is_grad_enabled():
+            x = shd.rows_in(x, axis)
+            w_dkv = shd.enter_weight(w_dkv, axis)
+            kv_norm = {"scale": shd.enter_weight(kv_norm["scale"], axis)}
     q = _heads(x, p["wq"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    dkv = matmul(x, p["w_dkv"])
-    c_kv = apply_norm(p["kv_norm"], dkv[..., :r], "rmsnorm")
+    dkv = matmul(x, w_dkv)
+    c_kv = apply_norm(kv_norm, dkv[..., :r], "rmsnorm")
     k_pe_new = dkv[..., r:]
 
     if cache is None or decode_pos is None:
@@ -780,7 +799,7 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *, positions,
         k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], rope_d)], -1)
         qq = torch.cat([q_nope, q_rope], -1)
         o = _mla_prefill(qq, k, v, scale, rcfg)
-        out = shd.psum(_out(o * mask, p["wo"]), "model") if sharded \
+        out = shd.rows_out(_out(o * mask, p["wo"]), axis, x) if sharded \
             else _out(o, p["wo"])
         if return_cache:
             return out, {"lat": torch.cat([c_kv, k_pe[:, :, 0]], -1)}

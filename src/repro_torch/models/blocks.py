@@ -143,8 +143,10 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     attention, the SSM path (``ssm.ssm_block``), the MLP
     (``layers.apply_mlp``) and the experts (``moe.apply_moe``); an
     ``enc`` layer (run in "train" mode) too. Under autograd (training on
-    a mesh, every kind but ``moe``) ``p`` is the layer as
-    ``ShardingCtx.gathered`` reads it, its FSDP shards gathered; a
+    a mesh, every kind) ``p`` is the layer as ``ShardingCtx.gathered``
+    reads it, its FSDP shards gathered, and under Megatron-SP (``shd.sp``;
+    the dense, dense_prefix and moe kinds) x holds the rank's rows of the
+    sequence, the norms run on them and each half gathers them; a
     ``hybrid`` layer's one pre-norm output ``h``, which both its attention
     and its SSM path read, enters their split once in the block (the
     paths' own enters of it are then the identity), so its gradient sums

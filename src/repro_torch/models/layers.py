@@ -79,10 +79,12 @@ def apply_mlp(p, x: torch.Tensor, activation: str, shd=None):
     partial products are summed over ``model``. Under autograd ``x``
     enters the column-parallel products through ``shd.enter`` (its
     gradient summed over ``model``) and the sum's backward is the
-    identity."""
+    identity. Under Megatron-SP (``shd.sp``) ``x`` holds the rank's rows:
+    they are gathered before the split products and the partial sums
+    reduce-scattered back to them (``rows_in``/``rows_out``); an MLP the
+    axis does not split runs on the rows ``x`` holds."""
     axis = _split(p, "w_out", 0) if shd is not None else None
-    if axis:
-        x = shd.enter(x, axis)
+    x_in = x = shd.rows_in(x, axis) if shd is not None else x
     h = matmul(x, p["w_in"])
     if activation == "silu_glu":
         g = matmul(x, p["w_gate"])
@@ -92,7 +94,7 @@ def apply_mlp(p, x: torch.Tensor, activation: str, shd=None):
     else:  # gelu (tanh approximation, jax.nn.gelu's default)
         h = F.gelu(f32(h), approximate="tanh").to(x.dtype)
     out = matmul(h, p["w_out"])
-    return shd.psum(out, axis) if axis else out
+    return shd.rows_out(out, axis, x_in) if shd is not None else out
 
 
 # ---------------------------------------------------------------------------
@@ -154,15 +156,20 @@ def embed_tokens(p, tokens: torch.Tensor, dtype: torch.dtype, shd=None):
     rank looks up the tokens in its range, zeroes the others and sums over
     ``model``: one nonzero term per token, so the sum is exact. Under
     autograd the sum's backward is the identity, so each rank's rows of the
-    table get the gradient of its own tokens."""
+    table get the gradient of its own tokens. Under Megatron-SP
+    (``shd.sp``) the sum is a reduce-scatter along the sequence, so each
+    rank keeps its rows of the residual stream."""
     axis = _split(p, "tokens", 0) if shd is not None else None
     if not axis:
-        return F.embedding(tokens.long(), p["tokens"]).to(dtype)
+        e = F.embedding(tokens.long(), p["tokens"]).to(dtype)
+        return shd.own_rows(e) if shd is not None and shd.sp else e
     n = p["tokens"].shape[0]
     idx = tokens.long() - shd.index(axis) * n
     inside = (idx >= 0) & (idx < n)
     e = F.embedding(idx.clamp(0, n - 1), p["tokens"]) \
         * inside[..., None].to(p["tokens"].dtype)
+    if shd.sp:
+        return shd.scatter_rows(e).to(dtype)
     return shd.psum(e, axis).to(dtype)
 
 
@@ -172,12 +179,14 @@ def lm_logits(p, x: torch.Tensor, softcap: float = 0.0, shd=None):
     argmax, ``train.train_loop.loss_fn`` their cross entropy); there ``x``
     enters through ``shd.enter``, so under autograd its gradient is summed
     over the vocab's axis. A tied table's gradient sums this use and the
-    lookup's (``embed_tokens``)."""
+    lookup's (``embed_tokens``). Under Megatron-SP the rank's rows are
+    gathered first (``rows_in``), so the logits cover the rank's batch
+    rows whole."""
     key = "head" if "head" in p else "tokens"
     w = p[key]
     axis = _split(p, key, 0) if shd is not None else None
     if axis:
-        x = shd.enter(x, axis)
+        x = shd.rows_in(x, axis)
     logits = x @ w.T
     if softcap:
         logits = torch.tanh(f32(logits) / softcap) * softcap

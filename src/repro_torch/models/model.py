@@ -43,13 +43,14 @@ ring's slots) over ``model`` (``kv_seq``; ``init_cache(..., shd=)`` and
 the prefill give each rank its chunk). A MoE layer routes and truncates
 the reference's dispatch groups (``moe.dispatch_groups``). Their logits are the rank's vocab
 shard of its rows; ``greedy`` takes them to global token ids and
-``gather_logits`` to the full logits. ``forward_train`` trains the dense
-and vlm families on a mesh, a model made with a training ``ShardingCtx``
+``gather_logits`` to the full logits. ``forward_train`` trains every
+family on a mesh, a model made with a training ``ShardingCtx``
 (``train=True``): each rank holds its block of the run's rules (FSDP and
-TP), and each layer gathers its FSDP shards as it runs. The ssm, hybrid
-and encdec families train there too (an encoder's layers gather theirs
-in ``encode``, its frames the rank's rows of the batch); the moe family
-and MLA refuse by name (``check_mesh_training``).
+TP), and each layer gathers its FSDP shards as it runs (an encoder's
+layers gather theirs in ``encode``, its frames the rank's rows of the
+batch; a moe layer's aux is over the global batch). Megatron-SP
+activations (``seq_parallel_activations``) train the dense, vlm and moe
+families; the others refuse them by name (``check_mesh_training``).
 """
 from __future__ import annotations
 
@@ -69,12 +70,13 @@ from repro_torch.models.blocks import apply_block, block_cache_schema, \
     block_schema
 from repro_torch.models.layers import apply_norm, embed_schema, \
     embed_tokens, lm_logits, norm_schema, sinusoid_positions
-from repro_torch.models.moe import dispatch_groups
+from repro_torch.models.moe import Groups, dispatch_groups
 from repro_torch.models.schema import ParamTree
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
-# the families whose training runs on a mesh (ROADMAP 3c: moe, MLA)
-MESH_TRAIN_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "encdec")
+# the families whose training on a mesh takes Megatron-SP activations
+# (ROADMAP 3c: ssm, hybrid, encdec)
+SP_TRAIN_FAMILIES = ("dense", "vlm", "moe")
 REMAT = ("full", "dots", "none")
 # cache leaves laid out along the sequence (padded to max_seq, or turned
 # into a ring, at prefill); the others (SSM state, conv tails) are
@@ -331,17 +333,18 @@ def _ring_len(shd, seg: Segment, n_slots: int,
 
 
 def _train_layer(block, x, cfg, rcfg, seg: Segment, positions, enc_out,
-                 shd=None):
+                 shd=None, groups: Groups = Groups()):
     """One layer in training (or an encoder layer): (x', aux). With a
     training ``ShardingCtx`` the layer reads its weights gathered over
     their FSDP axes (``shd.gathered``): inside a rematerialized layer the
     gathered copies live while the layer runs, and its recompute gathers
-    them again."""
+    them again. ``groups``: a moe layer's dispatch groups."""
     if shd is not None and shd.train:
         block = shd.gathered(block)
     x, _, aux = apply_block(block, x, cfg, rcfg, seg.kind,
                             positions=positions, window=seg.window,
-                            enc_out=enc_out, mode="train", shd=shd)
+                            enc_out=enc_out, mode="train", shd=shd,
+                            groups=groups)
     return x, aux
 
 
@@ -379,15 +382,16 @@ def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
 
 
 def _embed_in(model: Model, tokens: torch.Tensor, positions: torch.Tensor,
-              embed=None):
+              embed=None, shd=None):
     """The decoder's input: token embeddings in the model's dtype, plus an
     encoder model's sinusoid positions (``positions`` (S,) at prefill and
     in training, (B, 1) per row at decode), rounded to that dtype.
     ``embed``: the table as the forward reads it (default
-    ``model.embed``)."""
+    ``model.embed``); ``shd``: the forward's context (default
+    ``model.shd``; a training forward's Megatron-SP copy)."""
     cfg = model.cfg
     x = embed_tokens(model.embed if embed is None else embed, tokens,
-                     dtype_of(cfg.dtype), model.shd)
+                     dtype_of(cfg.dtype), model.shd if shd is None else shd)
     if cfg.family == "encdec":
         x = x + sinusoid_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -408,22 +412,18 @@ def _encoded(model: Model, frames, rcfg: RunConfig):
 
 def check_mesh_training(cfg: ModelConfig, rcfg: RunConfig) -> None:
     """Raise for a training run on a mesh that the port does not have:
-    the moe family (the families other than ``MESH_TRAIN_FAMILIES``),
-    MLA and Megatron-SP activations (ROADMAP 3c)."""
-    if cfg.family not in MESH_TRAIN_FAMILIES or cfg.mla is not None:
-        what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
-        raise NotImplementedError(
-            f"{cfg.name}: training {what} on a mesh is not ported yet "
-            f"(ROADMAP 3c); the {', '.join(MESH_TRAIN_FAMILIES)} families "
-            f"train on a mesh")
-    if rcfg.seq_parallel_activations:
+    Megatron-SP activations for the families other than
+    ``SP_TRAIN_FAMILIES`` (ROADMAP 3c)."""
+    if rcfg.seq_parallel_activations and cfg.family not in SP_TRAIN_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: seq_parallel_activations (Megatron-SP between "
-            f"blocks) on a mesh is not ported yet (ROADMAP 3c)")
+            f"blocks) for the {cfg.family} family on a mesh is not ported "
+            f"yet (ROADMAP 3c); the {', '.join(SP_TRAIN_FAMILIES)} families "
+            f"train with it")
 
 
 def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
-                  rcfg: RunConfig):
+                  rcfg: RunConfig, global_batch: Optional[int] = None):
     """batch: tokens (B, S) int [+ frames (B, encoder_seq, d) for an
     encoder model]. Returns (logits (B, S, V) in the model's dtype, aux),
     with autograd recording: embed, the encoder, every layer (each under
@@ -431,22 +431,45 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     model's losses and routing statistics, each the mean over a segment's
     layers summed over segments (0-d f32); empty for other families.
 
-    On a mesh (a ``Model`` made with a training ``ShardingCtx``; every
-    family but moe and MLA, ``check_mesh_training``) ``batch`` holds this
-    rank's rows (``frames`` too), its block of the global batch over the
-    batch axes (``train.batch_shardings``,
+    On a mesh (a ``Model`` made with a training ``ShardingCtx``)
+    ``batch`` holds this rank's rows (``frames`` too), its block of the
+    global batch over the batch axes (``train.batch_shardings``,
     ``data.DataPipeline(shardings=)``; the same rows on every rank of the
-    TP axis), the layers run on the rank's heads and MLP columns with
-    their FSDP shards gathered, and the logits are the rank's vocab
-    columns of its rows."""
+    TP axis), the layers run on the rank's heads, MLP columns and experts
+    with their FSDP shards gathered, and the logits are the rank's vocab
+    columns of its rows. A moe layer routes the reference's dispatch
+    groups of the ``global_batch`` rows the ranks' blocks make up
+    (``moe.dispatch_groups``; required for a moe model on a mesh) and its
+    aux is over the global batch, as the reference's. With
+    ``rcfg.seq_parallel_activations`` (the dense, vlm and moe families,
+    ``check_mesh_training``) the residual stream between blocks holds the
+    rank's rows of the sequence over the model axis (Megatron-SP,
+    ``ShardingCtx.for_seq``): the embedding's sum and each block's
+    row-parallel sums are reduce-scatters, each block gathers the rows it
+    splits its work over, the norms run on the rank's rows, and the LM
+    head gathers them back."""
     check_family(cfg)
     shd = model.shd
+    tokens = batch["tokens"]
+    groups = Groups()
     if shd is not None:
         check_mesh_training(cfg, rcfg)
-    tokens = batch["tokens"]
+        b, s = tokens.shape
+        shd = shd.for_seq(s)
+        if shd.sp and vocab_axis(model) != shd.sp:
+            raise NotImplementedError(
+                f"{cfg.name}: Megatron-SP with a vocabulary the {shd.sp} "
+                f"axis does not split is not ported")
+        if cfg.moe is not None:
+            if global_batch is None:
+                raise ValueError(
+                    f"{cfg.name}: a moe model's sharded training step "
+                    f"needs the global batch its ranks' rows make up "
+                    f"(global_batch=)")
+            groups = dispatch_groups(shd, global_batch, s, b)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_in(model, tokens, positions,
-                  None if shd is None else shd.gathered(model.embed))
+                  None if shd is None else shd.gathered(model.embed), shd)
     enc_out = _encoded(model, batch.get("frames"), rcfg)
     layer_fn = _remat(_train_layer, rcfg)
     layer = 0
@@ -455,7 +478,7 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
         seg_aux: Dict = {}
         for _ in range(seg.count):
             x, aux = layer_fn(model.blocks[layer], x, cfg, rcfg, seg,
-                              positions, enc_out, shd)
+                              positions, enc_out, shd, groups)
             for k, v in aux.items():
                 seg_aux[k] = seg_aux.get(k, 0.0) + v
             layer += 1

@@ -33,6 +33,7 @@ no Pallas kernel here.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -72,13 +73,21 @@ def _capacity(tokens: int, m) -> int:
     return max(8, min(c, tokens)) if tokens >= 8 else max(1, min(c, tokens))
 
 
-def route_topk(router_w, x_flat, m, shd=None, axis=None
+def route_topk(router_w, x_flat, m, shd=None, axis=None, sums=None
                ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """x_flat (T, d) -> (gate weights (T, k) f32, expert ids (T, k) int64,
     aux: ``moe_lb_loss``, ``moe_z_loss``, ``moe_max_frac``). With the
     router's expert columns split over ``axis`` (``shd`` a
     ``ShardingCtx``) the rank's f32 logits are gathered over it first, so
-    every rank routes over all experts."""
+    every rank routes over all experts.
+
+    ``sums`` (training on a mesh): the aux's statistics over these tokens
+    instead, summed for ``global_aux`` to reduce over the batch: each
+    expert's assignments (``counts``, no gradient) and router probability
+    (``probs``), and the squared log-sum-exps (``lse2``). ``sums`` names
+    the axes whose ranks compute them alike while a transpose upstream
+    (the logits' gather, Megatron-SP's row gather) sums their cotangents:
+    their gradient is divided over those ranks (``ShardingCtx.shared``)."""
     logits = f32(x_flat) @ f32(router_w)
     if axis:
         logits = shd.all_gather(logits, axis, -1)
@@ -87,14 +96,44 @@ def route_topk(router_w, x_flat, m, shd=None, axis=None
     gate, eidx = top[:, :m.top_k], idx[:, :m.top_k]
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     t, e = probs.shape
-    frac = torch.bincount(eidx.reshape(-1), minlength=e).float() \
-        / (t * m.top_k)
+    counts = torch.bincount(eidx.reshape(-1), minlength=e).float()
+    if sums is not None:
+        lse = torch.logsumexp(shd.shared(logits, sums), dim=-1)
+        return gate, eidx, {"counts": counts,
+                            "probs": shd.shared(probs, sums).sum(dim=0),
+                            "lse2": torch.sum(torch.square(lse))}
+    frac = counts / (t * m.top_k)
     imp = probs.mean(dim=0)
     aux = {"moe_lb_loss": e * torch.sum(frac * imp),
            "moe_z_loss": torch.mean(torch.square(
                torch.logsumexp(logits, dim=-1))),
            "moe_max_frac": frac.max()}
     return gate, eidx, aux
+
+
+def global_aux(shd, sums: Dict, drops, tokens: int, m) -> Dict:
+    """The reference's aux over the global batch (``AUX_KEYS``) from a
+    rank's ``route_topk`` sums over its ``tokens`` and the drop shares of
+    its dispatch groups: one ``psum`` over the loss's axes (the batch
+    axes; its backward the identity, so each rank's gradient is its
+    tokens' share), divided by the tokens and the groups those ranks hold
+    (a row held by several of them counts once for each, as the loss
+    counts it). ``moe_lb_loss`` is E x sum(frac x imp) of the global
+    means, the busiest share the global ``frac``'s, the drop share the
+    mean over the reference's groups."""
+    e = sums["counts"].shape[0]
+    axes = shd.loss_axes
+    n = math.prod(shd.axis_sizes[a] for a in axes)
+    v = torch.cat([sums["counts"], sums["probs"], sums["lse2"][None],
+                   torch.stack(drops).sum()[None]])
+    if axes:
+        v = shd.psum(v, axes)
+    t = tokens * n
+    frac = v[:e].detach() / (t * m.top_k)
+    return {"moe_lb_loss": e * torch.sum(frac * v[e:2 * e] / t),
+            "moe_z_loss": v[2 * e] / t,
+            "moe_max_frac": frac.max(),
+            "moe_drop_frac": v[2 * e + 1].detach() / (len(drops) * n)}
 
 
 def _dispatch_tables(eidx, gate, n_experts: int, cap: int, tokens: int,
@@ -194,36 +233,55 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, shd=None,
     it holds in f32, and the f32 partials are summed over the axis before
     the one cast; where the axis does not divide the experts every rank
     holds them all and nothing is summed. The shared and dense branches
-    are ``apply_mlp``'s sharded MLP, on the rank's rows."""
-    m = cfg.moe
+    are ``apply_mlp``'s sharded MLP, on the rank's rows.
+
+    In training (``shd.train``) x enters the experts' split under
+    autograd (its gradient, partial on each rank, summed over the axis;
+    a branch split over the same axis shares the one enter), and the aux
+    is the reference's over the global batch (``global_aux``). Under
+    Megatron-SP (``shd.sp``) x holds the rank's rows of the sequence: the
+    whole rows are gathered once for routing (a group is the reference's
+    whole rows) and every branch, and each branch's output
+    reduce-scattered back to the rank's rows (or cut to them where
+    nothing is summed)."""
+    axis = _split(p, "w_in", 0) if shd is not None else None
+    if shd is not None and shd.sp:
+        x = shd.gather_rows(x)
+    xr = shd.rows_in(x, axis) if axis else x
     if groups.gather:
-        xg = shd.all_gather(x, groups.gather, 0)[groups.rows]
-        y, aux = _routed(p, xg, cfg, shd, 1)
+        xg = shd.all_gather(xr, groups.gather, 0)[groups.rows]
+        y, aux = _routed(p, xg, cfg, shd, 1, axis)
         y = y[groups.mine]
     else:
-        y, aux = _routed(p, x, cfg, shd, groups.local)
-    if m.num_shared_experts:
-        y = y + apply_mlp(p["shared"], x, cfg.activation, shd)
-    if m.parallel_dense:
-        y = y + apply_mlp(p["dense"], x, cfg.activation, shd)
+        y, aux = _routed(p, xr, cfg, shd, groups.local, axis)
+    if shd is not None:
+        y = shd.rows_out(y, axis, x)
+    y = y.to(x.dtype)
+    for key in ("shared", "dense"):
+        if key in p:
+            q = p[key]
+            same = shd is not None and _split(q, "w_out", 0) == axis
+            y = y + apply_mlp(q, xr if same else x, cfg.activation, shd)
     return y, aux
 
 
-def _routed(p, x: torch.Tensor, cfg: ModelConfig, shd, groups: int
-            ) -> Tuple[torch.Tensor, Dict]:
+def _routed(p, x: torch.Tensor, cfg: ModelConfig, shd, groups: int,
+            axis) -> Tuple[torch.Tensor, Dict]:
     """The routed experts' sum over x's tokens in ``groups`` dispatch
-    groups, in x's dtype, and the aux."""
+    groups, in f32 (partial over ``axis``, the experts' split), and the
+    aux (``global_aux``'s in training on a mesh)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     k, e = m.top_k, m.num_experts
     tg = t // groups
     cap = _capacity(tg, m)
-    axis = _split(p, "w_in", 0) if shd is not None else None
     el = p["w_in"].shape[0]               # the experts this rank holds
     lo = shd.index(axis) * el * cap if axis else 0
     xf = x.reshape(t, d)
-    gate, eidx, aux = route_topk(p["router"], xf, m, shd, axis)
+    train = shd is not None and shd.train
+    shared = (axis or shd.sp or ()) if train else None
+    gate, eidx, aux = route_topk(p["router"], xf, m, shd, axis, shared)
     parts, drops = [], []
     for gi in range(groups):
         rows = slice(gi * tg, (gi + 1) * tg)
@@ -246,8 +304,9 @@ def _routed(p, x: torch.Tensor, cfg: ModelConfig, shd, groups: int
         parts.append(torch.sum(f32(picked).reshape(tg, k, d)
                                * w_flat.reshape(tg, k, 1), dim=1))
     y = parts[0] if groups == 1 else torch.cat(parts)
-    if axis:
-        y = shd.psum(y, axis)
-    aux["moe_drop_frac"] = drops[0] if groups == 1 \
-        else torch.stack(drops).mean()
-    return y.to(x.dtype).reshape(b, s, d), aux
+    if train:
+        aux = global_aux(shd, aux, drops, t, m)
+    else:
+        aux["moe_drop_frac"] = drops[0] if groups == 1 \
+            else torch.stack(drops).mean()
+    return y.reshape(b, s, d), aux

@@ -119,6 +119,12 @@ def grad_norm(model, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         for n in grads])
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """An f32 copy of ``t`` that in-place arithmetic may write (``float``
+    returns ``t`` itself when it is f32 already)."""
+    return t.to(torch.float32, copy=True)
+
+
 def _round(v: float, dtype: torch.dtype) -> float:
     """``v`` as the nearest value of ``dtype`` (exact in f32 and bf16)."""
     return torch.tensor(v, dtype=dtype).item()
@@ -171,14 +177,18 @@ def adamw_update(model, grads: Dict[str, torch.Tensor], opt_state: Dict,
             nu["full"].copy_(nu_f)
             return nu_f
         g2f = g2.float()
+        del g2
         nd = g2f.dim()
         vr = nu["vr"] * b2 + (1 - b2) * mean(g2f, -1, spec, nd - 1)
         vc = nu["vc"] * b2 + (1 - b2) * mean(g2f, -2, spec, nd - 2)
+        del g2f
         denom = torch.clamp(mean(vr, -1, spec, nd - 2, keepdim=True),
                             min=1e-30)
         nu["vr"].copy_(vr)
         nu["vc"].copy_(vc)
-        return (vr[..., None] * vc[..., None, :] / denom[..., None]).to(cdt)
+        # in place: one f32 temporary of the slot's size, not three
+        full = vr[..., None] * vc[..., None, :]
+        return full.div_(denom[..., None]).to(cdt)
 
     params = dict(model.named_parameters())
     slots = opt_slots(model.cfg)
@@ -193,11 +203,20 @@ def adamw_update(model, grads: Dict[str, torch.Tensor], opt_state: Dict,
         mu_f = mu.to(cdt) * b1c + b1m * g
         nu_f = nu_update(opt_state["nu"][slot.name], (g * g).to(cdt),
                          slot_spec(slot, layouts) if shd else ())
-        step = (mu_f.float() / c1) / (torch.sqrt(nu_f.float() / c2) + eps)
-        if mask[slot.name]:
-            step = step + rcfg.weight_decay * p.float()
-        new_p = (p.float() - lr * step).to(p.dtype)
+        del g
         mu.copy_(mu_f)
+        # the step's arithmetic in place on f32 copies, in the reference's
+        # order, so a slot of a billion elements (an expert stack) holds
+        # two f32 temporaries at a time, not six: (mu / c1) / (sqrt(nu /
+        # c2) + eps) [+ wd p], then p - lr * step
+        step = _f32(mu_f).div_(c1)
+        del mu_f
+        step.div_(_f32(nu_f).div_(c2).sqrt_().add_(eps))
+        del nu_f
+        if mask[slot.name]:
+            step.add_(_f32(p).mul_(rcfg.weight_decay))
+        new_p = _f32(p).sub_(step.mul_(lr)).to(p.dtype)
+        del step
         if slot.stacked:
             for i, q in enumerate(ps):
                 q.copy_(new_p[i])

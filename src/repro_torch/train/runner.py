@@ -103,8 +103,9 @@ class Runner:
         ``_build``)."""
         self.shd = None if self.mesh is None \
             else train_ctx(self.mesh, self.rcfg)
-        self.step_fn = make_train_step(self.cfg, self.rcfg, self.shd,
-                                       self.engine)
+        self.step_fn = make_train_step(
+            self.cfg, self.rcfg, self.shd, self.engine,
+            global_batch=self.pipeline.dcfg.global_batch)
         self.state_sh = self.batch_sh = None
         if self.shd is not None:
             self.state_sh = state_shardings(self.cfg, self.rcfg, self.shd)

@@ -55,13 +55,6 @@ from repro_torch.models.params import (
 from repro_torch.train.optimizer import adamw_update, init_opt_state
 
 
-def _loss_axes(shd: ShardingCtx) -> Tuple[str, ...]:
-    """The axes a loss sums over: every mesh axis but the TP axes, whose
-    ranks share one loss."""
-    tp = shd.tp_axes
-    return tuple(a for a in shd.axis_sizes if a not in tp)
-
-
 def _sharded_ce(model: Model, logits: torch.Tensor, labels: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse, picked) of each of the rank's tokens from its vocab columns:
@@ -84,7 +77,8 @@ def _sharded_ce(model: Model, logits: torch.Tensor, labels: torch.Tensor
     return lse, picked
 
 
-def loss_fn(model: Model, batch: Dict, cfg: ModelConfig, rcfg: RunConfig
+def loss_fn(model: Model, batch: Dict, cfg: ModelConfig, rcfg: RunConfig,
+            global_batch: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token cross entropy in f32, plus the z-loss. On one card
     a gather picks the labels' logits. On a mesh the logits are the rank's
@@ -95,8 +89,9 @@ def loss_fn(model: Model, batch: Dict, cfg: ModelConfig, rcfg: RunConfig
     does not split the batch changes nothing). The ``psum``'s backward is
     the identity, so each rank's gradient is its rows' share of the
     global batch's, which the step then sums over the ranks
-    (``_sync_grads``)."""
-    logits, aux = forward_train(model, batch, cfg, rcfg)
+    (``_sync_grads``). A moe model's aux losses are the reference's over
+    the global batch (``forward_train``; ``global_batch`` as there)."""
+    logits, aux = forward_train(model, batch, cfg, rcfg, global_batch)
     logits = logits.float()
     labels = batch["labels"].long()
     shd = model.shd
@@ -107,7 +102,7 @@ def loss_fn(model: Model, batch: Dict, cfg: ModelConfig, rcfg: RunConfig
         lse2 = torch.mean(torch.square(lse)) if rcfg.z_loss else None
     else:
         lse, picked = _sharded_ce(model, logits, labels)
-        axes = _loss_axes(shd)
+        axes = shd.loss_axes
         count = lse.numel() * math.prod(shd.axis_sizes[a] for a in axes)
         sums = torch.stack([torch.sum(lse - picked),
                             torch.sum(torch.square(lse))])
@@ -137,7 +132,8 @@ def _trainable(model: Model) -> List[Tuple[str, torch.Tensor]]:
 
 
 def _grads(model: Model, batch: Dict, cfg: ModelConfig, rcfg: RunConfig,
-           sync: Optional[Callable] = None
+           sync: Optional[Callable] = None,
+           global_batch: Optional[int] = None
            ) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """(gradients by parameter name, metrics). With ``grad_accum > 1``:
     each micro-batch's gradient (in the parameter dtype) is added into
@@ -145,17 +141,21 @@ def _grads(model: Model, batch: Dict, cfg: ModelConfig, rcfg: RunConfig,
     of its parameter, and the mean is cast to bf16; the metrics are the
     last micro-batch's (the reference's scan carry keeps only those).
     ``sync``: applied to the gradients by name (the accumulated sums)
-    before the mean, the cross-rank sum on a mesh (``_sync_grads``)."""
+    before the mean, the cross-rank sum on a mesh (``_sync_grads``).
+    ``global_batch``: the global batch the rows are a block of (a
+    micro-batch's is its ``grad_accum``-th part), which a moe model's
+    sharded step needs (``forward_train``)."""
     named = _trainable(model)
     names = [n for n, _ in named]
     params = [p for _, p in named]
     sync = sync or (lambda g: g)
     if rcfg.grad_accum <= 1:
-        loss, metrics = loss_fn(model, batch, cfg, rcfg)
+        loss, metrics = loss_fn(model, batch, cfg, rcfg, global_batch)
         grads = dict(zip(names, torch.autograd.grad(loss, params)))
         with torch.no_grad():
             return sync(grads), metrics
     a = rcfg.grad_accum
+    micro_global = None if global_batch is None else global_batch // a
     mb = {k: v.reshape((a, v.shape[0] // a) + v.shape[1:])
           for k, v in batch.items()}
     adt = dtype_of(rcfg.grad_accum_dtype)
@@ -163,7 +163,7 @@ def _grads(model: Model, batch: Dict, cfg: ModelConfig, rcfg: RunConfig,
     metrics = _zero_metrics(cfg, rcfg, params[0].device)
     for i in range(a):
         loss, metrics = loss_fn(model, {k: v[i] for k, v in mb.items()},
-                                cfg, rcfg)
+                                cfg, rcfg, micro_global)
         g = torch.autograd.grad(loss, params)
         with torch.no_grad():
             for acc_i, g_i in zip(acc, g):
@@ -224,30 +224,41 @@ def _pod_mean(metrics: Dict, group, pods: int) -> Dict:
     return dict(zip(keys, stacked / pods))
 
 
-def sum_axes(shd: ShardingCtx, spec: Tuple, dims: Tuple
+def sum_axes(shd: ShardingCtx, spec: Tuple, dims: Tuple, sp=None
              ) -> Tuple[str, ...]:
     """The axes a leaf's gradient is summed over after the backward: every
     axis but the TP axes (whose ranks share one loss, and whose
     rank-dependent uses the ``enter``s already summed) and the axes of its
-    FSDP dim (summed by its gather's reduce-scatter), in mesh order."""
+    FSDP dim (summed by its gather's reduce-scatter), in mesh order. Under
+    Megatron-SP (``sp``, the axis the rows split over between blocks) a
+    leaf that axis does not split is summed over it too: the norms run on
+    the rank's rows, and the weights every rank holds whole (kv heads,
+    q/k norms, MLA's down-projection, experts the axis does not divide)
+    are not entered, each rank's gradient being its rows' or heads'
+    part."""
     entry = fsdp_entry(spec, dims)
     fsdp = split_axes((entry[1],)) if entry else set()
-    tp = shd.tp_axes
+    tp = set(shd.tp_axes)
+    if sp and not split_axes((sp,)) & split_axes(spec):
+        tp -= split_axes((sp,))
     return tuple(a for a in shd.axis_sizes if a not in tp and a not in fsdp)
 
 
 def _sync_grads(model: Model, grads: Dict[str, torch.Tensor],
-                pod_engine: Optional[CoreEngine] = None) -> Dict:
+                pod_engine: Optional[CoreEngine] = None,
+                seq: Optional[int] = None) -> Dict:
     """Each rank's gradient shards summed over the ranks that hold the
     same block and other rows (``sum_axes``), as gradient ``psum``s
     through the ``nk_*`` verbs. With ``pod_engine`` the ``pod`` part is
     ``nk_grad_sync`` over ``("pod",)`` on that engine (the NetKernel pod
-    sync) after the rest."""
+    sync) after the rest. ``seq``: the batch's sequence length, which
+    says whether Megatron-SP split the rows (``ShardingCtx.for_seq``)."""
     shd = model.shd
+    sp = shd.sp_of(seq) if seq is not None else None
     layouts = param_layouts(model)
     out, pod = {}, {}
     for name, g in grads.items():
-        axes = sum_axes(shd, *layouts[name])
+        axes = sum_axes(shd, *layouts[name], sp)
         if pod_engine is not None and "pod" in axes:
             axes = tuple(a for a in axes if a != "pod")
             pod[name] = None
@@ -269,7 +280,8 @@ def train_ctx(mesh, rcfg: RunConfig) -> ShardingCtx:
 
 
 def make_train_step(cfg: ModelConfig, rcfg: RunConfig, mesh=None,
-                    engine: Optional[CoreEngine] = None) -> Callable:
+                    engine: Optional[CoreEngine] = None,
+                    global_batch: Optional[int] = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics). ``mesh``: None
     on one card, a training ``ShardingCtx``, or the ``MeshAxes`` of a
     ``torch.distributed`` world. The step follows the state: one whose
@@ -278,7 +290,9 @@ def make_train_step(cfg: ModelConfig, rcfg: RunConfig, mesh=None,
     and ``explicit_pod_sync``, one rank per pod (``batch`` global, each
     rank taking its pod's rows); else the one-card step. ``engine`` routes
     the pod sync (default: the native stack, ``make_engine(mesh,
-    "xla")``)."""
+    "xla")``). ``global_batch``: the global batch a sharded step's rows
+    are a block of, which a moe model's sharded step needs (its dispatch
+    groups follow it, ``forward_train``)."""
     check_family(cfg)
     axes = mesh.axes if isinstance(mesh, ShardingCtx) else mesh
     pod_sync = rcfg.explicit_pod_sync and axes is not None \
@@ -291,10 +305,12 @@ def make_train_step(cfg: ModelConfig, rcfg: RunConfig, mesh=None,
         sync = None
         if model.shd is not None:
             check_mesh_training(cfg, rcfg)
+            seq = batch["tokens"].shape[1]
 
             def sync(g):
-                return _sync_grads(model, g, engine if pod_sync else None)
-        grads, metrics = _grads(model, batch, cfg, rcfg, sync)
+                return _sync_grads(model, g, engine if pod_sync else None,
+                                   seq)
+        grads, metrics = _grads(model, batch, cfg, rcfg, sync, global_batch)
         if rcfg.track_ef_residual:
             metrics.update(ef_residual_metrics(grads, model))
         _, _, om = adamw_update(model, grads, state["opt"], rcfg)

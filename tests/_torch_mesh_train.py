@@ -35,6 +35,7 @@ BF16_TOL = {"metric": 2e-2, "shard": 2e-2}
 # between them; the bf16 reference is compiled to round where its source
 # casts, as torch does (ROADMAP P15)
 SOURCE_ROUNDING = {"xla_allow_excess_precision": False}
+MOE_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_max_frac", "moe_drop_frac")
 
 
 # ---------------------------------------------------------------------------
@@ -43,23 +44,39 @@ SOURCE_ROUNDING = {"xla_allow_excess_precision": False}
 
 
 def rank_step(axes, arch, dtype, changes, variant, state, batch,
-              shape=None):
-    """One sharded step of ``arch`` from the carried state: (metrics,
-    local shards)."""
+              shape=None, sp=False):
+    """One sharded step of ``arch`` from the carried state (Megatron-SP
+    activations with ``sp``): (metrics, local shards, routes). A moe
+    model's ``routes``: (the global rows of the batch each ``route_topk``
+    call routes, its calls' expert ids in order, the forward's first and
+    the remat's recompute after them); None for the other families."""
+    from _torch_tp_families import recorded_routes
     from repro_torch.configs import RunConfig
     from repro_torch.models import train_state_from_jax
+    from repro_torch.models.moe import dispatch_groups
     from repro_torch.train import batch_shardings, make_train_step
     from repro_torch.train.train_loop import train_ctx
     cfg = cfg_of(arch, dtype, changes)
-    rcfg = RunConfig(rules_variant=variant, **RUN)
+    rcfg = RunConfig(rules_variant=variant, seq_parallel_activations=sp,
+                     **RUN)
     shd = train_ctx(mesh_axes(axes, shape), rcfg)
     port = train_state_from_jax(state, cfg, device="cpu", shd=shd)
-    gb = batch["tokens"].shape[0]
+    gb, seq = batch["tokens"].shape
     bsh = batch_shardings(cfg, shd, rcfg=rcfg, global_batch=gb)
+    mine = bsh["tokens"].block(tuple(batch["tokens"].shape))[0]
     rows = {k: v[bsh[k].block(tuple(v.shape))].contiguous()
             for k, v in batch.items()}
-    port, metrics = make_train_step(cfg, rcfg, shd)(port, rows)
-    return {k: float(v) for k, v in metrics.items()}, local_state(port)
+    step = make_train_step(cfg, rcfg, shd, global_batch=gb)
+    if cfg.moe is None:
+        port, metrics = step(port, rows)
+        return {k: float(v) for k, v in metrics.items()}, \
+            local_state(port), None
+    groups = dispatch_groups(shd, gb, seq, mine.stop - mine.start)
+    routed = groups.rows if groups.gather else mine
+    with recorded_routes([]) as calls:
+        port, metrics = step(port, rows)
+    return {k: float(v) for k, v in metrics.items()}, local_state(port), \
+        (routed, calls)
 
 
 # ---------------------------------------------------------------------------
@@ -111,9 +128,12 @@ def ref_batch(jcfg, batch, seq):
         {k: to_torch(np.asarray(v)) for k, v in b.items()}
 
 
-def ref_step(jcfg, variant, state, batch, shape, compiler=None):
-    """One step of the reference's ``make_train_step`` on ``shape``'s mesh,
-    state and batch placed by its own shardings: (new state, metrics)."""
+def ref_step(jcfg, variant, state, batch, shape, compiler=None, sp=False):
+    """One step of the reference's ``make_train_step`` on ``shape``'s mesh
+    (Megatron-SP activations with ``sp``), state and batch placed by its
+    own shardings: (new state, metrics, a moe model's routing choices:
+    each ``route_topk`` call's expert ids over the global batch)."""
+    from _torch_tp_families import ref_routes
     import jax
     import jax.numpy as jnp
 
@@ -121,16 +141,20 @@ def ref_step(jcfg, variant, state, batch, shape, compiler=None):
     from repro.train.train_loop import batch_shardings as j_batch_sh
     from repro.train.train_loop import make_train_step as j_make_step
     from repro.train.train_loop import state_shardings as j_state_sh
-    jrcfg = JRunConfig(rules_variant=variant, **RUN)
+    jrcfg = JRunConfig(rules_variant=variant, seq_parallel_activations=sp,
+                       **RUN)
     mesh = jmesh(shape)
     st = jax.device_put(jax.tree.map(jnp.asarray, state),
                         j_state_sh(jcfg, jrcfg, mesh))
     b = jax.device_put({k: jnp.asarray(v) for k, v in batch.items()},
                        j_batch_sh(jcfg, mesh, rcfg=jrcfg,
                                   global_batch=batch["tokens"].shape[0]))
-    new, metrics = jax.jit(j_make_step(jcfg, jrcfg, mesh),
-                           compiler_options=compiler)(st, b)
-    return new, {k: float(v) for k, v in metrics.items()}
+    routes = []
+    with ref_routes(routes):
+        new, metrics = jax.jit(j_make_step(jcfg, jrcfg, mesh),
+                               compiler_options=compiler)(st, b)
+        jax.effects_barrier()
+    return new, {k: float(v) for k, v in metrics.items()}, routes
 
 
 def ref_block(arr, spec, shape, rank, layer=None):
@@ -236,15 +260,18 @@ def check_ranks(ranks, ref_state_, ref_metrics, tcfg, variant, shape, tol,
     from repro_torch.configs import RunConfig
     from repro_torch.launch.mesh import AXES, POD_AXES
     from repro_torch.train import state_shardings
-    for key in ("loss", "ce_loss", "z_loss", "grad_norm", "lr"):
-        for metrics, _ in ranks:
+    keys = ("loss", "ce_loss", "z_loss", "grad_norm", "lr")
+    if tcfg.moe is not None:
+        keys += MOE_KEYS
+    for key in keys:
+        for metrics, *_ in ranks:
             np.testing.assert_allclose(metrics[key], ref_metrics[key],
                                        rtol=tol["metric"], err_msg=key)
     names = POD_AXES if len(shape) == 3 else AXES
     sh = state_shardings(tcfg, RunConfig(rules_variant=variant),
                          dict(zip(names, shape)))
     seen = set()
-    for rank, (_, local) in enumerate(ranks):
+    for rank, (_, local, *_) in enumerate(ranks):
         for what, got, ref, layer, spec, mu in _pairs(tcfg, local,
                                                       ref_state_, sh):
             def tol_of(name):
@@ -277,22 +304,63 @@ def check_ranks(ranks, ref_state_, ref_metrics, tcfg, variant, shape, tol,
     return seen
 
 
+def route_flips(ranks, ref_routes, batch, n_calls: int) -> int:
+    """The routing choices of each rank's forward (its first ``n_calls``
+    ``route_topk`` calls, one a moe layer) that differ from the
+    reference's on the same global rows, summed over the ranks: each
+    call is held against the reference's call (one a layer, over the
+    global batch, in any order; the remat's recompute calls it again) it
+    differs least from. 0 when the routing is identical."""
+    b, s = batch
+    assert len(ref_routes) >= n_calls, len(ref_routes)
+    flips = 0
+    for _m, _l, (rows, calls) in ranks:
+        assert len(calls) >= n_calls, len(calls)
+        for got in calls[:n_calls]:
+            got = np.asarray(got)
+            flips += min(int((np.asarray(want).reshape(b, s, -1)[rows]
+                              .reshape(got.shape) != got).sum())
+                         for want in ref_routes)
+    return flips
+
+
 def step_matches(world, arch, dtype, variant, changes=(), shape=SHAPE,
-                 batch=(8, 40), must=()):
-    """One sharded step of ``arch`` on ``shape`` against the reference's
-    GSPMD step, checked by ``check_ranks`` at f32 or bf16 (the reference
-    compiled with ``SOURCE_ROUNDING``; each leaf's tolerance beyond the
-    port's one-device gap to it). Returns the ranks' results."""
+                 batch=(8, 40), must=(), sp=False):
+    """One sharded step of ``arch`` on ``shape`` (Megatron-SP activations
+    with ``sp``) against the reference's GSPMD step, checked by
+    ``check_ranks`` at f32 or bf16 (the reference compiled with
+    ``SOURCE_ROUNDING``; each leaf's tolerance beyond the port's
+    one-device gap to it); a moe model's routing identical to the
+    reference's at f32. Returns (the ranks' results, a moe model's
+    routing flips, else None)."""
+    world.spawn()
     jcfg, state, tstate = ref_state(arch, dtype, changes, shape)
     nb, tb = ref_batch(jcfg, *batch)
-    ranks = world.run(rank_step, arch, dtype, changes, variant, tstate, tb,
-                      None if shape == SHAPE else shape)
     bf16 = dtype == "bfloat16"
-    new, metrics = ref_step(jcfg, variant, state, nb, shape,
-                            SOURCE_ROUNDING if bf16 else None)
+    ranks, (new, metrics, routes) = world.run_beside(
+        lambda: ref_step(jcfg, variant, state, nb, shape,
+                         SOURCE_ROUNDING if bf16 else None, sp),
+        rank_step, arch, dtype, changes, variant, tstate, tb,
+        None if shape == SHAPE else shape, sp)
     tcfg = cfg_of(arch, dtype, changes)
+    flips = None
+    if tcfg.moe is not None:
+        flips = route_flips(ranks, routes, batch,
+                            tcfg.num_layers - tcfg.dense_layer_prefix)
+        assert bf16 or flips == 0, flips
+    if flips:
+        # a flipped choice moves its token's expert outputs and every
+        # gradient downstream of them by more than bf16 rounding (ROADMAP
+        # P20, P21): the step's losses and norm are held, not its shards
+        for key in ("loss", "ce_loss", "z_loss", "grad_norm", "lr",
+                    "moe_lb_loss", "moe_z_loss"):
+            for m, *_ in ranks:
+                np.testing.assert_allclose(m[key], metrics[key],
+                                           rtol=BF16_TOL["metric"],
+                                           err_msg=key)
+        return ranks, flips
     gaps = one_device_gaps(tcfg, one_device_step(
         arch, dtype, changes, tstate, tb), new, shape) if bf16 else None
     check_ranks(ranks, new, metrics, tcfg, variant, shape,
                 BF16_TOL if bf16 else F32_TOL, must, gaps)
-    return ranks
+    return ranks, flips

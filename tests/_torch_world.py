@@ -6,8 +6,10 @@ Each rank joins the gloo world, builds the mesh's groups
 (``core/nsm.py::MeshAxes``), then runs the functions of the test module
 ``module`` it is sent, by name, until ``None``. ``run(fn, *args)`` calls
 ``fn(axes, *args)`` on every rank and returns the results in rank order,
-or fails the test within its time limit; a hung or failed rank closes the
-world, and the next ``run`` spawns it anew.
+or fails the test within its time limit (``run_beside`` runs the test's
+own work, such as the reference's step, while the ranks run theirs); a
+hung or failed rank closes the world, and the next ``run`` spawns it
+anew.
 
 A rank imports torch, the port and ``module`` only: a test module that
 imports jax or the reference lazily, inside its tests, keeps them out of
@@ -79,8 +81,16 @@ class World:
         self.module, self.shape, self.names = module, tuple(shape), names
         self.size = math.prod(self.shape)
         self.procs = []
+        self._joining = False
 
-    def _start(self):
+    def spawn(self):
+        """Start the ranks without waiting for them to join: the next
+        ``run`` waits. A test spawns its world before slow work of its own
+        that the ranks need no part of."""
+        if not self.procs:
+            self._start(wait=False)
+
+    def _start(self, wait=True):
         ctx = self._ctx
         port = _free_port()
         self.outbox = ctx.Queue()
@@ -92,7 +102,9 @@ class World:
                       for r in range(self.size)]
         for p in self.procs:
             p.start()
-        self._collect(START_TIMEOUT_S)
+        self._joining = not wait
+        if wait:
+            self._collect(START_TIMEOUT_S)
 
     def _collect(self, timeout):
         deadline = time.monotonic() + timeout
@@ -112,11 +124,25 @@ class World:
         return [got[r] for r in range(self.size)]
 
     def run(self, fn, *args, timeout=CALL_TIMEOUT_S):
+        return self.run_beside(None, fn, *args, timeout=timeout)[0]
+
+    def run_beside(self, local, fn, *args, timeout=CALL_TIMEOUT_S):
+        """``run``, with ``local()`` called in this process while the
+        ranks work: (the ranks' results, ``local()``'s). The world is
+        closed if ``local`` raises, so no rank's answer is left over."""
         if not self.procs:
             self._start()
         for box in self.inboxes:
             box.put((fn.__name__, args))
-        return self._collect(timeout)
+        try:
+            mine = local() if local is not None else None
+        except BaseException:
+            self.close()
+            raise
+        if self._joining:
+            self._joining = False
+            self._collect(START_TIMEOUT_S)
+        return self._collect(timeout), mine
 
     def close(self):
         for box in getattr(self, "inboxes", []):
@@ -127,6 +153,7 @@ class World:
                 p.terminate()
                 p.join(timeout=10)
         self.procs = []
+        self._joining = False
 
 
 def world_fixture(module: str, shape, names=NAMES):

@@ -1681,3 +1681,54 @@ def test_flash_under_autograd_at_tp_train_rank_shapes_on_card(cuda, tp,
         err = ((a.float() - b.float()).abs().max()
                / b.float().abs().max()).item()
         assert err <= TOL["bfloat16"], (tp, rank, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,tp,rank", [
+    ("deepseek mla", 1, 0), ("deepseek mla", 2, 0),
+    ("deepseek mla", 16, 15), ("arctic", 2, 1),
+    ("arctic", 8, 7), ("arctic", 16, 14)])
+def test_flash_under_autograd_at_moe_train_rank_shapes_on_card(cuda, case,
+                                                               tp, rank):
+    """``FlashAttentionFn`` at one TP train rank's heads of the moe
+    family's 4,096-token training sequence: deepseek-v2-236b's MLA prefill
+    (128 / tp heads, all 128 at tp 1 as one card trains it, each its own
+    kv head, dk 192 with v zero-padded from
+    128 as ``_mla_prefill`` pads it, the softmax scale 1/sqrt(192)) and
+    arctic-480b's 56/8 (64 padded at tp 16: rank 14 holds only padded
+    heads) over the kv heads ``_local_kv`` gives them: o, dq, dk and dv
+    within bf16's 2e-2 of the plain forward and its autograd VJP."""
+    from repro_torch.distribution.sharding import padded_heads
+    from repro_torch.models.attention import FlashAttentionFn, _local_kv
+    s, bf = 4096, torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(bf)
+
+    if case == "deepseek mla":
+        n, d, dv = 128 // tp, 192, 128
+        q, k = randn(1, s, n, d), randn(1, s, n, d)
+        v = torch.nn.functional.pad(randn(1, s, n, dv), (0, d - dv))
+        do = torch.nn.functional.pad(randn(1, s, n, dv), (0, d - dv))
+    else:
+        hq, kv, d = 56, 8, 128
+        hp = padded_heads(hq, {"model": tp})
+        n = hp // tp
+        q = randn(1, s, n, d)
+        k, v = _local_kv(randn(1, s, kv, d), randn(1, s, kv, d), hq, hp,
+                         rank * n, n)
+        do = randn(1, s, n, d)
+    scale = d ** -0.5
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    o = FlashAttentionFn.apply(*ins, True, 0, 512, 512, scale)
+    assert flash_attention.launches - before == 1
+    got = (o,) + torch.autograd.grad(o, ins, do)
+    ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref_o = flash_attention_plain(*ref_in, scale=scale)
+    want = (ref_o,) + torch.autograd.grad(ref_o, ref_in, do)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        err = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        assert err <= TOL["bfloat16"], (case, tp, rank, name, err)

@@ -411,13 +411,16 @@ def test_flash_attention_fn_grads_match_blockwise_autograd():
 def test_training_other_families_and_remesh_raise():
     """``Runner.remesh`` with no checkpoint raises ``RuntimeError``, as the
     reference's does (the remesh itself is held in
-    ``tests/test_torch_train_mesh_runner.py``); on a mesh the moe family,
-    MLA and Megatron-SP activations refuse to train by name (ROADMAP 3c),
-    before any collective, while every family trains on one device (the
-    moe family against the reference in ``tests/test_torch_moe.py``) and
-    the ssm, hybrid and encdec families build a sharded train step with
-    no refusal (their steps are held against the reference in
-    ``tests/test_torch_train_mesh_{ssm,hybrid,encdec}.py``)."""
+    ``tests/test_torch_train_mesh_runner.py``); every family builds a
+    sharded train step with no refusal, the moe family and MLA included
+    (their steps are held against the reference in
+    ``tests/test_torch_train_mesh_{moe,mla}.py``, the ssm, hybrid and
+    encdec families' in ``tests/test_torch_train_mesh_{ssm,hybrid,
+    encdec}.py``); Megatron-SP activations train the dense, vlm and moe
+    families (llama's SP step in ``tests/test_torch_train_mesh.py``) and
+    refuse by name for the ssm, hybrid and encdec families (ROADMAP 3c),
+    before any collective; a moe model's sharded forward without the
+    global batch (its dispatch groups' rows) raises."""
     from repro_torch.distribution.sharding import ShardingCtx, make_rules
     from repro_torch.models import Model
     from repro_torch.models.model import check_mesh_training
@@ -433,15 +436,9 @@ def test_training_other_families_and_remesh_raise():
     sizes = {"data": 1, "model": 1}
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
              "labels": torch.zeros((2, 8), dtype=torch.int32)}
-    for arch, what in (("arctic-480b", "the moe family"),
-                       ("deepseek-v2-236b", "MLA")):
-        tcfg = get_smoke_config(arch)
-        shd = ShardingCtx(sizes, rules=make_rules("2d"), train=True)
-        model = Model(tcfg, device="cpu", shd=shd)
-        with pytest.raises(NotImplementedError,
-                           match=f"{tcfg.name}: training {what} on a mesh"):
-            forward_train(model, batch, tcfg, RunConfig())
-    for arch in ("mamba2-370m", "hymba-1.5b", "whisper-small"):
+    sp = RunConfig(seq_parallel_activations=True)
+    for arch in ("arctic-480b", "deepseek-v2-236b", "mamba2-370m",
+                 "hymba-1.5b", "whisper-small", LLAMA, "chameleon-34b"):
         tcfg = get_smoke_config(arch)
         shd = ShardingCtx(sizes, rules=make_rules("2d"), train=True)
         assert check_mesh_training(tcfg, RunConfig()) is None
@@ -449,10 +446,25 @@ def test_training_other_families_and_remesh_raise():
                                  abstract=True, shd=shd)
         assert state["params"].shd is shd
         assert callable(make_train_step(tcfg, RunConfig(), shd))
-    model = Model(cfg, device="cpu", shd=ShardingCtx(sizes, train=True))
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        forward_train(model, batch, cfg,
-                      RunConfig(seq_parallel_activations=True))
+        if tcfg.moe is not None:
+            with pytest.raises(ValueError, match=f"{tcfg.name}: .* "
+                               f"needs the global batch"):
+                forward_train(Model(tcfg, device="cpu", shd=shd), batch,
+                              tcfg, RunConfig())
+        if tcfg.family in ("ssm", "hybrid", "encdec"):
+            with pytest.raises(NotImplementedError,
+                               match=f"{tcfg.name}: seq_parallel_activations"
+                               f" .* the {tcfg.family} family"):
+                forward_train(Model(tcfg, device="cpu", shd=shd), batch,
+                              tcfg, sp)
+        else:
+            assert check_mesh_training(tcfg, sp) is None
+            assert callable(make_train_step(tcfg, sp, shd))
+    sp_shd = ShardingCtx(sizes, rules=make_rules("2d"), train=True,
+                         seq_parallel=True)
+    assert sp_shd.sp_of(8) == "model" and sp_shd.for_seq(8) is not sp_shd
+    assert ShardingCtx(sizes, rules=make_rules("fsdp"), train=True,
+                       seq_parallel=True).sp_of(8) is None
 
 
 # ---------------------------------------------------------------------------

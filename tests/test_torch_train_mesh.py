@@ -27,6 +27,8 @@ each with its tolerance:
   holds one-device bf16 gradients to (``nu``, 0.05 g^2 after a step, by
   its square root, on the gradient's scale), the reference compiled to
   round where its source casts (``SOURCE_ROUNDING``);
+* chameleon-34b (vlm, q/k layernorm) under ``"2d"`` with Megatron-SP at
+  f32, as above;
 * (data 1, model 8): llama's 4 query heads pad to 8; the padded heads'
   ``mu`` (0.1 x the gradient) is exactly zero in ``wq`` and ``wo``, and
   the rest matches the reference at f32 as above;
@@ -70,9 +72,9 @@ world = world_fixture(__name__, SHAPE)
 # ---------------------------------------------------------------------------
 
 
-def _cfg(dtype):
+def _cfg(dtype, arch=ARCH):
     from repro_torch.configs import get_smoke_config
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     if dtype == "float32":
         cfg = dataclasses.replace(cfg, dtype="float32",
                                   param_dtype="float32")
@@ -80,15 +82,16 @@ def _cfg(dtype):
 
 
 def _mesh_axes(axes, shape):
-    """``axes`` itself, or a (data, model) mesh of ``shape`` over the
-    same ranks."""
+    """``axes`` itself, or a (data, model) or (pod, data, model) mesh of
+    ``shape`` over the same ranks."""
     if shape is None:
         return axes
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.core.nsm import MeshAxes
-    return MeshAxes(init_device_mesh("cpu", shape,
-                                     mesh_dim_names=("data", "model")))
+    from repro_torch.launch.mesh import AXES, POD_AXES
+    return MeshAxes(init_device_mesh(
+        "cpu", shape, mesh_dim_names=POD_AXES if len(shape) == 3 else AXES))
 
 
 def _local_state(state):
@@ -104,14 +107,16 @@ def _local_state(state):
 
 
 def _rank_step(axes, dtype, variant, state, batch, shape=None,
-               factored=False):
-    """One sharded step from the carried state: (metrics, local shards)."""
+               factored=False, sp=False, arch=ARCH):
+    """One sharded step of ``arch`` from the carried state (Megatron-SP
+    activations with ``sp``): (metrics, local shards)."""
     from repro_torch.configs import RunConfig
     from repro_torch.models import train_state_from_jax
     from repro_torch.train import batch_shardings, make_train_step
     from repro_torch.train.train_loop import train_ctx
-    cfg = _cfg(dtype)
-    rcfg = RunConfig(rules_variant=variant, factored_nu=factored, **RUN)
+    cfg = _cfg(dtype, arch)
+    rcfg = RunConfig(rules_variant=variant, factored_nu=factored,
+                     seq_parallel_activations=sp, **RUN)
     shd = train_ctx(_mesh_axes(axes, shape), rcfg)
     port = train_state_from_jax(state, cfg, device="cpu", shd=shd)
     bsh = batch_shardings(cfg, shd, rcfg=rcfg, global_batch=BATCH[0])
@@ -165,9 +170,10 @@ def _jmesh(shape):
         else make_host_mesh(*shape)
 
 
-def _ref_state(dtype, shape, factored=False):
-    """The reference's train state on ``shape``'s mesh (numpy), its layer
-    weights rescaled to their true fan-in, and the ranks' copy (torch)."""
+def _ref_state(dtype, shape, factored=False, arch=ARCH):
+    """The reference's train state of ``arch`` on ``shape``'s mesh
+    (numpy), its layer weights rescaled to their true fan-in, and the
+    ranks' copy (torch)."""
     import jax
 
     from repro.configs import RunConfig as JRunConfig
@@ -177,7 +183,7 @@ def _ref_state(dtype, shape, factored=False):
     from repro_torch.models import build_schedule, model_schema
     from repro_torch.models.params import to_torch
     from test_torch_train import _rescale
-    jcfg = j_smoke(ARCH)
+    jcfg = j_smoke(arch)
     if dtype == "float32":
         jcfg = dataclasses.replace(jcfg, dtype="float32",
                                    param_dtype="float32")
@@ -185,9 +191,9 @@ def _ref_state(dtype, shape, factored=False):
         jcfg, JRunConfig(factored_nu=factored, **RUN), _jmesh(shape),
         jax.random.PRNGKey(1)))
     names = POD_AXES if len(shape) == 3 else AXES
-    schema = model_schema(_cfg(dtype), dict(zip(names, shape)))
+    schema = model_schema(_cfg(dtype, arch), dict(zip(names, shape)))
     first = 0
-    for seg, stacked in zip(build_schedule(_cfg(dtype)),
+    for seg, stacked in zip(build_schedule(_cfg(dtype, arch)),
                             state["params"]["segments"]):
         _rescale(stacked, schema["layers"][first])
         first += seg.count
@@ -205,9 +211,10 @@ def _ref_batch(jcfg):
 
 
 def _ref_step(jcfg, variant, state, batch, shape, compiler=None,
-              factored=False):
-    """One step of the reference's ``make_train_step`` on ``shape``'s mesh,
-    state and batch placed by its own shardings: (new state, metrics)."""
+              factored=False, sp=False):
+    """One step of the reference's ``make_train_step`` on ``shape``'s mesh
+    (Megatron-SP activations with ``sp``), state and batch placed by its
+    own shardings: (new state, metrics)."""
     import jax
     import jax.numpy as jnp
 
@@ -215,7 +222,8 @@ def _ref_step(jcfg, variant, state, batch, shape, compiler=None,
     from repro.train.train_loop import batch_shardings as j_batch_sh
     from repro.train.train_loop import make_train_step as j_make_step
     from repro.train.train_loop import state_shardings as j_state_sh
-    jrcfg = JRunConfig(rules_variant=variant, factored_nu=factored, **RUN)
+    jrcfg = JRunConfig(rules_variant=variant, factored_nu=factored,
+                       seq_parallel_activations=sp, **RUN)
     mesh = _jmesh(shape)
     st = jax.device_put(jax.tree.map(jnp.asarray, state),
                         j_state_sh(jcfg, jrcfg, mesh))
@@ -286,27 +294,58 @@ def _check_ranks(ranks, ref_state, ref_metrics, tcfg, shape, tol):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("variant,dtype,factored", [
-    ("2d", "float32", False), ("fsdp", "float32", False),
-    ("tp", "float32", False), ("2d", "bfloat16", False),
-    ("2d", "float32", True)])
-def test_sharded_step_matches_reference(world, variant, dtype, factored):
+@pytest.mark.parametrize("variant,dtype,factored,sp", [
+    ("2d", "float32", False, False), ("fsdp", "float32", False, False),
+    ("tp", "float32", False, False), ("2d", "bfloat16", False, False),
+    ("2d", "float32", True, False), ("2d", "float32", False, True),
+    ("tp", "float32", False, True), ("2d", "bfloat16", False, True)])
+def test_sharded_step_matches_reference(world, variant, dtype, factored,
+                                        sp):
     """One step on (pod 2, data 2, model 2) under ``variant``: FSDP rows
     over data (and model under "fsdp"), TP heads/ffn/vocab over model
     ("2d", "tp"), the batch over pod x data (x model under "fsdp"); kv
     heads and norm scales replicated, their gradients summed. With
     ``factored`` the Adafactor second moment's means run over dims split
-    over data and model."""
+    over data and model. With ``sp`` (Megatron-SP) the residual stream
+    holds each rank's 12 of 24 positions between blocks: the embedding's
+    and each block's sums reduce-scatter it, each block gathers it, and
+    the norms, kv heads' and norm scales' gradients are summed over model
+    after the backward."""
     from test_torch_train import SOURCE_ROUNDING
+    world.spawn()
     jcfg, state, tstate = _ref_state(dtype, SHAPE, factored)
     batch, tbatch = _ref_batch(jcfg)
-    ranks = world.run(_rank_step, dtype, variant, tstate, tbatch, None,
-                      factored)
-    new, metrics = _ref_step(jcfg, variant, state, batch, SHAPE,
-                             SOURCE_ROUNDING if dtype == "bfloat16"
-                             else None, factored)
+    ranks, (new, metrics) = world.run_beside(
+        lambda: _ref_step(jcfg, variant, state, batch, SHAPE,
+                          SOURCE_ROUNDING if dtype == "bfloat16" else None,
+                          factored, sp),
+        _rank_step, dtype, variant, tstate, tbatch, None, factored, sp)
     _check_ranks(ranks, new, metrics, _cfg(dtype), SHAPE,
                  F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+def test_sp_step_with_qk_norm_matches_reference(world):
+    """chameleon-34b's smoke config (the vlm family, llama's widths with
+    q/k layernorm) under ``"2d"`` with Megatron-SP at f32: the q/k norm
+    scales, which every model rank holds whole but reads for its own
+    heads of its gathered rows, are not entered under SP
+    (``ShardingCtx.enter_weight``) and are summed over model after the
+    backward (``train_loop.sum_axes``); every shard as in
+    ``test_sharded_step_matches_reference``."""
+    from repro_torch.models import opt_slots
+    arch = "chameleon-34b"
+    jcfg, state, tstate = _ref_state("float32", SHAPE, arch=arch)
+    batch, tbatch = _ref_batch(jcfg)
+    ranks, (new, metrics) = world.run_beside(
+        lambda: _ref_step(jcfg, "2d", state, batch, SHAPE, sp=True),
+        _rank_step, "float32", "2d", tstate, tbatch, None, False, True,
+        arch)
+    tcfg = _cfg("float32", arch)
+    assert tcfg.family == "vlm" and tcfg.qk_norm
+    names = [s.name for s in opt_slots(tcfg)]
+    assert any("attn.q_norm" in n for n in names) and \
+        any("attn.k_norm" in n for n in names), names
+    _check_ranks(ranks, new, metrics, tcfg, SHAPE, F32_TOL)
 
 
 def test_padded_heads_get_zero_gradient(world):
@@ -317,8 +356,9 @@ def test_padded_heads_get_zero_gradient(world):
     from repro_torch.models import opt_slots
     jcfg, state, tstate = _ref_state("float32", PADDED)
     batch, tbatch = _ref_batch(jcfg)
-    ranks = world.run(_rank_step, "float32", "2d", tstate, tbatch, PADDED)
-    new, metrics = _ref_step(jcfg, "2d", state, batch, PADDED)
+    ranks, (new, metrics) = world.run_beside(
+        lambda: _ref_step(jcfg, "2d", state, batch, PADDED), _rank_step,
+        "float32", "2d", tstate, tbatch, PADDED)
     tcfg = _cfg("float32")
     _check_ranks(ranks, new, metrics, tcfg, PADDED, F32_TOL)
     wq = [s.name for s in opt_slots(tcfg) if s.name.endswith("attn.wq")]

@@ -61,13 +61,13 @@ def test_padded_heads_get_zero_gradient(world):
     the windowed layer, the real heads' do not, and every shard matches
     the reference at f32."""
     from repro_torch.models import opt_slots
-    ranks = step_matches(world, ARCH, "float32", "2d", shape=PADDED,
-                         must=LEAVES)
+    ranks, _ = step_matches(world, ARCH, "float32", "2d", shape=PADDED,
+                            must=LEAVES)
     tcfg = cfg_of(ARCH, "float32")
     heads = [s.name for s in opt_slots(tcfg)
              if s.name.endswith(("attn.wq", "attn.wo"))]
     assert len(heads) == 2 * tcfg.num_layers
-    for rank, (_, local) in enumerate(ranks):
+    for rank, (_, local, _) in enumerate(ranks):
         padded = rank >= tcfg.num_heads      # one head a rank
         for name in heads:
             mu = local["mu"][name]

@@ -201,8 +201,10 @@ def test_sharded_train_phase_rehearses_on_the_cpu(monkeypatch):
     config (2 layers, S 32, a gloo world of one): the sharded micro-batch
     against the unsharded one, the Runner's launches (the plain kernel
     wrapped to count them), every leaf moved, the ledger's collectives, the
-    remesh's restored state, and the rank cases at S 64 (the card's timer
-    and profiler stubbed)."""
+    remesh's restored state, the Megatron-SP micro-batch and step (their
+    gaps, launches and the ledger against ``train_collectives(...,
+    sp=True)``), and the rank cases at S 64 (the card's timer and profiler
+    stubbed)."""
     import importlib.util
     import pathlib
 
@@ -241,7 +243,14 @@ def test_sharded_train_phase_rehearses_on_the_cpu(monkeypatch):
     assert not dist.is_initialized()
     (row,) = rows
     assert launches == cfg.num_layers * cs.TRAIN_ACCUM * 2 \
-        * cs.SHARDED_TRAIN_STEPS
+        * (cs.SHARDED_TRAIN_STEPS + 1)       # the SP path's one step
+    sp = row["seq_parallel"]
+    assert sp["rows_axis"] == "model"
+    assert sp["flash_launches"] == cfg.num_layers * cs.TRAIN_ACCUM * 2
+    assert max(sp["loss_gap"], sp["grad_norm_gap"],
+               sp["wq_wk_wv_worst_gap"]) <= 1e-5
+    assert sp["ledger_ops_a_step"] == sp["ledger_ops_want"] == \
+        cs.train_collectives(cfg, cs.TRAIN_ACCUM, sp=True)
     assert row["params_moved"] == row["params_total"]
     assert row["remesh_restored_equal"] and row["remesh_final_step"] == 3
     # the CoreEngine's ledger holds every collective of a step, the
