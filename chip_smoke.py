@@ -222,11 +222,26 @@ JSON object per line:
               decode shapes and the trainers' SSD scans; arctic-480b's
               flash and group-7 decode shapes; nemotron-4-340b's flash
               and group-12 decode and deepseek-v2-236b's MLA flash, at
-              head dim 192.
+              head dim 192;
+16. launch  — ``launch/dryrun.py``'s table: every applicable (arch x
+              shape) cell on 16x16 and 2x16x16, one rank's shard built on
+              the meta device (argument, output and resident bytes
+              against 80 GB, parameter bytes in the reference's layout
+              beside the port's; temporaries not modelled); llama3.2-3b
+              decode_32k and deepseek-v2-236b train_4k made again on the
+              card with ``torch.empty`` as one rank's shard of 16x16, the
+              rise in ``memory_allocated`` within 512 bytes a tensor of the
+              meta count; ``launch/roofline.py``'s floor ``t_ideal`` at the
+              llama serve and train phases' shapes beside their measured
+              medians, and the collective term of the sharded llama train
+              step from its CoreEngine's ledger; llama3.2-3b at 4 layers,
+              one 4,096-token micro-batch under remat "full" and "dots"
+              (median ms, peak bytes, grads within 1e-3 of max |g|, flash
+              recomputed under both, "dots"'s peak at least "full"'s).
 
 Then the seconds of the vlm, hybrid, encdec, moe, nemotron, watchdog,
-train, sharded-train, train-families and sharded-train-families phases
-and of the whole script,
+train, sharded-train, train-families, sharded-train-families and launch
+phases and of the whole script,
 one ``{"kernels": [...]}`` summary line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. Without a CUDA device, or outside a
@@ -248,11 +263,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
-
-# H100 SXM datasheet peaks (dense): HBM bytes/s, bf16 tensor flop/s, and
-# f32 and f64 flop/s outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
 
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 DECODE_TOL = {"bfloat16": {"o": 2e-2, "m": 1e-4, "l": 1e-4},
@@ -458,6 +468,19 @@ SHARDED_MOE_LAYERS = 2
 SHARDED_MOE_SEQ = TRAIN_SEQ
 SHARDED_MOE_KEEP = ("moe.router", "moe.w_in", "attn.w_dkv")
 TRAIN_RANK_MLA = (128, 192, 128)      # heads, dk, dv (v zero-padded)
+# the launch phase (launch/dryrun.py, launch/roofline.py): the dry-run
+# table on meta for both production meshes; two of its cells made on the
+# card as one rank's shard of 16x16, whose rise in memory_allocated must
+# lie within the caching allocator's rounding (512 bytes a tensor) of the
+# meta count; llama3.2-3b's micro-batch at the train profile's depth
+# under remat "full" and "dots"
+LAUNCH_CELLS = (("llama3.2-3b", "decode_32k"),
+                ("deepseek-v2-236b", "train_4k"))
+LAUNCH_MESH = "16x16"
+ALLOC_ROUND = 512
+DOTS_LAYERS = TRAIN_PROFILE_LAYERS
+DOTS_TIMED = 3                # timed micro-batches a policy, after one
+DOTS_TOL = 1e-3               # "dots" vs "full" grads, of max |g|, bf16
 
 # the distribution phase: the model axis's per-rank kernel work. The cp
 # decode at chameleon-34b's decode_32k shape (the reference's motivating
@@ -570,10 +593,11 @@ def library_row(torch, timer, q, k, v, **kw):
 
 
 def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_FLOPS_S[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """(least ms, "bytes" or "operations"): ``roofline.bound_ms``, imported
+    at the call so that importing this script imports nothing of the port
+    (the tools that time two trees put the other tree's ``src`` first)."""
+    from repro_torch.launch.roofline import bound_ms
+    return bound_ms(nbytes, flops, dtype)
 
 
 def flash_work(b, s, t, hq, kv, d, elem, causal, window, dv=None):
@@ -1302,6 +1326,7 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
            "d_model": cfg.d_model, "params": cfg.num_params(),
            "requests": len(reqs), "completed": len(done),
            "admissions": eng.admissions, "decode_steps": eng.decode_steps,
+           "slots": eng.B, "max_seq": eng.max_seq,
            "launches": launches, "ledger": ledger,
            "decode_positions": [min(min(p) for p in decode_pos),
                                 max(max(p) for p in decode_pos)],
@@ -2172,6 +2197,7 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int, out=None):
     from repro_torch.configs import RunConfig
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.roofline import HBM_BW
     from repro_torch.models.moe import _capacity
     from repro_torch.serve import ServeEngine
     left = torch.cuda.memory_allocated()
@@ -2225,9 +2251,9 @@ def phase_moe(torch, device, arch: str, cfg, f32_layers: int, out=None):
            "decode_drop_frac_max": max(decode_drops),
            "weight_bytes": weight_bytes, "decode_read_bytes": read_bytes,
            "step_ms_median": row["step_ms_median"],
-           "step_floor_ms": read_bytes / PEAK_BYTES_S * 1e3,
+           "step_floor_ms": read_bytes / HBM_BW * 1e3,
            "step_over_floor": row["step_ms_median"]
-           / (read_bytes / PEAK_BYTES_S * 1e3),
+           / (read_bytes / HBM_BW * 1e3),
            "prefill_ms_512": row[f"prefill_ms_{PROMPT_RANGE[1]}"],
            "prefill_tok_s_512": PROMPT_RANGE[1]
            / row[f"prefill_ms_{PROMPT_RANGE[1]}"] * 1e3,
@@ -2489,6 +2515,7 @@ def phase_nemotron(torch, device, cfg=None):
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.roofline import HBM_BW
     from repro_torch.serve import ServeEngine
     cfg = cfg or dataclasses.replace(get_config("nemotron-4-340b"),
                                      num_layers=NEMOTRON_LAYERS)
@@ -2509,7 +2536,7 @@ def phase_nemotron(torch, device, cfg=None):
               eng._cache_bytes() == schema_bytes,
               "head_dim_192_group_12": (cfg.head_dim, group) == (192, 12)}
     prefill = row[f"prefill_ms_{PROMPT_RANGE[1]}"]
-    floor_ms = read_bytes / PEAK_BYTES_S * 1e3
+    floor_ms = read_bytes / HBM_BW * 1e3
     out = {"phase": "nemotron", "model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                             cfg.num_kv_heads],
@@ -3701,7 +3728,8 @@ def state_bytes(state):
             "grad_accumulators": sum(p.numel() * 4 for p in params)}
 
 
-def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
+def phase_train(torch, device, cfg, smi: str, backend: str = "nccl",
+                row_out=None):
     """Training on the port: full-width llama3.2-3b through ``Runner`` ->
     ``make_train_step`` -> ``forward_train`` (the flash kernel forward on
     every layer, twice a micro-batch under remat) -> ``loss_fn`` ->
@@ -3709,7 +3737,8 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
     depth) and f32 (2 layers); one ``pod_step`` through the compressed
     stack on an NCCL world of one (``backend``: gloo for a CPU
     rehearsal); bit-exact recovery at 2 layers. Returns the flash launches
-    of the Runner's timed steps."""
+    of the Runner's timed steps; ``row_out``, a dict, receives the
+    Runner's row."""
     import dataclasses
     import tempfile
 
@@ -3719,6 +3748,7 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
     from repro_torch.core import make_engine
     from repro_torch.data import for_model
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.models.params import init_params
     import repro_torch.train.train_loop as train_loop
     from repro_torch.train import Runner, loss_fn, make_train_step
@@ -3811,7 +3841,7 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
                "step_ms_median": step_s * 1e3,
                "tokens_per_s": tokens / step_s,
                "mfu": 6 * cfg.num_params() * tokens / step_s
-               / PEAK_FLOPS_S["bfloat16"],
+               / PEAK_FLOPS,
                "params": cfg.num_params(),
                "losses": [m["loss"] for m in runner.metrics_log],
                "grad_norms": [m["grad_norm"] for m in runner.metrics_log],
@@ -3822,6 +3852,8 @@ def phase_train(torch, device, cfg, smi: str, backend: str = "nccl"):
                "profile_micro_batch": prof,
                "seconds": time.perf_counter() - t_main, "gpu": smi}
         emit(row)
+        if row_out is not None:
+            row_out.update(row)
         if launches != want or moved != row["params_total"] or not finite:
             raise AssertionError(f"train runner: {row}")
 
@@ -3962,7 +3994,7 @@ def timed_steps(runner, n: int):
     return out
 
 
-def phase_sharded_train(torch, device, cfg, smi: str):
+def phase_sharded_train(torch, device, cfg, smi: str, row_out=None):
     """Training on the model axis at a world of one (``world_of_one``):
     ``cfg`` at full width and ``SHARDED_TRAIN_LAYERS`` layers under the
     ``"2d"`` rules, the train phase's batch. The sharded micro-batch
@@ -3975,7 +4007,9 @@ def phase_sharded_train(torch, device, cfg, smi: str):
     flash launches and the ledger's collectives against
     ``train_collectives(..., sp=True)``); then ``train_rank_cases``.
     Returns (the sharded steps' flash launches, the rank cases' checks by
-    tp)."""
+    tp); ``row_out``, a dict, receives the phase's row (with the ledger's
+    collective bytes of the first sharded step,
+    ``roofline.ledger_collective_bytes``)."""
     import dataclasses
     import tempfile
 
@@ -3983,6 +4017,7 @@ def phase_sharded_train(torch, device, cfg, smi: str):
     from repro_torch.data import for_model
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.roofline import ledger_collective_bytes
     from repro_torch.models.params import init_params
     from repro_torch.train import Runner, loss_fn
     from repro_torch.train.optimizer import global_norm, grad_norm
@@ -4056,9 +4091,10 @@ def phase_sharded_train(torch, device, cfg, smi: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = 0
-        ops0 = ledger_ops(core)
+        ops0, table0 = ledger_ops(core), core.ledger_table()
         runner.run(1)
         ops1 = ledger_ops(core)
+        coll_bytes, coll_kinds = ledger_collective_bytes(core, since=table0)
         runner.run(SHARDED_TRAIN_STEPS - 1)
         launches = fa.flash_attention.launches
         peak = torch.cuda.max_memory_allocated()
@@ -4076,6 +4112,8 @@ def phase_sharded_train(torch, device, cfg, smi: str):
             "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
                                   for v in ops1},
             "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM),
+            "ledger_bytes_a_step": coll_bytes,
+            "ledger_bytes_a_step_by_kind": coll_kinds,
             "flash_launches": launches,
             "flash_launches_want": launches_want,
             "params_moved": moved,
@@ -4179,6 +4217,8 @@ def phase_sharded_train(torch, device, cfg, smi: str):
     checks = train_rank_cases(torch, device, smi, row)
     row.update({"seconds": time.perf_counter() - t_phase, "gpu": smi})
     emit(row)
+    if row_out is not None:
+        row_out.update(row)
     return launches, checks
 
 
@@ -4333,6 +4373,7 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
     from repro_torch.data import for_model
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.models.params import init_params
     from repro_torch.train import Runner
     gc.collect()
@@ -4416,7 +4457,7 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
            "timed_step_ms": step_s * 1e3,
            "tokens_per_s": batch * seq / step_s,
            "positions_per_s": positions / step_s,
-           "mfu": flops / step_s / PEAK_FLOPS_S["bfloat16"],
+           "mfu": flops / step_s / PEAK_FLOPS,
            "mfu_formula": "6 * (decoder params * B * S + encoder params * "
                           "B * encoder_seq) / step s / 989e12 (bf16 peak; "
                           "attention flops not counted)",
@@ -6530,6 +6571,224 @@ def phase_timings(torch, device, smi: str):
     return rows
 
 
+def launch_table(archs=None):
+    """Every (arch x shape) cell of ``archs`` (all by default) on both
+    production meshes, one rank's shard built on meta
+    (``dryrun.run_all``): the records, and the markdown table printed."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    archs = tuple(archs or ARCHS)
+    recs = [r for multi_pod in (False, True)
+            for r in dryrun.run_all(multi_pod, archs=archs, write=False)]
+    print(dryrun.table(recs), flush=True)
+    return recs
+
+
+def materialise_cell(torch, device, arch: str, shape_name: str):
+    """One rank's shard of the dry run's (``arch``, ``shape_name``) cell on
+    ``LAUNCH_MESH``, made again on the card with ``torch.empty`` (no
+    draws): the rise in ``memory_allocated`` against the meta count, and
+    the allocator's requested bytes equal to it. The caching allocator
+    rounds every block to 512 bytes only with expandable segments (else a
+    large block may keep up to 1 MB of a segment's tail), so they are on
+    while the cell is held."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch)
+    rcfg = dryrun.run_config_for(arch, shape_name)
+    sizes = dryrun.MESHES[LAUNCH_MESH]
+    cell = dryrun.build_cell(cfg, get_shape(shape_name), sizes, rcfg)
+    mem = dryrun.memory(cell, cfg, sizes, rcfg)
+    held = [cell["arguments"]] + [v for k, v in cell["outputs"].items()
+                                  if k not in cell["in_place"]]
+    metas = list({id(t): t for t in dryrun.tensors(held)}.values())
+    meta_bytes = sum(t.numel() * t.element_size() for t in metas)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        real = [torch.empty(t.shape, dtype=t.dtype, device=device)
+                for t in metas]
+        torch.cuda.synchronize()
+        rise = torch.cuda.memory_allocated() - before
+        asked = torch.cuda.memory_stats()["requested_bytes.all.current"] \
+            - requested
+        del real
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    row = {"phase": "launch", "check": "materialised", "arch": arch,
+           "shape": shape_name, "mesh": LAUNCH_MESH,
+           "rules": rcfg.rules_variant, "tensors": len(metas),
+           "meta_bytes": meta_bytes, "resident_bytes": mem["resident_bytes"],
+           "allocated_rise": rise, "requested_rise": asked,
+           "allowed": [meta_bytes, meta_bytes + ALLOC_ROUND * len(metas)],
+           "rise_over_meta": rise - meta_bytes}
+    emit(row)
+    if meta_bytes != mem["resident_bytes"] or asked != meta_bytes or not (
+            meta_bytes <= rise <= meta_bytes + ALLOC_ROUND * len(metas)):
+        raise AssertionError(f"materialised cell: {row}")
+    return row
+
+
+def roofline_floors(cfg, serve_row, train_row, sharded_row):
+    """``RooflineCell.t_ideal`` at the serve and train phases' own shapes
+    beside their measured medians (the llama decode step over
+    ``phase_serve``'s slots and cache, the Runner's step), and the
+    sharded llama train step at a world of one (its last step) with the
+    collective term from its CoreEngine's ledger
+    (``ledger_collective_bytes``, the same every step); the executed
+    FLOPs and HBM bytes are not measured (None)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import roofline as rl
+    sh_cfg = dataclasses.replace(cfg, num_layers=sharded_row["layers"])
+    cases = (
+        ("decode", cfg, ShapeConfig("serve", serve_row["max_seq"],
+                                    serve_row["slots"], "decode"),
+         serve_row["step_ms_median"], None, {}),
+        ("train", cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+         train_row["step_ms_median"], None, {}),
+        ("sharded train, world 1", sh_cfg,
+         ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+         sharded_row["step_ms_sharded"][-1],
+         sharded_row["ledger_bytes_a_step"],
+         sharded_row["ledger_bytes_a_step_by_kind"]))
+    rows, cells = [], []
+    for name, c, shape, step_ms, coll, kinds in cases:
+        cell = rl.RooflineCell(
+            arch=c.name, shape=name, mesh="1 card", chips=1,
+            flops_per_chip=None, hbm_bytes_per_chip=None,
+            coll_bytes_per_chip=coll, coll_by_kind=kinds,
+            model_flops_global=rl.model_flops(c, shape),
+            memory_per_chip_gb=None, compile_seconds=0.0,
+            ideal_bytes_global=rl.ideal_bytes(c, shape))
+        row = {"phase": "launch", "check": "roofline", "case": name,
+               "model": c.name, "layers": c.num_layers,
+               "shape": dataclasses.asdict(shape),
+               "model_flops": cell.model_flops_global,
+               "ideal_bytes": cell.ideal_bytes_global,
+               "t_ideal_ms": cell.t_ideal * 1e3, "step_ms_median": step_ms,
+               "fraction_of_roofline": cell.t_ideal * 1e3 / step_ms,
+               "t_collective_ms": None if cell.t_collective is None
+               else cell.t_collective * 1e3,
+               "collective_bytes": coll, "collective_by_kind": kinds,
+               "ici_bw": rl.ICI_BW, "ici_bw_measured": False,
+               "roofline": cell.to_json()}
+        emit(row)
+        if not (cell.t_ideal > 0 and math.isfinite(row["fraction_of_roofline"])
+                and (coll is None or coll > 0)):
+            raise AssertionError(f"roofline floor: {row}")
+        rows.append(row)
+        cells.append(cell)
+    print(rl.markdown_table(cells), flush=True)
+    return rows
+
+
+def remat_dots_vs_full(torch, device, cfg):
+    """One micro-batch (1 x ``TRAIN_SEQ``) of ``cfg`` cut to
+    ``DOTS_LAYERS`` under remat "full" and "dots" on the same weights:
+    each policy's median ms
+    (after one warm-up), its peak bytes over what was allocated before
+    it, its flash launches a pass (both recompute the kernel, which the
+    selective policy cannot see), and every leaf's "dots" gradient
+    against "full"'s."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import for_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.params import init_params
+    from repro_torch.train.train_loop import _grads
+    layers, seq = DOTS_LAYERS, TRAIN_SEQ
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = init_params(cfg, device=device, seed=SEED)
+    feed = for_model(cfg, ShapeConfig("train", seq, TRAIN_BATCH, "train"),
+                     seed=SEED, device=device)
+    micro = {k: v[:1] for k, v in feed.batch_at(0).items()}
+    runs, grads = {}, {}
+    for remat in ("full", "dots"):
+        rcfg = RunConfig(remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(1 + DOTS_TIMED):
+            grads.pop(remat, None)
+            fa.flash_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads[remat], metrics = _grads(model, micro, cfg, rcfg)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        runs[remat] = {"ms": times, "ms_median": statistics.median(times),
+                       "peak_bytes": torch.cuda.max_memory_allocated()
+                       - base, "flash_launches": fa.flash_attention.launches,
+                       "loss": metrics["loss"].item()}
+    gaps = {n: rel_err(grads["dots"][n], g)
+            for n, g in grads["full"].items()}
+    row = {"phase": "launch", "check": "remat_dots_vs_full",
+           "model": cfg.name, "layers": layers, "seq": seq, "tokens": seq,
+           "full": runs["full"], "dots": runs["dots"],
+           "dots_over_full_ms": runs["dots"]["ms_median"]
+           / runs["full"]["ms_median"],
+           "dots_minus_full_peak_bytes": runs["dots"]["peak_bytes"]
+           - runs["full"]["peak_bytes"],
+           "grad_leaves": len(gaps), "worst_grad_gap": max(gaps.values()),
+           "tol": DOTS_TOL}
+    emit(row)
+    del grads, model
+    return row
+
+
+def phase_launch(torch, device, smi: str, cfg, serve_row, train_row,
+                 sharded_row, *, archs=None, cells=LAUNCH_CELLS):
+    """The launch analysis (``launch_table``, ``materialise_cell`` for
+    each of ``cells``, ``roofline_floors``) and remat "dots" against
+    "full" (``remat_dots_vs_full``: grads within ``DOTS_TOL``, flash
+    recomputed under both, "dots"'s peak at least "full"'s). Raises on
+    any failed check; returns the phase's rows."""
+    from repro_torch.launch import roofline as rl
+    t0 = time.perf_counter()
+    recs = launch_table(archs)
+    built = [r for r in recs if not r["skipped"]]
+    table = {"phase": "launch", "check": "dryrun", "cells": len(recs),
+             "built": len(built), "skipped": len(recs) - len(built),
+             "not_fitting_80gb": [
+                 (r["arch"], r["shape"], r["mesh"]) for r in built
+                 if not r["memory"]["state_fits_80gb"]],
+             "serving_layout_differs": [
+                 (r["arch"], r["shape"], r["mesh"]) for r in built
+                 if r["memory"]["params_bytes"]
+                 != r["memory"]["params_bytes_reference_layout"]],
+             "hbm_bytes": rl.HBM_BYTES,
+             "seconds": time.perf_counter() - t0}
+    emit(table)
+    rows = {"dryrun": table,
+            "materialised": [materialise_cell(torch, device, a, s)
+                             for a, s in cells],
+            "roofline": roofline_floors(cfg, serve_row, train_row,
+                                        sharded_row)}
+    dots = remat_dots_vs_full(torch, device, cfg)
+    rows["remat"] = dots
+    want = 2 * dots["layers"]
+    if dots["worst_grad_gap"] > DOTS_TOL \
+            or dots["full"]["flash_launches"] != want \
+            or dots["dots"]["flash_launches"] != want \
+            or dots["dots"]["peak_bytes"] < dots["full"]["peak_bytes"]:
+        raise AssertionError(f"remat dots vs full: {dots}")
+    emit({"phase": "launch", "check": "done", "gpu": smi,
+          "seconds": time.perf_counter() - t0})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -6551,12 +6810,15 @@ def main() -> int:
     torch.cuda.set_device(device)
     t_script = time.perf_counter()
 
+    from repro_torch.launch.roofline import HBM_BYTES
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     emit({"phase": "device", "name": kind, "count": count,
           "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          "total_memory": torch.cuda.get_device_properties(0).total_memory,
+          "hbm_bytes_datasheet": HBM_BYTES})
     print(smi, flush=True)
 
     from repro_torch.kernels import build
@@ -6579,10 +6841,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
     cfg = get_config("llama3.2-3b")
+    serve_row, train_row, sharded_row = {}, {}, {}
     eng, launches, _ = phase_serve(
         torch, device, cfg, cfg.num_layers,
         {"flash_attention": flash_attention},
-        {"decode_attention": decode_attention})
+        {"decode_attention": decode_attention}, row_out=serve_row)
     served_tokens = {r.req_id: list(r.generated) for r in eng.completed}
     phase_profile(torch, device, eng)
     phase_parity(torch, device, eng)
@@ -6751,13 +7014,15 @@ def main() -> int:
     # training: full-width llama3.2-3b through the Runner, the flash
     # kernel forward on every layer under autograd
     t_phase = time.perf_counter()
-    launches["flash_attention"] += phase_train(torch, device, cfg, smi)
+    launches["flash_attention"] += phase_train(torch, device, cfg, smi,
+                                               row_out=train_row)
     seconds["train"] = time.perf_counter() - t_phase
     # ... on the model axis at a world of one: FSDP gathers, TP heads
     # through flash under autograd, the collectives' transposes
     t_phase = time.perf_counter()
     sharded_launches, train_rank = phase_sharded_train(torch, device, cfg,
-                                                       smi)
+                                                       smi,
+                                                       row_out=sharded_row)
     launches["flash_attention"] += sharded_launches
     seconds["sharded_train"] = time.perf_counter() - t_phase
     # ... and the ssm, hybrid and encdec trainers: the SSD scan kernel
@@ -6935,6 +7200,12 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # the launch analysis: the dry run's table on meta, two of its cells
+    # made on the card, the roofline floors beside the llama serve and
+    # train phases' medians, remat "dots" against "full"
+    t_phase = time.perf_counter()
+    phase_launch(torch, device, smi, cfg, serve_row, train_row, sharded_row)
+    seconds["launch"] = time.perf_counter() - t_phase
     seconds["script"] = time.perf_counter() - t_script
     emit({"phase": "seconds", **seconds})
     emit({"kernels": summary})

@@ -55,12 +55,14 @@ families; the others refuse them by name (``check_mesh_training``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import dtype_of, resolve_device
@@ -78,6 +80,8 @@ FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 # (ROADMAP 3c: ssm, hybrid, encdec)
 SP_TRAIN_FAMILIES = ("dense", "vlm", "moe")
 REMAT = ("full", "dots", "none")
+# the ops remat="dots" keeps: the products with no batch dimension
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # cache leaves laid out along the sequence (padded to max_seq, or turned
 # into a ring, at prefill); the others (SSM state, conv tails) are
 # per-sequence and pass through
@@ -348,16 +352,36 @@ def _train_layer(block, x, cfg, rcfg, seg: Segment, positions, enc_out,
     return x, aux
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable`` as a selective
+    checkpoint policy: a matrix product with no batch dimension (``mm``,
+    ``addmm``: what ``F.linear`` and a flattened ``x @ W`` become, the
+    weight products) is kept, everything else recomputed, ``bmm`` (a
+    product with a batch dimension: attention's, and the MoE experts' whose
+    einsum in the reference carries the expert dimension) included. A
+    kernel launched through ctypes (``FlashAttentionFn``, ``SsdScanFn``) is
+    not an op the policy sees and runs again, as under "full"."""
+    if op in DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, rcfg: RunConfig):
     """``rcfg.remat`` on one layer: "full" keeps only the layer's input and
     recomputes the layer in the backward (non-reentrant
-    ``torch.utils.checkpoint``, the reference's ``nothing_saveable``).
-    "dots" is treated as "full": the reference's policy also keeps the
-    products' outputs, which the port does not (ROADMAP: training)."""
+    ``torch.utils.checkpoint``, the reference's ``nothing_saveable``);
+    "dots" also keeps the outputs of the products with no batch dimension
+    (``_dots_saveable``, selective checkpointing: the reference's
+    ``dots_with_no_batch_dims_saveable``)."""
     if rcfg.remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {rcfg.remat!r}")
     if rcfg.remat == "none":
         return fn
+    if rcfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_saveable)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=context)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 

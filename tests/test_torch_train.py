@@ -36,6 +36,7 @@ layer count as fan-in, which swamps any bf16 comparison). Tolerances:
 import dataclasses
 import functools
 import json
+import math
 import os
 import tempfile
 
@@ -382,6 +383,133 @@ def test_forward_train_logits_equal_the_prefill_logits():
         assert aux == {}
         np.testing.assert_allclose(logits[:, -1].detach().numpy(),
                                    last.numpy(), rtol=1e-6, atol=1e-6)
+
+
+DOTS_ARCHS = ("llama3.2-3b", "arctic-480b", "deepseek-v2-236b")
+
+
+@pytest.mark.parametrize("arch", DOTS_ARCHS)
+def test_dots_grads_equal_full(arch):
+    """``remat="dots"`` (selective checkpointing) against ``"full"`` at
+    f32 on the smoke configs (dense, moe, MLA): the loss equal and every
+    gradient within 1e-6 of the leaf's max |grad|."""
+    jcfg, tcfg = _cfgs(arch, "float32")
+    model = init_params(tcfg, device="cpu", seed=0)
+    _, tb = _batch(jcfg, 2, 24)
+    out = {}
+    for remat in ("full", "dots"):
+        out[remat] = _grads(model, tb, tcfg, _rcfgs(remat=remat)[1])
+    assert float(out["dots"][1]["loss"]) == float(out["full"][1]["loss"])
+    for name, g in out["full"][0].items():
+        assert _rel(out["dots"][0][name], g) <= 1e-6, name
+
+
+def test_dots_loss_and_grads_match_reference():
+    """``remat="dots"`` on both sides (the reference's
+    ``dots_with_no_batch_dims_saveable``), llama's smoke config at f32, B
+    2, S 24: loss within 1e-5 relative, every grad within 1e-4 of the
+    leaf's max |grad|."""
+    jcfg, tcfg = _cfgs(LLAMA, "float32")
+    jrcfg, trcfg = _rcfgs(remat="dots")
+    state = _ref_state(jcfg, tcfg, jrcfg)
+    jb, tb = _batch(jcfg, 2, 24)
+    vg = jax.jit(jax.value_and_grad(functools.partial(
+        j_loss_fn, cfg=jcfg, shd=ShardingCtx(make_host_mesh(1, 1)),
+        rcfg=jrcfg), has_aux=True))
+    (_, jmet), jgrads = vg(jax.tree.map(jnp.asarray, state["params"]),
+                           jax.tree.map(jnp.asarray, jb))
+    model = params_from_jax(state["params"], tcfg, device="cpu")
+    grads, tmet = _grads(model, tb, tcfg, trcfg)
+    for k in ("loss", "ce_loss", "z_loss"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=1e-5, err_msg=k)
+    for ref_path, got in _by_ref(grads, tcfg).items():
+        want = np.asarray(_ref_at(jgrads, ref_path))
+        assert _rel(got, want) <= 1e-4, (ref_path, _rel(got, want))
+
+
+def _ref_no_batch_dots(jcfg, seg_index, kind, b, s):
+    """(M, K, N) of every ``dot_general`` with no batch dimension in the
+    reference's training forward of one ``kind`` layer: the products its
+    ``dots_with_no_batch_dims_saveable`` keeps."""
+    import jax.extend as jex
+    from repro.distribution.sharding import abstract_params
+    from repro.models.blocks import apply_block as j_apply_block
+    from repro.models.model import model_schema as j_model_schema
+    mesh = make_host_mesh(1, 1)
+    stacked = abstract_params(j_model_schema(jcfg, mesh))["segments"]
+    p = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape[1:], a.dtype),
+                     stacked[seg_index])
+    x = jax.ShapeDtypeStruct((b, s, jcfg.d_model), jnp.float32)
+    jrcfg = _rcfgs()[0]
+    closed = jax.make_jaxpr(lambda p, x: j_apply_block(
+        p, x, jcfg, ShardingCtx(mesh), jrcfg, kind,
+        positions=jnp.arange(s), mode="train")[0])(p, x)
+    out = []
+
+    def walk(jaxpr):
+        for eq in jaxpr.eqns:
+            if eq.primitive.name == "dot_general":
+                (lc, rc), (lb, rb) = eq.params["dimension_numbers"]
+                ls = eq.invars[0].aval.shape
+                rs = eq.invars[1].aval.shape
+                if not lb and not rb:
+                    out.append((
+                        math.prod(d for i, d in enumerate(ls) if i not in lc),
+                        math.prod(ls[i] for i in lc),
+                        math.prod(d for i, d in enumerate(rs)
+                                  if i not in rc)))
+            for v in eq.params.values():
+                for sub in v if isinstance(v, (list, tuple)) else (v,):
+                    if isinstance(sub, jex.core.ClosedJaxpr):
+                        walk(sub.jaxpr)
+                    elif isinstance(sub, jex.core.Jaxpr):
+                        walk(sub)
+
+    walk(closed.jaxpr)
+    return sorted(out)
+
+
+@pytest.mark.parametrize("arch", DOTS_ARCHS)
+def test_dots_saves_the_references_no_batch_products(arch, monkeypatch):
+    """The ops ``remat="dots"`` keeps in one layer's forward (the last
+    segment's: dense for llama, moe for arctic and deepseek) are, as (M, K,
+    N), the reference's ``dot_general``s with no batch dimension in the
+    same layer: the weight products and the router, where the experts'
+    products (``bmm``, the expert dim a batch dim in the reference's
+    einsum) and attention's are recomputed. For llama each kept product is
+    one of the layer's seven weights."""
+    from repro_torch.models import model as tmodel
+    jcfg, tcfg = _cfgs(arch, "float32")
+    model = init_params(tcfg, device="cpu", seed=0)
+    segs = build_schedule(tcfg)
+    seg = segs[-1]
+    b, s = 2, 24
+    kept = []
+    policy = tmodel._dots_saveable
+
+    def recording(ctx, op, *args, **kw):
+        if not ctx.is_recompute and op in tmodel.DOTS_SAVED:
+            a, w = args[-2:]
+            kept.append((a.shape[0], a.shape[1], w.shape[1]))
+        return policy(ctx, op, *args, **kw)
+
+    monkeypatch.setattr(tmodel, "_dots_saveable", recording)
+    rcfg = _rcfgs(remat="dots")[1]
+    x = torch.randn(b, s, tcfg.d_model, generator=torch.Generator()
+                    .manual_seed(0), requires_grad=True)
+    layer = tmodel._remat(tmodel._train_layer, rcfg)
+    y, _ = layer(model.blocks[-1], x, tcfg, rcfg, seg, torch.arange(s),
+                 None)
+    y.sum().backward()
+    assert x.grad is not None and len(kept) > 0
+    assert sorted(kept) == _ref_no_batch_dots(jcfg, len(segs) - 1,
+                                              seg.kind, b, s)
+    if arch == LLAMA:
+        sizes = sorted(w.numel() for w in model.blocks[-1].parameters()
+                       if w.dim() >= 2)
+        assert len(kept) == 7 == len(sizes)
+        assert sorted(k * n for _, k, n in kept) == sizes
 
 
 def test_flash_attention_fn_grads_match_blockwise_autograd():

@@ -200,8 +200,9 @@ def test_sharded_train_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s sharded train phase on the CPU at llama's smoke
     config (2 layers, S 32, a gloo world of one): the sharded micro-batch
     against the unsharded one, the Runner's launches (the plain kernel
-    wrapped to count them), every leaf moved, the ledger's collectives, the
-    remesh's restored state, the Megatron-SP micro-batch and step (their
+    wrapped to count them), every leaf moved, the ledger's collectives
+    (their bytes a step by kind too, and the launch phase's roofline
+    floors over them), the remesh's restored state, the Megatron-SP micro-batch and step (their
     gaps, launches and the ledger against ``train_collectives(...,
     sp=True)``), and the rank cases at S 64 (the card's timer and profiler
     stubbed)."""
@@ -238,10 +239,12 @@ def test_sharded_train_phase_rehearses_on_the_cpu(monkeypatch):
     rows = []
     monkeypatch.setattr(cs, "emit", rows.append)
     cfg = get_smoke_config(ARCH)
+    out = {}
     launches, checks = cs.phase_sharded_train(torch, torch.device("cpu"),
-                                              cfg, "cpu")
+                                              cfg, "cpu", row_out=out)
     assert not dist.is_initialized()
     (row,) = rows
+    assert out == row
     assert launches == cfg.num_layers * cs.TRAIN_ACCUM * 2 \
         * (cs.SHARDED_TRAIN_STEPS + 1)       # the SP path's one step
     sp = row["seq_parallel"]
@@ -257,5 +260,14 @@ def test_sharded_train_phase_rehearses_on_the_cpu(monkeypatch):
     # backward's and the recompute's too, as ``train_collectives`` reckons
     assert row["ledger_ops_a_step"] == row["ledger_ops_want"] == \
         cs.train_collectives(cfg, cs.TRAIN_ACCUM)
+    # ... and their bytes, by the reference's kind names, which the launch
+    # phase's roofline reads as the collective term
+    kinds = row["ledger_bytes_a_step_by_kind"]
+    assert set(kinds) == {"all-reduce", "all-gather", "reduce-scatter"}
+    assert row["ledger_bytes_a_step"] == sum(kinds.values()) > 0
+    floors = cs.roofline_floors(
+        cfg, {"max_seq": 64, "slots": 8, "step_ms_median": 1.0},
+        {"step_ms_median": 10.0}, row)
+    assert floors[-1]["collective_bytes"] == row["ledger_bytes_a_step"]
     assert sorted(checks) == [2, 4, 8, 16]
     assert all(c["launches"] == 1 for c in checks.values())
