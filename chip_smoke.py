@@ -450,9 +450,11 @@ FLOOR_NUDGE = 2 ** -8         # relative, about one bf16 ulp: noise floors
 # and cut depth (hymba keeps its global layer 0 and a windowed segment),
 # "2d" at a world of one, the trainers' batches, SHARDED_TRAIN_STEPS
 # Runner steps on each path, as the sharded train phase; a profiled sharded micro-batch at 1 layer
-# (whisper 1 + 1). Then each TP train rank's SsdScanFn (mamba2's 32 / tp
-# heads, hymba's 25 at tp 2 and 50 whole past it) and f32 flash at
-# whisper's encoder rank heads (12 / tp, padded at 8 and 16)
+# (whisper 1 + 1); then the sharded path again with Megatron-SP, its
+# micro-batch and SHARDED_TRAIN_STEPS steps. Then each TP train rank's
+# SsdScanFn (mamba2's 32 / tp heads, hymba's 25 at tp 2 and 50 whole
+# past it) and f32 flash at whisper's encoder rank heads (12 / tp,
+# padded at 8 and 16)
 SHARDED_FAMILIES = (("mamba2-370m", 8, 0, TRAIN_SEQ, TRAIN_BATCH),
                     ("hymba-1.5b", 4, 0, TRAIN_SEQ, TRAIN_BATCH),
                     ("whisper-small", 2, 2, ENCDEC_MAX_SEQ, 16))
@@ -4555,9 +4557,24 @@ KIND_OPS = {"dense": (0, 0, 7), "dense_prefix": (0, 0, 7),
 # attention's output forward and in the recompute, the routed and dense
 # branch's forward, the routed one's in the recompute, and the logits'
 # and the two row gathers' transposes (8); the global aux's psum forward
-# and in the recompute (2)
+# and in the recompute (2). An ssm layer gathers its rows forward and in
+# the recompute and, backward, its output's cotangent (3); it
+# reduce-scatters its output forward (the layer's last op, which the
+# recompute stops short of) and the gather's cotangent (2); the gated
+# norm's sum of squares forward, in the recompute and its transpose (3).
+# A hybrid layer gathers h once for both paths and the MLP's input, each
+# forward and in the recompute, and the three outputs' cotangents (7);
+# it reduce-scatters the attention's, the SSM path's and the MLP's
+# outputs forward, the first two again in the recompute, and the two
+# gathers' cotangents (7); the norm's 3 psums. An enc layer is a dense
+# one; a dec layer adds a cross attention half that gathers its rows
+# forward and in the recompute and its output's cotangent (9 in all) and
+# reduce-scatters its output forward and in the recompute and its
+# gather's cotangent (8); the encoder's output it reads is gathered
+# once a micro-batch (``train_collectives``), so no enter sums it
 KIND_OPS_SP = {"dense": (6, 5, 0), "dense_prefix": (6, 5, 0),
-               "moe": (9, 8, 2)}
+               "moe": (9, 8, 2), "ssm": (3, 2, 3), "hybrid": (7, 7, 3),
+               "enc": (6, 5, 0), "dec": (9, 8, 0)}
 
 
 def train_collectives(cfg, accum: int, sp: bool = False,
@@ -4570,8 +4587,10 @@ def train_collectives(cfg, accum: int, sp: bool = False,
     an untied head) gathered for the lookup and for the head and
     reduce-scattered after each, the lookup's and the head's sums (under
     SP the lookup's reduce-scatter, the head's row gather and their
-    transposes instead) and the loss's 3 psums (the vocabulary's exps and
-    picked logits, the tokens' sums over data), and each layer's FSDP
+    transposes instead, and an encoder's output's row gather, outside
+    the layers' remat, and its transpose) and the loss's 3 psums (the
+    vocabulary's exps and picked logits, the tokens' sums over data),
+    and each layer's FSDP
     leaves gathered twice (forward and remat) and reduce-scattered once,
     and its ops. Per step: the gradient sum of every leaf ``sum_axes``
     sums, one clip norm psum for each set of axes the leaves split over,
@@ -4605,6 +4624,8 @@ def train_collectives(cfg, accum: int, sp: bool = False,
         if nd >= 2:
             means += bool(spec[nd - 1]) + 2 * bool(spec[nd - 2])
     base = (4, 4, 3) if sp else (2, 2, 5)
+    if sp and cfg.encoder_layers:
+        base = (5, 5, 3)
     return {"all_gather": accum * (base[0] + 2 * leaves + gathers),
             "reduce_scatter": accum * (base[1] + leaves + scatters),
             "psum": accum * (base[2] + psums) + synced + len(groups)
@@ -4620,9 +4641,13 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
     gradient within ``TRAIN_TOL``), ``SHARDED_TRAIN_STEPS`` Runner steps
     on each path (the sharded ones counted: flash and SSD launches, every
     leaf moved, the ledger's collectives a step against
-    ``train_collectives``), a profiled 1-layer sharded micro-batch.
-    ``cut``: the depth's cut, for the row. Returns (the sharded steps'
-    launches, the row)."""
+    ``train_collectives``), a profiled 1-layer sharded micro-batch; then
+    the same with Megatron-SP (``seq_parallel_activations``, the rows
+    split along the sequence, an encoder's frames too): its micro-batch
+    against the unsharded one, its steps' launches equal to the sharded
+    steps', every leaf moved, its ledger a step against
+    ``train_collectives(..., sp=True)``. ``cut``: the depth's cut, for
+    the row. Returns (the sharded and SP steps' launches, the row)."""
     import dataclasses
     import tempfile
 
@@ -4680,7 +4705,7 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
                "grad_norm": grad_norm(model, grads).item()}
         gaps = {n: rel_err(grads[n], want["grads"][n])
                 for n in want["grads"]}
-        del grads, want["grads"]
+        del grads
         row.update({
             "loss_sharded": got["loss"], "loss_unsharded": want["loss"],
             "loss_gap": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
@@ -4752,17 +4777,88 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
         del pmodel, params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 3. Megatron-SP: the same steps, the rows split along the sequence
+    sp_rcfg = dataclasses.replace(rcfg, seq_parallel_activations=True)
+    with world_of_one(torch, device) as (serve_shd, core), \
+            tempfile.TemporaryDirectory() as d:
+        shd = train_ctx(serve_shd.axes, sp_rcfg)
+        runner = Runner(cfg, sp_rcfg, shd, feed, d, device=device)
+        runner.init_state(seed=SEED)
+        model = runner.state["params"]
+        grads, metrics = _grads(
+            model, micro, cfg, dataclasses.replace(sp_rcfg, grad_accum=1),
+            lambda g: _sync_grads(model, g, seq=seq))
+        sp = {"rows_axis": shd.sp_of(seq),
+              "frames_axis": shd.sp_of(cfg.encoder_seq)
+              if cfg.encoder_layers else None,
+              "loss": metrics["loss"].item(),
+              "grad_norm": grad_norm(model, grads).item()}
+        gaps = {n: rel_err(grads[n], want["grads"][n])
+                for n in want["grads"]}
+        del grads, want["grads"]
+        sp.update({
+            "loss_gap": abs(sp["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_norm_gap": abs(sp["grad_norm"] - want["grad_norm"])
+            / abs(want["grad_norm"]),
+            "kernel_fed_grads": len(gaps),
+            "kernel_fed_worst_gap": max(gaps.values()),
+            "worst_leaves": sorted(gaps, key=gaps.get)[-3:]})
+        del gaps
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
+        ops0 = ledger_ops(core)
+        runner.run(1)
+        ops1 = ledger_ops(core)
+        runner.run(SHARDED_TRAIN_STEPS - 1)
+        sp_launches = {"flash_attention": fa.flash_attention.launches,
+                       "ssd_chunk_scan": ss.ssd_chunk_scan.launches}
+        still = [n for n, p, b in zip(names, model.parameters(), before)
+                 if torch.equal(p.detach(), b)]
+        del before
+        log = runner.metrics_log
+        sp.update({
+            "step_ms": [m["dt"] * 1e3 for m in log],
+            "step_ms_non_sp": row["step_ms_sharded"],
+            "step_ratio_non_sp": log[-1]["dt"] * 1e3
+            / row["step_ms_sharded"][-1],
+            "launches": sp_launches,
+            "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
+                                  for v in ops1},
+            "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM, sp=True),
+            "params_moved": len(names) - len(still),
+            "params_not_moved": still[:10],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "losses": [m["loss"] for m in log]})
+        row["seq_parallel"] = sp
+        finite = all(math.isfinite(m["loss"]) and math.isfinite(
+            m["grad_norm"]) for m in log)
+        if not sp["rows_axis"] or not sp["kernel_fed_grads"] \
+                or (cfg.encoder_layers and not sp["frames_axis"]) \
+                or max(sp["loss_gap"], sp["grad_norm_gap"],
+                       sp["kernel_fed_worst_gap"]) > TRAIN_TOL \
+                or sp_launches != launches or still or not finite \
+                or sp["ledger_ops_a_step"] != sp["ledger_ops_want"]:
+            raise AssertionError(f"sharded {cfg.name} train with "
+                                 f"Megatron-SP: {sp}")
+        del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
     row.update({"seconds": time.perf_counter() - t0, "gpu": smi})
     emit(row)
-    return launches, row
+    return {k: v + sp_launches[k] for k, v in launches.items()}, row
 
 
 def phase_sharded_train_families(torch, device, smi: str, cfgs=None):
     """The ssm, hybrid and encdec families trained on the model axis at a
     world of one (``SHARDED_FAMILIES``; ``cfgs``: their configs by name,
     the full-width ones cut to the table's depth by default), each freed
-    before the next, then ``family_train_rank_cases``. Returns (their
-    launches summed, the rank cases' checks)."""
+    before the next, each without and with Megatron-SP, then
+    ``family_train_rank_cases``. Returns (their launches summed, the rank
+    cases' checks)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -7032,8 +7128,8 @@ def main() -> int:
         launches[k] += v
     seconds["train_families"] = time.perf_counter() - t_phase
     # ... and on the model axis at a world of one: the SSD heads and
-    # width under grad, whisper's encoder with its FSDP gathers; each TP
-    # train rank's SsdScanFn and f32 flash
+    # width under grad, whisper's encoder with its FSDP gathers, then the
+    # same with Megatron-SP; each TP train rank's SsdScanFn and f32 flash
     t_phase = time.perf_counter()
     fam_launches, fam_train_rank = phase_sharded_train_families(
         torch, device, smi)

@@ -563,6 +563,10 @@ def gqa_attention(p, x, cfg: ModelConfig, rcfg, *, positions, causal=True,
         if axis and torch.is_grad_enabled():
             x = shd.rows_in(x, axis)
             if kv_x is not None:
+                # the encoder's output: every rank's heads read all of it;
+                # where Megatron-SP split the frames its rows were
+                # gathered once and marked entered (``model._encoded``),
+                # and this is the identity
                 kv_x = shd.enter(kv_x, axis)
             wk, wv = shd.enter_weight(wk, axis), shd.enter_weight(wv, axis)
             if cfg.qk_norm:

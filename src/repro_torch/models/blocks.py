@@ -145,12 +145,14 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
     ``enc`` layer (run in "train" mode) too. Under autograd (training on
     a mesh, every kind) ``p`` is the layer as ``ShardingCtx.gathered``
     reads it, its FSDP shards gathered, and under Megatron-SP (``shd.sp``;
-    the dense, dense_prefix and moe kinds) x holds the rank's rows of the
-    sequence, the norms run on them and each half gathers them; a
-    ``hybrid`` layer's one pre-norm output ``h``, which both its attention
-    and its SSM path read, enters their split once in the block (the
-    paths' own enters of it are then the identity), so its gradient sums
-    both paths' once."""
+    every kind) x holds the rank's rows of the sequence, the norms run on
+    them, each half (the SSM path too) gathers them and reduce-scatters
+    its output back to them; a ``hybrid`` layer's one pre-norm output
+    ``h``, which both its attention and its SSM path read, enters their
+    split once in the block, its rows gathered once under SP (the paths'
+    own enters or gathers of it are then the identity), so its gradient
+    sums both paths' once, and its two outputs' norms run on the rank's
+    rows."""
     check_kind(kind)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -163,10 +165,12 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, kind: str, *,
         return x + y, None if train else new_cache, {}
     decode = mode == "decode"
     if kind == "hybrid" and on_mesh:
-        # both paths read h: it enters their split once (under autograd),
-        # and the paths' own enters of it are then the identity, so its
-        # gradient, both paths' partial ones added first, is summed once
-        h = shd.enter(h, _head_axis(p["attn"]))
+        # both paths read h: it enters their split once (under autograd;
+        # under Megatron-SP its rows are gathered once), and the paths' own
+        # enters or gathers of it are then the identity, so its gradient,
+        # both paths' partial ones added first, is summed (or
+        # reduce-scattered) once
+        h = shd.rows_in(h, _head_axis(p["attn"]))
     if train:
         a = _attn(p["attn"], h, cfg, rcfg, positions=positions,
                   window=window, causal=kind != "enc", **on_mesh)

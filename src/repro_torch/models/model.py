@@ -49,8 +49,9 @@ family on a mesh, a model made with a training ``ShardingCtx``
 TP), and each layer gathers its FSDP shards as it runs (an encoder's
 layers gather theirs in ``encode``, its frames the rank's rows of the
 batch; a moe layer's aux is over the global batch). Megatron-SP
-activations (``seq_parallel_activations``) train the dense, vlm and moe
-families; the others refuse them by name (``check_mesh_training``).
+activations (``seq_parallel_activations``) train every family: the
+residual stream holds the rank's rows of the sequence between blocks
+(an encoder's of its frames, where the model axis divides them).
 """
 from __future__ import annotations
 
@@ -76,9 +77,6 @@ from repro_torch.models.moe import Groups, dispatch_groups
 from repro_torch.models.schema import ParamTree
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
-# the families whose training on a mesh takes Megatron-SP activations
-# (ROADMAP 3c: ssm, hybrid, encdec)
-SP_TRAIN_FAMILIES = ("dense", "vlm", "moe")
 REMAT = ("full", "dots", "none")
 # the ops remat="dots" keeps: the products with no batch dimension
 DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -385,7 +383,7 @@ def _remat(fn, rcfg: RunConfig):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
+def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig, shd=None):
     """The encoder over stub frame embeddings ``frames`` (B, encoder_seq,
     d): sinusoid positions added in the frames' dtype, the ``enc`` layers
     (each under ``rcfg.remat`` when autograd records), the encoder's final
@@ -393,15 +391,22 @@ def encode(model: Model, frames: torch.Tensor, rcfg: RunConfig):
     f32 frames (the data pipeline's) run it in f32 against bf16 weights,
     bf16 ones (``input_specs``'s, serving) in bf16. On a mesh ``frames``
     are the rank's rows and each layer runs on the rank's heads and MLP
-    shards."""
+    shards. ``shd``: the context the layers run in (default
+    ``model.shd``); a training forward's ``for_seq`` copy over the frames
+    keeps, under Megatron-SP, the rank's rows of the frames once the
+    positions are added (the reference constrains after the sum), and
+    the output is those rows."""
     cfg = model.cfg
+    shd = model.shd if shd is None else shd
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames + sinusoid_positions(pos, cfg.d_model)[None].to(frames.dtype)
+    if shd is not None and shd.sp:
+        x = shd.own_rows(x)
     layer_fn = _remat(_train_layer, rcfg) if torch.is_grad_enabled() \
         else _train_layer
     seg = Segment("enc", cfg.encoder_layers)
     for block in model.encoder.blocks:
-        x = layer_fn(block, x, cfg, rcfg, seg, pos, None, model.shd)[0]
+        x = layer_fn(block, x, cfg, rcfg, seg, pos, None, shd)[0]
     return apply_norm(model.encoder.final_norm, x, cfg.norm)
 
 
@@ -412,38 +417,55 @@ def _embed_in(model: Model, tokens: torch.Tensor, positions: torch.Tensor,
     in training, (B, 1) per row at decode), rounded to that dtype.
     ``embed``: the table as the forward reads it (default
     ``model.embed``); ``shd``: the forward's context (default
-    ``model.shd``; a training forward's Megatron-SP copy)."""
+    ``model.shd``; a training forward's Megatron-SP copy, whose rows, and
+    so whose positions, are the rank's block of the sequence)."""
     cfg = model.cfg
+    shd = model.shd if shd is None else shd
     x = embed_tokens(model.embed if embed is None else embed, tokens,
-                     dtype_of(cfg.dtype), model.shd if shd is None else shd)
+                     dtype_of(cfg.dtype), shd)
     if cfg.family == "encdec":
-        x = x + sinusoid_positions(positions, cfg.d_model).to(x.dtype)
+        pe = sinusoid_positions(positions, cfg.d_model).to(x.dtype)
+        x = x + (shd.own_rows(pe[None]) if shd is not None and shd.sp
+                 else pe)
     return x
 
 
-def _encoded(model: Model, frames, rcfg: RunConfig):
-    """The encoder's output for ``frames``, the rank's rows on a mesh (in
-    training the batch's, which ``batch_shardings`` lays out as
-    ``tokens``)."""
+def _encoded(model: Model, frames, rcfg: RunConfig, train: bool = False):
+    """The encoder's output for ``frames``, the rank's rows of the batch
+    on a mesh (in training the batch's, which ``batch_shardings`` lays out
+    as ``tokens``). ``train``: a training forward on a mesh, whose encoder
+    runs in the context's ``for_seq`` copy over the frames: under
+    Megatron-SP, where the model axis divides the frames, each rank's
+    layers end on its rows of them, which are then gathered once, outside
+    the layers' remat, since every rank's cross-attention heads read
+    every frame; the gather marks them entered, so the cross attention
+    does not enter them again, and its transpose, a reduce-scatter, sums
+    the decoder ranks' partial cotangents. Where the frames stay whole
+    the cross attention enters them (``attention.gqa_attention``)."""
     cfg = model.cfg
     if not cfg.encoder_layers:
         return None
     if frames is None:
         raise ValueError(f"{cfg.name}: an encoder model needs frames "
                          f"(B, {cfg.encoder_seq}, {cfg.d_model})")
-    return encode(model, frames, rcfg)
+    if not train:
+        return encode(model, frames, rcfg)
+    shd = model.shd.for_seq(frames.shape[1])
+    return shd.gather_rows(encode(model, frames, rcfg, shd))
 
 
-def check_mesh_training(cfg: ModelConfig, rcfg: RunConfig) -> None:
+def check_mesh_training(cfg: ModelConfig, rcfg: RunConfig, sp=None,
+                        vocab=None) -> None:
     """Raise for a training run on a mesh that the port does not have:
-    Megatron-SP activations for the families other than
-    ``SP_TRAIN_FAMILIES`` (ROADMAP 3c)."""
-    if rcfg.seq_parallel_activations and cfg.family not in SP_TRAIN_FAMILIES:
+    Megatron-SP activations (``sp``, the axis a forward's rows split
+    over, ``ShardingCtx.for_seq``) with a vocabulary that axis does not
+    split (``vocab``: its axis, ``vocab_axis``; ROADMAP P28). No setting
+    of ``rcfg`` is refused: every family trains on a mesh, with
+    Megatron-SP too."""
+    if sp and vocab != sp:
         raise NotImplementedError(
-            f"{cfg.name}: seq_parallel_activations (Megatron-SP between "
-            f"blocks) for the {cfg.family} family on a mesh is not ported "
-            f"yet (ROADMAP 3c); the {', '.join(SP_TRAIN_FAMILIES)} families "
-            f"train with it")
+            f"{cfg.name}: Megatron-SP with a vocabulary the {sp} axis "
+            f"does not split is not ported")
 
 
 def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
@@ -465,25 +487,24 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     groups of the ``global_batch`` rows the ranks' blocks make up
     (``moe.dispatch_groups``; required for a moe model on a mesh) and its
     aux is over the global batch, as the reference's. With
-    ``rcfg.seq_parallel_activations`` (the dense, vlm and moe families,
-    ``check_mesh_training``) the residual stream between blocks holds the
-    rank's rows of the sequence over the model axis (Megatron-SP,
-    ``ShardingCtx.for_seq``): the embedding's sum and each block's
-    row-parallel sums are reduce-scatters, each block gathers the rows it
-    splits its work over, the norms run on the rank's rows, and the LM
-    head gathers them back."""
+    ``rcfg.seq_parallel_activations`` (every family) the residual stream
+    between blocks holds the rank's rows of the sequence over the model
+    axis (Megatron-SP, ``ShardingCtx.for_seq``): the embedding's sum and
+    each block's row-parallel sums are reduce-scatters, each block
+    gathers the rows it splits its work over (an SSM path every row: its
+    conv and scan read them all), the norms run on the rank's rows, and
+    the LM head gathers them back. An encoder splits its frames on its
+    own (``_encoded``): where the model axis divides them its layers run
+    under Megatron-SP too, and its output's rows are gathered once for
+    the cross attention."""
     check_family(cfg)
     shd = model.shd
     tokens = batch["tokens"]
     groups = Groups()
     if shd is not None:
-        check_mesh_training(cfg, rcfg)
         b, s = tokens.shape
         shd = shd.for_seq(s)
-        if shd.sp and vocab_axis(model) != shd.sp:
-            raise NotImplementedError(
-                f"{cfg.name}: Megatron-SP with a vocabulary the {shd.sp} "
-                f"axis does not split is not ported")
+        check_mesh_training(cfg, rcfg, shd.sp, vocab_axis(model))
         if cfg.moe is not None:
             if global_batch is None:
                 raise ValueError(
@@ -494,7 +515,7 @@ def forward_train(model: Model, batch: Dict, cfg: ModelConfig,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_in(model, tokens, positions,
                   None if shd is None else shd.gathered(model.embed), shd)
-    enc_out = _encoded(model, batch.get("frames"), rcfg)
+    enc_out = _encoded(model, batch.get("frames"), rcfg, shd is not None)
     layer_fn = _remat(_train_layer, rcfg)
     layer = 0
     aux_all: Dict = {}

@@ -239,10 +239,11 @@ def gated_norm(p, gated: torch.Tensor, di: int, shd=None, axis=None,
     # rank the weight is exactly 1 and the mean is ``apply_norm``'s. Each
     # rank scales only its channels by the sum, so under autograd its
     # cotangent is partial and is summed back (``psum_partial``), and the
-    # whole scale, of which it reads its slice, enters the split
+    # whole scale, of which it reads its slice, enters the split (under
+    # Megatron-SP the step sums its gradient instead: ``enter_weight``)
     ms = shd.psum_partial((xf * xf).mean(dim=-1, keepdim=True) * (n / di),
                           axis)
-    scale = shd.enter(p["scale"], axis)
+    scale = shd.enter_weight(p["scale"], axis)
     y = xf * torch.rsqrt(ms + eps) * f32(scale[lo:lo + n])
     return y.to(gated.dtype)
 
@@ -278,13 +279,20 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
     # own channels or heads enters the split, so its gradient is summed
     # over the inner axis: x, the B/C projections and convs, and, where
     # the heads stay whole, the heads' parameters (the norm's scale
-    # enters in ``gated_norm``); the identity without autograd
+    # enters in ``gated_norm``); the identity without autograd. Under
+    # Megatron-SP x holds the rank's rows of the sequence, which the conv
+    # and the scan need all of: they are gathered (whether or not the
+    # width splits), and the weights are not entered (``enter_weight``:
+    # the step sums their gradients over the axis)
     w = {k: p[k] for k in ("w_z", "w_x", "w_B", "w_C", "w_dt", "dt_bias",
                            "A_log", "D", "conv_x", "conv_B", "conv_C")}
     if axis:
         entering = ("w_B", "w_C", "conv_B", "conv_C") + (
             ("w_dt", "dt_bias", "A_log", "D") if gather else ())
-        w.update({k: shd.enter(w[k], axis) for k in entering})
+        w.update({k: shd.enter_weight(w[k], axis) for k in entering})
+    if shd is not None and shd.sp:
+        x = shd.gather_rows(x)
+    elif axis:
         x = shd.enter(x, axis)
     A = -torch.exp(f32(w["A_log"]))
 
@@ -306,7 +314,9 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, rcfg, *,
 
     def out_proj(gated):
         out = gated_norm(p["norm"], gated, di, shd, axis) @ p["w_out"]
-        return shd.psum(out, axis) if axis else out
+        # partial sums over the inner axis psummed, or under Megatron-SP
+        # reduce-scattered back to the rank's rows (``rows_out``)
+        return shd.rows_out(out, axis, x) if shd is not None else out
 
     if not decode:
         b, l = x.shape[:2]

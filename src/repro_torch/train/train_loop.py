@@ -48,7 +48,7 @@ from repro_torch.distribution.sharding import (
     NamedSharding, ShardingCtx, fsdp_entry, make_rules, mesh_axis_sizes,
     spec_for, split_axes)
 from repro_torch.models.model import (
-    Model, check_family, check_mesh_training, forward_train, vocab_axis)
+    Model, check_family, forward_train, vocab_axis)
 from repro_torch.models.params import (
     init_params, nu_specs, opt_slots, param_layouts, schema_layouts,
     slot_spec)
@@ -252,13 +252,21 @@ def _sync_grads(model: Model, grads: Dict[str, torch.Tensor],
     through the ``nk_*`` verbs. With ``pod_engine`` the ``pod`` part is
     ``nk_grad_sync`` over ``("pod",)`` on that engine (the NetKernel pod
     sync) after the rest. ``seq``: the batch's sequence length, which
-    says whether Megatron-SP split the rows (``ShardingCtx.for_seq``)."""
+    says whether Megatron-SP split the rows (``ShardingCtx.for_seq``); an
+    encoder's leaves follow the split of its own ``encoder_seq`` frames,
+    which may differ (1,500 frames stay whole at a model axis of 8, where
+    448 tokens split)."""
     shd = model.shd
-    sp = shd.sp_of(seq) if seq is not None else None
+    sp = enc_sp = None
+    if seq is not None:
+        sp = shd.sp_of(seq)
+        if model.cfg.encoder_layers:
+            enc_sp = shd.sp_of(model.cfg.encoder_seq)
     layouts = param_layouts(model)
     out, pod = {}, {}
     for name, g in grads.items():
-        axes = sum_axes(shd, *layouts[name], sp)
+        axes = sum_axes(shd, *layouts[name],
+                        enc_sp if name.startswith("encoder.") else sp)
         if pod_engine is not None and "pod" in axes:
             axes = tuple(a for a in axes if a != "pod")
             pod[name] = None
@@ -304,7 +312,6 @@ def make_train_step(cfg: ModelConfig, rcfg: RunConfig, mesh=None,
         model = state["params"]
         sync = None
         if model.shd is not None:
-            check_mesh_training(cfg, rcfg)
             seq = batch["tokens"].shape[1]
 
             def sync(g):

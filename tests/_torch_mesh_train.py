@@ -243,7 +243,7 @@ def one_device_gaps(tcfg, one, ref_state_, shape):
 
 
 def check_ranks(ranks, ref_state_, ref_metrics, tcfg, variant, shape, tol,
-                must=(), one_gaps=None):
+                must=(), one_gaps=None, turned=None):
     """Every rank's metrics and every param, ``mu`` and ``nu`` shard
     against the reference's block at the rank's coordinate, each within
     ``tol`` of the leaf's max |.| (a parameter element within that plus
@@ -256,7 +256,13 @@ def check_ranks(ranks, ref_state_, ref_metrics, tcfg, variant, shape, tol,
     small leaves (ROADMAP P5: its scan keeps in f32 what the reference
     rounds to bf16; a random SSM model amplifies one bf16 ulp, P19), and
     the sharded step, a third way to round, is held within ``tol`` plus
-    twice that floor, once for each side. Returns the names checked."""
+    twice that floor, once for each side. ``turned``: {parameter: n}, the
+    elements of a parameter (on any one rank) whose first Adam step may
+    go the other way from the reference's, each where the reference's
+    ``mu`` is within the ``mu`` check's tolerance of zero, so the bf16
+    gradient's sign is below its noise (ROADMAP P30): at most ``n`` such
+    elements, each off by no more than the step's 2 lr, every other
+    element held as above. Returns the names checked."""
     from repro_torch.configs import RunConfig
     from repro_torch.launch.mesh import AXES, POD_AXES
     from repro_torch.train import state_shardings
@@ -293,9 +299,18 @@ def check_ranks(ranks, ref_state_, ref_metrics, tcfg, variant, shape, tol,
             err = np.abs(got - want)
             allowed = tol_of(what) * scale
             if mu is not None:
-                allowed = allowed + adam_slack(
-                    ref_block(mu[0], spec, shape, rank, layer),
-                    tol_of(mu[1]))
+                ref_mu = ref_block(mu[0], spec, shape, rank, layer)
+                allowed = allowed + adam_slack(ref_mu, tol_of(mu[1]))
+                if turned and what in turned:
+                    # the sign of a gradient inside the mu check's
+                    # tolerance of zero: its step may turn (2 lr at most)
+                    mu_tol = tol_of(mu[1]) * float(np.abs(ref_block(
+                        mu[0], (), shape, rank, layer)).max())
+                    turn = (err > allowed) & (np.abs(ref_mu) <= mu_tol) \
+                        & (err <= 2 * RUN["learning_rate"])
+                    assert int(turn.sum()) <= turned[what], (
+                        rank, what, int(turn.sum()))
+                    allowed = np.where(turn, err, allowed)
             assert (err <= allowed).all(), (rank, what,
                                             float(err.max()) / scale)
             seen.add(what)
@@ -325,14 +340,14 @@ def route_flips(ranks, ref_routes, batch, n_calls: int) -> int:
 
 
 def step_matches(world, arch, dtype, variant, changes=(), shape=SHAPE,
-                 batch=(8, 40), must=(), sp=False):
+                 batch=(8, 40), must=(), sp=False, turned=None):
     """One sharded step of ``arch`` on ``shape`` (Megatron-SP activations
     with ``sp``) against the reference's GSPMD step, checked by
     ``check_ranks`` at f32 or bf16 (the reference compiled with
     ``SOURCE_ROUNDING``; each leaf's tolerance beyond the port's
-    one-device gap to it); a moe model's routing identical to the
-    reference's at f32. Returns (the ranks' results, a moe model's
-    routing flips, else None)."""
+    one-device gap to it; ``turned``, its first steps' turns); a moe
+    model's routing identical to the reference's at f32. Returns (the
+    ranks' results, a moe model's routing flips, else None)."""
     world.spawn()
     jcfg, state, tstate = ref_state(arch, dtype, changes, shape)
     nb, tb = ref_batch(jcfg, *batch)
@@ -362,5 +377,5 @@ def step_matches(world, arch, dtype, variant, changes=(), shape=SHAPE,
     gaps = one_device_gaps(tcfg, one_device_step(
         arch, dtype, changes, tstate, tb), new, shape) if bf16 else None
     check_ranks(ranks, new, metrics, tcfg, variant, shape,
-                BF16_TOL if bf16 else F32_TOL, must, gaps)
+                BF16_TOL if bf16 else F32_TOL, must, gaps, turned)
     return ranks, flips

@@ -31,6 +31,7 @@ from repro_torch.fabric import FABRIC_SNAPSHOT_VERSION, FabricSnapshot
 from repro_torch.serve.replay import (
     make_replay_cluster, replay_scenario, scenario_spec,
 )
+from _torch_threads import one_thread  # noqa: F401
 
 _CHECK = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
     "check_trace.py"

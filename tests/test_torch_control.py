@@ -43,6 +43,8 @@ from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels.waterfill import water_fill, water_fill_plain
 from repro_torch.serve.scheduler import TenantScheduler
 
+from _torch_threads import one_thread  # noqa: F401
+
 CAP = 1000.0
 
 

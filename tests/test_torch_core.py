@@ -26,6 +26,8 @@ from repro_torch.core import compression as tcomp
 from repro_torch.core import engine as teng
 from repro_torch.core import nqe as tnqe
 
+from _torch_threads import one_thread  # noqa: F401
+
 DTYPES = ["float32", "bfloat16", "int8", "int32", "float16"]
 AXES = [(), ("pod",), ("data",), ("model",), ("pod", "data"),
         ("pod", "data", "model"), ("stage",)]

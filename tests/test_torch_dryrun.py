@@ -55,6 +55,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import dryrun
 from repro_torch.launch.roofline import ICI_BW
 
+from _torch_threads import one_thread  # noqa: F401
+
 FAMILY_ARCHS = ("llama3.2-3b", "chameleon-34b", "nemotron-4-340b",
                 "arctic-480b", "deepseek-v2-236b", "mamba2-370m",
                 "hymba-1.5b", "whisper-small")

@@ -53,6 +53,7 @@ from repro_torch.models.layers import sinusoid_positions
 from repro_torch.models.params import cache_from_jax
 from repro_torch.models.schema import walk
 from repro_torch.serve import ServeEngine as TEngine
+from _torch_threads import one_thread  # noqa: F401
 from test_torch_train import _rescale
 
 ARCH = "whisper-small"
@@ -60,15 +61,6 @@ B, PROMPT, MAX_SEQ, STEPS = 2, 12, 32, 4
 F32 = dict(dtype="float32", param_dtype="float32")
 BLOCKS = dict(attn_q_block=8, attn_kv_block=8)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the smoke shapes' small ops run no faster on
-    more, and pytest-xdist's workers would oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(seed, *shape):

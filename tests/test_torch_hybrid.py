@@ -51,6 +51,7 @@ from repro_torch.models.params import cache_from_jax, params_from_jax
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TEngine
 from repro_torch.serve import TenantScheduler as TScheduler
+from _torch_threads import one_thread  # noqa: F401
 from test_torch_model import _pair
 
 ARCH = "hymba-1.5b"

@@ -19,6 +19,8 @@ import torch
 import repro.configs as jconf
 import repro_torch.configs as tconf
 
+from _torch_threads import one_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

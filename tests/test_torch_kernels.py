@@ -35,6 +35,7 @@ from repro_torch.kernels.quant_comm import (
 from repro_torch.kernels.ssd_scan import (
     segsum, ssd_chunk_scan, ssd_chunk_scan_plain)
 from repro_torch.models import attention as tattn
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 

@@ -38,6 +38,8 @@ from repro_torch.models.model import cache_schema, init_cache
 from repro_torch.models.params import to_torch
 from repro_torch.models.schema import walk
 
+from _torch_threads import one_thread  # noqa: F401
+
 SOURCE_ROUNDING = {"xla_allow_excess_precision": False}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 WIDE = "mla-wide-test"       # full head dims over 2 heads (registered below)

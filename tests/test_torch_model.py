@@ -37,6 +37,8 @@ from repro_torch.models.model import build_schedule, model_schema
 from repro_torch.models.params import cache_from_jax, params_from_jax
 from repro_torch.models.schema import walk
 
+from _torch_threads import one_thread  # noqa: F401
+
 ARCHS = ("llama3.2-3b", "internlm2-1.8b", "granite-8b")
 B, PROMPT, MAX_SEQ, STEPS = 2, 12, 32, 16
 

@@ -54,6 +54,7 @@ from repro_torch.serve import ServeEngine as TEngine
 from repro_torch.serve import TenantScheduler as TScheduler
 from repro_torch.train import make_train_step
 from repro_torch.train.train_loop import _grads
+from _torch_threads import one_thread  # noqa: F401
 from test_torch_model import (_assert_caches, _pair, _prompt, _run_port,
                               _run_reference)
 from test_torch_train import (_assert_trees, _batch, _by_ref, _cfgs,
@@ -64,13 +65,6 @@ ARCHS = ("arctic-480b", "deepseek-v2-236b")
 SOURCE_ROUNDING = {"xla_allow_excess_precision": False}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np(x):

@@ -35,6 +35,7 @@ from repro_torch.configs import RunConfig, get_smoke_config
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TEngine
 from repro_torch.serve import TenantScheduler as TScheduler
+from _torch_threads import one_thread  # noqa: F401
 from test_torch_model import (_assert_caches, _pair, _prompt,
                               _run_reference, _run_port)
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 from repro_torch.distribution.pipeline import pipeline_forward
 

@@ -17,6 +17,7 @@ from _torch_fabric import PKGS, fake_cluster, req
 
 import repro.control.placement as j_pl
 import repro_torch.control.placement as t_pl
+from _torch_threads import one_thread  # noqa: F401
 
 PACKAGES = {"ref": j_pl, "port": t_pl}
 

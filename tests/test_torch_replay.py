@@ -22,6 +22,8 @@ from repro_torch.serve.replay import (
     make_replay_engine, make_watchdog, replay_scenario, scenario_spec,
 )
 
+from _torch_threads import one_thread  # noqa: F401
+
 LEDGER = ("served_tokens", "admitted_requests", "completed_requests",
           "deferred_polls")
 

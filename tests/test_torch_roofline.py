@@ -21,6 +21,8 @@ from repro_torch.core.engine import CoreEngine
 from repro_torch.core.nqe import CommOp
 from repro_torch.launch import roofline as rl
 
+from _torch_threads import one_thread  # noqa: F401
+
 H100 = {"PEAK_FLOPS": 989e12, "HBM_BW": 3.35e12, "ICI_BW": 450e9,
         "HBM_BYTES": 80e9}
 

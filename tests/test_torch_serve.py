@@ -36,6 +36,8 @@ from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TEngine
 from repro_torch.serve import TenantScheduler as TScheduler
 
+from _torch_threads import one_thread  # noqa: F401
+
 SIDES = {
     "ref": dict(Bucket=JBucket, Scheduler=JScheduler, Request=JRequest,
                 Controller=JController, cong=j_cong),

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 from repro_torch.configs import ARCHS, get_smoke_config
 from repro_torch.distribution.sharding import (

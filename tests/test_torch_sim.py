@@ -22,6 +22,8 @@ import repro.core.engine as jeng
 import repro_torch.control as tctl
 import repro_torch.core.engine as teng
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 def _chip_smoke():
     """``chip_smoke.py``'s fairness phase code: the scenarios run here on

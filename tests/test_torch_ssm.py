@@ -45,6 +45,7 @@ from repro_torch.models.schema import INITS, ParamDesc, walk
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TEngine
 from repro_torch.serve import TenantScheduler as TScheduler
+from _torch_threads import one_thread  # noqa: F401
 from test_torch_model import _pair
 
 ARCH = "mamba2-370m"

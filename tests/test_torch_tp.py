@@ -44,6 +44,7 @@ import pytest
 import torch
 
 # the ranks run rank_engine and rank_forward by name from this module
+from _torch_threads import one_thread  # noqa: F401
 from _torch_tp_families import (  # noqa: F401
     B, NAMES, SOURCE_ROUNDING, cfg_of, check_drain, jmesh, np32,
     pair, rank_engine, rank_forward, ref_forward, request_table,

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from _torch_tp_families import (
     B, NAMES, SOURCE_ROUNDING, STEPS, cfg_of, check_cache_shards,
     check_param_shards, pair, rank_forward, ref_forward, rel,

@@ -17,6 +17,7 @@ drain at f32 on (2, 2), and the world-of-one sharded serve.
 """
 import pytest
 
+from _torch_threads import one_thread  # noqa: F401
 # the ranks run rank_engine and rank_forward by name from this module
 from _torch_tp_families import (  # noqa: F401
     NAMES, cfg_of, check_moe_bf16, check_moe_drain,

@@ -41,6 +41,7 @@ import pytest
 import torch
 
 # the ranks run rank_engine and rank_forward by name from this module
+from _torch_threads import one_thread  # noqa: F401
 from _torch_tp_families import (  # noqa: F401
     NAMES, cfg_of, check_moe_bf16, check_moe_drain,
     check_moe_f32, check_moe_shards, pair, rank_engine, rank_forward, rel,

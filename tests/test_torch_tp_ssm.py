@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from _torch_tp_families import (
     B, NAMES, SOURCE_ROUNDING, cfg_of, check_cache_shards,
     check_param_shards, pair, rank_engine, rank_forward, ref_engine,

@@ -77,18 +77,10 @@ from repro_torch.train import (CheckpointManager, FailurePlan, Runner,
 from repro_torch.train.optimizer import _decay_mask
 from repro_torch.train.train_loop import _grads
 
+from _torch_threads import one_thread  # noqa: F401
+
 ARCHS = ("llama3.2-3b", "internlm2-1.8b", "granite-8b")
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for the module: the smoke shapes' many small ops
-    run no faster on more, and a loaded machine's workers (pytest-xdist)
-    would otherwise oversubscribe its cores several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 LLAMA = "llama3.2-3b"
 SOURCE_ROUNDING = {"xla_allow_excess_precision": False}
 BF16_ULP = 2.0 ** -7
@@ -544,11 +536,11 @@ def test_training_other_families_and_remesh_raise():
     (their steps are held against the reference in
     ``tests/test_torch_train_mesh_{moe,mla}.py``, the ssm, hybrid and
     encdec families' in ``tests/test_torch_train_mesh_{ssm,hybrid,
-    encdec}.py``); Megatron-SP activations train the dense, vlm and moe
-    families (llama's SP step in ``tests/test_torch_train_mesh.py``) and
-    refuse by name for the ssm, hybrid and encdec families (ROADMAP 3c),
-    before any collective; a moe model's sharded forward without the
-    global batch (its dispatch groups' rows) raises."""
+    encdec}.py``); Megatron-SP activations train every family (llama's SP
+    step in ``tests/test_torch_train_mesh.py``, the others' in their
+    ``test_torch_train_mesh_*.py``), so ``check_mesh_training`` refuses
+    none and the SP step builds; a moe model's sharded forward without
+    the global batch (its dispatch groups' rows) raises."""
     from repro_torch.distribution.sharding import ShardingCtx, make_rules
     from repro_torch.models import Model
     from repro_torch.models.model import check_mesh_training
@@ -579,15 +571,10 @@ def test_training_other_families_and_remesh_raise():
                                f"needs the global batch"):
                 forward_train(Model(tcfg, device="cpu", shd=shd), batch,
                               tcfg, RunConfig())
-        if tcfg.family in ("ssm", "hybrid", "encdec"):
-            with pytest.raises(NotImplementedError,
-                               match=f"{tcfg.name}: seq_parallel_activations"
-                               f" .* the {tcfg.family} family"):
-                forward_train(Model(tcfg, device="cpu", shd=shd), batch,
-                              tcfg, sp)
-        else:
-            assert check_mesh_training(tcfg, sp) is None
-            assert callable(make_train_step(tcfg, sp, shd))
+        # every family takes Megatron-SP on a mesh, the ssm, hybrid and
+        # encdec families too
+        assert check_mesh_training(tcfg, sp) is None
+        assert callable(make_train_step(tcfg, sp, shd))
     sp_shd = ShardingCtx(sizes, rules=make_rules("2d"), train=True,
                          seq_parallel=True)
     assert sp_shd.sp_of(8) == "model" and sp_shd.for_seq(8) is not sp_shd

@@ -18,6 +18,13 @@ tolerance:
   ``_torch_mesh_train.adam_slack``); at bf16 within 2e-2 plus twice the
   leaf's one-device gap to the reference, the reference compiled with
   ``SOURCE_ROUNDING``;
+* Megatron-SP under ``"2d"`` at f32 and bf16 with both sequences split
+  over model, and at f32 on (data 2, model 4) with 22 frames, which stay
+  whole, against 16 tokens, which split, each against the reference's
+  SP step within the tolerances above (at bf16 one element of the last
+  ``ln_cross`` bias, whose gradient is within the ``mu`` check's
+  tolerance of zero, may take its first Adam step the other way,
+  ROADMAP P30);
 * the frames: ``DataPipeline(shardings=)`` gives each rank its rows of
   ``frames`` (and tokens, labels), equal to the reference pipeline's
   addressable block bit for bit, and ``forward_train`` on the mesh
@@ -33,10 +40,17 @@ import pytest
 
 from _torch_mesh_train import SHAPE, cfg_of, jmesh, mesh_axes, \
     rank_step, step_matches  # noqa: F401  (rank_step: run by the ranks)
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 
 ARCH = "whisper-small"
 BATCH = (8, 16)                  # global batch, decoder tokens
+MIXED = (2, 4)                   # (data, model) of the mixed SP split
+MIXED_FRAMES = 22                # frames the model axis (4) does not divide
+# bf16 with Megatron-SP: the one element of the last ln_cross bias whose
+# gradient, 0.5% of the leaf's max, changes sign below the bf16 noise of
+# eight ranks' partial sums, so its first Adam step turns (ROADMAP P30)
+SP_TURNED = {"blocks.1.ln_cross.bias": 1}
 LEAVES = ("encoder.blocks.0.attn.wq", "encoder.blocks.1.mlp.w_in",
           "encoder.final_norm", "encoder.segments.0.ln1", "cross.wq",
           "cross.wk", "cross.wv", "cross.wo", "ln_cross")
@@ -82,6 +96,36 @@ def test_sharded_step_matches_reference(world, dtype):
     and the decoder's heads and MLP columns over model, FSDP rows over
     data, the batch (frames too) over pod x data."""
     step_matches(world, ARCH, dtype, "2d", batch=BATCH, must=LEAVES)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_step_matches_reference(world, dtype):
+    """One step on (pod 2, data 2, model 2) under ``"2d"`` with
+    Megatron-SP, both sequences split over model: the encoder's 12 of 24
+    frames a rank after the positions are added, the decoder's 8 of 16
+    tokens with their own positions; the encoder's output gathered once
+    for the cross attention (not entered again), its leaves summed by
+    the encoder's split."""
+    step_matches(world, ARCH, dtype, "2d", batch=BATCH, must=LEAVES,
+                 sp=True, turned=SP_TURNED if dtype == "bfloat16" else None)
+
+
+def test_sp_mixed_split_matches_reference(world):
+    """(data 2, model 4) with Megatron-SP and 22 frames, which 4 does not
+    divide, against 16 tokens, which it does: the encoder stays whole on
+    every rank and its output enters the cross attention, while the
+    decoder's rows split 4 ways (as whisper's 1,500 frames and 448
+    tokens at a model axis of 8 or 16); the encoder's leaves follow its
+    own split, the decoder's SP's. Every shard matches the reference's
+    SP step at f32."""
+    from repro_torch.distribution.sharding import ShardingCtx
+    shd = ShardingCtx(dict(zip(("data", "model"), MIXED)),
+                      seq_parallel=True, train=True)
+    assert shd.sp_of(MIXED_FRAMES) is None
+    assert shd.sp_of(BATCH[1]) == "model"
+    step_matches(world, ARCH, "float32", "2d",
+                 (("encoder_seq", MIXED_FRAMES),), MIXED, batch=BATCH,
+                 must=LEAVES, sp=True)
 
 
 def test_pipeline_frames_are_the_rows_forward_train_consumes(world):

@@ -19,13 +19,16 @@ Checked, each with its tolerance:
   plus twice the leaf's one-device gap to the reference (its bf16 noise
   floor, ROADMAP P5, P19), the reference compiled with
   ``SOURCE_ROUNDING``;
+* Megatron-SP under ``"2d"`` at f32 and bf16 against the reference's SP
+  step, within the same tolerances: the pre-norm output's rows gathered
+  once for both paths, each path's output reduce-scattered;
 * (data 1, model 8): the 4 query heads pad to 8, one a rank; ranks 4-7
   hold only padded heads, whose ``wq`` columns' and ``wo`` rows' ``mu``
   (0.1 x the gradient) is exactly zero, the real heads' not; every shard
   matches the reference at f32 as above;
 * ``chip_smoke.py``'s sharded train phase of the three families
-  rehearsed at a gloo world of one (its ledger counts against
-  ``train_collectives``).
+  rehearsed at a gloo world of one, without and with Megatron-SP (its
+  ledger counts against ``train_collectives``).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import pytest
 
 from _torch_mesh_train import SHAPE, cfg_of, rank_step, \
     step_matches  # noqa: F401  (rank_step: run by the ranks)
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 
 ARCH = "hymba-1.5b"
@@ -52,6 +56,17 @@ def test_sharded_step_matches_reference(world, dtype):
     and the leaves every rank holds whole summed over model by their
     ``enter``s."""
     step_matches(world, ARCH, dtype, "2d", must=LEAVES)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_step_matches_reference(world, dtype):
+    """One step on (pod 2, data 2, model 2) under ``"2d"`` with
+    Megatron-SP: each block gathers the pre-norm output's rows once for
+    both paths, each path reduce-scatters its output back to the rank's
+    20 of 40 rows, and ``attn_out_norm``/``ssm_out_norm`` run on them;
+    the kv heads', the SSM path's whole leaves' and every norm scale's
+    gradients are summed over model after the backward, once."""
+    step_matches(world, ARCH, dtype, "2d", must=LEAVES, sp=True)
 
 
 def test_padded_heads_get_zero_gradient(world):
@@ -94,7 +109,10 @@ def test_sharded_train_families_phase_rehearses_on_the_cpu(monkeypatch):
     against the unsharded one, the Runner's flash and SSD launches (the
     plain kernels wrapped to count them), every leaf moved, the ledger's
     all-gathers, reduce-scatters and psums a step equal to
-    ``train_collectives``, and each TP train rank's SsdScanFn and
+    ``train_collectives``, the same with Megatron-SP (the rows and
+    whisper's frames split over model; its launches the sharded steps',
+    its ledger ``train_collectives(..., sp=True)``), and each TP train
+    rank's SsdScanFn and
     f32 flash at shrunk shapes (the card's timer, profiler and SDPA
     backend stubbed)."""
     import dataclasses
@@ -145,7 +163,8 @@ def test_sharded_train_families_phase_rehearses_on_the_cpu(monkeypatch):
     launches, checks = cs.phase_sharded_train_families(
         torch, torch.device("cpu"), "cpu", cfgs=cfgs)
     assert not dist.is_initialized()
-    per_step = cs.TRAIN_ACCUM * 2 * cs.SHARDED_TRAIN_STEPS
+    # the sharded steps', then the Megatron-SP steps'
+    per_step = cs.TRAIN_ACCUM * 2 * cs.SHARDED_TRAIN_STEPS * 2
     assert launches == {"flash_attention": (2 + 1 + 2 * 1) * per_step,
                         "ssd_chunk_scan": (2 + 2) * per_step}
     trainers = [r for r in rows if "ledger_ops_a_step" in r]
@@ -157,6 +176,15 @@ def test_sharded_train_families_phase_rehearses_on_the_cpu(monkeypatch):
         # too, reaches the CoreEngine's ledger as the reckoning has it
         assert r["ledger_ops_a_step"] == r["ledger_ops_want"] == \
             cs.train_collectives(cfg, cs.TRAIN_ACCUM)
+        sp = r["seq_parallel"]
+        assert sp["rows_axis"] == "model"
+        assert sp["frames_axis"] == ("model" if cfg.encoder_layers
+                                     else None)
+        assert sp["params_moved"] == r["params_total"]
+        assert sp["kernel_fed_worst_gap"] <= cs.TRAIN_TOL
+        assert sp["launches"] == r["launches"]
+        assert sp["ledger_ops_a_step"] == sp["ledger_ops_want"] == \
+            cs.train_collectives(cfg, cs.TRAIN_ACCUM, sp=True)
     assert sorted(checks) == sorted(
         [("ssd_chunk_scan", c, tp) for c in ("mamba2", "hymba")
          for tp in cs.CP_TP]

@@ -34,6 +34,7 @@ import pytest
 
 from _torch_mesh_train import SHAPE, rank_step, \
     step_matches  # noqa: F401  (rank_step: run by the ranks)
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 
 ARCH = "deepseek-v2-236b"

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import tempfile
 
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 
 SHAPE = (2, 2, 2)                 # (pod, data, model)
@@ -80,8 +81,20 @@ def _rank_recovery(axes, d1, d2):
 
 
 def _rank_straggler(axes, d):
-    r = _runner(axes, d, straggler_factor=3.0,
-                delay_injector=lambda step: 2.0 if step == 7 else 0.0)
+    """10 steps with step 7 made slow: its delay is 1.5 x the factor x the
+    slowest step after the first (which compiles nothing but warms up),
+    so however loaded the machine, step 7 is past the factor x the
+    window's median (at most that slowest step) and the watchdog must
+    name it."""
+    factor = 3.0
+    r = _runner(axes, d, straggler_factor=factor)
+
+    def delay(step):
+        if step != 7:
+            return 0.0
+        return 1.5 * factor * max(m["dt"] for m in r.metrics_log[1:])
+
+    r.delay_injector = delay
     return r.run(10)["stragglers"]
 
 

@@ -22,6 +22,11 @@ tolerance:
   on (data 1, model 8), where the width splits 8 ways and the heads do
   not: each rank gathers the x stream and scans every head, its heads'
   parameters entering the split; at f32 as above;
+* Megatron-SP under ``"2d"`` at f32 and bf16, and in the gather case at
+  f32, against the reference's SP step, each within the tolerances
+  above: the rows split over model between blocks, gathered for the SSM
+  path and reduce-scattered after it, the leaves every rank holds whole
+  summed over model after the backward instead of entered;
 * ``psum_partial`` alone: ``gated_norm`` over a width split 2 and 8 ways,
   under autograd, gives the one-device norm's input and scale gradients
   within 1e-6 at f32; with ``psum`` (the identity backward) in its place
@@ -43,6 +48,7 @@ import pytest
 
 from _torch_mesh_train import SHAPE, cfg_of, mesh_axes, local_state, \
     rank_step, step_matches  # noqa: F401  (rank_step: run by the ranks)
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 
 ARCH = "mamba2-370m"
@@ -158,6 +164,28 @@ def test_heads_whole_gathers_the_x_stream(world):
     assert shd.split("ssm_heads", nh) is None
     step_matches(world, ARCH, "float32", "2d", HEADS_WHOLE, WHOLE_MESH,
                  must=SSM_LEAVES)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_step_matches_reference(world, dtype):
+    """One step on (pod 2, data 2, model 2) under ``"2d"`` with
+    Megatron-SP: the residual stream holds each rank's 20 of 40 rows
+    between blocks; the SSM path gathers every row (its conv and scan
+    read them all) and reduce-scatters ``w_out``'s partial sums back to
+    the rank's rows; ``w_B``/``w_C``, their convs and the gated norm's
+    scale are not entered, and their gradients and ``ln1``'s are summed
+    over model after the backward (``train_loop.sum_axes``), once."""
+    step_matches(world, ARCH, dtype, "2d", must=SSM_LEAVES, sp=True)
+
+
+def test_sp_heads_whole_gathers_the_x_stream(world):
+    """(data 1, model 8) with an SSM head dim of 32 and Megatron-SP: each
+    rank's 5 of 40 rows gathered, the post-conv x stream gathered over
+    the channels, all 4 heads scanned; ``w_dt``, ``dt_bias``, ``A_log``
+    and ``D`` are not entered but summed over model after the backward.
+    Every shard matches the reference's SP step at f32."""
+    step_matches(world, ARCH, "float32", "2d", HEADS_WHOLE, WHOLE_MESH,
+                 must=SSM_LEAVES, sp=True)
 
 
 @pytest.mark.parametrize("shape", [None, WHOLE_MESH], ids=["model2",

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import world_fixture
 
 SHAPE = (2, 1, 1)           # (pod, data, model)

@@ -35,6 +35,13 @@ import repro_torch.obs as t_obs
 from repro.serve.replay import make_watchdog as j_make_watchdog
 from repro_torch.serve.replay import make_replay_engine, make_watchdog
 
+# unlike the port's other test modules this one keeps torch's default
+# intra-op threads (no ``_torch_threads.one_thread``): the watchdog
+# phase's claim (k) holds the watchdog's ticks against the watch-free
+# serving wall, and at one thread the smoke model's steps are so short
+# that the rehearsal's share reaches the 2% limit (0.0201 against 0.0136
+# at 8 threads, measured alone on the CPU)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 WALL_CLOCK = "nk_control_tick_seconds_total"
