@@ -29,7 +29,8 @@ JSON object per line:
               grads); whisper-small's 12/12 heads at d 64: flash
               bidirectional over 1500 frames (bf16, f32), causal
               cross-attention with S 4 and 448 below T 1500, causal
-              self-attention at S = T 4 and 448, decode at group 1 over
+              self-attention at S = T 4 and 448, the trained micro-batch's
+              f32 encoder and cross-attention (B 4), decode at group 1 over
               1500 frames at pos 1499 and over 448 slots;
               arctic-480b's 56/8 heads: flash S 64 and 509, decode at
               group 7 over 8 caches of 1024, bf16 and f32 queries;
@@ -157,7 +158,9 @@ JSON object per line:
               global batch 4) and whisper-small (448 tokens and 1500 f32
               frames, global batch 16), each through the Runner for 2
               steps (``grad_accum`` 4; flash and the SSD scan under
-              autograd; launches a step, every parameter moved, step ms,
+              autograd; launches a step, whisper's f32 ones through
+              flash's tensor-core route (``launches_by_route``), every
+              parameter moved, step ms,
               tokens/s, MFU, state bytes, peak memory), the kernel path
               against the plain path (bf16 at full depth: loss and grad
               norm asserted, the kernel-fed leaves' grads reported beside
@@ -192,7 +195,8 @@ JSON object per line:
               each path (step ms; on the mesh: flash and SSD launches,
               every leaf moved, the ledger's collectives a step as
               ``train_collectives`` reckons them, peak bytes), a
-              profiled 1-layer sharded micro-batch; and each TP train
+              profiled 1-layer sharded micro-batch (whisper's f32 flash
+              launches through the tensor-core route); and each TP train
               rank's ``SsdScanFn`` (mamba2's 32 / tp heads, hymba's 25 at
               tp 2 and 50 past it) and f32 flash at whisper's encoder rank
               heads under autograd against the plain forward and its VJP
@@ -206,7 +210,8 @@ JSON object per line:
 15. timings — each kernel, its plain version and one PyTorch library call
               where one computes the same function, timed with CUDA events
               beside the least time the card could take (bytes or
-              operations at the H100 SXM datasheet rates); for the
+              operations at the H100 SXM datasheet rates; f32 flash on
+              the tensor cores at a third of the TF32 rate); for the
               attention kernels the backend that
               ``scaled_dot_product_attention`` dispatches to (timed pinned
               to it); for them and the water-fill the wrapper's host
@@ -594,12 +599,17 @@ def library_row(torch, timer, q, k, v, **kw):
             "library_backend": backend.name}
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: float, dtype: str, route: str = ""):
     """(least ms, "bytes" or "operations"): ``roofline.bound_ms``, imported
     at the call so that importing this script imports nothing of the port
-    (the tools that time two trees put the other tree's ``src`` first)."""
-    from repro_torch.launch.roofline import bound_ms
-    return bound_ms(nbytes, flops, dtype)
+    (the tools that time two trees put the other tree's ``src`` first).
+    ``route``: the flash kernel that takes the work
+    (``flash_attention.route``); ``"tf32x3"`` runs f32 on the tensor cores
+    as three TF32 products, so its operations count at
+    ``PEAK_FLOPS_F32_TENSOR``."""
+    from repro_torch.launch.roofline import PEAK_FLOPS_F32_TENSOR, bound_ms
+    return bound_ms(nbytes, flops, dtype,
+                    PEAK_FLOPS_F32_TENSOR if route == "tf32x3" else None)
 
 
 def flash_work(b, s, t, hq, kv, d, elem, causal, window, dv=None):
@@ -643,6 +653,23 @@ def decode_work(pos, t, hq, kv, d, q_elem, kv_elem):
     return nbytes, 4.0 * d * live * hq
 
 
+def flash_routed(flash_attention, q, k, v, **kw):
+    """One ``flash_attention`` call on the card: (its output, the route it
+    took). Raises unless it launched once, on the route that
+    ``flash_attention.route`` gives its dtype and head dim (f32 at D 64
+    and 128: ``"tf32x3"``, the tensor cores)."""
+    from repro_torch.kernels.flash_attention import route
+    by = dict(flash_attention.launches_by_route)
+    took = route(q.dtype, q.shape[-1])
+    o = flash_attention(q, k, v, **kw)
+    if flash_attention.launches_by_route != {**by, took: by[took] + 1}:
+        raise AssertionError(f"flash_attention {q.dtype} D {q.shape[-1]}: "
+                             f"launches by route {by} -> "
+                             f"{flash_attention.launches_by_route}, want "
+                             f"one on {took}")
+    return o, took
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -654,7 +681,10 @@ def phase_kernels(torch, device):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    # "flash_attention_tf32x3": the f32 calls at D 64 and 128 alone (three
+    # TF32 products on the tensor cores)
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0,
+            "flash_attention_tf32x3": 0.0}
     # (B, S, T, dtype, window, q_offset, (hq, kv), d): the path's prefills,
     # the replay phase's 2-token prompts, a ragged second q tile, a later
     # chunk of two sequences (T > S), a window, the f32 kernel;
@@ -690,8 +720,8 @@ def phase_kernels(torch, device):
         q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
         k = torch.randn((b, t, kv, d), generator=gen, device=device).to(dtype)
         v = torch.randn((b, t, kv, d), generator=gen, device=device).to(dtype)
-        o = flash_attention(q, k, v, causal=True, window=window,
-                            q_offset=q_offset)
+        o, took = flash_routed(flash_attention, q, k, v, causal=True,
+                               window=window, q_offset=q_offset)
         torch.cuda.synchronize()
         ref = flash_attention_plain(q, k, v, causal=True, window=window,
                                     q_offset=q_offset)
@@ -699,7 +729,7 @@ def phase_kernels(torch, device):
         ok = err <= FLASH_TOL[dt] and bool(torch.isfinite(o).all())
         emit({"phase": "kernels", "kernel": "flash_attention", "B": b,
               "S": s, "T": t, "hq": hq, "kv": kv, "d": d, "dtype": dt,
-              "window": window,
+              "window": window, "route": took,
               "q_offset": q_offset, "max_abs_err": err,
               "tol": FLASH_TOL[dt], "ok": ok})
         if not ok:
@@ -708,6 +738,9 @@ def phase_kernels(torch, device):
                                  f"window={window} q_offset={q_offset}: "
                                  f"err {err} > {FLASH_TOL[dt]}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
+        if took == "tf32x3":
+            errs["flash_attention_tf32x3"] = max(
+                errs["flash_attention_tf32x3"], err)
     # (B, T, q dtype, pos, (hq, kv)): the serve phase's cache, the replay
     # and cluster phases' (REPLAY_SLOTS slots of REPLAY_MAX_SEQ positions),
     # chameleon-34b's cache at 64/8 heads, and arctic-480b's at 56/8 (group
@@ -921,8 +954,12 @@ def encdec_kernel_cases(torch, device, gen):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
     (hq, kv), d, t = ENCDEC_HEADS, ENCDEC_D, ENCDEC_FRAMES
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0,
+             "flash_attention_tf32x3": 0.0}
     micro = FAMILY_TRAINERS[-1][2] // TRAIN_ACCUM
+    # the last two: the trained micro-batch's f32 encoder and
+    # cross-attention, the shapes the train phases launch the tf32x3
+    # route at
     for b, s, tk, dt, causal in (
             (2, t, t, "bfloat16", False),
             (2, t, t, "float32", False),
@@ -930,12 +967,14 @@ def encdec_kernel_cases(torch, device, gen):
             (2, ENCDEC_MAX_SEQ, t, "bfloat16", True),
             (2, ENCDEC_MAX_SEQ, t, "float32", True),
             (ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_PROMPT, "bfloat16", True),
-            (micro, ENCDEC_MAX_SEQ, ENCDEC_MAX_SEQ, "bfloat16", True)):
+            (micro, ENCDEC_MAX_SEQ, ENCDEC_MAX_SEQ, "bfloat16", True),
+            (micro, t, t, "float32", False),
+            (micro, ENCDEC_MAX_SEQ, t, "float32", True)):
         dtype = getattr(torch, dt)
         q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
         k, v = (torch.randn((b, tk, kv, d), generator=gen, device=device)
                 .to(dtype) for _ in range(2))
-        o = flash_attention(q, k, v, causal=causal)
+        o, took = flash_routed(flash_attention, q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref = flash_attention_plain(q, k, v, causal=causal)
         err = (o.float() - ref.float()).abs().max().item()
@@ -943,11 +982,15 @@ def encdec_kernel_cases(torch, device, gen):
         emit({"phase": "kernels", "kernel": "flash_attention",
               "model": "whisper-small", "B": b, "S": s, "T": tk, "hq": hq,
               "kv": kv, "d": d, "dtype": dt, "causal": causal,
-              "max_abs_err": err, "tol": FLASH_TOL[dt], "ok": ok})
+              "route": took, "max_abs_err": err, "tol": FLASH_TOL[dt],
+              "ok": ok})
         if not ok:
             raise AssertionError(f"flash_attention whisper B={b} S={s} "
                                  f"T={tk} {dt} causal={causal}: err {err}")
         worst["flash_attention"] = max(worst["flash_attention"], err)
+        if took == "tf32x3":
+            worst["flash_attention_tf32x3"] = max(
+                worst["flash_attention_tf32x3"], err)
     for tt, dt, cdt, pos_list in (
             (t, "bfloat16", "bfloat16", (t - 1,) * ENCDEC_BATCH),
             (t, "float32", "float32", (t - 1,) * ENCDEC_BATCH),
@@ -4427,9 +4470,12 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
+        routes = counted_flash_routes(fa)
         runner.run(FAMILY_STEPS)
         launches = {"flash_attention": fa.flash_attention.launches,
-                    "ssd_chunk_scan": ss.ssd_chunk_scan.launches}
+                    "ssd_chunk_scan": ss.ssd_chunk_scan.launches,
+                    "flash_attention_tf32x3": routes["tf32x3"]}
+        routes = dict(routes)
         peak = torch.cuda.max_memory_allocated()
         still = [n for n, p, b in zip(names, model.parameters(), before)
                  if torch.equal(p.detach().cpu(), b)]
@@ -4446,8 +4492,11 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
     positions = batch * (seq + cfg.encoder_seq)
     flops = 6 * ((n_all - enc) * batch * seq
                  + enc * batch * cfg.encoder_seq)
-    want = {k: v * TRAIN_ACCUM * (1 if rcfg.remat == "none" else 2)
-            * FAMILY_STEPS for k, v in per_forward(cfg).items()}
+    per_run = TRAIN_ACCUM * (1 if rcfg.remat == "none" else 2) * FAMILY_STEPS
+    want = {k: v * per_run for k, v in per_forward(cfg).items()}
+    routes_want = {k: v * per_run
+                   for k, v in flash_routes_per_forward(torch, cfg).items()}
+    want["flash_attention_tf32x3"] = routes_want["tf32x3"]
     finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                  for m in log)
     row = {"phase": "train", "check": "runner", "model": cfg.name,
@@ -4468,13 +4517,16 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
            "losses": [m["loss"] for m in log],
            "grad_norms": [m["grad_norm"] for m in log],
            "launches": launches, "launches_want": want,
+           "flash_launches_by_route": routes,
+           "flash_launches_by_route_want": routes_want,
            "params_moved": len(names) - len(still), "params_total":
            len(names), "params_not_moved": still[:10],
            "state_bytes": sizes, "state_bytes_total": sum(sizes.values()),
            "max_memory_allocated": peak,
            "seconds": time.perf_counter() - t1, "gpu": smi}
     emit(row)
-    if {k: launches[k] for k in want} != want or still or not finite:
+    if {k: launches[k] for k in want} != want or routes != routes_want \
+            or still or not finite:
         raise AssertionError(f"{cfg.name} train runner: {row}")
     del model
     torch.cuda.empty_cache()
@@ -4512,7 +4564,8 @@ def phase_train_families(torch, device, smi: str, cfgs=None):
     their configs by name, the full-width ones by default), one after the
     other, each freed before the next. Returns their launches, summed."""
     from repro_torch.configs import get_config
-    total = {"flash_attention": 0, "ssd_chunk_scan": 0}
+    total = {"flash_attention": 0, "ssd_chunk_scan": 0,
+             "flash_attention_tf32x3": 0}
     for arch, seq, batch in FAMILY_TRAINERS:
         cfg = (cfgs or {}).get(arch) or get_config(arch)
         for k, v in family_trainer(torch, device, cfg, smi, seq,
@@ -4632,6 +4685,29 @@ def train_collectives(cfg, accum: int, sp: bool = False,
             + means}
 
 
+def flash_routes_per_forward(torch, cfg):
+    """``per_forward``'s flash launches by the route that takes them
+    (``flash_attention.route``): an encoder model trains its encoder and
+    its cross-attention in f32 (its frames are f32, ROADMAP P18), every
+    other attention in the model's dtype. whisper-small's 24 f32 ones a
+    forward take ``"tf32x3"``, the tensor cores."""
+    from repro_torch.kernels.flash_attention import ROUTES, route
+    f32 = cfg.encoder_layers + cfg.num_layers if cfg.encoder_layers else 0
+    want = dict.fromkeys(ROUTES, 0)
+    want[route(torch.float32, cfg.head_dim)] += f32
+    want[route(getattr(torch, cfg.dtype), cfg.head_dim)] += \
+        per_forward(cfg)["flash_attention"] - f32
+    return want
+
+
+def counted_flash_routes(fa):
+    """The flash wrapper's counts by route, set to 0 in place (the wrapper
+    holds the dict)."""
+    fa.flash_attention.launches_by_route.update(
+        dict.fromkeys(fa.flash_attention.launches_by_route, 0))
+    return fa.flash_attention.launches_by_route
+
+
 def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
                            batch: int, cut: str):
     """One trainer of the ssm, hybrid or encdec family at full width and
@@ -4725,18 +4801,25 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
+        routes = counted_flash_routes(fa)
         ops0 = ledger_ops(core)
         runner.run(1)
         ops1 = ledger_ops(core)
         runner.run(SHARDED_TRAIN_STEPS - 1)
         launches = {"flash_attention": fa.flash_attention.launches,
-                    "ssd_chunk_scan": ss.ssd_chunk_scan.launches}
+                    "ssd_chunk_scan": ss.ssd_chunk_scan.launches,
+                    "flash_attention_tf32x3": routes["tf32x3"]}
+        routes = dict(routes)
         peak = torch.cuda.max_memory_allocated()
         still = [n for n, p, b in zip(names, model.parameters(), before)
                  if torch.equal(p.detach(), b)]
         del before
-        launches_want = {k: v * TRAIN_ACCUM * 2 * SHARDED_TRAIN_STEPS
+        per_run = TRAIN_ACCUM * 2 * SHARDED_TRAIN_STEPS
+        launches_want = {k: v * per_run
                          for k, v in per_forward(cfg).items()}
+        routes_want = {k: v * per_run for k, v in
+                       flash_routes_per_forward(torch, cfg).items()}
+        launches_want["flash_attention_tf32x3"] = routes_want["tf32x3"]
         log = runner.metrics_log
         finite = all(math.isfinite(m["loss"]) and math.isfinite(
             m["grad_norm"]) for m in log)
@@ -4748,11 +4831,14 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
                                   for v in ops1},
             "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM),
             "launches": launches, "launches_want": launches_want,
+            "flash_launches_by_route": routes,
+            "flash_launches_by_route_want": routes_want,
             "params_moved": len(names) - len(still),
             "params_total": len(names), "params_not_moved": still[:10],
             "max_memory_allocated": peak,
             "losses": [m["loss"] for m in log]})
-        if launches != launches_want or still or not finite \
+        if launches != launches_want or routes != routes_want or still \
+                or not finite \
                 or row["ledger_ops_a_step"] != row["ledger_ops_want"]:
             raise AssertionError(f"sharded {cfg.name} train runner: {row}")
         del runner, model
@@ -4810,12 +4896,15 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
+        sp_routes = counted_flash_routes(fa)
         ops0 = ledger_ops(core)
         runner.run(1)
         ops1 = ledger_ops(core)
         runner.run(SHARDED_TRAIN_STEPS - 1)
         sp_launches = {"flash_attention": fa.flash_attention.launches,
-                       "ssd_chunk_scan": ss.ssd_chunk_scan.launches}
+                       "ssd_chunk_scan": ss.ssd_chunk_scan.launches,
+                       "flash_attention_tf32x3": sp_routes["tf32x3"]}
+        sp_routes = dict(sp_routes)
         still = [n for n, p, b in zip(names, model.parameters(), before)
                  if torch.equal(p.detach(), b)]
         del before
@@ -4825,7 +4914,7 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
             "step_ms_non_sp": row["step_ms_sharded"],
             "step_ratio_non_sp": log[-1]["dt"] * 1e3
             / row["step_ms_sharded"][-1],
-            "launches": sp_launches,
+            "launches": sp_launches, "flash_launches_by_route": sp_routes,
             "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
                                   for v in ops1},
             "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM, sp=True),
@@ -4840,7 +4929,8 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
                 or (cfg.encoder_layers and not sp["frames_axis"]) \
                 or max(sp["loss_gap"], sp["grad_norm_gap"],
                        sp["kernel_fed_worst_gap"]) > TRAIN_TOL \
-                or sp_launches != launches or still or not finite \
+                or sp_launches != launches or sp_routes != routes \
+                or still or not finite \
                 or sp["ledger_ops_a_step"] != sp["ledger_ops_want"]:
             raise AssertionError(f"sharded {cfg.name} train with "
                                  f"Megatron-SP: {sp}")
@@ -4862,7 +4952,8 @@ def phase_sharded_train_families(torch, device, smi: str, cfgs=None):
     import dataclasses
 
     from repro_torch.configs import get_config
-    total = {"flash_attention": 0, "ssd_chunk_scan": 0}
+    total = {"flash_attention": 0, "ssd_chunk_scan": 0,
+             "flash_attention_tf32x3": 0}
     for arch, layers, enc, seq, batch in SHARDED_FAMILIES:
         full = get_config(arch)
         cfg = (cfgs or {}).get(arch) or dataclasses.replace(
@@ -5131,7 +5222,7 @@ def family_train_rank_cases(torch, device, smi: str, row: dict):
 
     from repro_torch.distribution.sharding import padded_heads
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, route)
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
         ssd_chunk_scan_plain
     from repro_torch.models.attention import FlashAttentionFn, _local_kv
@@ -5202,9 +5293,13 @@ def family_train_rank_cases(torch, device, smi: str, row: dict):
         kl, vl = _local_kv(k, v, hq, hp, r * n, n)
         do = torch.randn((b, s, n, d), generator=gen, device=device)
         ins = [t.detach().requires_grad_() for t in (q, kl, vl)]
+        took = route(q.dtype, d)         # "tf32x3" at d 64
         before = flash_attention.launches
+        before_route = flash_attention.launches_by_route[took]
         o = FlashAttentionFn.apply(*ins, False, 0, 512, 512)
         launched = flash_attention.launches - before
+        launched_route = flash_attention.launches_by_route[took] \
+            - before_route
         grads = torch.autograd.grad(o, ins, do)
         ref_in = [t.detach().requires_grad_() for t in (q, kl, vl)]
         ref_o = flash_attention_plain(*ref_in, causal=False)
@@ -5213,7 +5308,11 @@ def family_train_rank_cases(torch, device, smi: str, row: dict):
         errs.update({f"d{x}": rel_err(a, c)
                      for x, a, c in zip("qkv", grads, ref_g)})
         abs_o = (o - ref_o).abs().max().item()
-        ok = max(errs.values()) <= TRAIN_TOL and launched == 1
+        # the forward on the tensor cores (three TF32 products) within the
+        # f32 kernel's own tolerance of its plain version, too
+        ok = max(errs.values()) <= TRAIN_TOL \
+            and abs_o <= FLASH_TOL["float32"] \
+            and launched == launched_route == 1
         del ins, o, grads, ref_in, ref_o, ref_g
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, kl, vl))
@@ -5227,12 +5326,15 @@ def family_train_rank_cases(torch, device, smi: str, row: dict):
         with sdpa_kernel([backend]):
             sdpa_ms = timer.ms(sdpa_fwd_bwd, reps=5)
         nbytes, flops = flash_work(b, s, s, n, kl.shape[2], d, 4, False, 0)
-        b_ms, b_by = bound(nbytes, flops, "float32")
+        b_ms, b_by = bound(nbytes, flops, "float32", took)
         rank_row = {"case": "whisper encoder", "tp": tp, "rank": r, "B": b,
                     "S": s, "hq": n, "kv": kl.shape[2], "d": d,
-                    "dtype": "float32", "causal": False,
+                    "dtype": "float32", "causal": False, "route": took,
+                    "bound_ms_f32_cuda_cores": bound(nbytes, flops,
+                                                     "float32")[0],
                     "max_rel_err": errs, "max_abs_err_o": abs_o,
-                    "tol": TRAIN_TOL, "ok": ok,
+                    "tol": TRAIN_TOL, "tol_abs_o": FLASH_TOL["float32"],
+                    "route_launches": launched_route, "ok": ok,
                     "ms": timer.ms(lambda: flash_attention(
                         q, kl, vl, causal=False)),
                     "plain_ms": timer.ms(lambda: flash_attention_plain(
@@ -6429,7 +6531,7 @@ def encdec_timings(torch, device, smi: str, timer, gen):
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain, live_mask)
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, route)
     from repro_torch.kernels.ssd_scan import (
         ssd_chunk_scan, ssd_chunk_scan_plain)
     (hq, kv), d, t = ENCDEC_HEADS, ENCDEC_D, ENCDEC_FRAMES
@@ -6446,11 +6548,14 @@ def encdec_timings(torch, device, smi: str, timer, gen):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         elem = torch.finfo(dtype).bits // 8
         nbytes, flops = flash_work(b, s, t, hq, kv, d, elem, causal, 0)
-        b_ms, b_by = bound(nbytes, flops, dt)
+        took = route(dtype, d)
+        b_ms, b_by = bound(nbytes, flops, dt, took)
         row = {"phase": "timings", "kernel": "flash_attention",
                "model": "whisper-small", "shape": name, "B": b, "S": s,
                "T": t, "hq": hq, "kv": kv, "d": d, "causal": causal,
-               "dtype": dt,
+               "dtype": dt, "route": took,
+               "bound_ms_f32_cuda_cores": bound(nbytes, flops, dt)[0]
+               if took == "tf32x3" else None,
                "ms": timer.ms(lambda: flash_attention(q, k, v,
                                                       causal=causal)),
                "plain_ms": timer.ms(lambda: flash_attention_plain(
@@ -7122,8 +7227,11 @@ def main() -> int:
     launches["flash_attention"] += sharded_launches
     seconds["sharded_train"] = time.perf_counter() - t_phase
     # ... and the ssm, hybrid and encdec trainers: the SSD scan kernel
-    # forward under autograd too
+    # forward under autograd too, and whisper's f32 encoder and
+    # cross-attention through flash's tensor-core route (tf32x3), counted
+    # on its own
     t_phase = time.perf_counter()
+    launches["flash_attention_tf32x3"] = 0
     for k, v in phase_train_families(torch, device, smi).items():
         launches[k] += v
     seconds["train_families"] = time.perf_counter() - t_phase
@@ -7180,6 +7288,19 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # flash's f32 route on the tensor cores (three TF32 products): its
+    # launches are the trainers' (whisper's encoder and cross-attention,
+    # unsharded and sharded); timed at whisper's trained encoder
+    enc = rows[("flash_attention", "whisper", "encoder_train")]
+    summary.append({
+        "name": "flash_attention (tf32x3: f32 on the tensor cores, whisper "
+                "encoder train)", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": launches["flash_attention_tf32x3"],
+        "max_abs_err": errs["flash_attention_tf32x3"], "ms": enc["ms"],
+        "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+        "bound_by": enc["bound_by"], "library_ms": enc["library_ms"]})
     # the same two kernels at the model axis's per-rank shapes at tp 16:
     # no main path runs them there (the sharded serve is a world of one),
     # so their main-path launches are 0 and the distribution phase's

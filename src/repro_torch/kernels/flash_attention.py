@@ -8,7 +8,11 @@ model's: q ``(B, S, HQ, D)``, k and v ``(B, T, KV, D)`` with
 
 ``flash_attention`` takes the plain PyTorch version only for tensors on the
 CPU (the CPU tests). On CUDA tensors it launches the kernel or raises; it
-never falls back. ``flash_attention.launches`` counts kernel launches.
+never falls back. ``flash_attention.launches`` counts kernel launches, and
+``flash_attention.launches_by_route`` counts them by the kernel that took
+them (``route``): ``"wgmma"`` (bf16 at head dims 64, 128 and 192),
+``"tf32x3"`` (f32 at 64 and 128: three TF32 products on wgmma) and
+``"simt"`` (the rest, on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -21,6 +25,17 @@ from repro_torch.kernels import build
 NEG_INF = -2.0e30
 HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = {torch.float32: build.DT_F32, torch.bfloat16: build.DT_BF16}
+ROUTES = ("wgmma", "tf32x3", "simt")
+
+
+def route(dtype, d: int) -> str:
+    """The kernel that takes ``dtype`` at head dim ``d``: the table of
+    ``csrc/flash_attention.cu::dispatch_d``."""
+    if dtype == torch.bfloat16 and d in (64, 128, 192):
+        return "wgmma"
+    if dtype == torch.float32 and d in (64, 128):
+        return "tf32x3"
+    return "simt"
 
 
 def _mask(s: int, t: int, *, causal: bool, window: int, q_offset: int,
@@ -112,7 +127,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route(q.dtype, d)] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

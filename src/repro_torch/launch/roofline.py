@@ -20,7 +20,11 @@ collective of a sharded step as it is issued.
 
 The constants are the H100 SXM5 80GB HBM3 datasheet's peaks, not
 measurements: dense bf16 tensor-core FLOP/s (989e12), f32 and f64 (67e12,
-34e12; non-tensor), HBM3 bandwidth (3.35e12 B/s) and capacity (80 GB).
+34e12; non-tensor), dense TF32 tensor-core FLOP/s (495e12), HBM3
+bandwidth (3.35e12 B/s) and capacity (80 GB). An f32-accurate product
+that runs on the tensor cores as three TF32 products (the f32 flash
+kernel) does three TF32 operations for each of its own:
+``PEAK_FLOPS_F32_TENSOR``, a third of the TF32 rate, is its peak.
 ``ICI_BW`` is NVLink 4's 450e9 B/s per direction (900e9 both ways over 18
 links): unmeasured, since one card has no link to measure.
 ``chip_smoke.py`` takes its bounds from here and prints
@@ -36,6 +40,9 @@ from typing import Dict, List, Optional, Tuple
 PEAK_FLOPS_BY_DTYPE = {"bfloat16": 989e12, "float32": 67e12,
                        "float64": 34e12}
 PEAK_FLOPS = PEAK_FLOPS_BY_DTYPE["bfloat16"]
+PEAK_FLOPS_TF32 = 495e12     # dense TF32 on the tensor cores
+# f32 products as a_hi b_hi + a_hi b_lo + a_lo b_hi in TF32: ~165e12
+PEAK_FLOPS_F32_TENSOR = PEAK_FLOPS_TF32 / 3
 HBM_BW = 3.35e12             # bytes/s
 ICI_BW = 450e9               # bytes/s, NVLink 4 per direction (unmeasured)
 HBM_BYTES = 80 * 10 ** 9     # 80 GB
@@ -49,12 +56,15 @@ LEDGER_KINDS = {"psum": "all-reduce", "all_gather": "all-gather",
 LEDGER_LOCAL = ("shm_move",)
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str) -> Tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, dtype: str,
+             peak: Optional[float] = None) -> Tuple[float, str]:
     """(least milliseconds, what binds) for work that moves ``nbytes`` and
     does ``flops`` at ``dtype``: the larger of the bytes over ``HBM_BW``
-    and the operations over the peak for ``dtype``."""
+    and the operations over the peak for ``dtype`` (``peak``, where the
+    work runs at another rate than its dtype's, e.g.
+    ``PEAK_FLOPS_F32_TENSOR``)."""
     t_bytes = nbytes / HBM_BW
-    t_ops = flops / PEAK_FLOPS_BY_DTYPE[dtype]
+    t_ops = flops / (peak or PEAK_FLOPS_BY_DTYPE[dtype])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 

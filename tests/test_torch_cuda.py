@@ -40,7 +40,7 @@ from repro_torch.control.vectorized import VectorizedControlPlane
 from repro_torch.kernels.decode_attention import (
     _counters, decode_attention, decode_attention_plain, split_plan)
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, route)
 from repro_torch.kernels.quant_comm import (
     codec_error_bound, dequantize_int8, dequantize_int8_plain, quantize_int8,
     quantize_int8_plain)
@@ -120,6 +120,18 @@ def cuda():
     (1, 300, 300, 96, 8, 192, True, 0, 0, "float32"),
     (1, 64, 64, 96, 8, 192, False, 0, 0, "float32"),
     (1, 300, 300, 128, 128, 192, True, 0, 0, "float32"),
+    # f32 at D 64 and 128 on the tensor cores (three TF32 products):
+    # whisper-small's trained encoder (bidirectional over 1500 frames) and
+    # cross-attention (S 448 against T 1500, causal); windows in absolute
+    # positions past a q_offset, groups of 5 and 12, ragged S and T
+    (4, 1500, 1500, 12, 12, 64, False, 0, 0, "float32"),
+    (4, 448, 1500, 12, 12, 64, True, 0, 0, "float32"),
+    (2, 100, 301, 25, 5, 64, True, 64, 201, "float32"),
+    (1, 77, 130, 10, 2, 64, False, 0, 0, "float32"),
+    (1, 200, 200, 24, 2, 64, True, 0, 0, "float32"),
+    (2, 65, 130, 25, 5, 128, True, 100, 65, "float32"),
+    (1, 130, 200, 5, 1, 128, True, 0, 70, "float32"),
+    (1, 1, 33, 12, 12, 64, True, 0, 32, "float32"),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
                                             window, q_offset, dtype):
@@ -128,10 +140,16 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, hq, kv, d, causal,
                .to(getattr(torch, dtype))
                for shape in ((b, s, hq, d), (b, t, kv, d), (b, t, kv, d)))
     before = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
+    took = route(q.dtype, d)
     o = flash_attention(q, k, v, causal=causal, window=window,
                         q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_route == {**by_route,
+                                                 took: by_route[took] + 1}
+    # every f32 call at D 64 and 128 takes the tensor-core kernel
+    assert (took == "tf32x3") == (dtype == "float32" and d in (64, 128))
     want = flash_attention_plain(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
     assert torch.isfinite(o).all()

@@ -137,6 +137,26 @@ def test_flash_q_offset_continues_a_prefill():
     torch.testing.assert_close(tail, full[:, 32:], rtol=2e-6, atol=2e-6)
 
 
+def test_flash_routes_follow_dtype_and_head_dim():
+    """The kernel each (dtype, head dim) takes on the card, as
+    ``csrc/flash_attention.cu::dispatch_d`` has it; the plain version on
+    the CPU counts no launch on any route."""
+    from repro_torch.kernels.flash_attention import ROUTES, route
+    assert ROUTES == ("wgmma", "tf32x3", "simt")
+    want = {(torch.bfloat16, 16): "simt", (torch.bfloat16, 32): "simt",
+            (torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
+            (torch.bfloat16, 192): "wgmma", (torch.float32, 16): "simt",
+            (torch.float32, 32): "simt", (torch.float32, 64): "tf32x3",
+            (torch.float32, 128): "tf32x3", (torch.float32, 192): "simt"}
+    assert {k: route(*k) for k in want} == want
+    q, k, v = (torch.from_numpy(_rand(i, 1, 8, 2, 64)) for i in range(3))
+    before = (flash_attention.launches,
+              dict(flash_attention.launches_by_route))
+    flash_attention(q, k, v)
+    assert (flash_attention.launches,
+            flash_attention.launches_by_route) == before
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------

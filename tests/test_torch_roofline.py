@@ -163,3 +163,49 @@ def test_bound_ms():
                        "float32") == (1e3, "operations")
     ms, by = rl.bound_ms(1e9, 1e12, "bfloat16")
     assert by == "operations" and ms == pytest.approx(1e15 / 989e12)
+
+
+def test_f32_on_the_tensor_cores_is_a_third_of_tf32():
+    """f32 flash runs as three TF32 products on the tensor cores: its
+    operations count at a third of the datasheet's dense TF32 rate."""
+    assert rl.PEAK_FLOPS_TF32 == 495e12
+    assert rl.PEAK_FLOPS_F32_TENSOR == pytest.approx(165e12)
+    assert rl.bound_ms(0.0, 165e12, "float32",
+                       rl.PEAK_FLOPS_F32_TENSOR) == (pytest.approx(1e3),
+                                                     "operations")
+    # without the rate the dtype's peak holds, as before
+    assert rl.bound_ms(0.0, 67e12, "float32") == (pytest.approx(1e3),
+                                                  "operations")
+    assert rl.bound_ms(3.35e12, 1.0, "float32",
+                       rl.PEAK_FLOPS_F32_TENSOR) == (pytest.approx(1e3),
+                                                     "bytes")
+
+
+# whisper-small's trained f32 flash shapes (B 4, 12/12 heads, d 64, T 1500
+# frames) and their bounds at three TF32 products
+@pytest.mark.parametrize("s,causal,want_ms", [(1500, False, 0.168),
+                                              (448, True, 0.0075)])
+def test_chip_smoke_bounds_f32_flash_at_the_tensor_core_rate(s, causal,
+                                                             want_ms):
+    import importlib.util
+    import pathlib
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import route
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    nbytes, flops = cs.flash_work(4, s, 1500, 12, 12, 64, 4, causal, 0)
+    took = route(torch.float32, 64)
+    assert took == "tf32x3"
+    ms, by = cs.bound(nbytes, flops, "float32", took)
+    assert by == "operations"
+    assert ms == pytest.approx(flops / rl.PEAK_FLOPS_F32_TENSOR * 1e3)
+    assert ms == pytest.approx(want_ms, rel=0.01)
+    # the CUDA cores' f32 rate, the bound before the route existed
+    assert cs.bound(nbytes, flops, "float32")[0] == pytest.approx(
+        flops / 67e12 * 1e3)
+    assert cs.bound(nbytes, flops, "bfloat16", "wgmma") == \
+        rl.bound_ms(nbytes, flops, "bfloat16")

@@ -1071,6 +1071,10 @@ def test_family_train_phase_rehearses_on_the_cpu(monkeypatch):
 
         def counted(*args, _real=real, _counter=counter, **kw):
             _counter.launches += 1
+            if _counter is fa.flash_attention:    # and by route, as on
+                q = args[0]                       # the card
+                _counter.launches_by_route[fa.route(q.dtype,
+                                                    q.shape[-1])] += 1
             return _real(*args, **kw)
 
         monkeypatch.setattr(mod, name, counted)
@@ -1080,8 +1084,14 @@ def test_family_train_phase_rehearses_on_the_cpu(monkeypatch):
         torch, torch.device("cpu"), "cpu",
         cfgs={arch: get_smoke_config(arch) for arch in FAMILY_SEQ})
     per_step = 4 * 2 * 2          # micro-batches x (forward + remat) x steps
+    # the smoke configs' head dim 16 takes no tensor-core route
     assert launches == {"flash_attention": (2 + 6) * per_step,
-                        "ssd_chunk_scan": (2 + 2) * per_step}
+                        "ssd_chunk_scan": (2 + 2) * per_step,
+                        "flash_attention_tf32x3": 0}
+    for r in rows:
+        if r["check"] == "runner":
+            assert r["flash_launches_by_route"] == \
+                r["flash_launches_by_route_want"]
     runners = [r for r in rows if r["check"] == "runner"]
     assert [r["model"] for r in runners] == [
         get_smoke_config(a).name for a in FAMILY_SEQ]

@@ -151,6 +151,10 @@ def test_sharded_train_families_phase_rehearses_on_the_cpu(monkeypatch):
 
         def counted(*args, _real=real, _counter=counter, **kw):
             _counter.launches += 1
+            if _counter is fa.flash_attention:    # and by route, as on
+                q = args[0]                       # the card
+                _counter.launches_by_route[fa.route(q.dtype,
+                                                    q.shape[-1])] += 1
             return _real(*args, **kw)
 
         monkeypatch.setattr(mod, name, counted)
@@ -165,8 +169,10 @@ def test_sharded_train_families_phase_rehearses_on_the_cpu(monkeypatch):
     assert not dist.is_initialized()
     # the sharded steps', then the Megatron-SP steps'
     per_step = cs.TRAIN_ACCUM * 2 * cs.SHARDED_TRAIN_STEPS * 2
+    # the smoke configs' head dim 16 takes no tensor-core route
     assert launches == {"flash_attention": (2 + 1 + 2 * 1) * per_step,
-                        "ssd_chunk_scan": (2 + 2) * per_step}
+                        "ssd_chunk_scan": (2 + 2) * per_step,
+                        "flash_attention_tf32x3": 0}
     trainers = [r for r in rows if "ledger_ops_a_step" in r]
     assert [r["model"] for r in trainers] == [c.name for c in cfgs.values()]
     for r, cfg in zip(trainers, cfgs.values()):

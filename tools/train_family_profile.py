@@ -2,7 +2,8 @@
 """Where a training micro-batch of the ssm, hybrid and encdec trainers
 spends its time: is it host-bound, and by which plain backward?
 
-    python3 tools/train_family_profile.py [--out FILE]
+    python3 tools/train_family_profile.py [--out FILE] [--src DIR]
+                                          [--archs A,B] [--label NAME]
 
 For mamba2-370m, hymba-1.5b and whisper-small at full width and depth,
 one micro-batch of ``chip_smoke.py``'s train-families phase (mamba2 and
@@ -17,7 +18,10 @@ share), the launches, the top kernels, and the device time and share of
 the backward nodes of the two kernel wrappers (``FlashAttentionFnBackward``
 and ``SsdScanFnBackward``: the plain versions' VJPs). One JSON object per
 model goes to stdout and to ``--out``, with the card's name and power
-limit. Needs a CUDA device.
+limit. ``--src`` is the ``src`` directory of a checkout (default: this
+one's) and ``--archs`` a comma-separated subset of the trainers, so that
+two trees can be profiled on one card in one call, in turns, as
+``tools/attention_ab.py`` times them. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -60,12 +64,16 @@ def profile_micro_batch(torch, cfg, micro) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--archs", default="")
+    ap.add_argument("--label", default="")
     args = ap.parse_args()
+    archs = set(filter(None, args.archs.split(",")))
     import torch
     if not torch.cuda.is_available():
         print("train_family_profile: needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
@@ -76,13 +84,16 @@ def main() -> int:
     smi = chip_smoke.nvidia_smi()
     rows = []
     for arch, seq, batch in chip_smoke.FAMILY_TRAINERS:
+        if archs and arch not in archs:
+            continue
         cfg = get_config(arch)
         feed = for_model(cfg, ShapeConfig("train", seq, batch, "train"),
                          seed=chip_smoke.SEED,
                          device=torch.device("cuda", 0))
         micro = {k: v[:batch // chip_smoke.TRAIN_ACCUM]
                  for k, v in feed.batch_at(0).items()}
-        row = {**profile_micro_batch(torch, cfg, micro), "gpu": smi}
+        row = {**profile_micro_batch(torch, cfg, micro), "gpu": smi,
+               "label": args.label, "src": args.src}
         print(json.dumps(row), flush=True)
         rows.append(row)
     if args.out:
