@@ -59,7 +59,8 @@ JSON object per line:
    hymba-1.5b at full depth (the hybrid family: attention and SSM heads in
    parallel in 32 layers, rings of 1024 slots in the 29 windowed ones;
    ``max_seq`` 2048, prompts of 1024-1536 tokens, one of exactly 1024;
-   flash and the SSD scan once per layer and admission, decode once per
+   flash and the SSD scan once per layer and admission, every SSD launch
+   on the scan's ``"heads"`` route (``launches_by_route``), decode once per
    layer and step, every decode past the ring's wrap, the cache's bytes
    the schema's; parity at bf16 for every flash, SSD and decode launch,
    asserted, and end to end, reported beside the model's own bf16 noise
@@ -159,7 +160,8 @@ JSON object per line:
               frames, global batch 16), each through the Runner for 2
               steps (``grad_accum`` 4; flash and the SSD scan under
               autograd; launches a step, whisper's f32 ones through
-              flash's tensor-core route (``launches_by_route``), every
+              flash's tensor-core route and hymba's SSD scans through the
+              scan's ``"heads"`` route (``launches_by_route``), every
               parameter moved, step ms,
               tokens/s, MFU, state bytes, peak memory), the kernel path
               against the plain path (bf16 at full depth: loss and grad
@@ -193,7 +195,7 @@ JSON object per line:
               micro-batch against the unsharded one (loss, grad norm and
               every kernel-fed grad within 2e-2), two ``Runner`` steps on
               each path (step ms; on the mesh: flash and SSD launches,
-              every leaf moved, the ledger's collectives a step as
+              the SSD ones by route, every leaf moved, the ledger's collectives a step as
               ``train_collectives`` reckons them, peak bytes), a
               profiled 1-layer sharded micro-batch (whisper's f32 flash
               launches through the tensor-core route); and each TP train
@@ -1163,7 +1165,8 @@ def phase_ssd(torch, device):
     1536-token prompt) and 32 (a training sequence), bf16 and f32 at 11
     with 108 padded rows (the 1300-token parity prompt); all four outputs,
     the state decay included. Then ``SsdScanFn`` at the training shapes
-    (``ssd_fn_cases``). Returns the worst |kernel - plain| of y."""
+    (``ssd_fn_cases``). Returns the worst |kernel - plain| of y, and of y
+    at hymba's bf16 cases alone (the ``"heads"`` route)."""
     from repro_torch.kernels.ssd_scan import (
         ssd_chunk_scan, ssd_chunk_scan_plain)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -1177,7 +1180,7 @@ def phase_ssd(torch, device):
              (11, "bfloat16", 1.0, pad, HYBRID_SSD),
              (11, "float32", 1.0, pad, HYBRID_SSD),
              (32, "bfloat16", 1.0, 0, HYBRID_SSD)]
-    worst = 0.0
+    worst = worst_heads = 0.0
     for nc, dt, dt_scale, pad, shape in cases:
         xdt, dA, B, C = ssd_inputs(torch, gen, device, nc, dt,
                                    dt_scale=dt_scale, pad_rows=pad,
@@ -1226,8 +1229,10 @@ def phase_ssd(torch, device):
                                  f"decay {e_sd} against {bound}, finite "
                                  f"{finite}")
         worst = max(worst, e_y)
+        if shape == HYBRID_SSD and dt == "bfloat16":
+            worst_heads = max(worst_heads, e_y)
     ssd_fn_cases(torch, device)
-    return worst
+    return worst, worst_heads
 
 
 def make_requests(cfg, request_cls, prompt_range=PROMPT_RANGE,
@@ -1303,6 +1308,10 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
 
     for fn in kernels.values():
         fn.launches = 0
+    by_route = getattr(kernels.get("ssd_chunk_scan"), "launches_by_route",
+                       None)
+    if by_route is not None:
+        bank_routes("ssd_chunk_scan", by_route)
     t_run = time.perf_counter()
     for r in reqs:
         r.arrival = time.monotonic()
@@ -1328,6 +1337,16 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
         raise AssertionError(f"{len(decode_pos)} decodes recorded, "
                              f"{eng.decode_steps} steps")
     launches = {name: fn.launches for name, fn in kernels.items()}
+    # the SSD scan's launches, each on the route of the model's widths
+    ssd_by_route = None if by_route is None else dict(by_route)
+    if ssd_by_route is not None:
+        launches["ssd_chunk_scan_heads"] = ssd_by_route["heads"]
+    if ssd_by_route is not None and ssd_by_route != ssd_routes(
+            torch, cfg, launches["ssd_chunk_scan"]):
+        raise AssertionError(f"{cfg.name} serve: SSD launches by route "
+                             f"{ssd_by_route}, want all "
+                             f"{launches['ssd_chunk_scan']} on one route "
+                             f"{ssd_routes(torch, cfg, 1)}")
 
     done = eng.completed
     assert len(done) == len(reqs), f"{len(done)} of {len(reqs)} completed"
@@ -1373,6 +1392,8 @@ def phase_serve(torch, device, cfg, layers: int, prefill_kernels,
            "admissions": eng.admissions, "decode_steps": eng.decode_steps,
            "slots": eng.B, "max_seq": eng.max_seq,
            "launches": launches, "ledger": ledger,
+           **({"ssd_launches_by_route": ssd_by_route}
+              if ssd_by_route is not None else {}),
            "decode_positions": [min(min(p) for p in decode_pos),
                                 max(max(p) for p in decode_pos)],
            "controller_ticks": ctrl.ticks, "init_s": init_s,
@@ -4471,11 +4492,13 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
         routes = counted_flash_routes(fa)
+        s_routes = counted_ssd_routes(ss)
         runner.run(FAMILY_STEPS)
         launches = {"flash_attention": fa.flash_attention.launches,
                     "ssd_chunk_scan": ss.ssd_chunk_scan.launches,
-                    "flash_attention_tf32x3": routes["tf32x3"]}
-        routes = dict(routes)
+                    "flash_attention_tf32x3": routes["tf32x3"],
+                    "ssd_chunk_scan_heads": s_routes["heads"]}
+        routes, s_routes = dict(routes), dict(s_routes)
         peak = torch.cuda.max_memory_allocated()
         still = [n for n, p, b in zip(names, model.parameters(), before)
                  if torch.equal(p.detach().cpu(), b)]
@@ -4497,6 +4520,8 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
     routes_want = {k: v * per_run
                    for k, v in flash_routes_per_forward(torch, cfg).items()}
     want["flash_attention_tf32x3"] = routes_want["tf32x3"]
+    want["ssd_chunk_scan_heads"] = ssd_routes(
+        torch, cfg, want["ssd_chunk_scan"])["heads"]
     finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                  for m in log)
     row = {"phase": "train", "check": "runner", "model": cfg.name,
@@ -4519,6 +4544,9 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
            "launches": launches, "launches_want": want,
            "flash_launches_by_route": routes,
            "flash_launches_by_route_want": routes_want,
+           "ssd_launches_by_route": s_routes,
+           "ssd_launches_by_route_want": ssd_routes(
+               torch, cfg, want["ssd_chunk_scan"]),
            "params_moved": len(names) - len(still), "params_total":
            len(names), "params_not_moved": still[:10],
            "state_bytes": sizes, "state_bytes_total": sum(sizes.values()),
@@ -4526,7 +4554,8 @@ def family_trainer(torch, device, cfg, smi: str, seq: int, batch: int):
            "seconds": time.perf_counter() - t1, "gpu": smi}
     emit(row)
     if {k: launches[k] for k in want} != want or routes != routes_want \
-            or still or not finite:
+            or s_routes != row["ssd_launches_by_route_want"] or still \
+            or not finite:
         raise AssertionError(f"{cfg.name} train runner: {row}")
     del model
     torch.cuda.empty_cache()
@@ -4565,7 +4594,7 @@ def phase_train_families(torch, device, smi: str, cfgs=None):
     other, each freed before the next. Returns their launches, summed."""
     from repro_torch.configs import get_config
     total = {"flash_attention": 0, "ssd_chunk_scan": 0,
-             "flash_attention_tf32x3": 0}
+             "flash_attention_tf32x3": 0, "ssd_chunk_scan_heads": 0}
     for arch, seq, batch in FAMILY_TRAINERS:
         cfg = (cfgs or {}).get(arch) or get_config(arch)
         for k, v in family_trainer(torch, device, cfg, smi, seq,
@@ -4700,12 +4729,56 @@ def flash_routes_per_forward(torch, cfg):
     return want
 
 
+# launches by wrapper and route, banked whenever a phase sets a wrapper's
+# counts by route to 0 (``bank_routes``), so that ``route_totals`` holds
+# every launch of the script
+ROUTE_BANK = {}
+
+
+def bank_routes(name: str, by_route):
+    """Add ``by_route`` (the ``launches_by_route`` dict of the wrapper
+    ``name``) to ``ROUTE_BANK``, then set it to 0 in place; returns it."""
+    bank = ROUTE_BANK.setdefault(name, dict.fromkeys(by_route, 0))
+    for k, v in by_route.items():
+        bank[k] += v
+    by_route.update(dict.fromkeys(by_route, 0))
+    return by_route
+
+
+def route_totals():
+    """Launches by wrapper and route since the script began: the wrappers'
+    counts and what ``bank_routes`` banked."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    return {name: {k: v + ROUTE_BANK.get(name, {}).get(k, 0)
+                   for k, v in fn.launches_by_route.items()}
+            for name, fn in (("flash_attention", fa.flash_attention),
+                             ("decode_attention", da.decode_attention),
+                             ("ssd_chunk_scan", ss.ssd_chunk_scan))}
+
+
 def counted_flash_routes(fa):
     """The flash wrapper's counts by route, set to 0 in place (the wrapper
     holds the dict)."""
-    fa.flash_attention.launches_by_route.update(
-        dict.fromkeys(fa.flash_attention.launches_by_route, 0))
-    return fa.flash_attention.launches_by_route
+    return bank_routes("flash_attention", fa.flash_attention.launches_by_route)
+
+
+def ssd_routes(torch, cfg, n: int):
+    """``n`` SSD scan launches of ``cfg``'s layers by the route that takes
+    them (``ssd_scan.route`` at the model's dtype, SSM head dim and state
+    size): hymba-1.5b's take ``"heads"``, mamba2-370m's ``"wg"``."""
+    from repro_torch.kernels.ssd_scan import ROUTES, route
+    want = dict.fromkeys(ROUTES, 0)
+    if n:
+        want[route(getattr(torch, cfg.dtype), cfg.ssm.head_dim,
+                   cfg.ssm.state_dim)] += n
+    return want
+
+
+def counted_ssd_routes(ss):
+    """The SSD scan wrapper's counts by route, set to 0 in place."""
+    return bank_routes("ssd_chunk_scan", ss.ssd_chunk_scan.launches_by_route)
 
 
 def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
@@ -4802,14 +4875,16 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
         routes = counted_flash_routes(fa)
+        s_routes = counted_ssd_routes(ss)
         ops0 = ledger_ops(core)
         runner.run(1)
         ops1 = ledger_ops(core)
         runner.run(SHARDED_TRAIN_STEPS - 1)
         launches = {"flash_attention": fa.flash_attention.launches,
                     "ssd_chunk_scan": ss.ssd_chunk_scan.launches,
-                    "flash_attention_tf32x3": routes["tf32x3"]}
-        routes = dict(routes)
+                    "flash_attention_tf32x3": routes["tf32x3"],
+                    "ssd_chunk_scan_heads": s_routes["heads"]}
+        routes, s_routes = dict(routes), dict(s_routes)
         peak = torch.cuda.max_memory_allocated()
         still = [n for n, p, b in zip(names, model.parameters(), before)
                  if torch.equal(p.detach(), b)]
@@ -4820,6 +4895,8 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
         routes_want = {k: v * per_run for k, v in
                        flash_routes_per_forward(torch, cfg).items()}
         launches_want["flash_attention_tf32x3"] = routes_want["tf32x3"]
+        launches_want["ssd_chunk_scan_heads"] = ssd_routes(
+            torch, cfg, launches_want["ssd_chunk_scan"])["heads"]
         log = runner.metrics_log
         finite = all(math.isfinite(m["loss"]) and math.isfinite(
             m["grad_norm"]) for m in log)
@@ -4833,11 +4910,15 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
             "launches": launches, "launches_want": launches_want,
             "flash_launches_by_route": routes,
             "flash_launches_by_route_want": routes_want,
+            "ssd_launches_by_route": s_routes,
+            "ssd_launches_by_route_want": ssd_routes(
+                torch, cfg, launches_want["ssd_chunk_scan"]),
             "params_moved": len(names) - len(still),
             "params_total": len(names), "params_not_moved": still[:10],
             "max_memory_allocated": peak,
             "losses": [m["loss"] for m in log]})
         if launches != launches_want or routes != routes_want or still \
+                or s_routes != row["ssd_launches_by_route_want"] \
                 or not finite \
                 or row["ledger_ops_a_step"] != row["ledger_ops_want"]:
             raise AssertionError(f"sharded {cfg.name} train runner: {row}")
@@ -4897,14 +4978,16 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = ss.ssd_chunk_scan.launches = 0
         sp_routes = counted_flash_routes(fa)
+        sp_s_routes = counted_ssd_routes(ss)
         ops0 = ledger_ops(core)
         runner.run(1)
         ops1 = ledger_ops(core)
         runner.run(SHARDED_TRAIN_STEPS - 1)
         sp_launches = {"flash_attention": fa.flash_attention.launches,
                        "ssd_chunk_scan": ss.ssd_chunk_scan.launches,
-                       "flash_attention_tf32x3": sp_routes["tf32x3"]}
-        sp_routes = dict(sp_routes)
+                       "flash_attention_tf32x3": sp_routes["tf32x3"],
+                       "ssd_chunk_scan_heads": sp_s_routes["heads"]}
+        sp_routes, sp_s_routes = dict(sp_routes), dict(sp_s_routes)
         still = [n for n, p, b in zip(names, model.parameters(), before)
                  if torch.equal(p.detach(), b)]
         del before
@@ -4915,6 +4998,7 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
             "step_ratio_non_sp": log[-1]["dt"] * 1e3
             / row["step_ms_sharded"][-1],
             "launches": sp_launches, "flash_launches_by_route": sp_routes,
+            "ssd_launches_by_route": sp_s_routes,
             "ledger_ops_a_step": {v: ops1.get(v, 0) - ops0.get(v, 0)
                                   for v in ops1},
             "ledger_ops_want": train_collectives(cfg, TRAIN_ACCUM, sp=True),
@@ -4930,7 +5014,7 @@ def sharded_family_trainer(torch, device, cfg, smi: str, seq: int,
                 or max(sp["loss_gap"], sp["grad_norm_gap"],
                        sp["kernel_fed_worst_gap"]) > TRAIN_TOL \
                 or sp_launches != launches or sp_routes != routes \
-                or still or not finite \
+                or sp_s_routes != s_routes or still or not finite \
                 or sp["ledger_ops_a_step"] != sp["ledger_ops_want"]:
             raise AssertionError(f"sharded {cfg.name} train with "
                                  f"Megatron-SP: {sp}")
@@ -4953,7 +5037,7 @@ def phase_sharded_train_families(torch, device, smi: str, cfgs=None):
 
     from repro_torch.configs import get_config
     total = {"flash_attention": 0, "ssd_chunk_scan": 0,
-             "flash_attention_tf32x3": 0}
+             "flash_attention_tf32x3": 0, "ssd_chunk_scan_heads": 0}
     for arch, layers, enc, seq, batch in SHARDED_FAMILIES:
         full = get_config(arch)
         cfg = (cfgs or {}).get(arch) or dataclasses.replace(
@@ -7035,7 +7119,10 @@ def main() -> int:
 
     errs = phase_kernels(torch, device)
     errs["water_fill"] = phase_water_fill(torch, device)
-    errs["ssd_chunk_scan"] = phase_ssd(torch, device)
+    errs["ssd_chunk_scan"], errs["ssd_chunk_scan_heads"] = phase_ssd(
+        torch, device)
+    # every launch from here to the timings phase is the path's
+    path_routes0 = route_totals()
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
@@ -7254,6 +7341,12 @@ def main() -> int:
     launches["flash_attention"] += moe_launches
     seconds["sharded_train_moe"] = time.perf_counter() - t_phase
     launches["water_fill"] += phase_fairness(torch, device)
+    # the path's launches by route: the CUDA-core ("simt") routes are the
+    # f32 parity checks' (and f32 flash at head dim 192)
+    path_routes = {name: {k: v - path_routes0[name][k]
+                          for k, v in by.items()}
+                   for name, by in route_totals().items()}
+    emit({"phase": "routes", "path_launches_by_route": path_routes})
 
     rows = phase_timings(torch, device, smi)
     flash = rows[("flash_attention", 509)]
@@ -7301,6 +7394,18 @@ def main() -> int:
         "max_abs_err": errs["flash_attention_tf32x3"], "ms": enc["ms"],
         "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": enc["library_ms"]})
+    # the SSD scan's "heads" route (bf16 at hymba-1.5b's P 64 / N 16, and
+    # the smoke and reference-test widths): its launches are hymba's
+    # serve, sharded serve and trainers'; timed at hymba's serve prefill
+    hy = rows[("ssd_chunk_scan", "hymba")]
+    summary.append({
+        "name": "ssd_chunk_scan (heads: hymba serve, P 64 / N 16)",
+        "route": "cuda", "source": SOURCES["ssd_chunk_scan"],
+        "replaces": REPLACES["ssd_chunk_scan"],
+        "launches": launches["ssd_chunk_scan_heads"],
+        "max_abs_err": errs["ssd_chunk_scan_heads"], "ms": hy["ms"],
+        "plain_ms": hy["plain_ms"], "bound_ms": hy["bound_ms"],
+        "bound_by": hy["bound_by"], "library_ms": hy["library_ms"]})
     # the same two kernels at the model axis's per-rank shapes at tp 16:
     # no main path runs them there (the sharded serve is a world of one),
     # so their main-path launches are 0 and the distribution phase's

@@ -50,11 +50,17 @@
 //   on the H100 at 1, 2 and 16 chunks than G per head at three blocks an
 //   SM. No C++ branch sits between a wgmma and its wait (ptxas would
 //   serialise them): every s-tile ends with nothing in flight.
-// * ssd_tc (bf16 at the narrower tensor-core shapes (P, N) in {(64, 16),
+// * ssd_heads (bf16 at the narrower tensor-core shapes (P, N) in {(64, 16),
 //   (32, 64), (16, 16)}: the hybrid, reference-test and smoke shapes, whose
-//   rows are narrower than a 128-byte swizzle atom). One block of 8 warps
-//   per (chunk, head) stages the chunk with cp.async and walks the tiles
-//   on or below the diagonal on mma.sync; the state reuses the staged x.
+//   rows are narrower than a 128-byte swizzle atom). At hymba-1.5b's
+//   widths (Q 128, H 50, P 64, N 16) a chunk moves 2.72 MB, 90% of it
+//   x in and y out, per head, against ~0.1 GFLOP: bytes bound it (9.75 us
+//   at 12 chunks). One block per (chunk, run of heads), the runs sized so
+//   that the grid is two blocks an SM: B, C and the dA rows are read once
+//   a run, a producer warp streams each head's x through a ring (cp.async
+//   on mbarriers), and eight consumer warps take each head's row groups
+//   and state rows on mma.sync, drifting across heads so that loads,
+//   products and stores overlap (the kernel's own comment has the rest).
 // * ssd_simt (f32, and bf16 at other P or N): the same algorithm on the
 //   CUDA cores in f32, for the tight check.
 //
@@ -62,18 +68,25 @@
 // exact as operands; the two f32 A operands (M and the decayed x) go in as
 // a pair of bf16 values, hi = bf16(v) and lo = bf16(v - hi), two products
 // each: ~16 significant bits instead of bf16's 8, so the kernel computes
-// the Pallas kernel's f32 function to ~1e-5 relative. (With M and the decayed x
-// rounded to bf16 once, in the kernel and its plain version alike, the two
-// paths' logits of full-width mamba2-370m differed by 8.6% of their maximum
-// on an H100: 48 layers amplify the rounding.) No atomics: two launches on
-// one input are bit-identical.
+// the Pallas kernel's f32 function to ~1e-5 relative (ssd_heads takes M's
+// exponentials from the SFU, off by ~1e-6 where M is large). (With M and
+// the decayed x rounded to bf16 once, in the kernel and its plain version
+// alike, the two paths' logits of full-width mamba2-370m differed by 8.6%
+// of their maximum on an H100: 48 layers amplify the rounding.) No
+// atomics: two launches on one input are bit-identical.
 //
 // Padding: ssd_chunked pads a prompt with zero x and dA = 0, so a padded
 // chunk must give its prefix's y rows, state and decays to the bit. Every
-// task that needs cs computes it with chunk_cumsum, whose lane order makes
-// the padded tail's cs equal to the last real row's; every sum over s
-// walks the same pad64(Q) rows in the same tiles at Q 200 as at Q 256
-// (rows past Q are zeros, whose products add exact zeros).
+// task that needs cs computes it in a lane order that makes the padded
+// tail's cs equal to the last real row's (ssd_wg and ssd_simt with
+// chunk_cumsum, whose grouping follows pad64(Q); ssd_heads with
+// scan_fixed, whose grouping is the same at every Q, so that hymba's Q 128
+// chunk padded past a 20-row prefix matches that prefix at Q 20); every
+// sum over s walks the same rows in the same tiles (ssd_wg: 64-row tiles
+// of pad64(Q) rows; ssd_heads: 16-row k-steps, a row group's up to its
+// diagonal, the state's over pad16(Q)), and rows past Q are zeros, whose
+// products add exact zeros.
+#include <algorithm>
 #include <climits>
 
 #include "nk_hopper.cuh"
@@ -107,7 +120,6 @@ using nk::wgmma_ss_n64;
 
 constexpr int NW = 8;          // warps per block
 constexpr int NTHR = 32 * NW;  // threads per block
-constexpr int CT = 64;         // columns per tile of the y product
 constexpr int MAXQ = 256;
 
 __host__ __device__ constexpr int pad64(int q) { return (q + 63) / 64 * 64; }
@@ -436,221 +448,376 @@ ssd_wg(const __grid_constant__ CUtensorMap tm_x,
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync kernel (bf16, the narrower tensor-core shapes)
+// mma.sync kernel over a run of heads (bf16, the narrower tensor-core shapes)
 // ---------------------------------------------------------------------------
 
-// the C tile's region also holds the decayed x's lo half for the state
+constexpr int HB_MAX = 8;                // heads a block at most: a warp each
+constexpr int HD_THREADS = NTHR + 32;    // 8 consumer warps + a producer warp
+constexpr int HD_STAGES = 3;             // the x ring's stages at most
+constexpr int SCAN_E = MAXQ / 32;        // cumsum positions a lane, fixed
+
+__host__ __device__ constexpr int pad16(int q) { return (q + 15) / 16 * 16; }
+
+// the x ring's stages at a chunk length: three up to Q 128, two above
+inline int hd_stages(int Q) { return pad16(Q) <= 128 ? 3 : 2; }
+
+// the ring of x stages, B and C, then each head's cs and its state weights
 template <int P, int N>
-__host__ __device__ constexpr int c_width() {
-  return N > P ? N : P;
+constexpr size_t hd_smem_bytes(int Q, int stages, int hb) {
+  return (size_t)pad16(Q) * (stages * P + 2 * N) * sizeof(__nv_bfloat16) +
+         2 * (size_t)hb * pad16(Q) * sizeof(float);
 }
 
-template <int P, int N>
-constexpr size_t tc_smem_bytes(int Q) {
-  return (size_t)pad64(Q) * (c_width<P, N>() + N + P) *
-             sizeof(__nv_bfloat16) +
-         2 * (size_t)pad64(Q) * sizeof(float);
+// cs[s] = a[0] + ... + a[s] over the pad16(Q) rows of a (zeros past Q), by
+// one warp. Lane k sums rows 8k .. 8k + 7, then the runs before it are
+// added in lane order: the grouping does not depend on Q, so a chunk
+// zero-padded from Q to Q' gives cs[Q' - 1] == cs[Q - 1] and every row's
+// cs to the bit (chunk_cumsum's grouping follows pad64(Q) instead).
+__device__ __forceinline__ void scan_fixed(const float* a, float* cs, int Q,
+                                           int lane) {
+  float v[SCAN_E];
+  float run = 0.f;
+#pragma unroll
+  for (int i = 0; i < SCAN_E; ++i) {
+    const int s = lane * SCAN_E + i;
+    run += s < Q ? a[s] : 0.f;
+    v[i] = run;
+  }
+  float excl = 0.f, acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const float r = __shfl_sync(0xffffffffu, run, k);
+    if (lane == k) excl = acc;
+    acc += r;
+  }
+  const int qp = pad16(Q);
+#pragma unroll
+  for (int i = 0; i < SCAN_E; ++i) {
+    const int s = lane * SCAN_E + i;
+    if (s < qp) cs[s] = v[i] + excl;
+  }
 }
 
+// rows ra and ra + 8 of a (16 x P) f32 tile in mma accumulator layout, as
+// 16-byte stores: each pair of lanes swaps halves of two 8-column tiles,
+// so a lane holds 4 contiguous columns of one of them
+template <int P>
+__device__ __forceinline__ void store_rows(void* y, size_t row_a,
+                                           size_t row_b, bool ok_a, bool ok_b,
+                                           const float (&acc)[P / 8][4],
+                                           int t4, bool out_bf16) {
+  const bool odd = t4 & 1;
+#pragma unroll
+  for (int m = 0; m < P / 16; ++m) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // selects, not an index by `odd`: that would put acc in local memory
+      const float a0 = acc[2 * m][2 * i], a1 = acc[2 * m][2 * i + 1];
+      const float b0 = acc[2 * m + 1][2 * i], b1 = acc[2 * m + 1][2 * i + 1];
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+      const float4 v = odd ? make_float4(r0, r1, b0, b1)
+                           : make_float4(a0, a1, r0, r1);
+      if (!(i ? ok_b : ok_a)) continue;
+      // column of v[0]: tile 2m + odd, lane pair (t4 & ~1)
+      const size_t off = (i ? row_b : row_a) + 16 * m + 8 * odd +
+                         2 * (t4 & ~1);
+      if (out_bf16) {
+        uint2 b;
+        b.x = nk::pack_bf16(v.x, v.y);
+        b.y = nk::pack_bf16(v.z, v.w);
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + off) = b;
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(y) + off) = v;
+      }
+    }
+  }
+}
+
+// exp(x) for the decay matrix on the SFU: ex2.approx of x log2(e). Off by
+// ~2^-22 relative plus the rounding of x log2(e): ~1e-6 near the diagonal,
+// where M's values are large, and up to ~1e-5 where exp(x) is ~1e-40
+// (x ~ -90); flushes results below 2^-126 to 0, which expf would return
+// as denormals. The decays and the state's weights keep expf.
+__device__ __forceinline__ float exp_sfu(float x) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(x * 1.44269504f));
+  return e;
+}
+
+// G = C.B^T of the 16 rows whose C fragments are cf against B rows c0 ..
+// c0 + 15: two 8-column accumulator tiles
+template <int N>
+__device__ __forceinline__ void g_tile(uint32_t b_tile, int c0,
+                                       const uint32_t (&cf)[N / 16][4],
+                                       float (&g)[2][4], int lane) {
+#pragma unroll
+  for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g[jn][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < N / 16; ++ks) {
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4(b_tile + 2 * swz<N>(c0 + (lane % 8) + (lane / 16) * 8,
+                                ks * 2 + (lane / 8) % 2),
+            b0, b1, b2, b3);
+    mma_bf16(g[0], cf[ks], b0, b1);
+    mma_bf16(g[1], cf[ks], b2, b3);
+  }
+}
+
+// M = G o exp(cs[l] - cs[s]) at columns c0 .. c0 + 15, masked above the
+// diagonal before the exponential, as the A operand of M.x in bf16 hi + lo
+// halves (this lane: rows ra and rb, columns c0 + 8 jn + 2 t4 and + 1)
+__device__ __forceinline__ void m_tile(const float (&g)[2][4], const float* cs,
+                                       int c0, int ra, int rb, float csa,
+                                       float csb, int t4, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+#pragma unroll
+  for (int jn = 0; jn < 2; ++jn) {
+    const int c = c0 + jn * 8 + 2 * t4;
+    const float e0 = cs[c], e1 = cs[c + 1];
+    const float m0 = c <= ra ? g[jn][0] * exp_sfu(csa - e0) : 0.f;
+    const float m1 = c + 1 <= ra ? g[jn][1] * exp_sfu(csa - e1) : 0.f;
+    const float m2 = c <= rb ? g[jn][2] * exp_sfu(csb - e0) : 0.f;
+    const float m3 = c + 1 <= rb ? g[jn][3] * exp_sfu(csb - e1) : 0.f;
+    split_pack(m0, m1, ah[2 * jn], al[2 * jn]);
+    split_pack(m2, m3, ah[2 * jn + 1], al[2 * jn + 1]);
+  }
+}
+
+// y += M.x over x rows c0 .. c0 + 15 (x read transposed from its stage)
+template <int P>
+__device__ __forceinline__ void m_times_x(uint32_t x_tile, int c0,
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          float (&acc)[P / 8][4], int lane) {
+#pragma unroll
+  for (int dp = 0; dp < P / 16; ++dp) {
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4_t(x_tile + 2 * swz<P>(c0 + (lane % 8) + ((lane / 8) % 2) * 8,
+                                  dp * 2 + lane / 16),
+              b0, b1, b2, b3);
+    mma_bf16(acc[2 * dp], ah, b0, b1);
+    mma_bf16(acc[2 * dp], al, b0, b1);
+    mma_bf16(acc[2 * dp + 1], ah, b2, b3);
+    mma_bf16(acc[2 * dp + 1], al, b2, b3);
+  }
+}
+
+// y rows 16 rg .. 16 rg + 15 of one head: for each 16-column k-step kt on
+// or below the diagonal, G = C.B^T (16 x 16, K = N), M = G o exp(cs[l] -
+// cs[s]) masked above the diagonal, y += M.x with M as bf16 hi + lo. The
+// k-steps are software-pipelined: k-step kt + 1's G and M are formed while
+// k-step kt's products run, so the exponentials and the splits overlap the
+// tensor cores' latency instead of waiting on it
 template <int P, int N>
-__global__ void __launch_bounds__(NTHR)
-ssd_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dA,
-       const __nv_bfloat16* __restrict__ Bm,
-       const __nv_bfloat16* __restrict__ Cm, void* __restrict__ y,
-       float* __restrict__ st, float* __restrict__ dec,
-       float* __restrict__ sd, int Q, int H, int out_bf16) {
+__device__ __forceinline__ void y_rows(uint32_t c_tile, uint32_t b_tile,
+                                       uint32_t x_tile, const float* cs,
+                                       int rg, void* y, size_t y_row, int Q,
+                                       int HP, int lane, bool out_bf16) {
+  const int t4 = lane % 4;
+  const int r0 = rg * 16;
+  uint32_t cf[N / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < N / 16; ++ks)
+    ldsm_x4(c_tile + 2 * swz<N>(r0 + (lane % 16), ks * 2 + lane / 16),
+            cf[ks][0], cf[ks][1], cf[ks][2], cf[ks][3]);
+  float acc[P / 8][4];
+#pragma unroll
+  for (int jn = 0; jn < P / 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
+  const int ra = r0 + lane / 4, rb = ra + 8;     // this lane's two rows
+  const float csa = cs[ra], csb = cs[rb];
+  float g[2][4];
+  uint32_t ah[4], al[4];
+  g_tile<N>(b_tile, 0, cf, g, lane);
+  m_tile(g, cs, 0, ra, rb, csa, csb, t4, ah, al);
+  for (int kt = 0; kt < rg; ++kt) {
+    g_tile<N>(b_tile, (kt + 1) * 16, cf, g, lane);
+    m_times_x<P>(x_tile, kt * 16, ah, al, acc, lane);
+    m_tile(g, cs, (kt + 1) * 16, ra, rb, csa, csb, t4, ah, al);
+  }
+  m_times_x<P>(x_tile, rg * 16, ah, al, acc, lane);
+  store_rows<P>(y, y_row + (size_t)ra * HP, y_row + (size_t)rb * HP, ra < Q,
+                rb < Q, acc, t4, out_bf16);
+}
+
+// state rows p = 16 mt .. 16 mt + 15 of one head, all N columns: the sum
+// over the chunk's k-steps of (x^T scaled by ws) (hi + lo) B
+template <int P, int N>
+__device__ __forceinline__ void state_rows(uint32_t b_tile, uint32_t x_tile,
+                                           const float* ws, int mt, int nks,
+                                           float* sb, int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+  float acc[N / 8][4];
+#pragma unroll
+  for (int jn = 0; jn < N / 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    // x^T rows p, columns s = 16 ks ..: the x stage read transposed
+    uint32_t r[4], ah[4], al[4];
+    ldsm_x4_t(x_tile + 2 * swz<P>(ks * 16 + (lane % 8) + (lane / 16) * 8,
+                                  mt * 2 + (lane / 8) % 2),
+              r[0], r[1], r[2], r[3]);
+    const int sc = ks * 16 + 2 * t4;
+    const float w[4] = {ws[sc], ws[sc + 1], ws[sc + 8], ws[sc + 9]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&r[i]));
+      split_pack(f.x * w[(i / 2) * 2], f.y * w[(i / 2) * 2 + 1], ah[i],
+                 al[i]);
+    }
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_t(b_tile + 2 * swz<N>(ks * 16 + (lane % 8) +
+                                        ((lane / 8) % 2) * 8,
+                                    np * 2 + lane / 16),
+                b0, b1, b2, b3);
+      mma_bf16(acc[2 * np], ah, b0, b1);
+      mma_bf16(acc[2 * np], al, b0, b1);
+      mma_bf16(acc[2 * np + 1], ah, b2, b3);
+      mma_bf16(acc[2 * np + 1], al, b2, b3);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = mt * 16 + g + 8 * i;
+#pragma unroll
+    for (int jn = 0; jn < N / 8; ++jn)
+      *reinterpret_cast<float2*>(sb + (size_t)p * N + jn * 8 + 2 * t4) =
+          make_float2(acc[jn][2 * i], acc[jn][2 * i + 1]);
+  }
+}
+
+// One block per (chunk, run of heads): the chunk's B, C and dA rows are
+// read once for the run, every head's cumsum is formed at once (a warp a
+// head), state_decay and the decays leave in runs of the block's heads,
+// and a producer warp streams each head's x through a ring of stages
+// (cp.async, completion on the stage's "full" mbarrier) while the eight
+// consumer warps work on the heads before it. A head is R = pad16(Q) / 16
+// y units (row groups, heaviest first; row group rg walks rg + 1 k-steps)
+// and P / 16 state units; consumer warp w takes the units u with u % 8 ==
+// w of an even head and u % 8 == 7 - w of an odd one, so over two heads
+// every warp gets the same work at Q 128, P 64. Warps drift apart across
+// heads, so one head's y rows and state overlap the next head's, and y
+// leaves in 16-byte stores behind the products.
+template <int P, int N>
+__global__ void __launch_bounds__(HD_THREADS, 2)
+ssd_heads(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dA,
+          const __nv_bfloat16* __restrict__ Bm,
+          const __nv_bfloat16* __restrict__ Cm, void* __restrict__ y,
+          float* __restrict__ st, float* __restrict__ dec,
+          float* __restrict__ sd, int Q, int H, int ngroups, int stages,
+          int out_bf16) {
   constexpr int NCH_N = N / 8;      // 16-byte chunks per row of B, C
   constexpr int NCH_P = P / 8;      // ... and of x
-  constexpr int KS_N = N / 16;      // k-steps of C.B^T
-  constexpr int NT_S = CT / 8;      // 8-wide tiles of a G tile row
-  constexpr int NT_P = P / 8;       // 8-wide tiles of a y row
-  constexpr int NG = (N + 63) / 64;             // 64-wide state col groups
-  constexpr int NT_G = (N < 64 ? N : 64) / 8;   // 8-wide tiles per group
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int Qp = pad64(Q);
-  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = Cs + Qp * c_width<P, N>();
-  __nv_bfloat16* Xs = Bs + Qp * N;
-  float* cs = reinterpret_cast<float*>(Xs + Qp * P);
-  float* ws = cs + Qp;
+  __shared__ __align__(8) uint64_t bars[2 * HD_STAGES];
+  const int Qp = pad16(Q);
+  const int R = Qp / 16;
+  const uint32_t x_smem = smem_u32(smem_raw);             // + XS * stage
+  const uint32_t XS = Qp * P * sizeof(__nv_bfloat16);
+  const uint32_t b_smem = x_smem + stages * XS;
+  const uint32_t c_smem = b_smem + Qp * N * sizeof(__nv_bfloat16);
+  const size_t ch = blockIdx.x / ngroups;
+  const int grp = blockIdx.x % ngroups;
+  const int h0 = grp * H / ngroups, hb = (grp + 1) * H / ngroups - h0;
+  float* cs = reinterpret_cast<float*>(
+      smem_raw + (c_smem + Qp * N * sizeof(__nv_bfloat16) - x_smem));
+  float* ws = cs + hb * Qp;     // dA rows first, then the state weights
+  const uint32_t full = smem_u32(&bars[0]);      // + 8 * stage
+  const uint32_t empty = full + 8 * HD_STAGES;
 
-  const size_t ch = blockIdx.x;
-  const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;   // mma fragment coordinates
-  const __nv_bfloat16* cb = Cm + ch * Q * N;
-  const __nv_bfloat16* bb = Bm + ch * Q * N;
-  const __nv_bfloat16* xb = x + (ch * Q * H + h) * P;   // row s at s*H*P
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 32);      // every producer lane's copies
+      mbar_init(empty + 8 * s, NW);     // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // stage the chunk; rows past Q are zero-filled
+  if (warp == NW) {
+    // ---- producer: head i's x into stage i % stages, rows past Q zeros,
+    // once the consumers have left the head that held the stage ----
+    for (int i = 0; i < hb; ++i) {
+      const int sg = i % stages;
+      if (i >= stages) mbar_wait(empty + 8 * sg, (i / stages - 1) & 1);
+      // one head's loads in flight a block: the first heads of every
+      // block land first, and the consumers start on them while the rest
+      // stream in
+      if (i >= 1)
+        mbar_wait(full + 8 * ((i - 1) % stages), ((i - 1) / stages) & 1);
+      const __nv_bfloat16* xb = x + (ch * Q * H + h0 + i) * P;
+      for (int c = lane; c < Qp * NCH_P; c += 32) {
+        const int r = c / NCH_P, k = c % NCH_P;
+        const bool ok = r < Q;
+        cp_async16(x_smem + sg * XS + 2 * swz<P>(r, k),
+                   xb + (size_t)(ok ? r : 0) * H * P + k * 8, ok);
+      }
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                   ::"r"(full + 8 * sg) : "memory");
+    }
+    return;
+  }
+
+  // ---- consumers: B, C and the heads' dA rows, then every head's cumsum
+  // and state weights, a warp a head ----
+  const __nv_bfloat16* bb = Bm + ch * Q * N;
+  const __nv_bfloat16* cb = Cm + ch * Q * N;
   for (int i = tid; i < Qp * NCH_N; i += NTHR) {
     const int r = i / NCH_N, c = i % NCH_N;
     const bool ok = r < Q;
     const size_t off = (size_t)(ok ? r : 0) * N + c * 8;
-    cp_async16(smem_u32(Cs + swz<N>(r, c)), cb + off, ok);
-    cp_async16(smem_u32(Bs + swz<N>(r, c)), bb + off, ok);
-  }
-  for (int i = tid; i < Qp * NCH_P; i += NTHR) {
-    const int r = i / NCH_P, c = i % NCH_P;
-    const bool ok = r < Q;
-    cp_async16(smem_u32(Xs + swz<P>(r, c)),
-               xb + (size_t)(ok ? r : 0) * H * P + c * 8, ok);
+    cp_async16(c_smem + 2 * swz<N>(r, c), cb + off, ok);
+    cp_async16(b_smem + 2 * swz<N>(r, c), bb + off, ok);
   }
   cp_async_commit();
-  if (warp == 0) chunk_cumsum(dA + ch * Q * H, H, h, Q, cs, lane);
+  for (int i = tid; i < Q * hb; i += NTHR) {
+    const int s = i / hb, j = i % hb;
+    ws[j * Qp + s] = dA[(ch * Q + s) * H + h0 + j];
+  }
   cp_async_wait<0>();
-  __syncthreads();
-  for (int l = tid; l < Q; l += NTHR)
-    sd[(ch * Q + l) * H + h] = expf(cs[l]);
+  nk::bar_sync_first<NTHR>();
+  if (warp < hb) {
+    float* csh = cs + warp * Qp;
+    float* wsh = ws + warp * Qp;
+    scan_fixed(wsh, csh, Q, lane);
+    __syncwarp();
+    const float cl = csh[Q - 1];
+    for (int s = lane; s < Qp; s += 32)
+      wsh[s] = s < Q ? expf(cl - csh[s]) : 0.f;
+  }
+  nk::bar_sync_first<NTHR>();
+  for (int i = tid; i < Q * hb; i += NTHR) {
+    const int l = i / hb, j = i % hb;
+    sd[(ch * Q + l) * H + h0 + j] = expf(cs[j * Qp + l]);
+  }
+  if (tid < hb) dec[ch * H + h0 + tid] = expf(cs[tid * Qp + Q - 1]);
 
-  // ---- y: 16 rows per warp at a time, tiles on or below the diagonal ----
-  const int nrg = (Q + 15) / 16;
-  for (int j = 0; j * NW < nrg; ++j) {
-    const int rg = (j & 1) ? (j + 1) * NW - 1 - warp : j * NW + warp;
-    if (rg >= nrg) continue;
-    const int r0 = rg * 16;
-    uint32_t cf[KS_N][4];
-#pragma unroll
-    for (int ks = 0; ks < KS_N; ++ks)
-      ldsm_x4(smem_u32(Cs + swz<N>(r0 + (lane % 16), ks * 2 + lane / 16)),
-              cf[ks][0], cf[ks][1], cf[ks][2], cf[ks][3]);
-    float yacc[NT_P][4];
-#pragma unroll
-    for (int jn = 0; jn < NT_P; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) yacc[jn][e] = 0.f;
-    const int ra = r0 + g, rb = ra + 8;   // this thread's two rows
-    const float csa = cs[ra], csb = cs[rb];
-    const int last = (r0 + 15) / CT;
-    for (int jt = 0; jt <= last; ++jt) {
-      const int c0 = jt * CT;
-      float sacc[NT_S][4];
-#pragma unroll
-      for (int jn = 0; jn < NT_S; ++jn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[jn][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS_N; ++ks) {
-#pragma unroll
-        for (int np = 0; np < NT_S / 2; ++np) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4(smem_u32(Bs + swz<N>(c0 + np * 16 + (lane % 8) +
-                                           (lane / 16) * 8,
-                                       ks * 2 + (lane / 8) % 2)),
-                  b0, b1, b2, b3);
-          mma_bf16(sacc[2 * np], cf[ks], b0, b1);
-          mma_bf16(sacc[2 * np + 1], cf[ks], b2, b3);
-        }
-      }
-      // M = G o L: the decay from the difference, selected away above the
-      // diagonal; M enters M.x as its hi and lo bf16 halves
-      uint32_t ph[NT_S][2], pl[NT_S][2];
-#pragma unroll
-      for (int jn = 0; jn < NT_S; ++jn) {
-        const int c = c0 + jn * 8 + 2 * t4;
-        const float e0 = cs[c], e1 = cs[c + 1];
-        const float m0 = c <= ra ? sacc[jn][0] * expf(csa - e0) : 0.f;
-        const float m1 = c + 1 <= ra ? sacc[jn][1] * expf(csa - e1) : 0.f;
-        const float m2 = c <= rb ? sacc[jn][2] * expf(csb - e0) : 0.f;
-        const float m3 = c + 1 <= rb ? sacc[jn][3] * expf(csb - e1) : 0.f;
-        split_pack(m0, m1, ph[jn][0], pl[jn][0]);
-        split_pack(m2, m3, ph[jn][1], pl[jn][1]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < CT / 16; ++kk) {
-        const uint32_t ah[4] = {ph[2 * kk][0], ph[2 * kk][1],
-                                ph[2 * kk + 1][0], ph[2 * kk + 1][1]};
-        const uint32_t al[4] = {pl[2 * kk][0], pl[2 * kk][1],
-                                pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
-#pragma unroll
-        for (int dp = 0; dp < NT_P / 2; ++dp) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_t(smem_u32(Xs + swz<P>(c0 + kk * 16 + (lane % 8) +
-                                             ((lane / 8) % 2) * 8,
-                                         dp * 2 + lane / 16)),
-                    b0, b1, b2, b3);
-          mma_bf16(yacc[2 * dp], ah, b0, b1);
-          mma_bf16(yacc[2 * dp], al, b0, b1);
-          mma_bf16(yacc[2 * dp + 1], ah, b2, b3);
-          mma_bf16(yacc[2 * dp + 1], al, b2, b3);
-        }
-      }
+  // ---- the heads, through the ring ----
+  const int units = R + P / 16;
+  for (int i = 0; i < hb; ++i) {
+    const int sg = i % stages, h = h0 + i;
+    mbar_wait(full + 8 * sg, (i / stages) & 1);
+    for (int u = (i & 1) ? NW - 1 - warp : warp; u < units; u += NW) {
+      if (u < R)
+        y_rows<P, N>(c_smem, b_smem, x_smem + sg * XS, cs + i * Qp,
+                     R - 1 - u, y, (ch * Q * H + h) * P, Q, H * P, lane,
+                     out_bf16);
+      else
+        state_rows<P, N>(b_smem, x_smem + sg * XS, ws + i * Qp, u - R, R,
+                         st + (ch * H + h) * P * N, lane);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = ra + 8 * i;
-      if (r >= Q) continue;
-      const size_t row = ((ch * Q + r) * H + h) * P + 2 * t4;
-#pragma unroll
-      for (int jn = 0; jn < NT_P; ++jn)
-        store_pair(y, row + jn * 8, yacc[jn][2 * i], yacc[jn][2 * i + 1],
-                   out_bf16);
-    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * sg);
   }
-  __syncthreads();   // every warp is done reading x and C for y
-
-  // ---- state: xw = x * exp(cs[Q-1] - cs[s]) split into its hi half (in
-  // place of x) and lo half (in place of C), then xw^T B ----
-  const float cl = cs[Q - 1];
-  for (int s = tid; s < Qp; s += NTHR)
-    ws[s] = s < Q ? expf(cl - cs[s]) : 0.f;
-  __syncthreads();
-  __nv_bfloat16* Ls = Cs;
-  for (int i = tid; i < Qp * NCH_P; i += NTHR) {
-    const int r = i / NCH_P, c = i % NCH_P;
-    uint4* xp = reinterpret_cast<uint4*>(Xs + swz<P>(r, c));
-    uint4 hi = *xp, lo;
-    uint32_t* hw = reinterpret_cast<uint32_t*>(&hi);
-    uint32_t* lw = reinterpret_cast<uint32_t*>(&lo);
-    const float w = ws[r];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&hw[k]));
-      split_pack(f.x * w, f.y * w, hw[k], lw[k]);
-    }
-    *xp = hi;
-    *reinterpret_cast<uint4*>(Ls + swz<P>(r, c)) = lo;
-  }
-  __syncthreads();
-  float* sb = st + (ch * H + h) * P * N;
-  for (int u = warp; u < (P / 16) * NG; u += NW) {
-    const int mt = u / NG, ng = u % NG;
-    float acc[NT_G][4];
-#pragma unroll
-    for (int jn = 0; jn < NT_G; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
-    for (int ks = 0; ks < nrg; ++ks) {
-      const int off = swz<P>(ks * 16 + (lane % 8) + (lane / 16) * 8,
-                             mt * 2 + (lane / 8) % 2);
-      uint32_t ah[4], al[4];
-      ldsm_x4_t(smem_u32(Xs + off), ah[0], ah[1], ah[2], ah[3]);
-      ldsm_x4_t(smem_u32(Ls + off), al[0], al[1], al[2], al[3]);
-#pragma unroll
-      for (int np = 0; np < NT_G / 2; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(smem_u32(Bs + swz<N>(ks * 16 + (lane % 8) +
-                                           ((lane / 8) % 2) * 8,
-                                       ng * 8 + np * 2 + lane / 16)),
-                  b0, b1, b2, b3);
-        mma_bf16(acc[2 * np], ah, b0, b1);
-        mma_bf16(acc[2 * np], al, b0, b1);
-        mma_bf16(acc[2 * np + 1], ah, b2, b3);
-        mma_bf16(acc[2 * np + 1], al, b2, b3);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int p = mt * 16 + g + 8 * i;
-#pragma unroll
-      for (int jn = 0; jn < NT_G; ++jn)
-        *reinterpret_cast<float2*>(sb + (size_t)p * N + ng * 64 + jn * 8 +
-                                   2 * t4) =
-            make_float2(acc[jn][2 * i], acc[jn][2 * i + 1]);
-    }
-  }
-  if (tid == 0) dec[ch * H + h] = expf(cl);
 }
 
 // ---------------------------------------------------------------------------
@@ -789,18 +956,44 @@ int launch_wg(const void* x, const float* dA, const void* B, const void* C,
   return (int)cudaGetLastError();
 }
 
+// the card's SM count, read once per device
+inline int sm_count(int device) {
+  static int sms[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES) return 0;
+  if (!sms[device] &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess)
+    return 0;
+  return sms[device];
+}
+
+// head runs a chunk: as many blocks as two a card's SM hold at once (two
+// blocks fit an SM), each run at most HB_MAX heads, at least one
+inline int head_groups(int nchunks, int H, int sms) {
+  const int want = (2 * sms + nchunks / 2) / nchunks;
+  return std::min(H, std::max((H + HB_MAX - 1) / HB_MAX, want));
+}
+
 template <int P, int N>
-int launch_tc(const void* x, const float* dA, const void* B, const void* C,
-              void* y, float* st, float* dec, float* sd, int nchunks, int Q,
-              int H, int out_bf16, int device, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes<P, N>(Q);
+int launch_heads(const void* x, const float* dA, const void* B,
+                 const void* C, void* y, float* st, float* dec, float* sd,
+                 int nchunks, int Q, int H, int out_bf16, int device,
+                 cudaStream_t stream) {
+  const int sms = sm_count(device);
+  if (!sms) return NK_ERR_ARGS;
+  const int ng = head_groups(nchunks, H, sms);
+  const int stages = hd_stages(Q);
+  const size_t smem = hd_smem_bytes<P, N>(Q, stages, (H + ng - 1) / ng);
   static size_t raised[MAX_DEVICES] = {};
-  const int rc = raise_smem(ssd_tc<P, N>, smem, device, raised);
+  const int rc = raise_smem(ssd_heads<P, N>, smem, device, raised);
   if (rc) return rc;
-  ssd_tc<P, N><<<dim3(nchunks, H), NTHR, smem, stream>>>(
+  const long long blocks = (long long)nchunks * ng;
+  if (blocks > INT_MAX) return NK_ERR_ARGS;
+  ssd_heads<P, N><<<(int)blocks, HD_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), dA,
       static_cast<const __nv_bfloat16*>(B),
-      static_cast<const __nv_bfloat16*>(C), y, st, dec, sd, Q, H, out_bf16);
+      static_cast<const __nv_bfloat16*>(C), y, st, dec, sd, Q, H, ng, stages,
+      out_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -845,14 +1038,14 @@ extern "C" int nk_ssd_chunk_scan(const void* x, const void* dA,
     if (P == WG_P && N == WG_N)   // mamba2-370m
       return launch_wg(x, a, B, C, y, stf, decf, sdf, nchunks, Q, H, ob,
                        device, s);
-#define NK_TC(PP, NN)                                                      \
-  if (P == PP && N == NN)                                                  \
-    return launch_tc<PP, NN>(x, a, B, C, y, stf, decf, sdf, nchunks, Q, H, \
-                             ob, device, s);
-    NK_TC(64, 16)    // hymba-1.5b
-    NK_TC(32, 64)    // the reference's kernel test
-    NK_TC(16, 16)    // the smoke configs
-#undef NK_TC
+#define NK_HEADS(PP, NN)                                                  \
+  if (P == PP && N == NN)                                                 \
+    return launch_heads<PP, NN>(x, a, B, C, y, stf, decf, sdf, nchunks, Q, \
+                                H, ob, device, s);
+    NK_HEADS(64, 16)    // hymba-1.5b
+    NK_HEADS(32, 64)    // the reference's kernel test
+    NK_HEADS(16, 16)    // the smoke configs
+#undef NK_HEADS
     return launch_simt<__nv_bfloat16>(x, a, B, C, y, stf, decf, sdf, nchunks,
                                       Q, H, P, N, ob, device, s);
   }

@@ -18,7 +18,9 @@ past ``pos[b]`` exit at once, and the last block of each (sequence, kv
 head) to finish combines the runs' partials (``split_plan``). That block
 finds itself through a per-device counter that the kernel sets back to
 zero, so calls on one device must not run concurrently on two streams.
-``decode_attention.launches`` counts the calls that launched the kernel.
+``decode_attention.launches`` counts the calls that launched the kernel,
+and ``decode_attention.launches_by_route`` counts them by the kernel that
+took them (``route``): ``"mma"`` or ``"simt"``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,17 @@ DTYPE_PAIRS = {
 # positions per sequence chunk are a multiple of the kernel's 64-position
 # chunk
 SPLIT_ALIGN = 64
+ROUTES = ("mma", "simt")
+
+
+def route(q_dtype, cache_dtype, d: int) -> str:
+    """The kernel that takes a ``q_dtype`` query over a ``cache_dtype``
+    cache at head dim ``d``, as ``csrc/decode_attention.cu::launch`` picks
+    it: ``"mma"`` (bf16 over bf16 at head dims 64 and up, on mma.sync) or
+    ``"simt"`` (f32 queries, and bf16 at 16 and 32, on the CUDA cores)."""
+    if q_dtype == cache_dtype == torch.bfloat16 and d >= 64:
+        return "mma"
+    return "simt"
 
 
 def split_plan(b: int, kv: int, kv_len: int, sms: int):
@@ -188,7 +201,9 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, kv_len=None,
         stream.cuda_stream)
     build.check(rc, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.launches_by_route[route(q.dtype, k_cache.dtype, d)] += 1
     return o, m, l
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

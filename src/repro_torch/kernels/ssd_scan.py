@@ -34,7 +34,12 @@ products under a given thread count and load. The reference model's
 
 ``ssd_chunk_scan`` takes the plain PyTorch version only for tensors on the
 CPU. On CUDA tensors it launches the kernel or raises; it never falls
-back. ``ssd_chunk_scan.launches`` counts kernel launches.
+back. ``ssd_chunk_scan.launches`` counts kernel launches, and
+``ssd_chunk_scan.launches_by_route`` counts them by the kernel that took
+them (``route``): ``"wg"`` (bf16 at P 64, N 128: mamba2's width, on
+wgmma), ``"heads"`` (bf16 at (P, N) in ``HEADS_SHAPES``: a block a chunk
+and a run of heads, on mma.sync) and ``"simt"`` (f32, and bf16 at any
+other width, on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -44,6 +49,20 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: build.DT_F32, torch.bfloat16: build.DT_BF16}
 MAX_CHUNK = 256      # the kernels keep a chunk's cumsum in shared memory
+ROUTES = ("wg", "heads", "simt")
+# (P, N) of the "heads" kernel: hymba-1.5b, the reference's kernel test,
+# the smoke configs
+HEADS_SHAPES = ((64, 16), (32, 64), (16, 16))
+
+
+def route(dtype, p: int, n: int) -> str:
+    """The kernel that takes ``dtype`` inputs at head dim ``p`` and state
+    size ``n``: the table of ``csrc/ssd_scan.cu::nk_ssd_chunk_scan``."""
+    if dtype == torch.bfloat16 and (p, n) == (64, 128):
+        return "wg"
+    if dtype == torch.bfloat16 and (p, n) in HEADS_SHAPES:
+        return "heads"
+    return "simt"
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +164,9 @@ def ssd_chunk_scan(xdt, dA, B, C, *, out_dtype=None, state_decay=False):
         torch.cuda.current_stream(xdt.device).cuda_stream)
     build.check(rc, "ssd_chunk_scan")
     ssd_chunk_scan.launches += 1
+    ssd_chunk_scan.launches_by_route[route(xdt.dtype, p, n)] += 1
     return out
 
 
 ssd_chunk_scan.launches = 0
+ssd_chunk_scan.launches_by_route = dict.fromkeys(ROUTES, 0)

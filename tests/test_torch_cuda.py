@@ -44,8 +44,8 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.quant_comm import (
     codec_error_bound, dequantize_int8, dequantize_int8_plain, quantize_int8,
     quantize_int8_plain)
-from repro_torch.kernels.ssd_scan import ssd_chunk_scan, \
-    ssd_chunk_scan_plain
+from repro_torch.kernels.ssd_scan import route as ssd_route
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_chunk_scan_plain
 from repro_torch.kernels.waterfill import (
     _scratch, water_fill, water_fill_plain)
 from repro_torch.models.params import init_params
@@ -646,6 +646,11 @@ def _ssd_case(device, nb, nc, q, h, p, n, dtype, *, dt_scale=1.0, seed=0):
     # the wgmma kernel at odd H, with a ragged Q and a bf16 y too
     (1, 2, 256, 5, 64, 128, "bfloat16", "float32", 1.0),
     (2, 1, 200, 33, 64, 128, "bfloat16", "bfloat16", 1.0),
+    # hymba-1.5b's path: serve (a 1,536-token prompt), train (4,096
+    # tokens) and a TP rank's 25 heads at tp 2
+    (1, 12, 128, 50, 64, 16, "bfloat16", "float32", 1.0),
+    (1, 32, 128, 50, 64, 16, "bfloat16", "float32", 1.0),
+    (1, 12, 128, 25, 64, 16, "bfloat16", "float32", 1.0),
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda, nb, nc, q, h, p, n, dtype,
                                           out, dt_scale):
@@ -653,10 +658,14 @@ def test_ssd_kernel_matches_plain_on_card(cuda, nb, nc, q, h, p, n, dtype,
                               dt_scale=dt_scale)
     out_dtype = getattr(torch, out)
     before = ssd_chunk_scan.launches
+    by_route = dict(ssd_chunk_scan.launches_by_route)
+    took = ssd_route(xdt.dtype, p, n)
     y, st, dec, sd = ssd_chunk_scan(xdt, dA, B, C, out_dtype=out_dtype,
                                     state_decay=True)
     torch.cuda.synchronize()
     assert ssd_chunk_scan.launches == before + 1
+    assert ssd_chunk_scan.launches_by_route == {**by_route,
+                                                took: by_route[took] + 1}
     assert y.dtype == out_dtype and tuple(y.shape) == tuple(xdt.shape)
     assert tuple(sd.shape) == (nb, nc, q, h)
     ry, rst, rdec, rsd = ssd_chunk_scan_plain(
@@ -674,37 +683,51 @@ def test_ssd_kernel_matches_plain_on_card(cuda, nb, nc, q, h, p, n, dtype,
     torch.testing.assert_close(sd, rsd, rtol=1e-5, atol=1e-5)
 
 
+MAMBA2_SSD = (256, 32, 64, 128)
+HYMBA_SSD = (128, 50, 64, 16)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,nc", [("bfloat16", 2), ("float32", 2),
-                                      ("bfloat16", 1)])
-def test_ssd_kernel_padded_chunk_equals_the_prefix(cuda, dtype, nc):
-    """A 256-row chunk whose last 56 rows are zero x*dt and dA = 0 (how
-    ``ssd_chunked`` pads a prompt) gives the 200-row prefix's y rows,
-    state, decay and state_decay rows exactly, at 1 and 2 chunks."""
-    xdt, dA, B, C = _ssd_case(cuda, 1, nc, 256, 32, 64, 128, dtype, seed=3)
-    xdt[:, :, 200:] = 0
-    dA[:, :, 200:] = 0
+@pytest.mark.parametrize("dtype,nc,shape,real", [
+    ("bfloat16", 2, MAMBA2_SSD, 200), ("float32", 2, MAMBA2_SSD, 200),
+    ("bfloat16", 1, MAMBA2_SSD, 200),
+    # hymba-1.5b's 1,300-token parity prompt: 11 chunks of 128, the last
+    # holding 20 rows (108 padded)
+    ("bfloat16", 11, HYMBA_SSD, 20), ("bfloat16", 1, HYMBA_SSD, 20)])
+def test_ssd_kernel_padded_chunk_equals_the_prefix(cuda, dtype, nc, shape,
+                                                   real):
+    """Chunks whose rows past ``real`` are zero x*dt and dA = 0 (how
+    ``ssd_chunked`` pads a prompt) give the ``real``-row prefix's y rows,
+    state, decay and state_decay rows exactly: mamba2's Q 256 over 200
+    rows, hymba's Q 128 over 20."""
+    q, h, p, n = shape
+    xdt, dA, B, C = _ssd_case(cuda, 1, nc, q, h, p, n, dtype, seed=3)
+    xdt[:, :, real:] = 0
+    dA[:, :, real:] = 0
     full = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32,
                           state_decay=True)
-    prefix = ssd_chunk_scan(*(t[:, :, :200].contiguous()
+    prefix = ssd_chunk_scan(*(t[:, :, :real].contiguous()
                               for t in (xdt, dA, B, C)),
                             out_dtype=torch.float32, state_decay=True)
     torch.cuda.synchronize()
-    assert torch.equal(full[0][:, :, :200], prefix[0])
+    assert torch.equal(full[0][:, :, :real], prefix[0])
     assert torch.equal(full[1], prefix[1])
     assert torch.equal(full[2], prefix[2])
-    assert torch.equal(full[3][:, :, :200], prefix[3])
+    assert torch.equal(full[3][:, :, :real], prefix[3])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nc,h,dtype", [(2, 32, "bfloat16"),
-                                        (1, 32, "bfloat16"),
-                                        (1, 5, "bfloat16"),
-                                        (2, 32, "float32")])
-def test_ssd_kernel_repeats_are_bit_identical(cuda, nc, h, dtype):
+@pytest.mark.parametrize("nc,h,dtype,qpn", [
+    (2, 32, "bfloat16", (256, 64, 128)), (1, 32, "bfloat16", (256, 64, 128)),
+    (1, 5, "bfloat16", (256, 64, 128)), (2, 32, "float32", (256, 64, 128)),
+    # hymba-1.5b: serve, train, a TP rank at tp 2
+    (12, 50, "bfloat16", (128, 64, 16)), (32, 50, "bfloat16", (128, 64, 16)),
+    (12, 25, "bfloat16", (128, 64, 16))])
+def test_ssd_kernel_repeats_are_bit_identical(cuda, nc, h, dtype, qpn):
     """Two launches on one input give the same four outputs to the bit:
     no atomics, and every sum in a fixed order."""
-    xdt, dA, B, C = _ssd_case(cuda, 1, nc, 256, h, 64, 128, dtype, seed=4)
+    q, p, n = qpn
+    xdt, dA, B, C = _ssd_case(cuda, 1, nc, q, h, p, n, dtype, seed=4)
     first = ssd_chunk_scan(xdt, dA, B, C, out_dtype=torch.float32,
                            state_decay=True)
     for _ in range(3):

@@ -228,3 +228,20 @@ def test_ssd_ab_refuses_to_run_without_a_card():
         capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 2
     assert proc.stdout == ""
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("ssd_ab.py", ["--shapes", "hymba"]),
+    ("ssd_variants.py", ["--set", "heads"]),
+    ("simt_routes.py", [])])
+def test_ssd_and_simt_tools_refuse_to_run_without_a_card(tool, args):
+    """The SSD scan's A/B shapes, its variant copies and the CUDA-core
+    routes' timings measure the card: without one each exits 2, prints
+    nothing and builds nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would time it")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / tool), *args],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 2
+    assert proc.stdout == ""

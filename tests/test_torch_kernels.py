@@ -184,6 +184,34 @@ def test_decode_plain_matches_pallas_and_ref(t, kv_block):
                                        atol=1e-4)
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,want", [
+    (torch.bfloat16, torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, torch.bfloat16, 192, "mma"),
+    (torch.bfloat16, torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, torch.bfloat16, 32, "simt"),
+    (torch.float32, torch.bfloat16, 128, "simt"),
+    (torch.float32, torch.float32, 64, "simt"),
+    (torch.float32, torch.float32, 192, "simt"),
+])
+def test_decode_routes_follow_dtypes_and_head_dim(q_dtype, kv_dtype, d,
+                                                  want):
+    """The kernel each (q dtype, cache dtype, head dim) takes on the card,
+    as ``csrc/decode_attention.cu::launch`` picks it; the plain version on
+    the CPU counts no launch on any route."""
+    from repro_torch.kernels.decode_attention import ROUTES, route
+    assert ROUTES == ("mma", "simt")
+    assert route(q_dtype, kv_dtype, d) == want
+    q = torch.from_numpy(_rand(33, 2, 4, d)).to(q_dtype)
+    k, v = (torch.from_numpy(_rand(34 + i, 2, 8, 2, d)).to(kv_dtype)
+            for i in range(2))
+    before = (decode_attention.launches,
+              dict(decode_attention.launches_by_route))
+    decode_attention(q, k, v, torch.tensor([3, 7], dtype=torch.int32))
+    assert (decode_attention.launches,
+            decode_attention.launches_by_route) == before
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype,pos", [
     ("float32", "float32", (0, 37, 99)),
     ("float32", "bfloat16", (99, 1, 50)),
@@ -414,6 +442,33 @@ def test_ssd_padded_chunk_leaves_state_and_decay_as_the_prefix():
                                rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(full[1], prefix[1], rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(full[2], prefix[2], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,p,n,want", [
+    (torch.bfloat16, 64, 128, "wg"),       # mamba2-370m, on wgmma
+    (torch.bfloat16, 64, 16, "heads"),     # hymba-1.5b
+    (torch.bfloat16, 32, 64, "heads"),     # the reference's kernel test
+    (torch.bfloat16, 16, 16, "heads"),     # the smoke configs
+    (torch.bfloat16, 32, 32, "simt"),      # any other width
+    (torch.float32, 64, 128, "simt"),
+    (torch.float32, 64, 16, "simt"),
+    (torch.float32, 32, 64, "simt"),
+    (torch.float32, 16, 16, "simt"),
+])
+def test_ssd_routes_follow_dtype_and_widths(dtype, p, n, want):
+    """The kernel each (dtype, P, N) takes on the card, as
+    ``csrc/ssd_scan.cu::nk_ssd_chunk_scan`` has it; the plain version on
+    the CPU counts no launch on any route."""
+    from repro_torch.kernels.ssd_scan import ROUTES, route
+    assert ROUTES == ("wg", "heads", "simt")
+    assert route(dtype, p, n) == want
+    xdt, da, b, c = (torch.from_numpy(a)
+                     for a in _ssd_inputs(97, 1, 1, 16, 2, p, n))
+    before = (ssd_chunk_scan.launches,
+              dict(ssd_chunk_scan.launches_by_route))
+    ssd_chunk_scan(xdt.to(dtype), da, b.to(dtype), c.to(dtype))
+    assert (ssd_chunk_scan.launches,
+            ssd_chunk_scan.launches_by_route) == before
 
 
 @pytest.mark.parametrize("q,da_scale,x64", [(64, 0.1, False),

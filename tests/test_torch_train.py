@@ -1075,6 +1075,10 @@ def test_family_train_phase_rehearses_on_the_cpu(monkeypatch):
                 q = args[0]                       # the card
                 _counter.launches_by_route[fa.route(q.dtype,
                                                     q.shape[-1])] += 1
+            else:
+                x, b = args[0], args[2]
+                _counter.launches_by_route[ss.route(
+                    x.dtype, x.shape[-1], b.shape[-1])] += 1
             return _real(*args, **kw)
 
         monkeypatch.setattr(mod, name, counted)
@@ -1084,14 +1088,18 @@ def test_family_train_phase_rehearses_on_the_cpu(monkeypatch):
         torch, torch.device("cpu"), "cpu",
         cfgs={arch: get_smoke_config(arch) for arch in FAMILY_SEQ})
     per_step = 4 * 2 * 2          # micro-batches x (forward + remat) x steps
-    # the smoke configs' head dim 16 takes no tensor-core route
+    # the smoke configs' head dim 16 takes no tensor-core route of flash;
+    # their SSD widths (P 16, N 16) at bf16 take the SSD scan's "heads"
     assert launches == {"flash_attention": (2 + 6) * per_step,
                         "ssd_chunk_scan": (2 + 2) * per_step,
-                        "flash_attention_tf32x3": 0}
+                        "flash_attention_tf32x3": 0,
+                        "ssd_chunk_scan_heads": (2 + 2) * per_step}
     for r in rows:
         if r["check"] == "runner":
             assert r["flash_launches_by_route"] == \
                 r["flash_launches_by_route_want"]
+            assert r["ssd_launches_by_route"] == \
+                r["ssd_launches_by_route_want"]
     runners = [r for r in rows if r["check"] == "runner"]
     assert [r["model"] for r in runners] == [
         get_smoke_config(a).name for a in FAMILY_SEQ]

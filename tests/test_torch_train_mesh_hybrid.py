@@ -155,6 +155,10 @@ def test_sharded_train_families_phase_rehearses_on_the_cpu(monkeypatch):
                 q = args[0]                       # the card
                 _counter.launches_by_route[fa.route(q.dtype,
                                                     q.shape[-1])] += 1
+            else:
+                x, b = args[0], args[2]
+                _counter.launches_by_route[ss.route(
+                    x.dtype, x.shape[-1], b.shape[-1])] += 1
             return _real(*args, **kw)
 
         monkeypatch.setattr(mod, name, counted)
@@ -169,14 +173,19 @@ def test_sharded_train_families_phase_rehearses_on_the_cpu(monkeypatch):
     assert not dist.is_initialized()
     # the sharded steps', then the Megatron-SP steps'
     per_step = cs.TRAIN_ACCUM * 2 * cs.SHARDED_TRAIN_STEPS * 2
-    # the smoke configs' head dim 16 takes no tensor-core route
+    # the smoke configs' head dim 16 takes no tensor-core route of flash;
+    # their SSD widths (P 16, N 16) at bf16 take the SSD scan's "heads"
     assert launches == {"flash_attention": (2 + 1 + 2 * 1) * per_step,
                         "ssd_chunk_scan": (2 + 2) * per_step,
-                        "flash_attention_tf32x3": 0}
+                        "flash_attention_tf32x3": 0,
+                        "ssd_chunk_scan_heads": (2 + 2) * per_step}
     trainers = [r for r in rows if "ledger_ops_a_step" in r]
     assert [r["model"] for r in trainers] == [c.name for c in cfgs.values()]
     for r, cfg in zip(trainers, cfgs.values()):
         assert r["params_moved"] == r["params_total"]
+        assert r["ssd_launches_by_route"] == r["ssd_launches_by_route_want"]
+        assert r["seq_parallel"]["ssd_launches_by_route"] == \
+            r["ssd_launches_by_route"]
         assert r["kernel_fed_worst_gap"] <= cs.TRAIN_TOL
         # every collective of a step, the backward's and the recompute's
         # too, reaches the CoreEngine's ledger as the reckoning has it
